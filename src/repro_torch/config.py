@@ -1,0 +1,93 @@
+"""Configuration dataclasses of the PyTorch port: model / adapter / serve.
+
+A copy of the JAX package's ``repro.config`` limited to what the port's
+dense, paged LoRA serving path reads. The port keeps its own copy so that
+it imports nothing of the JAX package; the fields it keeps have the same
+names and defaults, so a dense config describes the same model in both.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Sequence
+
+
+# Architecture family. The port serves the dense family only; a config of
+# any other family is refused where a model or engine is built.
+DENSE = "dense"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    head_pad: int = 0                 # extra zero-weight q-heads
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0           # 0 -> full attention
+    # --- dtypes ---
+    dtype: str = "bfloat16"           # activations
+    param_dtype: str = "bfloat16"     # frozen base weights
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def hp(self) -> int:
+        """Padded q-head count used by the attention implementation."""
+        return self.n_heads + self.head_pad
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.hp // self.n_kv_heads
+
+    def reduced(self, n_layers: int = 2, d_model: int = 256,
+                vocab: int = 512) -> "ModelConfig":
+        """Tiny same-family variant for CPU smoke runs (dense families)."""
+        heads = max(1, min(self.n_heads, d_model // 64))
+        kv = max(1, min(self.n_kv_heads, heads))
+        while heads % kv:
+            kv -= 1
+        return dataclasses.replace(
+            self, name=self.name + "-smoke", n_layers=n_layers,
+            d_model=d_model, n_heads=heads, n_kv_heads=kv,
+            head_dim=64 if self.head_dim else 0, d_ff=d_model * 3,
+            vocab=vocab, dtype="float32", param_dtype="float32")
+
+
+@dataclass(frozen=True)
+class AdapterConfig:
+    """A client's PEFT selection. The port serves ``method="lora"``."""
+    method: str = "lora"              # lora | ia3 | prefix
+    rank: int = 8
+    alpha: float = 16.0
+    targets: Sequence[str] = ("q", "v")   # subset of q,k,v,o,gate,up,down
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Serving-engine configuration (see ``repro.config.ServeConfig``).
+
+    * ``page_block`` — tokens per KV page; the port serves the paged layout
+      only, so it must be > 0 for ``ServingEngine``.
+    * ``pool_pages`` — pages per client pool; 0 sizes the pool for full
+      provisioning (``max_batch_per_client * ceil(max_seq/page_block)``).
+    * ``kv_quant`` — int8 KV entries; not served by the port yet.
+    """
+    n_clients: int = 8
+    max_seq: int = 2048
+    policy: str = "opportunistic"     # lockstep | nolockstep | opportunistic
+    page_block: int = 0
+    pool_pages: int = 0
+    kv_quant: bool = False
+    seed: int = 0

@@ -1,0 +1,30 @@
+"""Dense model configs served by the PyTorch port.
+
+``get_config(arch_id)`` resolves the ``--arch`` CLI flag, as
+``repro.configs.get_config`` does, limited to the dense family; every
+config cites its source in ``CONFIG.source``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config import ModelConfig
+
+# arch-id -> module name (dense configs only)
+ARCHS = {
+    "granite-3-8b": "granite_3_8b",
+    "command-r-35b": "command_r_35b",
+    "stablelm-12b": "stablelm_12b",
+    "qwen3-4b": "qwen3_4b",
+    "symbiosis-llama2-13b": "symbiosis_llama2_13b",
+    "gemma2-27b": "gemma2_27b",
+    "starcoder2-15b": "starcoder2_15b",
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown or non-dense arch {arch_id!r}; the port "
+                       f"serves: {sorted(ARCHS)}")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch_id]}")
+    return mod.CONFIG

@@ -1,0 +1,89 @@
+"""Multi-tenant serving CLI of the port (``repro.launch.serve``'s, paged
+only).
+
+Serves a bank of LoRA clients against one shared base with the port's
+ServingEngine, on the card by default:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16
+
+``--device cpu`` runs the reduced config on the CPU through the kernels'
+plain versions. Weights are random, drawn from ``--seed``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import AdapterConfig, ServeConfig
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.core import symbiosis
+from repro_torch.core.engine_spec import BankSpec, EngineSpec
+from repro_torch.serving.engine import Request, ServingEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="granite-3-8b")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--policy", default="opportunistic",
+                    choices=("lockstep", "nolockstep", "opportunistic"))
+    ap.add_argument("--stagger", type=int, default=0,
+                    help="ticks between request arrivals (mid-stream joins)")
+    ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--page-block", type=int, default=16,
+                    help="tokens per KV page (the port serves paged KV only)")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="pages per client pool (0 = full provisioning)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if not args.full_size:
+        cfg = cfg.reduced()
+    acfg = AdapterConfig(method="lora", rank=8, targets=("q", "v"))
+    scfg = ServeConfig(n_clients=args.clients, policy=args.policy,
+                       max_seq=args.prompt_len + args.max_new + 8,
+                       page_block=args.page_block, pool_pages=args.pool_pages,
+                       seed=args.seed)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    base, bank = symbiosis.init_system(cfg, acfg, args.clients, gen,
+                                       device=dev,
+                                       adapter_dtype=getattr(torch, cfg.dtype))
+    spec = EngineSpec(cfg=cfg, banks=(BankSpec("tenants", acfg,
+                                               capacity=args.clients),),
+                      serve=scfg, max_batch_per_client=args.batch)
+    eng = ServingEngine(spec, base, [bank], device=dev)
+
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        eng.submit(Request(
+            client_id=i % args.clients,
+            prompt=rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
+            .astype(np.int32),
+            max_new_tokens=args.max_new, arrive_tick=i * args.stagger))
+    print(f"[serve] {cfg.name} on {dev} | {args.clients} clients | "
+          f"{args.requests} requests | policy={args.policy} | "
+          f"kv=paged(block={scfg.page_block}, pool={eng._pool_pages})")
+    t0 = time.perf_counter()
+    done = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    total = sum(r.generated.size for r in done)
+    print(f"[serve] {len(done)} requests, {total} tokens in {dt:.2f}s "
+          f"({total / dt:,.0f} tok/s) | engine stats: {eng.stats}")
+    return done
+
+
+if __name__ == "__main__":
+    main()

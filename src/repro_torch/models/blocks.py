@@ -1,0 +1,303 @@
+"""Shared neural building blocks (PyTorch, functional) — the dense paged path
+of ``repro.models.blocks``.
+
+Every frozen-base matmul goes through a ``LinearFns`` hook, the port's form
+of the paper's VirtLayer splice: the default hook runs the matmul inline;
+``core.virtlayer`` substitutes hooks that add per-client LoRA deltas.
+Linear weights keep the JAX layout [din, dout] (``x @ w``).
+
+Paged KV caches hold K/V in a pool of fixed-size pages [P, block, K, hd]
+shared by many sequence slots; slot b maps logical position t to
+``pool[tbl[b, t // block], t % block]``. Writes go IN PLACE into the pool
+tensor (the JAX package donated the pool buffer to the same effect); reads
+go through the paged decode-attention kernel, which reads the pages in
+place through the table. JAX drops out-of-range scatter writes
+(``mode="drop"``); torch has no such mode and an out-of-range page on the
+card is an illegal address, so the write helpers point each dropped write
+at a kept one (``_drop_index``): every scatter keeps a fixed shape and
+never waits on the host.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import plain_kernels  # noqa: F401 (test oracle)
+from repro_torch.kernels.decode_attn import decode_attn
+
+
+class LinearFns(NamedTuple):
+    """Hook for base-model linear layers.
+
+    dense(x, w, b, path): x [..., din] @ w [din, dout] (+ b) -> [..., dout]
+    """
+    dense: Callable
+
+
+def _default_dense(x, w, b, path):
+    y = x @ w
+    return y + b if b is not None else y
+
+
+DEFAULT_LIN = LinearFns(dense=_default_dense)
+
+
+# ---------------------------------------------------------------------------
+# Initializers (the JAX package's distributions, drawn from a torch.Generator)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen, din, dout, dtype, device):
+    scale = 1.0 / math.sqrt(din)
+    w = torch.empty((din, dout), dtype=torch.float32, device=device)
+    return w.uniform_(-scale, scale, generator=gen).to(dtype)
+
+
+def embed_init(gen, vocab, d, dtype, device):
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms and RoPE
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+def head_rmsnorm(scale, x, eps: float = 1e-6):
+    """qk-norm: normalize the last (head) dim. scale [hd]."""
+    return rmsnorm({"scale": scale}, x, eps)
+
+
+def rope_frequencies(hd: int, theta: float, device):
+    return theta ** (-torch.arange(0, hd, 2, dtype=torch.float32,
+                                   device=device) / hd)
+
+
+def apply_rope(x, positions, theta: float):
+    """Split-half RoPE in fp32. x [..., S, H, hd]; positions [..., S] int."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs          # [..., S, hd/2]
+    cos = torch.cos(angles)[..., None, :]                  # [..., S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attn_init(gen, cfg, dtype, device):
+    hd = cfg.hd
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.hp * hd, dtype, device),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype, device),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype, device),
+        "wo": dense_init(gen, cfg.hp * hd, cfg.d_model, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _pick_chunk(S: int, B: int, H: int, T: int, chunk_q: int,
+                budget_bytes: float = 256e6) -> int:
+    """Query-chunk size: a divisor of S bounding the fp32 score buffer
+    B*H*c*T*4 <= budget."""
+    c = chunk_q
+    while c > 16 and (S % c or B * H * c * T * 4 > budget_bytes):
+        c //= 2
+    while S % c and c > 1:
+        c -= 1
+    return max(c, 1)
+
+
+def mha_forward(params, cfg, x, positions, lin: LinearFns, *,
+                path_prefix: str = "", chunk_q: int = 1024):
+    """Causal self-attention over a sequence (prefill), the plain chunked
+    branch of ``repro.models.blocks.mha_forward``. x [B,S,d]; positions
+    [B,S]. Returns (out [B,S,d], k, v) with k/v [B,S,K,hd] post-RoPE — the
+    values the cache stores, so the caller projects K/V once (the JAX
+    prefill projects them a second time to capture them)."""
+    B, S, _ = x.shape
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
+    G = H // K
+    q = lin.dense(x, params["wq"], params.get("bq"), path_prefix + "q")
+    k = lin.dense(x, params["wk"], params.get("bk"), path_prefix + "k")
+    v = lin.dense(x, params["wv"], params.get("bv"), path_prefix + "v")
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(params["q_norm"], q)
+        k = head_rmsnorm(params["k_norm"], k)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    kr = k.repeat_interleave(G, dim=2) if G > 1 else k    # [B,T,H,hd]
+    vr = v.repeat_interleave(G, dim=2) if G > 1 else v
+    scale = 1.0 / math.sqrt(hd)
+    window = cfg.sliding_window
+
+    def attend(qc, pc):
+        s = torch.einsum("bshd,bthd->bhst", qc, kr).float() * scale
+        m = pc[:, None, :, None] >= positions[:, None, None, :]
+        if window:
+            m &= (pc[:, None, :, None] - positions[:, None, None, :]) < window
+        s = s.masked_fill(~m, -1e30)
+        p = torch.softmax(s, dim=-1).to(vr.dtype)
+        return torch.einsum("bhst,bthd->bshd", p, vr)
+
+    chunk = _pick_chunk(S, B, H, S, chunk_q, budget_bytes=1e9)
+    out = torch.cat([attend(q[:, i:i + chunk], positions[:, i:i + chunk])
+                     for i in range(0, S, chunk)], dim=1)
+    out = out.reshape(B, S, H * hd)
+    return lin.dense(out, params["wo"], params.get("bo"), path_prefix + "o"), \
+        k, v
+
+
+def _decode_qkv(params, cfg, x, pos, lin: LinearFns, path_prefix: str):
+    """Single-token q/k/v projections + qk-norm + RoPE. x [B,1,d]; pos [B].
+    Returns q [B,1,H,hd], k/v [B,1,K,hd]."""
+    B = x.shape[0]
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
+    q = lin.dense(x, params["wq"], params.get("bq"),
+                  path_prefix + "q").reshape(B, 1, H, hd)
+    k = lin.dense(x, params["wk"], params.get("bk"),
+                  path_prefix + "k").reshape(B, 1, K, hd)
+    v = lin.dense(x, params["wv"], params.get("bv"),
+                  path_prefix + "v").reshape(B, 1, K, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(params["q_norm"], q)
+        k = head_rmsnorm(params["k_norm"], k)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    return q, k, v
+
+
+def _paged_attend(params, cfg, q, pools, tbl, pos, lin: LinearFns,
+                  path_prefix: str):
+    """Attention of one query token read in place from paged pools through
+    the decode-attention kernel. q [B,1,H,hd]; pools = (k, v); tbl
+    [B, n_blocks]; pos [B]. Returns [B,1,d_model] after the o-projection."""
+    B = q.shape[0]
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
+    qg = q.reshape(B, K, H // K, hd).contiguous()
+    pool_k, pool_v = pools
+    out = decode_attn(qg, pool_k, pool_v, pos, window=cfg.sliding_window,
+                      block_tbl=tbl)
+    out = out.reshape(B, 1, H * hd)
+    return lin.dense(out, params["wo"], params.get("bo"), path_prefix + "o")
+
+
+# ---------------------------------------------------------------------------
+# Paged KV writes (in place)
+# ---------------------------------------------------------------------------
+
+def _drop_index(keep, page, off, n_pages: int):
+    """Fixed-shape stand-in for JAX's ``mode="drop"`` over N candidate
+    writes (keep, page, off all [N]). A dropped write is pointed at the
+    first kept write: same source, page and offset, so duplicates carry the
+    same bytes. When nothing is kept, every write points at one clamped
+    address and ``paged_write`` writes back what is there. No host sync and
+    no data-dependent shape: CUDA-graph capture of a step needs both.
+    Returns (src [N], page [N], off [N], any_kept [])."""
+    # [1], not a 0-dim index: indexing with a tensor stays on the device
+    first = keep.long().argmax(dim=0, keepdim=True)   # first kept, else 0
+    src = torch.where(keep, torch.arange(keep.shape[0], device=keep.device),
+                      first)
+    page = torch.where(keep, page, page[first]).clamp(0, n_pages - 1)
+    off = torch.where(keep, off, off[first])
+    return src, page, off, keep.any()
+
+
+def token_write_index(tbl, pos, n_pages: int, blk: int, active=None):
+    """Where one token per row lands (``_drop_index`` over the B rows). A
+    row is dropped when inactive, when its position is past the table, or
+    when the table names a page outside [0, n_pages) — the out-of-range
+    sentinel of unmapped entries."""
+    pos = pos.long()
+    col = pos // blk
+    keep = col < tbl.shape[1]
+    page = tbl.gather(1, col.clamp_max(tbl.shape[1] - 1)[:, None])[:, 0].long()
+    keep &= (page >= 0) & (page < n_pages)
+    if active is not None:
+        keep &= active
+    return _drop_index(keep, page, pos % blk, n_pages)
+
+
+def prefill_write_index(tbl, S: int, n_pages: int, blk: int, lengths=None):
+    """Where a prefill's tokens land (``_drop_index`` over the B*S
+    positions, row-major). A position is dropped when it is at or past the
+    row's length (right padding never touches the pool) or its table entry
+    names a page outside [0, n_pages)."""
+    t = torch.arange(S, device=tbl.device)
+    page = tbl[:, t // blk].long()                         # [B, S]
+    keep = (page >= 0) & (page < n_pages)
+    if lengths is not None:
+        keep &= t[None, :] < lengths.long()[:, None]
+    off = (t % blk).expand_as(page)
+    return _drop_index(keep.reshape(-1), page.reshape(-1), off.reshape(-1),
+                       n_pages)
+
+
+def paged_write(pool, index, x, page_offset: int = 0):
+    """Write the candidate rows x [N, ...] (a decode step's B tokens, or a
+    prefill's B*S positions flattened) at ``index`` (``token_write_index``
+    / ``prefill_write_index``), IN PLACE. ``page_offset`` addresses one
+    layer's page range of a layer-fused pool."""
+    src, page, off, any_kept = index
+    page = page + page_offset
+    val = x[src].to(pool.dtype)
+    pool[page, off] = torch.where(any_kept, val, pool[page, off])
+
+
+def mha_decode_paged(params, cfg, x, pool_k, pool_v, tbl, pos,
+                     lin: LinearFns, *, write, path_prefix: str = ""):
+    """Single-token decode against a paged KV cache.
+
+    pool_k/v [P, block, K, hd]; tbl [B, n_blocks]; pos [B]; ``write`` is the
+    step's ``token_write_index`` with its pages offset to this layer's
+    (inactive rows already dropped). The new token's K/V is written through
+    the table first (IN PLACE), then the kernel attends over the pages in
+    place — so it reads the current token from the pool. Returns out
+    [B,1,d]."""
+    q, k, v = _decode_qkv(params, cfg, x, pos, lin, path_prefix)
+    paged_write(pool_k, write, k[:, 0])
+    paged_write(pool_v, write, v[:, 0])
+    return _paged_attend(params, cfg, q, (pool_k, pool_v), tbl, pos, lin,
+                         path_prefix)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg, dtype, device):
+    return {"gate": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+            "up": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+            "down": dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device)}
+
+
+def mlp_forward(params, x, lin: LinearFns, *, path_prefix: str = ""):
+    """SwiGLU MLP."""
+    g = lin.dense(x, params["gate"], None, path_prefix + "gate")
+    u = lin.dense(x, params["up"], None, path_prefix + "up")
+    return lin.dense(F.silu(g) * u, params["down"], None, path_prefix + "down")

@@ -1,0 +1,27 @@
+"""Model registry: uniform interface over the families the port serves."""
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+from repro_torch.config import DENSE, ModelConfig
+from repro_torch.models import transformer
+
+
+def get_model(cfg: ModelConfig):
+    """Namespace with init_params / init_cache / prefill / decode_step, all
+    taking ``cfg`` pre-bound. Only the dense family is ported so far."""
+    if cfg.arch != DENSE:
+        raise ValueError(f"the port serves the dense family only; "
+                         f"{cfg.name} is {cfg.arch!r}")
+
+    def bind(fn_name):
+        fn = getattr(transformer, fn_name)
+        return lambda *a, **kw: fn(cfg, *a, **kw)
+
+    return SimpleNamespace(
+        cfg=cfg,
+        init_params=bind("init_params"),
+        init_cache=bind("init_cache"),
+        prefill=bind("prefill"),
+        decode_step=bind("decode_step"),
+    )

@@ -1,0 +1,179 @@
+"""PyTorch port vs the JAX reference: the two ported kernels.
+
+On the CPU the port's ops run their plain versions and the JAX ops run
+their jnp stream twins (``interpret=None``), so this holds the port's
+blocked math against the reference's at atol = rtol = 1e-5 (fp32; the two
+frameworks sum in different orders). The CUDA kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attn import decode_attn as jax_decode_attn
+from repro.kernels.decode_attn.ref import decode_attn_ref as jax_decode_ref
+from repro.kernels.sgmv import sgmv as jax_sgmv
+from repro.kernels.sgmv import sgmv_ref as jax_sgmv_ref
+from repro_torch.kernels import decode_attn as port_da
+from repro_torch.kernels import sgmv as port_sgmv
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+SENTINEL = 1 << 30
+
+
+def _paged_case(B, K, G, hd, P, blk, nb, seed, pos=None, sentinel=False):
+    """Pools, a scattered block table and positions; with ``sentinel`` the
+    entries past each row's last page hold the out-of-range sentinel plus
+    a layer-style offset, as the engine's tables do."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, K, G, hd)).astype(np.float32)
+    pk = rng.standard_normal((P, blk, K, hd)).astype(np.float32)
+    pv = rng.standard_normal((P, blk, K, hd)).astype(np.float32)
+    tbl = rng.permutation(P)[:B * nb].reshape(B, nb).astype(np.int32)
+    if pos is None:
+        pos = rng.integers(0, nb * blk, B)
+    pos = np.asarray(pos, np.int32)
+    if sentinel:
+        for b in range(B):
+            tbl[b, pos[b] // blk + 1:] = SENTINEL + 3 * P
+    return q, pk, pv, tbl, pos
+
+
+# (B, K, G, hd, P, blk, nb, window, pos, sentinel)
+PAGED_CASES = {
+    "standard": (3, 2, 2, 32, 16, 8, 4, 0, None, False),
+    "odd_pool": (2, 1, 4, 64, 11, 16, 3, 0, None, False),
+    "window": (3, 2, 2, 32, 16, 8, 4, 12, None, False),
+    "pos0_and_page_edges": (5, 2, 2, 32, 24, 8, 4, 0, [0, 7, 8, 15, 31], True),
+    "sentinel_window": (4, 2, 2, 32, 20, 8, 5, 10, None, True),
+    "granite_heads": (3, 8, 4, 128, 12, 16, 4, 0, [0, 16, 40], True),
+}
+
+
+def _jax_paged(q, pk, pv, tbl, pos, window):
+    return np.asarray(jax_decode_attn(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(pos),
+        block_tbl=jnp.asarray(tbl), window=window))
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_paged_decode_attn_matches_reference(name):
+    B, K, G, hd, P, blk, nb, window, pos, sentinel = PAGED_CASES[name]
+    q, pk, pv, tbl, pos = _paged_case(B, K, G, hd, P, blk, nb, seed=len(name),
+                                      pos=pos, sentinel=sentinel)
+    want = _jax_paged(q, pk, pv, tbl, pos, window)
+    got = port_da.decode_attn(torch.from_numpy(q), torch.from_numpy(pk),
+                              torch.from_numpy(pv), torch.from_numpy(pos),
+                              block_tbl=torch.from_numpy(tbl), window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("window", [0, 12])
+def test_decode_attn_ref_matches_reference_ref(window):
+    q, pk, pv, tbl, pos = _paged_case(3, 2, 2, 32, 16, 8, 4, seed=3,
+                                      sentinel=True)
+    want = np.asarray(jax_decode_ref(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(pos),
+        window=window, block_tbl=jnp.asarray(tbl)))
+    got = port_da.decode_attn_ref(torch.from_numpy(q), torch.from_numpy(pk),
+                                  torch.from_numpy(pv), torch.from_numpy(pos),
+                                  window=window,
+                                  block_tbl=torch.from_numpy(tbl))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_plain_paged_matches_oracle():
+    """The blocked online softmax equals the full softmax (port alone)."""
+    q, pk, pv, tbl, pos = _paged_case(4, 2, 4, 64, 20, 8, 5, seed=9,
+                                      sentinel=True)
+    args = [torch.from_numpy(a) for a in (q, pk, pv)]
+    got = port_da.paged_decode_attn_plain(*args, torch.from_numpy(tbl),
+                                          torch.from_numpy(pos), window=9)
+    want = port_da.decode_attn_ref(*args, torch.from_numpy(pos), window=9,
+                                   block_tbl=torch.from_numpy(tbl))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def _sgmv_case(T, din, r, dout, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, din)).astype(np.float32)
+    A = (rng.standard_normal((n, din, r)) / np.sqrt(din)).astype(np.float32)
+    B = rng.standard_normal((n, r, dout)).astype(np.float32)
+    return x, A, B
+
+
+# (T, din, r, dout, n, block_t, ids): dead (-1) and out-of-range ids in both
+# the decode (block_t = 1) and compacted-prefill (block_t = S) forms
+SGMV_CASES = {
+    "decode": (6, 64, 4, 48, 3, 1, [0, 2, -1, 1, 5, 0]),
+    "decode_rank8": (5, 256, 8, 128, 4, 1, [3, 3, -1, 9, 0]),
+    "prefill": (24, 64, 4, 32, 3, 8, [1, -1, 7]),
+    "prefill_one_block": (16, 128, 8, 64, 2, 16, [1]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SGMV_CASES))
+def test_sgmv_matches_reference(name):
+    T, din, r, dout, n, block_t, ids = SGMV_CASES[name]
+    x, A, B = _sgmv_case(T, din, r, dout, n, seed=len(name))
+    ids = np.asarray(ids, np.int32)
+    want = np.asarray(jax_sgmv(jnp.asarray(x), jnp.asarray(A), jnp.asarray(B),
+                               jnp.asarray(ids), block_t=block_t, scale=2.0))
+    got = port_sgmv.sgmv(torch.from_numpy(x), torch.from_numpy(A),
+                         torch.from_numpy(B), torch.from_numpy(ids),
+                         block_t=block_t, scale=2.0)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    dead = np.repeat(ids < 0, block_t)
+    assert not got.numpy()[dead].any(), "dead blocks must be exact zeros"
+
+
+@pytest.mark.parametrize("block_t", [1, 8])
+def test_sgmv_ref_matches_reference_ref(block_t):
+    x, A, B = _sgmv_case(16, 64, 4, 32, 3, seed=5)
+    ids = np.array([2, -1, 0, 4, 1, 1, -1, 0, 2, 2, 0, 1, 3, -1, 0, 1],
+                   np.int32)[:16 // block_t]
+    want = np.asarray(jax_sgmv_ref(jnp.asarray(x), jnp.asarray(A),
+                                   jnp.asarray(B), jnp.asarray(ids),
+                                   block_t=block_t, scale=0.5))
+    got = port_sgmv.sgmv_ref(torch.from_numpy(x), torch.from_numpy(A),
+                             torch.from_numpy(B), torch.from_numpy(ids),
+                             block_t=block_t, scale=0.5)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_sgmv_strided_client_axis():
+    """Layer-major views of a bank (strided client axis) give the same
+    result as contiguous weights."""
+    x, A, B = _sgmv_case(4, 32, 4, 16, 3, seed=2)
+    bankA = torch.from_numpy(np.stack([A, A * 2]))        # [L=2, n, din, r]
+    bankB = torch.from_numpy(np.stack([B, B * 2]))
+    ids = torch.tensor([2, 0, -1, 1], dtype=torch.int32)
+    strided = port_sgmv.sgmv(torch.from_numpy(x), bankA.transpose(0, 1)[:, 1],
+                             bankB.transpose(0, 1)[:, 1], ids, block_t=1)
+    dense = port_sgmv.sgmv(torch.from_numpy(x), bankA[1].contiguous(),
+                           bankB[1].contiguous(), ids, block_t=1)
+    np.testing.assert_array_equal(strided.numpy(), dense.numpy())
+
+
+def test_cpu_tensors_never_launch():
+    """A CPU tensor runs the plain version: the launch counts stay put."""
+    before = (port_sgmv.sgmv_cuda.launches,
+              port_da.paged_decode_attn_cuda.launches)
+    x, A, B = _sgmv_case(2, 16, 2, 8, 2, seed=1)
+    port_sgmv.sgmv(torch.from_numpy(x), torch.from_numpy(A),
+                   torch.from_numpy(B), torch.tensor([0, 1], dtype=torch.int32),
+                   block_t=1)
+    q, pk, pv, tbl, pos = _paged_case(2, 1, 2, 16, 8, 4, 2, seed=1)
+    port_da.decode_attn(*(torch.from_numpy(a) for a in (q, pk, pv, pos)),
+                        block_tbl=torch.from_numpy(tbl))
+    assert (port_sgmv.sgmv_cuda.launches,
+            port_da.paged_decode_attn_cuda.launches) == before
+
+
+def test_bad_shapes_raise():
+    x, A, B = _sgmv_case(6, 16, 2, 8, 2, seed=1)
+    with pytest.raises(ValueError, match="ids"):
+        port_sgmv.sgmv(torch.from_numpy(x), torch.from_numpy(A),
+                       torch.from_numpy(B),
+                       torch.tensor([0, 1], dtype=torch.int32), block_t=4)

@@ -7,25 +7,33 @@ Needs one CUDA device and ``nvcc`` (it builds the port's CUDA kernels from
 ``src/repro_torch/csrc`` into ``build/repro_torch``); without a card it
 exits non-zero and prints no result. Phases, each raising on failure:
 
-1. device and build: the card's name and power limit, both kernels built;
+1. device and build: the card's name and power limit, every kernel built;
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (granite-3-8b: K=8, G=4, hd=128, page 16; SGMV
-   din 4096, dout 4096/1024, rank 8), fp32 at atol = rtol = 1e-5 (TF32 off)
-   and bf16 at 2e-2 against the plain version run in fp32 on the same bf16
-   inputs;
-3. model wiring: granite-3-8b at full width, 2 layers, one compacted
-   prefill and one decode step with the kernels and under
-   ``blocks.plain_kernels()``, logits compared at 2e-2; the kernel pass
-   runs under ``torch.cuda.set_sync_debug_mode("error")``, so neither step
-   may make the host wait for the device (as far as that mode, a PyTorch
-   prototype, detects syncs);
+   serving path's shapes (granite-3-8b: K=8, G=4, hd=128, page 16; the
+   int8 attention kernel over int8 pools drawn over [-127, 127] with f32
+   scales; SGMV din 4096, dout 4096/1024, rank 8, including the inputs
+   ``sgmv_pallas`` accepts: ids in range or negative), fp32 at atol = rtol
+   = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
+   fp32 on the same bf16 inputs;
+3. model wiring: granite-3-8b at full width, 2 layers, bf16 and int8
+   caches, one compacted prefill and one decode step with the kernels and
+   under ``blocks.plain_kernels()``, logits compared at 2e-2; the kernel
+   pass runs under ``torch.cuda.set_sync_debug_mode("error")``, so neither
+   step may make the host wait for the device (as far as that mode, a
+   PyTorch prototype, detects syncs);
 4. serving at full size: granite-3-8b, 40 layers, bf16 random weights, 4
-   LoRA clients, 8 staggered requests, greedy, with both kernels' launch
+   LoRA clients, 8 staggered requests, greedy, with the kernels' launch
    counts checked per tick; then an 8-row decode tick timed unprofiled
    and traced once with torch.profiler (device activity only): device
    busy share, kernels per tick, top kernels by device time;
-5. timings at the phase-4 shapes: kernel (L2-cold and L2-warm), plain
-   version, a library yardstick and the memory/compute bound.
+4b. the same 8 requests over int8 KV pages (``kv_quant=True``) behind a
+   ``PlacementRouter`` whose one slot holds 4 of the requests' int8
+   charges but not all 8, so admission queues on the card: 40 int8
+   attention launches and no bf16 ones per decode tick, the same first
+   token per request as phase 4, the router's ledger conserved and empty
+   after the drain; the same 8-row tick profile, beside phase 4's;
+5. timings at the phase-4 and 4b shapes: kernel (L2-cold and L2-warm),
+   plain version, a library yardstick and the memory/compute bound.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -36,6 +44,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,16 +57,17 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.common.hardware import H100  # noqa: E402
 from repro_torch.config import AdapterConfig, ServeConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import symbiosis  # noqa: E402
 from repro_torch.core.engine_spec import BankSpec, EngineSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
+from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.serving.router import PlacementRouter, Slot  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
-BF16_FLOPS = 989e12               # H100 SXM dense bf16 tensor-core peak
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 SENTINEL = 1 << 30
@@ -65,8 +75,21 @@ DEV = "cuda"
 # the kernel modules (the packages re-export ops functions of the same name)
 da = importlib.import_module("repro_torch.kernels.decode_attn.decode_attn")
 sg = importlib.import_module("repro_torch.kernels.sgmv.sgmv")
-KERNELS = {"paged_decode_attn": da, "sgmv": sg}
-WRAPPERS = {"paged_decode_attn": da.paged_decode_attn_cuda, "sgmv": sg.sgmv_cuda}
+KERNELS = {   # name: (launch wrapper, source, the TPU kernel it replaces)
+    "paged_decode_attn": (da.paged_decode_attn_cuda, da.SOURCE, da.REPLACES),
+    "paged_decode_attn_quant": (da.paged_decode_attn_quant_cuda, da.SOURCE,
+                                da.QUANT_REPLACES),
+    "sgmv": (sg.sgmv_cuda, sg.SOURCE, sg.REPLACES),
+}
+
+
+def reset_counts():
+    for wrapper, _, _ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, (w, _, _) in KERNELS.items()}
 
 
 def log(msg):
@@ -136,6 +159,36 @@ def check_paged(errs):
                 f"max_abs_err={e:.3e}")
 
 
+def check_paged_quant(errs):
+    """The int8 kernel on the same cases: int8 pools over the full
+    [-127, 127] range, f32 per-head scales, q in fp32 and in bf16."""
+    for i, (name, (B, K, G, hd, blk, nb, window, pos)) in enumerate(
+            PAGED_CASES.items()):
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            q, _, _, tbl, p = paged_case(B, K, G, hd, blk, nb, 300 + i, pos,
+                                         dtype)
+            g = gen(400 + i)
+            P = B * nb + 7
+            pk, pv = (torch.randint(-127, 128, (P, blk, K, hd), generator=g,
+                                    device=DEV, dtype=torch.int8)
+                      for _ in range(2))
+            ks, vs = (torch.rand((P, blk, K, 1), generator=g, device=DEV)
+                      * 0.025 + 0.005 for _ in range(2))
+            got = da.paged_decode_attn_quant_cuda(q, pk, ks, pv, vs, tbl, p,
+                                                  window=window)
+            want = da.paged_decode_attn_quant_plain(q.float(), pk, ks, pv, vs,
+                                                    tbl, p, window=window)
+            torch.cuda.synchronize()
+            e = compare(f"paged_decode_attn_quant {name} {dtype}", got, want,
+                        tol)
+            if got.dtype != q.dtype:
+                raise AssertionError(f"int8 attention returned {got.dtype} "
+                                     f"for q in {q.dtype}")
+            errs.append(e)
+            log(f"[phase 2] paged_decode_attn_quant {name:24s} "
+                f"{str(dtype):15s} max_abs_err={e:.3e}")
+
+
 SGMV_CASES = {    # (rows, block_t, dout, ids)
     "decode_1row_q": (1, 1, 4096, [2]),
     "decode_5rows_v": (5, 1, 1024, [0, -1, 3, 9, 1]),
@@ -145,6 +198,9 @@ SGMV_CASES = {    # (rows, block_t, dout, ids)
                                       0, -1, 3]),
     "prefill_S128_q": (3, 128, 4096, [1, -1, 9]),
     "prefill_S256_v": (2, 256, 1024, [3, 0]),
+    # what sgmv_pallas (unclamped index_map) accepts: ids in range or dead
+    "pallas_ids_decode_8rows_q": (8, 1, 4096, [0, 3, -1, 2, 1, -1, 3, 0]),
+    "pallas_ids_prefill_S64_v": (4, 64, 1024, [2, -1, 0, 3]),
 }
 
 
@@ -205,14 +261,15 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def model_wiring():
+def model_wiring(quant):
     """Full-width granite, 2 layers: compacted prefill + decode with the
-    kernels and under plain_kernels(); logits must agree at bf16 tolerance.
-    The kernel pass must not sync the host (a CUDA graph could capture
-    it)."""
+    kernels and under plain_kernels(), over bf16 or (``quant``) int8
+    caches; logits must agree at bf16 tolerance. The kernel pass must not
+    sync the host (a CUDA graph could capture it)."""
     cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2)
     C, max_b, max_seq, blk = 4, 2, 512, 16
-    scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=blk)
+    scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=blk,
+                       kv_quant=quant)
     base, bank = make_system(cfg, C, seed=1)
     nb, P = max_seq // blk, max_b * (max_seq // blk)
     rng = np.random.default_rng(3)
@@ -231,7 +288,7 @@ def model_wiring():
     for plain in (False, True):
         caches = symbiosis.init_client_caches(cfg, C, max_b, max_seq,
                                               page_block=blk, pool_pages=P,
-                                              device=DEV)
+                                              quant=quant, device=DEV)
         caches["block_tbl"] = torch.tensor(tbl, device=DEV)
         prompts = (torch.tensor(toks, device=DEV),
                    torch.tensor(lengths, device=DEV))
@@ -244,7 +301,8 @@ def model_wiring():
     torch.cuda.synchronize()
     e1 = compare("model prefill logits", out[0][0], out[1][0], BF16_TOL)
     e2 = compare("model decode logits", out[0][1], out[1][1], BF16_TOL)
-    log(f"[phase 3] granite-3-8b width, 2 layers: prefill logits max_abs_err="
+    log(f"[phase 3] granite-3-8b width, 2 layers, "
+        f"{'int8' if quant else 'bf16'} caches: prefill logits max_abs_err="
         f"{e1:.3e}, decode logits max_abs_err={e2:.3e} (kernels vs plain); "
         "no host sync in the kernel pass")
 
@@ -260,103 +318,189 @@ def _timed(fn, bucket):
     return run
 
 
-def serve_full():
-    """granite-3-8b at full depth and width behind the port's engine."""
-    cfg = get_config("granite-3-8b")
-    C, L = 4, cfg.n_layers
-    scfg = ServeConfig(n_clients=C, max_seq=512, page_block=16,
-                       policy="opportunistic")
-    spec = EngineSpec(cfg=cfg, banks=(BankSpec("tenants", LORA, C),),
-                      serve=scfg, max_batch_per_client=2)
-    t0 = time.perf_counter()
-    base, bank = make_system(cfg, C, seed=2)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(base))
-    log(f"[phase 4] {cfg.name}: {L} layers, {n_params / 1e9:.2f} B params "
-        f"bf16 initialised in {time.perf_counter() - t0:.1f} s")
-    # warm-up engine: first cuBLAS/allocator use stays out of the timed run
-    warm = ServingEngine(spec, base, [bank], device=DEV)
-    warm.submit(Request(0, np.arange(64, dtype=np.int32)[None], 2))
-    warm.run()
-    del warm
-
-    eng = ServingEngine(spec, base, [bank], device=DEV)
+def make_requests(cfg, C):
+    """The 8 staggered one-row requests of phases 4 and 4b: prompts of
+    64-256 tokens, 16 new tokens each, one arrival per tick."""
     rng = np.random.default_rng(4)
-    reqs = [Request(client_id=i % C, max_new_tokens=16, arrive_tick=i,
+    return [Request(client_id=i % C, max_new_tokens=16, arrive_tick=i,
                     prompt=rng.integers(0, cfg.vocab,
                                         (1, int(rng.integers(64, 257))))
                     .astype(np.int32)) for i in range(8)]
+
+
+def serve_spec(cfg, quant):
+    C = 4
+    scfg = ServeConfig(n_clients=C, max_seq=512, page_block=16,
+                       policy="opportunistic", kv_quant=quant)
+    return EngineSpec(cfg=cfg, banks=(BankSpec("tenants", LORA, C),),
+                      serve=scfg, max_batch_per_client=2)
+
+
+def drive(eng, reqs, label, attn_name, idle_name):
+    """Serve ``reqs`` to completion with every launch count set to 0 just
+    before and read just after; per tick, the attention kernel
+    ``attn_name`` must launch once per layer and decode tick, ``idle_name``
+    never, and SGMV twice per layer and decode tick or prefill batch.
+    Returns the counts and the timings."""
+    L = eng.cfg.n_layers
+    attn, idle, sgmv = (KERNELS[n][0] for n in (attn_name, idle_name, "sgmv"))
     for r in reqs:
         eng.submit(r)
     pre_t, dec_t, tick_t, step_t = [], [], [], []
     eng._prefill_step = _timed(eng._prefill_step, pre_t)
     eng._decode_step = _timed(eng._decode_step, dec_t)
-    for w in WRAPPERS.values():
-        w.launches = 0
+    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     more = True
     while more:
-        before = (da.paged_decode_attn_cuda.launches, sg.sgmv_cuda.launches,
+        before = (attn.launches, idle.launches, sgmv.launches,
                   eng.stats["ticks"], eng.stats["compact_prefill_batches"])
         torch.cuda.synchronize()
         t_tick = time.perf_counter()
         more = eng.service_tick()
         torch.cuda.synchronize()
         t_tick = time.perf_counter() - t_tick
-        d_da, d_sg, d_tick, d_pre = (
-            a - b for a, b in zip((da.paged_decode_attn_cuda.launches,
-                                   sg.sgmv_cuda.launches, eng.stats["ticks"],
+        d_at, d_idle, d_sg, d_tick, d_pre = (
+            a - b for a, b in zip((attn.launches, idle.launches,
+                                   sgmv.launches, eng.stats["ticks"],
                                    eng.stats["compact_prefill_batches"]),
                                   before))
-        if d_da != L * d_tick or d_sg != 2 * L * (d_tick + d_pre):
+        if d_at != L * d_tick or d_idle or d_sg != 2 * L * (d_tick + d_pre):
             raise AssertionError(
-                f"tick {eng._tick}: {d_da} decode-attention and {d_sg} SGMV "
-                f"launches for {d_tick} decode ticks and {d_pre} prefills")
+                f"[{label}] tick {eng._tick}: {d_at} {attn_name}, "
+                f"{d_idle} {idle_name} and {d_sg} SGMV launches for "
+                f"{d_tick} decode ticks and {d_pre} prefills")
         if d_tick and not d_pre:
             tick_t.append(t_tick)
             step_t.append(dec_t[-1])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    launches = read_counts()
     done = eng.drain_done()
     if len(done) != len(reqs) or eng.stats["quarantined_requests"]:
-        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished, "
-                             f"{eng.stats['quarantined_requests']} with "
-                             "non-finite logits")
+        raise AssertionError(f"[{label}] {len(done)} of {len(reqs)} requests "
+                             f"finished, {eng.stats['quarantined_requests']} "
+                             "with non-finite logits")
     for r in done:
         g = r.generated
         if r.status != "ok" or g.shape != (1, 16) or g.min() < 0 \
-                or g.max() >= cfg.vocab:
-            raise AssertionError(f"request of client {r.client_id}: status "
-                                 f"{r.status}, tokens {g}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
+                or g.max() >= eng.cfg.vocab:
+            raise AssertionError(f"[{label}] request of client {r.client_id}:"
+                                 f" status {r.status}, tokens {g}")
+    if not (launches[attn_name] and launches["sgmv"]):
+        raise AssertionError(f"[{label}] a kernel never launched on the "
+                             f"path: {launches}")
     st = eng.stats
-    log(f"[phase 4] served {len(done)} requests ({st['prefill_tokens']} prompt "
-        f"+ {st['decode_tokens'] + len(done)} generated tokens) in {wall:.3f} s; "
-        f"{st['ticks']} decode ticks, {st['compact_prefill_batches']} "
-        f"prefill batches, launches {launches}")
-    log(f"[phase 4] prefill {st['prefill_tokens'] / sum(pre_t):.1f} tokens/s "
+    log(f"[{label}] served {len(done)} requests ({st['prefill_tokens']} "
+        f"prompt + {st['decode_tokens'] + len(done)} generated tokens) in "
+        f"{wall:.3f} s; {st['ticks']} decode ticks, "
+        f"{st['compact_prefill_batches']} prefill batches, peak in flight "
+        f"{st['peak_inflight']}, launches {launches}")
+    log(f"[{label}] prefill {st['prefill_tokens'] / sum(pre_t):.1f} tokens/s "
         f"({sum(pre_t) * 1e3:.2f} ms over {len(pre_t)} batches); decode "
         f"{st['decode_tokens'] / sum(dec_t):.1f} tokens/s; decode-step ms "
         f"{statistics.median(dec_t) * 1e3:.3f} (median), "
         f"{statistics.mean(dec_t) * 1e3:.3f} (mean) over {len(dec_t)} steps")
-    log(f"[phase 4] {len(tick_t)} ticks without admission: decode-step ms "
+    log(f"[{label}] {len(tick_t)} ticks without admission: decode-step ms "
         f"{statistics.median(step_t) * 1e3:.3f}, service-tick ms "
         f"{statistics.median(tick_t) * 1e3:.3f} (medians; the tick adds the "
         f"logits' copy to the host, sampling and retirement)")
-    log(f"[phase 4] launches per decode tick: paged_decode_attn "
-        f"{launches['paged_decode_attn'] / st['ticks']:g}; sgmv per decode "
-        f"tick or prefill batch "
+    log(f"[{label}] launches per decode tick: {attn_name} "
+        f"{launches[attn_name] / st['ticks']:g}; "
+        f"sgmv per decode tick or prefill batch "
         f"{launches['sgmv'] / (st['ticks'] + st['compact_prefill_batches']):g}"
         f" (checked tick by tick)")
-    profile_tick(cfg, base, bank, spec)
+    return launches, dict(step_ms=statistics.median(step_t) * 1e3,
+                          tick_ms=statistics.median(tick_t) * 1e3)
+
+
+def warm_up(spec, base, bank):
+    """First cuBLAS/allocator use (and, for int8, the quantizer's first
+    launches) stays out of the timed runs."""
+    warm = ServingEngine(spec, base, [bank], device=DEV)
+    warm.submit(Request(0, np.arange(64, dtype=np.int32)[None], 2))
+    warm.run()
+
+
+def serve_full():
+    """granite-3-8b at full depth and width behind the port's engine."""
+    cfg = get_config("granite-3-8b")
+    C, L = 4, cfg.n_layers
+    spec = serve_spec(cfg, quant=False)
+    t0 = time.perf_counter()
+    base, bank = make_system(cfg, C, seed=2)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(base))
+    log(f"[phase 4] {cfg.name}: {L} layers, {n_params / 1e9:.2f} B params "
+        f"bf16 initialised in {time.perf_counter() - t0:.1f} s")
+    warm_up(spec, base, bank)
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    reqs = make_requests(cfg, C)
+    launches, times = drive(eng, reqs, "phase 4", "paged_decode_attn",
+                            "paged_decode_attn_quant")
+    times.update(profile_tick(cfg, base, bank, spec, "phase 4"))
+    first = [int(r.generated[0, 0]) for r in reqs]
     lengths = [r.prompt.shape[1] for r in reqs]
-    return launches, cfg, eng.caches, bank, lengths
+    return launches, cfg, eng.caches, base, bank, lengths, first, times
 
 
-def profile_tick(cfg, base, bank, spec):
+def serve_quant(cfg, base, bank, first, times4):
+    """Phase 4b: the same requests over int8 pages, admitted by a router
+    whose one slot holds the 4 largest of the requests' int8 charges, not
+    all 8."""
+    C = 4
+    spec = serve_spec(cfg, quant=True)
+    warm_up(spec, base, bank)
+    reqs = make_requests(cfg, C)
+    blk = spec.serve.page_block
+    charges = sorted(kvcache.cache_bytes(cfg, r.prompt.shape[1]
+                                         + r.max_new_tokens, 1, quant=True,
+                                         page_block=blk) for r in reqs)
+    router = PlacementRouter(cfg, [Slot(0, free_hbm=sum(charges[-4:]))])
+    eng = ServingEngine(spec, base, [bank], device=DEV, router=router)
+    log(f"[phase 4b] kv=paged(block={blk})+int8: "
+        f"{kvcache.make_cache_spec(cfg, quant=True).bytes_per_token} B per "
+        f"token against {kvcache.make_cache_spec(cfg).bytes_per_token} in "
+        f"bf16; router slot {sum(charges[-4:])} B, requests charge "
+        f"{charges[0]}..{charges[-1]} B ({sum(charges)} B in all)")
+    admitted = {}
+    try_admit = eng._try_admit
+
+    def record_admission(req):
+        slots = try_admit(req)
+        if slots is not None:
+            admitted[id(req)] = eng._tick
+        return slots
+    eng._try_admit = record_admission
+    launches, times = drive(eng, reqs, "phase 4b", "paged_decode_attn_quant",
+                            "paged_decode_attn")
+    waits = [admitted[id(r)] - r.arrive_tick for r in reqs]
+    if eng.stats["peak_inflight"] >= len(reqs) or not any(waits):
+        raise AssertionError(f"[phase 4b] the router never queued: peak in "
+                             f"flight {eng.stats['peak_inflight']}, waits "
+                             f"{waits}")
+    got = [int(r.generated[0, 0]) for r in reqs]
+    if got != first:
+        raise AssertionError(f"[phase 4b] first tokens {got} differ from "
+                             f"phase 4's {first}: prefill logits must not "
+                             "depend on the cache format")
+    errs = router.conservation_errors()
+    used = router.utilization()
+    if errs or used["committed_bytes"] or used["placements"]:
+        raise AssertionError(f"[phase 4b] router after the drain: {errs}, "
+                             f"{used}")
+    log(f"[phase 4b] ticks each request waited for the router: {waits}; "
+        f"first tokens equal phase 4's; router ledger conserved and empty "
+        f"after the drain")
+    times.update(profile_tick(cfg, base, bank, spec, "phase 4b"))
+    log("[phase 4b] beside phase 4 (bf16 -> int8): " + ", ".join(
+        f"{k} {times4[k]:.3f} -> {times[k]:.3f}" for k in times
+        if k in times4))
+    return launches, eng.caches, [r.prompt.shape[1] for r in reqs]
+
+
+def profile_tick(cfg, base, bank, spec, label):
     """An 8-row decode tick: its median over 5 unprofiled ticks on the host
     clock, then one tick traced by torch.profiler with device activity only.
     The device's busy share is the union of the traced kernel intervals
@@ -387,11 +531,12 @@ def profile_tick(cfg, base, bank, spec):
     kern = sorted((e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
+    out = {"tick8_ms": tick_us / 1e3}
     if not kern:
-        log(f"[phase 4] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
+        log(f"[{label}] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
             "unprofiled; profiler saw no device events: device busy share "
             "not measured")
-        return
+        return out
     busy, end = 0.0, float("-inf")
     for e in kern:
         s, t = e.time_range.start, e.time_range.end
@@ -401,13 +546,16 @@ def profile_tick(cfg, base, bank, spec):
     for e in kern:
         n, d = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
-    log(f"[phase 4] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
+    log(f"[{label}] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
         f"unprofiled, {traced_us / 1e3:.3f} ms traced; device busy "
         f"{busy / 1e3:.3f} ms = {100 * busy / tick_us:.1f}% of the "
         f"unprofiled tick ({100 * busy / traced_us:.1f}% of the traced "
         f"one); {len(kern)} kernels")
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"[phase 4]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+        log(f"[{label}]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+    out.update(busy_ms=busy / 1e3, busy_pct=100 * busy / tick_us,
+               kernels_per_tick=float(len(kern)))
+    return out
 
 
 def _leaves(tree):
@@ -454,65 +602,126 @@ def time_ms(fn, n=30, warmup=3, l2_cold=True):
 
 
 def bound(nbytes, flops):
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = flops / BF16_FLOPS * 1e3
+    """The least time for the work: bytes over the H100's HBM rate, or its
+    operations over the dense bf16 tensor-core peak, whichever is larger
+    (the kernels do their arithmetic in fp32 on the CUDA cores, so the
+    operations bound is optimistic; every attention and SGMV case here is
+    bound by bytes by a wide margin)."""
+    b_ms = nbytes / H100.hbm_bandwidth * 1e3
+    f_ms = flops / H100.peak_flops_bf16 * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
-def time_decode_attn(cfg, caches, lengths):
-    """8 rows (the bucket of phase 4) over the engine's own layer-fused pool,
-    pages drawn from the first layer's range."""
+def attn_rows(cfg, caches, lengths):
+    """8 decode rows (the bucket of phases 4 and 4b) over an engine's own
+    layer-fused pools, pages drawn from the first layer's range: q in bf16,
+    positions 15 past each request's prompt, sentinel past the last page.
+    Returns (q, pools {leaf: [L*P, blk, K, hd|1]}, tbl, pos)."""
     L, Pl, blk, K, hd = caches["layers"]["k"].shape
-    pool_k, pool_v = (caches["layers"][n].view((L * Pl, blk, K, hd))
-                      for n in ("k", "v"))
+    pools = {n: t.view((L * Pl,) + t.shape[2:])
+             for n, t in caches["layers"].items()}
     B, G, nb = 8, cfg.q_per_kv, caches["block_tbl"].shape[-1]
     g = gen(7)
     q = torch.randn((B, K, G, hd), generator=g, device=DEV).to(torch.bfloat16)
-    pos = torch.tensor([L + 15 for L in lengths[:B]], dtype=torch.int32,
+    pos = torch.tensor([n + 15 for n in lengths[:B]], dtype=torch.int32,
                        device=DEV)
     tbl = torch.randperm(Pl, generator=g, device=DEV)[:B * nb].reshape(B, nb)
     cols = torch.arange(nb, device=DEV)[None, :]
     tbl = torch.where(cols > (pos // blk)[:, None], SENTINEL, tbl) \
         .to(torch.int32)
-    P = pool_k.shape[0]
-    # the builtin has no inspectable signature; its docstring names the flag
-    sdpa_gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+    return q, pools, tbl, pos
 
-    def library():
-        pages = tbl.long().clamp(0, P - 1)
-        k = pool_k[pages].reshape(B, nb * blk, K, hd).transpose(1, 2)
-        v = pool_v[pages].reshape(B, nb * blk, K, hd).transpose(1, 2)
-        t = torch.arange(nb * blk, device=DEV)
-        mask = (t[None, :] <= pos[:, None])[:, None, None, :]
-        qh = q.reshape(B, K * G, 1, hd)
-        if sdpa_gqa:
-            return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
-        return F.scaled_dot_product_attention(
+
+def sdpa_over_pages(q, k, v, tbl, pos, dequant=None):
+    """The library yardstick: gather the table's pages into dense K/V
+    (with ``dequant`` = (k_scale, v_scale) pools, dequantize them to q's
+    dtype), then one ``scaled_dot_product_attention``."""
+    B, K, G, hd = q.shape
+    P, blk = k.shape[:2]
+    nb = tbl.shape[1]
+    pages = tbl.long().clamp(0, P - 1)
+    k, v = k[pages], v[pages]
+    if dequant is not None:
+        k = (k.to(q.dtype) * dequant[0][pages]).to(q.dtype)
+        v = (v.to(q.dtype) * dequant[1][pages]).to(q.dtype)
+    k = k.reshape(B, nb * blk, K, hd).transpose(1, 2)
+    v = v.reshape(B, nb * blk, K, hd).transpose(1, 2)
+    t = torch.arange(nb * blk, device=DEV)
+    mask = (t[None, :] <= pos[:, None])[:, None, None, :]
+    qh = q.reshape(B, K * G, 1, hd)
+    # the builtin has no inspectable signature; its docstring names the flag
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        out = F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(
             qh, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
             attn_mask=mask)
+    return out.reshape(B, K, G, hd)
 
-    got = da.paged_decode_attn_cuda(q, pool_k, pool_v, tbl, pos)
-    lib_err = float((got.float() - library().reshape(B, K, G, hd).float())
-                    .abs().max())
-    ms = time_ms(lambda: da.paged_decode_attn_cuda(q, pool_k, pool_v, tbl, pos))
-    warm_ms = time_ms(lambda: da.paged_decode_attn_cuda(q, pool_k, pool_v,
-                                                        tbl, pos),
-                      l2_cold=False)
-    plain_ms = time_ms(lambda: da.paged_decode_attn_plain(
-        q, pool_k, pool_v, tbl, pos), n=20)
+
+def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes):
+    """Kernel L2-cold and L2-warm, plain version and library yardstick, and
+    the byte bound: ``pool_bytes`` (the live tokens' pool bytes), plus q
+    and out in bf16, the table and the positions. Returns the JSON fields,
+    the yardstick's time as ``library_ms``."""
+    got = kernel()
+    lib_err = float((got.float() - library().float()).abs().max())
+    ms = time_ms(kernel)
+    warm_ms = time_ms(kernel, l2_cold=False)
+    plain_ms = time_ms(plain, n=20)
     lib_ms = time_ms(library)
+    B, K, G, hd = q.shape
     tokens = int((pos.long() + 1).sum())
-    nbytes = (2 * q.numel() * 2 + 2 * tokens * K * hd * 2 + tbl.numel() * 4
+    nbytes = (2 * q.numel() * 2 + pool_bytes(tokens) + tbl.numel() * 4
               + pos.numel() * 4)
     bound_ms, by = bound(nbytes, 4 * tokens * K * G * hd)
-    log(f"[phase 5] paged_decode_attn B={B} K={K} G={G} hd={hd} blk={blk} "
-        f"pool={P} pages, {tokens} live tokens, L2-cold: kernel {ms:.4f} ms "
-        f"(L2-warm {warm_ms:.4f}), plain {plain_ms:.4f} ms, gather+SDPA "
-        f"{lib_ms:.4f} ms (differs by {lib_err:.2e}), bound {bound_ms:.4f} "
-        f"ms ({by})")
+    log(f"[phase 5] {label} B={B} K={K} G={G} hd={hd}, {tokens} live "
+        f"tokens, L2-cold: kernel {ms:.4f} ms (L2-warm {warm_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (differs by "
+        f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, {nbytes} B)")
     return dict(ms=ms, ms_l2_warm=warm_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
+def time_decode_attn(cfg, caches, lengths):
+    """The bf16 kernel over phase 4's pool; the yardstick is page gather +
+    SDPA."""
+    q, pools, tbl, pos = attn_rows(cfg, caches, lengths)
+    pk, pv = pools["k"], pools["v"]
+    _, blk, K, hd = pk.shape
+    log(f"[phase 5] paged_decode_attn over phase 4's pool: "
+        f"{pk.shape[0]} pages of {blk} tokens; library = page gather + SDPA")
+    return time_attention(
+        "paged_decode_attn",
+        lambda: da.paged_decode_attn_cuda(q, pk, pv, tbl, pos),
+        lambda: da.paged_decode_attn_plain(q, pk, pv, tbl, pos),
+        lambda: sdpa_over_pages(q, pk, pv, tbl, pos), q, tbl, pos,
+        lambda tokens: 2 * tokens * K * hd * 2)
+
+
+def time_decode_attn_quant(cfg, caches, lengths):
+    """The int8 kernel over phase 4b's pool. No single PyTorch call computes
+    attention over int8 pages with per-head scales; the yardstick is three:
+    page gather, dequantize to bf16, SDPA."""
+    q, pools, tbl, pos = attn_rows(cfg, caches, lengths)
+    pk, pks, pv, pvs = (pools[n] for n in ("k", "k_s", "v", "v_s"))
+    _, blk, K, hd = pk.shape
+    log(f"[phase 5] paged_decode_attn_quant over phase 4b's int8 pool: "
+        f"{pk.shape[0]} pages of {blk} tokens; no single PyTorch call "
+        "computes this function (library_ms is null): the yardstick below is "
+        "three calls, page gather, dequantize to bf16, SDPA")
+    out = time_attention(
+        "paged_decode_attn_quant",
+        lambda: da.paged_decode_attn_quant_cuda(q, pk, pks, pv, pvs, tbl, pos),
+        lambda: da.paged_decode_attn_quant_plain(q, pk, pks, pv, pvs, tbl,
+                                                 pos),
+        lambda: sdpa_over_pages(q, pk, pv, tbl, pos, dequant=(pks, pvs)),
+        q, tbl, pos, lambda tokens: 2 * tokens * K * (hd + 4))
+    # no one call: library_ms is null, the three calls' time has its own key
+    out["gather_dequant_sdpa_ms"] = out.pop("library_ms")
+    out["library_ms"] = None
+    return out
 
 
 def time_sgmv(bank):
@@ -582,40 +791,56 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 comparisons
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
-    reports = _build.build(list(KERNELS))
+    reports = _build.build(sorted({Path(src).stem
+                                   for _, src, _ in KERNELS.values()}))
     for name, rep in reports.items():
+        entry = ""                    # the mangled instantiation reported on
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[phase 1] {name}: {line.strip()}")
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"[phase 1] {name} {entry}: {line.strip()}")
     log(f"[phase 1] built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    errs = {"paged_decode_attn": [], "sgmv": []}
+    errs = {name: [] for name in KERNELS}
     check_paged(errs["paged_decode_attn"])
+    check_paged_quant(errs["paged_decode_attn_quant"])
     check_sgmv(errs["sgmv"])
     log(f"[phase 2] kernels agree with their plain versions "
         f"({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    model_wiring()
+    model_wiring(quant=False)
+    model_wiring(quant=True)
     torch.cuda.empty_cache()
     log(f"[phase 3] done ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    launches, cfg, caches, bank, lengths = serve_full()
+    launches, cfg, caches, base, bank, lengths, first, times4 = serve_full()
     log(f"[phase 4] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    launches_q, caches_q, lengths_q = serve_quant(cfg, base, bank, first,
+                                                  times4)
+    launches["paged_decode_attn_quant"] = launches_q["paged_decode_attn_quant"]
+    log(f"[phase 4b] done ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
     timings = {"paged_decode_attn": time_decode_attn(cfg, caches, lengths),
+               "paged_decode_attn_quant": time_decode_attn_quant(
+                   cfg, caches_q, lengths_q),
                "sgmv": time_sgmv(bank)}
     log(f"[phase 5] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    summary = [dict(name=name, route="cuda", source=mod.SOURCE,
-                    replaces=mod.REPLACES, launches=launches[name],
-                    max_abs_err=max(errs[name]), **timings[name])
-               for name, mod in KERNELS.items()]
+    # launches: phase 4's counts, and phase 4b's for the int8 kernel (each
+    # the path that runs the kernel, counted from 0 over that path alone)
+    summary = [dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=launches[name], max_abs_err=max(errs[name]),
+                    **timings[name])
+               for name, (_, src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -82,7 +82,7 @@ class ServeConfig:
       only, so it must be > 0 for ``ServingEngine``.
     * ``pool_pages`` — pages per client pool; 0 sizes the pool for full
       provisioning (``max_batch_per_client * ceil(max_seq/page_block)``).
-    * ``kv_quant`` — int8 KV entries; not served by the port yet.
+    * ``kv_quant`` — int8 KV entries with per-head f32 scales.
     """
     n_clients: int = 8
     max_seq: int = 2048

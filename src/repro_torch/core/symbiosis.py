@@ -19,7 +19,7 @@ from repro_torch.config import AdapterConfig, DENSE, ModelConfig, ServeConfig
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core.virtlayer import make_compact_ctx
 from repro_torch.models import get_model
-from repro_torch.models.transformer import default_block_table
+from repro_torch.models.transformer import default_block_table, pool_leaves
 
 
 def init_system(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
@@ -34,22 +34,26 @@ def init_system(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
 
 
 def serve_cache_kwargs(cfg: ModelConfig, scfg: ServeConfig):
-    """Cache-construction kwargs implied by a ServeConfig (paged layout)."""
-    if scfg.kv_quant:
-        raise ValueError("int8 KV (ServeConfig.kv_quant) is not ported yet")
+    """Cache-construction kwargs implied by a ServeConfig: the paged layout
+    and, with ``kv_quant``, int8 entries with per-head scales."""
     kw = {}
     if scfg.page_block and cfg.arch == DENSE:
         kw["page_block"] = scfg.page_block
         if scfg.pool_pages:
             kw["pool_pages"] = scfg.pool_pages
+    if scfg.kv_quant and cfg.arch == DENSE:
+        kw["quant"] = True
     return kw
 
 
 def init_client_caches(cfg: ModelConfig, n_clients: int, batch: int,
                        max_seq: int, dtype=None, *, page_block: int,
-                       pool_pages: int = 0, device="cuda"):
+                       pool_pages: int = 0, quant: bool = False,
+                       device="cuda"):
     """Bank caches: ``pos`` [C, B] and ``block_tbl`` [C, B, n_blocks] per
-    slot, and the GLOBAL FLAT page pools {"k","v"} [L, C*P, blk, K, hd]."""
+    slot, and the GLOBAL FLAT page pools {"k","v"} [L, C*P, blk, K, hd]
+    (with ``quant``: int8 {"k","v"} and f32 {"k_s","v_s"} [L, C*P, blk, K,
+    1])."""
     if not page_block:
         raise ValueError("the port serves the paged KV layout only")
     dev = resolve_device(device)
@@ -57,8 +61,7 @@ def init_client_caches(cfg: ModelConfig, n_clients: int, batch: int,
     _, P, tbl = default_block_table(batch, max_seq, page_block, pool_pages,
                                     dev)
     shape = (cfg.n_layers, n_clients * P, page_block, cfg.n_kv_heads, cfg.hd)
-    return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)},
+    return {"layers": pool_leaves(shape, dtype, quant, dev),
             "pos": torch.zeros((n_clients, batch), dtype=torch.int32,
                                device=dev),
             "block_tbl": tbl[None].repeat(n_clients, 1, 1)}

@@ -1,14 +1,18 @@
-"""Paged decode attention: the CUDA kernel's launch wrapper and its plain
-PyTorch version.
+"""Paged decode attention: the CUDA kernels' launch wrappers and their plain
+PyTorch versions.
 
 ``paged_decode_attn_cuda`` launches ``csrc/paged_decode_attn.cu`` (which
 replaces the TPU kernel ``repro.kernels.decode_attn.decode_attn.
 paged_decode_attn_pallas``): single-query GQA attention per row, reading
 K/V pages in place from a pool [P, blk, K, hd] through the block table,
 skipping pages outside [pos-window+1, pos], with an fp32 online softmax.
-``paged_decode_attn_plain`` runs the same blocked math as PyTorch ops, one
-step per table column over all rows at once, like the JAX twin ``_stream``
-(``_page_update`` is the per-page step of both).
+``paged_decode_attn_quant_cuda`` launches the same source's int8 variant
+(replacing ``paged_decode_attn_quant_pallas``): int8 pools with f32
+per-head scales [P, blk, K, 1], dequantized page by page as they stream.
+``paged_decode_attn_plain`` and ``paged_decode_attn_quant_plain`` run the
+same blocked math as PyTorch ops, one step per table column over all rows
+at once, like the JAX twin ``_stream`` (``_page_update`` is the per-page
+step of all four).
 """
 from __future__ import annotations
 
@@ -22,28 +26,48 @@ from repro_torch.kernels import _build
 NAME = "paged_decode_attn"
 SOURCE = "src/repro_torch/csrc/paged_decode_attn.cu"
 REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:255"
+QUANT_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:274"
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _shapes(q, pool_k, pool_v, tbl, pos):
+def _shapes(q, pool_k, pool_v, tbl, pos, pool_ks=None, pool_vs=None):
     B, K, G, hd = q.shape
     P, blk = pool_k.shape[:2]
     if pool_k.shape != (P, blk, K, hd) or pool_v.shape != pool_k.shape:
         raise ValueError(f"paged decode attention: pools {tuple(pool_k.shape)}"
                          f"/{tuple(pool_v.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    if (pool_ks is None) != (pool_vs is None):
+        raise ValueError("paged decode attention: pass both scale pools or "
+                         "neither")
+    if pool_ks is not None and (pool_ks.shape != (P, blk, K, 1)
+                                or pool_vs.shape != pool_ks.shape):
+        raise ValueError(f"paged decode attention: scale pools "
+                         f"{tuple(pool_ks.shape)}/{tuple(pool_vs.shape)} need "
+                         f"{(P, blk, K, 1)}")
     if tbl.ndim != 2 or tbl.shape[0] != B or pos.shape != (B,):
         raise ValueError(f"paged decode attention: tbl {tuple(tbl.shape)} / "
                          f"pos {tuple(pos.shape)} need {B} rows")
     return B, K, G, hd, P, blk, tbl.shape[1]
 
 
-def _page_update(q, k, v, t0, p, m, l, acc, *, window: int):
+def _per_score(scale):
+    """Per-entry scales [B, blk, K] -> [B, K, 1, blk], beside the scores."""
+    return scale.permute(0, 2, 1)[:, :, None, :]
+
+
+def _page_update(q, k, v, ks, vs, t0, p, m, l, acc, *, window: int):
     """One page's contribution to every row's running softmax state.
-    q [B,K,G,hd] f32; k/v [B,blk,K,hd] f32; p [B]; m/l [B,K,G,1];
-    acc [B,K,G,hd]. Returns updated (m, l, acc)."""
-    s = torch.einsum("bkgh,btkh->bkgt", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    q [B,K,G,hd] f32; k/v [B,blk,K,hd] f32; ks/vs [B,blk,K] f32 scales or
+    None; p [B]; m/l [B,K,G,1]; acc [B,K,G,hd]. Returns updated (m, l,
+    acc). The k-scale multiplies the scores before the 1/sqrt(hd) factor;
+    the denominator sums the raw exponentials and only the numerator is
+    weighted by the v-scale (the JAX order, op for op)."""
+    s = torch.einsum("bkgh,btkh->bkgt", q, k)
+    if ks is not None:
+        s = s * _per_score(ks)
+    s = s * (1.0 / math.sqrt(q.shape[-1]))
     t = t0 + torch.arange(k.shape[1], device=q.device)
     mask = t[None, :] <= p[:, None]
     if window:
@@ -53,15 +77,18 @@ def _page_update(q, k, v, t0, p, m, l, acc, *, window: int):
     alpha = torch.exp(m - m_new)
     ps = torch.exp(s - m_new)
     l = l * alpha + ps.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        ps = ps * _per_score(vs)
     acc = acc * alpha + torch.einsum("bkgt,btkh->bkgh", ps, v)
     return m_new, l, acc
 
 
-def paged_decode_attn_plain(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
-    """Plain version: one step per table column; each step gathers exactly
-    the pages the column names (ids clamped into [0, P)) and updates the
-    rows for which that page is live."""
-    B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos)
+def _stream(q, pool_k, pool_v, pool_ks, pool_vs, tbl, pos, *, window: int):
+    """One step per table column; each step gathers exactly the pages the
+    column names (ids clamped into [0, P)) and updates the rows for which
+    that page is live."""
+    B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos, pool_ks,
+                                      pool_vs)
     qf = q.float()
     p = pos.long()
     m = torch.full((B, K, G, 1), _NEG, dtype=torch.float32, device=q.device)
@@ -71,9 +98,11 @@ def paged_decode_attn_plain(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
     for c in range(nb):
         t0 = c * blk
         page = tbl[:, c].long().clamp(0, P - 1)
+        ks = pool_ks[page][..., 0] if pool_ks is not None else None
+        vs = pool_vs[page][..., 0] if pool_vs is not None else None
         m_new, l_new, acc_new = _page_update(
-            qf, pool_k[page].float(), pool_v[page].float(), t0, p, m, l, acc,
-            window=window)
+            qf, pool_k[page].float(), pool_v[page].float(), ks, vs, t0, p, m,
+            l, acc, window=window)
         live = ((t0 <= p) & (t0 + blk > lo))[:, None, None, None]
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
@@ -81,22 +110,41 @@ def paged_decode_attn_plain(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def paged_decode_attn_plain(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
+    """Plain version of ``paged_decode_attn_cuda``."""
+    return _stream(q, pool_k, pool_v, None, None, tbl, pos, window=window)
+
+
+def paged_decode_attn_quant_plain(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
+                                  pos, *, window: int = 0):
+    """Plain version of ``paged_decode_attn_quant_cuda``."""
+    return _stream(q, pool_k, pool_v, pool_ks, pool_vs, tbl, pos,
+                   window=window)
+
+
+def _check_launch(q, pools, tbl, pos, what):
+    """The kernel's dtype code for q; raises unless every tensor is on q's
+    CUDA device and q and the pools are contiguous."""
+    dtype = _DTYPES.get(q.dtype)
+    if dtype is None:
+        raise TypeError(f"{what}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if not all(t.is_cuda and t.device == q.device for t in (*pools, tbl, pos)):
+        raise ValueError(f"{what}: all tensors must be on one CUDA device")
+    if not all(t.is_contiguous() for t in (q, *pools)):
+        raise ValueError(f"{what}: q and pools must be contiguous")
+    return dtype
+
+
 def paged_decode_attn_cuda(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
     """Launch the CUDA kernel: one block per (row, KV head)."""
     B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos)
-    dtype = _DTYPES.get(q.dtype)
-    if dtype is None or pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
         raise TypeError(f"paged decode attention: q/pools must share float32 "
                         f"or bfloat16, got {q.dtype}/{pool_k.dtype}/"
                         f"{pool_v.dtype}")
-    if not all(t.is_cuda and t.device == q.device
-               for t in (pool_k, pool_v, tbl, pos)):
-        raise ValueError("paged decode attention: all tensors must be on one "
-                         "CUDA device")
-    if not (q.is_contiguous() and pool_k.is_contiguous()
-            and pool_v.is_contiguous()):
-        raise ValueError("paged decode attention: q and pools must be "
-                         "contiguous")
+    dtype = _check_launch(q, (pool_k, pool_v), tbl, pos,
+                          "paged decode attention")
     tbl = tbl.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -113,10 +161,40 @@ def paged_decode_attn_cuda(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
 paged_decode_attn_cuda.launches = 0
 
 
-def _bind(lib):
-    lib.paged_decode_attn.argtypes = ([ctypes.c_void_p] * 6
-                                      + [ctypes.c_int] * 8
-                                      + [ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_void_p])
-    lib.paged_decode_attn.restype = ctypes.c_int
+def paged_decode_attn_quant_cuda(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
+                                 pos, *, window: int = 0):
+    """Launch the int8 variant: one block per (row, KV head), int8 pools
+    [P, blk, K, hd] with f32 scales [P, blk, K, 1]; output in q's dtype."""
+    B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos, pool_ks,
+                                      pool_vs)
+    if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
+        raise TypeError(f"int8 paged decode attention: pools must be int8, "
+                        f"got {pool_k.dtype}/{pool_v.dtype}")
+    if pool_ks.dtype != torch.float32 or pool_vs.dtype != torch.float32:
+        raise TypeError(f"int8 paged decode attention: scales must be "
+                        f"float32, got {pool_ks.dtype}/{pool_vs.dtype}")
+    dtype = _check_launch(q, (pool_k, pool_ks, pool_v, pool_vs), tbl, pos,
+                          "int8 paged decode attention")
+    tbl = tbl.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _build.load(NAME, _bind)
+    err = lib.paged_decode_attn_quant(
+        q.data_ptr(), pool_k.data_ptr(), pool_ks.data_ptr(), pool_v.data_ptr(),
+        pool_vs.data_ptr(), tbl.data_ptr(), pos.data_ptr(), out.data_ptr(), B,
+        K, G, hd, P, blk, nb, window, 1.0 / math.sqrt(hd), dtype,
+        _build.stream_ptr(q))
+    _build.check(lib, err, "int8 paged decode attention")
+    paged_decode_attn_quant_cuda.launches += 1
+    return out
 
+
+paged_decode_attn_quant_cuda.launches = 0
+
+
+def _bind(lib):
+    tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.paged_decode_attn.argtypes = [ctypes.c_void_p] * 6 + tail
+    lib.paged_decode_attn.restype = ctypes.c_int
+    lib.paged_decode_attn_quant.argtypes = [ctypes.c_void_p] * 8 + tail
+    lib.paged_decode_attn_quant.restype = ctypes.c_int

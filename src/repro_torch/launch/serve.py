@@ -5,6 +5,7 @@ Serves a bank of LoRA clients against one shared base with the port's
 ServingEngine, on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16 --kv-quant
 
 ``--device cpu`` runs the reduced config on the CPU through the kernels'
 plain versions. Weights are random, drawn from ``--seed``.
@@ -42,6 +43,8 @@ def main(argv=None):
                     help="tokens per KV page (the port serves paged KV only)")
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="pages per client pool (0 = full provisioning)")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV pages with per-head f32 scales")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -54,7 +57,7 @@ def main(argv=None):
     scfg = ServeConfig(n_clients=args.clients, policy=args.policy,
                        max_seq=args.prompt_len + args.max_new + 8,
                        page_block=args.page_block, pool_pages=args.pool_pages,
-                       seed=args.seed)
+                       kv_quant=args.kv_quant, seed=args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     base, bank = symbiosis.init_system(cfg, acfg, args.clients, gen,
                                        device=dev,
@@ -73,7 +76,8 @@ def main(argv=None):
             max_new_tokens=args.max_new, arrive_tick=i * args.stagger))
     print(f"[serve] {cfg.name} on {dev} | {args.clients} clients | "
           f"{args.requests} requests | policy={args.policy} | "
-          f"kv=paged(block={scfg.page_block}, pool={eng._pool_pages})")
+          f"kv=paged(block={scfg.page_block}, pool={eng._pool_pages})"
+          f"{'+int8' if eng._quant else ''}")
     t0 = time.perf_counter()
     done = eng.run()
     if dev.type == "cuda":

@@ -11,11 +11,13 @@ shared by many sequence slots; slot b maps logical position t to
 ``pool[tbl[b, t // block], t % block]``. Writes go IN PLACE into the pool
 tensor (the JAX package donated the pool buffer to the same effect); reads
 go through the paged decode-attention kernel, which reads the pages in
-place through the table. JAX drops out-of-range scatter writes
-(``mode="drop"``); torch has no such mode and an out-of-range page on the
-card is an illegal address, so the write helpers point each dropped write
-at a kept one (``_drop_index``): every scatter keeps a fixed shape and
-never waits on the host.
+place through the table. An int8 cache keeps four pools per layer, the
+int8 entries ``k``/``v`` and their per-head f32 scales ``k_s``/``v_s``
+[P, block, K, 1], all written through the same index. JAX drops
+out-of-range scatter writes (``mode="drop"``); torch has no such mode and
+an out-of-range page on the card is an illegal address, so the write
+helpers point each dropped write at a kept one (``_drop_index``): every
+scatter keeps a fixed shape and never waits on the host.
 """
 from __future__ import annotations
 
@@ -172,6 +174,17 @@ def mha_forward(params, cfg, x, positions, lin: LinearFns, *,
         k, v
 
 
+def quantize_head(x):
+    """Per-head symmetric int8 quantization. x [..., hd] ->
+    (q int8 [..., hd], scale f32 [..., 1]). Divides by the scale (not by
+    multiplying with its reciprocal) and rounds half to even, as
+    ``jnp.round`` does, so equal inputs give the JAX package's bits."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def _decode_qkv(params, cfg, x, pos, lin: LinearFns, path_prefix: str):
     """Single-token q/k/v projections + qk-norm + RoPE. x [B,1,d]; pos [B].
     Returns q [B,1,H,hd], k/v [B,1,K,hd]."""
@@ -195,14 +208,20 @@ def _decode_qkv(params, cfg, x, pos, lin: LinearFns, path_prefix: str):
 def _paged_attend(params, cfg, q, pools, tbl, pos, lin: LinearFns,
                   path_prefix: str):
     """Attention of one query token read in place from paged pools through
-    the decode-attention kernel. q [B,1,H,hd]; pools = (k, v); tbl
-    [B, n_blocks]; pos [B]. Returns [B,1,d_model] after the o-projection."""
+    the decode-attention kernel. q [B,1,H,hd]; pools = (k, v) or (k, k_s,
+    v, v_s); tbl [B, n_blocks]; pos [B]. Returns [B,1,d_model] after the
+    o-projection."""
     B = q.shape[0]
     hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
     qg = q.reshape(B, K, H // K, hd).contiguous()
-    pool_k, pool_v = pools
+    kw = {}
+    if len(pools) == 4:
+        pool_k, pool_ks, pool_v, pool_vs = pools
+        kw = {"k_scale": pool_ks, "v_scale": pool_vs}
+    else:
+        pool_k, pool_v = pools
     out = decode_attn(qg, pool_k, pool_v, pos, window=cfg.sliding_window,
-                      block_tbl=tbl)
+                      block_tbl=tbl, **kw)
     out = out.reshape(B, 1, H * hd)
     return lin.dense(out, params["wo"], params.get("bo"), path_prefix + "o")
 
@@ -284,6 +303,25 @@ def mha_decode_paged(params, cfg, x, pool_k, pool_v, tbl, pos,
     paged_write(pool_v, write, v[:, 0])
     return _paged_attend(params, cfg, q, (pool_k, pool_v), tbl, pos, lin,
                          path_prefix)
+
+
+def mha_decode_quant_paged(params, cfg, x, pool_k, pool_ks, pool_v, pool_vs,
+                           tbl, pos, lin: LinearFns, *, write,
+                           path_prefix: str = ""):
+    """Paged + int8 decode: pools hold int8 entries [P, block, K, hd] and
+    f32 per-head scales [P, block, K, 1]. Same contract as
+    ``mha_decode_paged``: the new token's K/V is quantized and its four
+    leaves written IN PLACE through the same ``write`` index, then the
+    int8 kernel dequantizes each page as it streams. Returns out
+    [B,1,d]."""
+    q, k, v = _decode_qkv(params, cfg, x, pos, lin, path_prefix)
+    kq, ks = quantize_head(k[:, 0])
+    vq, vs = quantize_head(v[:, 0])
+    for pool, val in ((pool_k, kq), (pool_ks, ks), (pool_v, vq),
+                      (pool_vs, vs)):
+        paged_write(pool, write, val)
+    return _paged_attend(params, cfg, q, (pool_k, pool_ks, pool_v, pool_vs),
+                         tbl, pos, lin, path_prefix)
 
 
 # ---------------------------------------------------------------------------

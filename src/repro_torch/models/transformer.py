@@ -8,7 +8,9 @@ a Python loop over that list). The ``LinCtx`` hook threads Symbiosis split
 execution through every frozen matmul; ``adapter`` is a PEFT tree whose
 ``layers`` leaves carry a leading [L] axis and are sliced per layer.
 
-Paged caches keep one tensor per pool leaf, [L, P, blk, K, hd]. The layer
+Paged caches keep one tensor per pool leaf, [L, P, blk, K, hd]: ``k`` and
+``v`` in the activation dtype or, for an int8 cache, ``k``/``v`` in int8
+and their per-head f32 scales ``k_s``/``v_s`` [L, P, blk, K, 1]. The layer
 axis is fused into the page axis ([L*P, ...], a view) and layer i
 addresses its pages through ``tbl + i*P``, as in the JAX package — the pool
 is never sliced or copied; decode and prefill write it IN PLACE.
@@ -105,10 +107,17 @@ def _layer_forward(p, cfg: ModelConfig, x, positions, lin: LinearFns):
 
 def _layer_decode(p, cfg: ModelConfig, x, pools, pos, lin: LinearFns, *,
                   tbl, write):
-    """One layer's single-token step against (layer-fused) page pools."""
+    """One layer's single-token step against (layer-fused) page pools; an
+    int8 cache is told by its ``k_s`` leaf, as in the JAX package."""
     h = blocks.rmsnorm(p["ln1"], x)
-    x = x + blocks.mha_decode_paged(p["attn"], cfg, h, pools["k"], pools["v"],
-                                    tbl, pos, lin, write=write)
+    if "k_s" in pools:
+        attn = blocks.mha_decode_quant_paged(
+            p["attn"], cfg, h, pools["k"], pools["k_s"], pools["v"],
+            pools["v_s"], tbl, pos, lin, write=write)
+    else:
+        attn = blocks.mha_decode_paged(p["attn"], cfg, h, pools["k"],
+                                       pools["v"], tbl, pos, lin, write=write)
+    x = x + attn
     h = blocks.rmsnorm(p["ln2"], x)
     return x + blocks.mlp_forward(p["mlp"], h, lin)
 
@@ -141,10 +150,27 @@ def default_block_table(batch_size: int, max_seq: int, page_block: int,
     return n_blocks, batch_size * n_blocks, tbl
 
 
+def pool_leaves(shape, dtype, quant: bool, device):
+    """Zeroed pool leaves of one paged cache. shape = (..., K, hd): {"k",
+    "v"} in ``dtype``, or with ``quant`` int8 {"k", "v"} and f32 per-head
+    scales {"k_s", "v_s"} of shape (..., K, 1)."""
+    if not quant:
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
+                for n in ("k", "v")}
+    scales = shape[:-1] + (1,)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(scales, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_s": torch.zeros(scales, dtype=torch.float32, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
-               *, page_block: int, pool_pages: int = 0, device="cuda"):
-    """Paged cache: pools {"k","v"} [L, P, page_block, K, hd], ``pos`` [B]
-    and ``block_tbl`` [B, n_blocks]. pool_pages=0 fully provisions."""
+               *, page_block: int, pool_pages: int = 0, quant: bool = False,
+               device="cuda"):
+    """Paged cache: pools {"k","v"} [L, P, page_block, K, hd] (with
+    ``quant``, int8 plus f32 scales {"k_s","v_s"} [L, P, page_block, K,
+    1]), ``pos`` [B] and ``block_tbl`` [B, n_blocks]. pool_pages=0 fully
+    provisions."""
     _check_dense(cfg)
     if not page_block:
         raise ValueError("the port serves the paged KV layout only "
@@ -154,8 +180,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
     _, P, tbl = default_block_table(batch_size, max_seq, page_block,
                                     pool_pages, dev)
     shape = (cfg.n_layers, P, page_block, cfg.n_kv_heads, cfg.hd)
-    return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)},
+    return {"layers": pool_leaves(shape, dtype, quant, dev),
             "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
             "block_tbl": tbl}
 
@@ -198,7 +223,9 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
     at each row's last real position, decode resumes at ``pos = lengths``,
     and only positions < lengths are written (a row of length 0 writes
     nothing). K/V are projected once per layer and used for both the
-    attention and the cache write."""
+    attention and the cache write; an int8 cache stores them quantized
+    per head, while the attention uses them as computed, so prefill logits
+    do not depend on the cache's format."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens, ctx.top)
@@ -209,10 +236,14 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
     for i, p in enumerate(params["layers"]):
         ad = _adapter_layer(adapter, i)
         x, k, v = _layer_forward(p, cfg, x, positions, ctx.for_layer(ad))
-        blocks.paged_write(fused["k"], index, k.flatten(0, 1),
-                           page_offset=i * Pl)
-        blocks.paged_write(fused["v"], index, v.flatten(0, 1),
-                           page_offset=i * Pl)
+        k, v = k.flatten(0, 1), v.flatten(0, 1)
+        if "k_s" in fused:
+            parts = zip(("k", "k_s", "v", "v_s"),
+                        blocks.quantize_head(k) + blocks.quantize_head(v))
+        else:
+            parts = (("k", k), ("v", v))
+        for name, val in parts:
+            blocks.paged_write(fused[name], index, val, page_offset=i * Pl)
     x = blocks.rmsnorm(params["final_norm"], x)
     if lengths is None:
         logits = lm_head(cfg, params, x[:, -1:], ctx.top)[:, 0]

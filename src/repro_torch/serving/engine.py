@@ -8,15 +8,23 @@ One frozen base serves a bank of LoRA clients on one device:
   moment it finishes and are re-admitted from the queue on the next tick
   (mid-stream join/leave).
 * **Paged KV.** One global flat page pool per KV leaf; client c owns pages
-  [c*P, (c+1)*P). A host-side allocator reserves pages for a request's
-  full context at admission (so a running sequence never starves), assigns
-  prompt pages at once and one more page whenever a slot's decode position
-  crosses a page boundary, and returns them at retirement. The device sees
+  [c*P, (c+1)*P). With ``ServeConfig.kv_quant`` the pools hold int8
+  entries and f32 per-head scales (four leaves), about half the bytes per
+  token of bf16, and decode attention runs the int8 kernel. A host-side
+  allocator reserves pages for a request's full context at admission (so
+  a running sequence never starves), assigns prompt pages at once and one
+  more page whenever a slot's decode position crosses a page boundary,
+  and returns them at retirement. The device sees
   the allocator through the ``block_tbl`` cache leaf, pushed when it
   changed; unmapped entries hold the out-of-range sentinel ``1 << 30``.
 * **Admission.** FIFO by arrival tick; a request is admitted when its
-  client has free slots and unreserved pages. All of a tick's admissions,
-  across clients, prefill together in ONE compacted ragged batch
+  client has free slots and unreserved pages and, with a
+  ``PlacementRouter`` attached, when the router finds it a placement: the
+  router is charged the whole pages the request reserves (int8-priced
+  under ``kv_quant``) and refunded at retirement, so requests queue
+  until device memory frees (the router places caches on the card only,
+  as this engine serves them). All of a tick's admissions, across clients,
+  prefill together in ONE compacted ragged batch
   (``symbiosis.make_compact_prefill``), bucketed to a few row counts and
   prompt lengths.
 * **Decode.** Every tick the ``TickPolicy`` (lockstep / nolockstep /
@@ -33,10 +41,10 @@ The policy only changes which ready clients run a tick, never the math of
 a sequence's own stream: outputs equal serving each request alone.
 
 Not ported yet, and refused with ``ValueError``: the dense KV layout,
-``kv_quant``, several banks or non-LoRA methods, a ``router``,
-``prefix_cache=True``, a ``mesh`` and ``obs`` telemetry. Fault handling is
-reduced to the finite probe: a request whose logits go non-finite is
-terminated (status ``quarantined``) and its slots and pages are freed.
+several banks or non-LoRA methods, ``prefix_cache=True``, a ``mesh`` and
+``obs`` telemetry. Fault handling is reduced to the finite probe: a
+request whose logits go non-finite is terminated (status ``quarantined``)
+and its slots and pages (and router charge) are freed.
 """
 from __future__ import annotations
 
@@ -88,13 +96,15 @@ class ServingEngine:
     def __init__(self, spec: EngineSpec, base_params, banks, *,
                  device="cuda", router=None,
                  prefix_cache: Optional[bool] = None, mesh=None, obs=None):
-        for name, val in (("router", router), ("mesh", mesh), ("obs", obs)):
+        for name, val in (("mesh", mesh), ("obs", obs)):
             if val is not None:
                 raise ValueError(f"{name}= is not ported yet: the port serves "
                                  "paged single-bank LoRA on one device")
         if prefix_cache:
-            raise ValueError("prefix_cache=True (shared-prefix pages) is not "
-                             "ported yet")
+            raise ValueError(
+                "prefix_cache=True (shared-prefix pages) is not ported yet"
+                + ("; nor can it serve int8 pools: int8 K/V doesn't "
+                   "round-trip" if spec.serve.kv_quant else ""))
         banks = list(banks) if isinstance(banks, (tuple, list)) else [banks]
         if len(spec.banks) != 1 or len(banks) != 1:
             raise ValueError("mixed banks are not ported yet: pass one "
@@ -105,7 +115,7 @@ class ServingEngine:
         if cfg.arch != DENSE:
             raise ValueError(f"the port serves the dense family; {cfg.name} "
                              f"is {cfg.arch!r}")
-        cache_kw = symbiosis.serve_cache_kwargs(cfg, scfg)   # refuses kv_quant
+        cache_kw = symbiosis.serve_cache_kwargs(cfg, scfg)
         if "page_block" not in cache_kw:
             raise ValueError("the dense KV layout is not ported: set "
                              "ServeConfig.page_block > 0")
@@ -125,6 +135,9 @@ class ServingEngine:
         self.n_clients = bs.capacity
         self.max_b = spec.max_batch_per_client
         self.policy = TickPolicy(scfg.policy)
+        self.router = router
+        self._quant = bool(cache_kw.get("quant"))
+        self._placement: Dict[int, object] = {}
         # host-side page allocator: per-client free lists (global page ids),
         # reservations, per-slot pages and next write position, and the
         # block-table mirror pushed to the device when dirty
@@ -261,10 +274,20 @@ class ServingEngine:
             return None
         # reserve pages for the FULL context up front, assign prompt pages
         # now and decode pages lazily
-        pages_per_row = -(-(S + req.max_new_tokens) // self._blk)
+        ctx_tokens = S + req.max_new_tokens
+        pages_per_row = -(-ctx_tokens // self._blk)
         prompt_pages = -(-S // self._blk)
-        if len(self._free_pages[c]) - self._reserved[c] < pages_per_row * B:
+        need = pages_per_row * B
+        if len(self._free_pages[c]) - self._reserved[c] < need:
             return None
+        if self.router is not None:
+            # charge what the paged layout pins: the request's whole pages
+            try:
+                self._placement[id(req)] = self.router.route(
+                    ctx_tokens, B, alloc_tokens=-(-need * self._blk // B),
+                    quant=self._quant)
+            except RuntimeError:
+                return None                  # stays queued until memory frees
         slots = free[:B]
         for s in slots:
             pages = [self._free_pages[c].pop() for _ in range(prompt_pages)]
@@ -454,3 +477,6 @@ class ServingEngine:
         self._reserved[c] -= self._resv_of.pop(id(req), 0)
         del self._left[id(req)]
         self._rng.pop(id(req), None)
+        placement = self._placement.pop(id(req), None)
+        if placement is not None:
+            self.router.release(placement)

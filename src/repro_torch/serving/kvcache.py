@@ -1,0 +1,79 @@
+"""KV-cache sizing and the analytic placement cost (the dense ``"kv"`` kind
+of ``repro.serving.kvcache``).
+
+``cache_bytes`` is what the engine's ``PlacementRouter`` charges against
+device memory for a request's lifetime: ``quant=True`` prices int8 entries
+plus one f32 scale per head per token for K and V each, and
+``page_block > 0`` rounds the context up to whole pages (what the paged
+allocator pins). ``decode_token_cost`` is the router's per-token latency
+model of the on-card placement. Only the dense family is ported; the
+recurrent, hybrid and encoder-decoder kinds raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.common.hardware import H100, Chip
+from repro_torch.config import DENSE, ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """Shape/bytes description of one client's decode state."""
+    kind: str                    # "kv" (the only kind the port serves)
+    bytes_per_token: int         # marginal device bytes per context token
+    fixed_bytes: int             # state independent of the sequence length
+
+    def total_bytes(self, seq_len: int, batch: int) -> int:
+        return self.fixed_bytes * batch + self.bytes_per_token * seq_len * batch
+
+
+def _dt_bytes(cfg: ModelConfig) -> int:
+    return getattr(torch, cfg.dtype).itemsize
+
+
+def make_cache_spec(cfg: ModelConfig, *, quant: bool = False) -> CacheSpec:
+    """The decode-state spec of a dense model: K and V of every layer per
+    token, in the activation dtype or, with ``quant``, int8 entries plus a
+    f32 scale per head."""
+    if cfg.arch != DENSE:
+        raise ValueError(f"cache sizing is ported for the dense family; "
+                         f"{cfg.name} is {cfg.arch!r}")
+    if quant:
+        kv_row = cfg.n_kv_heads * (cfg.hd * 1 + 4) * 2
+    else:
+        kv_row = cfg.n_kv_heads * cfg.hd * _dt_bytes(cfg) * 2
+    return CacheSpec("kv", cfg.n_layers * kv_row, 0)
+
+
+def fits_hbm(cfg: ModelConfig, seq_len: int, batch: int, *, chip: Chip = H100,
+             reserved_fraction: float = 0.35) -> bool:
+    """Does this client's cache fit beside its share of the base?
+    ``reserved_fraction`` approximates base weights + activations."""
+    spec = make_cache_spec(cfg)
+    return spec.total_bytes(seq_len, batch) < chip.hbm_bytes * (1 - reserved_fraction)
+
+
+def decode_token_cost(cfg: ModelConfig, seq_len: int, *,
+                      chip: Chip = H100) -> float:
+    """Analytic per-token decode seconds of a client whose cache and
+    attention sit on the card: its cache streamed once at the card's memory
+    rate, infinite when the cache exceeds 65% of device memory. Base-layer
+    compute is left out. Priced on the unquantized spec, as in the JAX
+    package (whose ``placement="gpu"`` branch this is)."""
+    spec = make_cache_spec(cfg)
+    total = spec.bytes_per_token * seq_len + spec.fixed_bytes
+    if total > chip.hbm_bytes * 0.65:
+        return float("inf")
+    return total / chip.hbm_bandwidth
+
+
+def cache_bytes(cfg: ModelConfig, seq_len: int, batch: int = 1, *,
+                quant: bool = False, page_block: int = 0) -> int:
+    """Device bytes of one client's decode state for ``seq_len`` context;
+    ``page_block > 0`` rounds the context up to whole pages."""
+    if page_block:
+        seq_len = -(-seq_len // page_block) * page_block
+    return make_cache_spec(cfg, quant=quant).total_bytes(seq_len, batch)

@@ -3,18 +3,20 @@
 The port's ServingEngine (on the CPU, through the kernels' plain versions)
 and ``repro.serving.ServingEngine(spec, base, [bank], prefix_cache=False)``
 serve the same numpy-made weights, non-zero LoRA bank and staggered
-requests, tick by tick. Under every tick policy the greedy token streams
-must be identical, and so must the host-side state after every tick: slot
-owners, page assignments, free lists, reservations and block tables, and
-the shared ``stats`` counters. Each request's stream also equals its solo
-run in the port.
+requests, tick by tick, over unquantized and over int8 (``kv_quant``)
+pools. Under every tick policy the greedy token streams must be identical,
+and so must the host-side state after every tick: slot owners, page
+assignments, free lists, reservations and block tables, and the shared
+``stats`` counters. Each request's stream also equals its solo run in the
+port, and the int8 engine's prefill logits equal the unquantized one's.
 """
 import dataclasses
 
+import numpy as np
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
+import torch
 
 from repro.config import AdapterConfig, ServeConfig, DENSE
 from repro.core.engine_spec import BankSpec as JaxBankSpec
@@ -53,16 +55,16 @@ def _workload(vocab, seed=7):
             for i in range(7)]
 
 
-def _jax_engine(cfg, acfg, scfg, base, bank, policy):
+def _jax_engine(cfg, acfg, scfg, base, bank, policy, router=None):
     spec = JaxEngineSpec(cfg=cfg, banks=(JaxBankSpec("lora", acfg,
                                                      N_CLIENTS),),
                          serve=scfg, max_batch_per_client=MAX_B)
     return JaxServingEngine(spec, jax.tree.map(jnp.asarray, base),
                             [jax.tree.map(jnp.asarray, bank)],
-                            policy=policy, prefix_cache=False)
+                            policy=policy, prefix_cache=False, router=router)
 
 
-def _port_engine(cfg, acfg, scfg, base, bank, policy):
+def _port_engine(cfg, acfg, scfg, base, bank, policy, router=None):
     pc = port_config(cfg)
     pacfg = pcfg.AdapterConfig(method="lora", rank=acfg.rank,
                                alpha=acfg.alpha, targets=tuple(acfg.targets))
@@ -73,7 +75,7 @@ def _port_engine(cfg, acfg, scfg, base, bank, policy):
                       max_batch_per_client=MAX_B)
     return ServingEngine(spec, convert.params_from_numpy(pc, base, "cpu"),
                          [convert.bank_from_numpy(pacfg, bank, "cpu")],
-                         device="cpu")
+                         device="cpu", router=router)
 
 
 def _host_state(eng, index_of):
@@ -84,12 +86,15 @@ def _host_state(eng, index_of):
             eng._tbl.tolist(), eng._wpos.tolist())
 
 
-@pytest.mark.parametrize("policy", ["lockstep", "nolockstep", "opportunistic"])
-def test_engine_matches_reference_tick_by_tick(policy):
-    cfg, acfg, scfg, base, bank = _system()
-    jeng = _jax_engine(cfg, acfg, scfg, base, bank, policy)
-    peng = _port_engine(cfg, acfg, scfg, base, bank, policy)
-    work = _workload(cfg.vocab)
+def serve_tick_by_tick(policy, scfg, work, routers=(None, None),
+                       each_tick=None):
+    """Serve ``work`` on the JAX and the port engine in lockstep, holding
+    the host state equal after every tick (``each_tick(jeng, peng, jidx,
+    pidx)`` adds checks) and the greedy streams and shared stats equal at
+    the end. Returns both engines."""
+    cfg, acfg, _, base, bank = _system()
+    jeng = _jax_engine(cfg, acfg, scfg, base, bank, policy, routers[0])
+    peng = _port_engine(cfg, acfg, scfg, base, bank, policy, routers[1])
     jreqs = [JaxRequest(**w) for w in work]
     preqs = [Request(**w) for w in work]
     jidx = {id(r): i for i, r in enumerate(jreqs)}
@@ -97,23 +102,73 @@ def test_engine_matches_reference_tick_by_tick(policy):
     for jr, pr in zip(jreqs, preqs):
         jeng.submit(jr)
         peng.submit(pr)
-    ptrs = [peng.caches["layers"][k].data_ptr() for k in ("k", "v")]
+    ptrs = {k: t.data_ptr() for k, t in peng.caches["layers"].items()}
     more, ticks = True, 0
     while more:
         more = jeng.service_tick()
         assert peng.service_tick() == more
         assert _host_state(peng, pidx) == _host_state(jeng, jidx), \
             f"host state diverged at tick {ticks}"
+        if each_tick is not None:
+            each_tick(jeng, peng, jidx, pidx)
         ticks += 1
-    assert [peng.caches["layers"][k].data_ptr() for k in ("k", "v")] == ptrs
+    assert {k: t.data_ptr() for k, t in peng.caches["layers"].items()} == ptrs
     assert len(jeng.drain_done()) == len(peng.drain_done()) == len(work)
     for i, (jr, pr) in enumerate(zip(jreqs, preqs)):
         np.testing.assert_array_equal(pr.generated, jr.generated,
                                       err_msg=f"request {i} ({policy})")
     for k in SHARED_STATS:
         assert peng.stats[k] == jeng.stats[k], k
+    return jeng, peng
+
+
+@pytest.mark.parametrize("policy", ["lockstep", "nolockstep", "opportunistic"])
+def test_engine_matches_reference_tick_by_tick(policy):
+    cfg, _, scfg, _, _ = _system()
+    work = _workload(cfg.vocab)
+    _, peng = serve_tick_by_tick(policy, scfg, work)
     assert peng.stats["compact_prefill_batches"] < len(work) or \
         policy == "nolockstep"
+
+
+@pytest.mark.parametrize("policy", ["lockstep", "nolockstep", "opportunistic"])
+def test_quant_engine_matches_reference_tick_by_tick(policy):
+    """int8 pools (``kv_quant=True``): the same streams and host state as
+    the JAX engine with ``kv_quant=True``."""
+    cfg, _, scfg, _, _ = _system()
+    _, peng = serve_tick_by_tick(policy, dataclasses.replace(
+        scfg, kv_quant=True), _workload(cfg.vocab))
+    assert peng.caches["layers"]["k"].dtype == torch.int8
+    assert peng.caches["layers"]["k_s"].abs().sum() > 0
+
+
+def test_quant_prefill_logits_equal_unquantized():
+    """Port against port: prefill attention uses the K/V as computed, so the
+    int8 engine's prefill logits equal the unquantized engine's bit for
+    bit; the first decode reads the int8 pages, and its probabilities stay
+    within 0.02 of the unquantized ones."""
+    cfg, acfg, scfg, base, bank = _system()
+    logits = {}
+    for quant in (False, True):
+        peng = _port_engine(cfg, acfg, dataclasses.replace(
+            scfg, kv_quant=quant), base, bank, "opportunistic")
+        seen = {"prefill": [], "decode": []}
+        for step in seen:
+            fn = getattr(peng, f"_{step}_step")
+
+            def spy(*a, fn=fn, out=seen[step]):
+                res = fn(*a)
+                out.append(res[0].clone())
+                return res
+            setattr(peng, f"_{step}_step", spy)
+        for w in _workload(cfg.vocab)[:3]:
+            peng.submit(Request(**dict(w, arrive_tick=0)))
+        peng.service_tick()                 # one prefill batch, one decode
+        logits[quant] = (seen["prefill"][0], seen["decode"][0])
+    n = peng.stats["compact_prefill_rows"]
+    assert torch.equal(logits[True][0][:n], logits[False][0][:n])
+    p_f, p_q = (torch.softmax(logits[q][1][:n], dim=-1) for q in (False, True))
+    assert float((p_f - p_q).abs().max()) < 0.02
 
 
 def test_engine_streams_equal_solo_runs():
@@ -137,17 +192,22 @@ def test_engine_streams_equal_solo_runs():
 
 
 def test_pool_data_ptr_unchanged_across_admission_and_decode():
+    """Every pool leaf (k, v; with int8 also k_s, v_s) is written in place."""
     cfg, acfg, scfg, base, bank = _system()
-    peng = _port_engine(cfg, acfg, scfg, base, bank, "opportunistic")
-    ptrs = [peng.caches["layers"][k].data_ptr() for k in ("k", "v")]
-    peng.submit(Request(**_workload(cfg.vocab)[0]))
-    peng.service_tick()                      # admission + prefill + decode
-    assert peng.stats["admitted"] == 1 and peng.stats["ticks"] == 1
-    assert [peng.caches["layers"][k].data_ptr() for k in ("k", "v")] == ptrs
-    assert peng.caches["layers"]["k"].abs().sum() > 0
+    for quant in (False, True):
+        peng = _port_engine(cfg, acfg, dataclasses.replace(
+            scfg, kv_quant=quant), base, bank, "opportunistic")
+        ptrs = {k: t.data_ptr() for k, t in peng.caches["layers"].items()}
+        assert len(ptrs) == (4 if quant else 2)
+        peng.submit(Request(**_workload(cfg.vocab)[0]))
+        peng.service_tick()                  # admission + prefill + decode
+        assert peng.stats["admitted"] == 1 and peng.stats["ticks"] == 1
+        assert {k: t.data_ptr() for k, t in peng.caches["layers"].items()} \
+            == ptrs
+        assert all(t.abs().sum() > 0 for t in peng.caches["layers"].values())
 
 
-@pytest.mark.parametrize("bad", [dict(page_block=0), dict(kv_quant=True)])
+@pytest.mark.parametrize("bad", [dict(page_block=0)])
 def test_engine_refuses_layouts_outside_the_slice(bad):
     cfg, acfg, scfg, base, bank = _system()
     with pytest.raises(ValueError):
@@ -155,7 +215,7 @@ def test_engine_refuses_layouts_outside_the_slice(bad):
                      "opportunistic")
 
 
-@pytest.mark.parametrize("kw", [dict(router=object()),
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
                                 dict(prefix_cache=True), dict(obs=object())])
 def test_engine_refuses_options_outside_the_slice(kw):
     cfg, acfg, scfg, base, bank = _system()

@@ -1,4 +1,6 @@
-"""PyTorch port vs the JAX reference: the two ported kernels.
+"""PyTorch port vs the JAX reference: the ported kernels (paged decode
+attention over bf16/fp32 and over int8 pools, SGMV) and the int8 K/V
+quantizer.
 
 On the CPU the port's ops run their plain versions and the JAX ops run
 their jnp stream twins (``interpret=None``), so this holds the port's
@@ -12,11 +14,16 @@ import pytest
 import torch
 
 from repro.kernels.decode_attn import decode_attn as jax_decode_attn
+from repro.kernels.decode_attn.decode_attn import (
+    paged_decode_attn_quant_stream as jax_quant_stream)
 from repro.kernels.decode_attn.ref import decode_attn_ref as jax_decode_ref
 from repro.kernels.sgmv import sgmv as jax_sgmv
 from repro.kernels.sgmv import sgmv_ref as jax_sgmv_ref
+from repro.models.blocks import quantize_head as jax_quantize_head
+from repro_torch import convert
 from repro_torch.kernels import decode_attn as port_da
 from repro_torch.kernels import sgmv as port_sgmv
+from repro_torch.models.blocks import quantize_head
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SENTINEL = 1 << 30
@@ -95,6 +102,93 @@ def test_plain_paged_matches_oracle():
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
+# int8 pools: the paged cases, and one with G = 1 (a KV head per query head)
+QUANT_CASES = dict(PAGED_CASES, g1_window=(3, 2, 1, 32, 16, 8, 4, 12, None,
+                                           True))
+
+
+def _quant_case(B, K, G, hd, P, blk, nb, seed, pos=None, sentinel=False):
+    """As ``_paged_case``, with int8 pools drawn over the full [-127, 127]
+    range and positive f32 per-head scales [P, blk, K, 1]."""
+    q, _, _, tbl, pos = _paged_case(B, K, G, hd, P, blk, nb, seed, pos,
+                                    sentinel)
+    rng = np.random.default_rng(seed + 1000)
+    pk, pv = (rng.integers(-127, 128, (P, blk, K, hd)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.03, (P, blk, K, 1)).astype(np.float32)
+              for _ in range(2))
+    return q, pk, ks, pv, vs, tbl, pos
+
+
+@pytest.mark.parametrize("name", sorted(QUANT_CASES))
+def test_paged_decode_attn_quant_matches_reference(name):
+    """The int8 plain version against JAX's stream twin, and the op
+    (``decode_attn`` with scales) against JAX's op on the CPU."""
+    B, K, G, hd, P, blk, nb, window, pos, sentinel = QUANT_CASES[name]
+    q, pk, ks, pv, vs, tbl, pos = _quant_case(B, K, G, hd, P, blk, nb,
+                                              seed=len(name), pos=pos,
+                                              sentinel=sentinel)
+    j = [jnp.asarray(a) for a in (q, pk, ks, pv, vs, tbl, pos)]
+    t = [torch.from_numpy(a) for a in (q, pk, ks, pv, vs, tbl, pos)]
+    want = np.asarray(jax_quant_stream(*j, window=window))
+    got = port_da.paged_decode_attn_quant_plain(*t, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    want_op = np.asarray(jax_decode_attn(j[0], j[1], j[3], j[6],
+                                         block_tbl=j[5], window=window,
+                                         k_scale=j[2], v_scale=j[4]))
+    got_op = port_da.decode_attn(t[0], t[1], t[3], t[6], block_tbl=t[5],
+                                 window=window, k_scale=t[2], v_scale=t[4])
+    np.testing.assert_allclose(got_op.numpy(), want_op, **TOL)
+
+
+@pytest.mark.parametrize("window", [0, 12])
+def test_decode_attn_ref_with_scales_matches_reference_ref(window):
+    q, pk, ks, pv, vs, tbl, pos = _quant_case(3, 2, 2, 32, 16, 8, 4, seed=4,
+                                              sentinel=True)
+    want = np.asarray(jax_decode_ref(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(pos),
+        window=window, block_tbl=jnp.asarray(tbl), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs)))
+    t = [torch.from_numpy(a) for a in (q, pk, ks, pv, vs, tbl, pos)]
+    got = port_da.decode_attn_ref(t[0], t[1], t[3], t[6], window=window,
+                                  block_tbl=t[5], k_scale=t[2], v_scale=t[4])
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_plain_quant_matches_oracle():
+    """The blocked int8 online softmax equals the full softmax over the
+    dequantized pages (port alone)."""
+    q, pk, ks, pv, vs, tbl, pos = _quant_case(4, 2, 4, 64, 20, 8, 5, seed=9,
+                                              sentinel=True)
+    t = [torch.from_numpy(a) for a in (q, pk, ks, pv, vs, tbl, pos)]
+    got = port_da.paged_decode_attn_quant_plain(*t, window=9)
+    want = port_da.decode_attn_ref(t[0], t[1], t[3], t[6], window=9,
+                                   block_tbl=t[5], k_scale=t[2],
+                                   v_scale=t[4])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_head_matches_reference_bitwise(dtype):
+    """int8 entries and scales equal the JAX quantizer's bit for bit: random
+    heads, an all-zero head (the 1e-8 scale floor) and a head whose scale is
+    exactly 1, so that x/scale lands on halves (round half to even)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((5, 3, 2, 32)).astype(np.float32) * 4
+    x[0, 0, 0] = 0.0
+    x[1, 1, 1, :8] = [127, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -3.5]
+    x[1, 1, 1, 8:] = 0.25
+    jx = jnp.asarray(x, dtype)
+    xt = convert.tensor_from_numpy(np.asarray(jx), "cpu")
+    jq, js = jax_quantize_head(jx)
+    q, s = quantize_head(xt)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert np.asarray(jq)[1, 1, 1, :8].tolist() == [127, 0, 2, 2, 0, -2,
+                                                    126, -4]
+
+
 def _sgmv_case(T, din, r, dout, n, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((T, din)).astype(np.float32)
@@ -159,7 +253,8 @@ def test_sgmv_strided_client_axis():
 def test_cpu_tensors_never_launch():
     """A CPU tensor runs the plain version: the launch counts stay put."""
     before = (port_sgmv.sgmv_cuda.launches,
-              port_da.paged_decode_attn_cuda.launches)
+              port_da.paged_decode_attn_cuda.launches,
+              port_da.paged_decode_attn_quant_cuda.launches)
     x, A, B = _sgmv_case(2, 16, 2, 8, 2, seed=1)
     port_sgmv.sgmv(torch.from_numpy(x), torch.from_numpy(A),
                    torch.from_numpy(B), torch.tensor([0, 1], dtype=torch.int32),
@@ -167,13 +262,44 @@ def test_cpu_tensors_never_launch():
     q, pk, pv, tbl, pos = _paged_case(2, 1, 2, 16, 8, 4, 2, seed=1)
     port_da.decode_attn(*(torch.from_numpy(a) for a in (q, pk, pv, pos)),
                         block_tbl=torch.from_numpy(tbl))
+    q, pk, ks, pv, vs, tbl, pos = _quant_case(2, 1, 2, 16, 8, 4, 2, seed=1)
+    port_da.decode_attn(*(torch.from_numpy(a) for a in (q, pk, pv, pos)),
+                        block_tbl=torch.from_numpy(tbl),
+                        k_scale=torch.from_numpy(ks),
+                        v_scale=torch.from_numpy(vs))
     assert (port_sgmv.sgmv_cuda.launches,
-            port_da.paged_decode_attn_cuda.launches) == before
+            port_da.paged_decode_attn_cuda.launches,
+            port_da.paged_decode_attn_quant_cuda.launches) == before
 
 
 def test_bad_shapes_raise():
+    q, pk, ks, pv, vs, tbl, pos = (torch.from_numpy(a) for a in _quant_case(
+        2, 1, 2, 16, 8, 4, 2, seed=1))
+    with pytest.raises(ValueError, match="both scale pools"):
+        port_da.decode_attn(q, pk, pv, pos, block_tbl=tbl, k_scale=ks)
+    with pytest.raises(ValueError, match="scale pools"):
+        port_da.decode_attn(q, pk, pv, pos, block_tbl=tbl, k_scale=ks[..., 0],
+                            v_scale=vs[..., 0])
     x, A, B = _sgmv_case(6, 16, 2, 8, 2, seed=1)
     with pytest.raises(ValueError, match="ids"):
         port_sgmv.sgmv(torch.from_numpy(x), torch.from_numpy(A),
                        torch.from_numpy(B),
                        torch.tensor([0, 1], dtype=torch.int32), block_t=4)
+
+
+def test_quant_wrapper_refuses_what_the_kernel_does_not_take():
+    """The int8 launch wrapper checks before it builds or launches: int8
+    pools, f32 scales, fp32/bf16 q, one CUDA device (a CPU tensor handed
+    to it raises instead of running anywhere)."""
+    q, pk, ks, pv, vs, tbl, pos = (torch.from_numpy(a) for a in _quant_case(
+        2, 1, 2, 16, 8, 4, 2, seed=1))
+    launch = port_da.paged_decode_attn_quant_cuda
+    with pytest.raises(TypeError, match="pools must be int8"):
+        launch(q, pk.float(), ks, pv, vs, tbl, pos)
+    with pytest.raises(TypeError, match="scales must be float32"):
+        launch(q, pk, ks.double(), pv, vs.double(), tbl, pos)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch(q.half(), pk, ks, pv, vs, tbl, pos)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        launch(q, pk, ks, pv, vs, tbl, pos)
+    assert launch.launches == 0

@@ -1,10 +1,13 @@
 """PyTorch port vs the JAX reference: weights carried across, and the
 compacted prefill and decode steps of a tiny fp32 dense model with a
-non-zero LoRA bank.
+non-zero LoRA bank, over bf16-layout (here fp32) and int8 page pools.
 
 Logits are held at atol = rtol = 1e-4 (two layers of matmuls summed in
-another order), pool contents at 1e-5 on the pages the tables name. The
-port writes its pools in place: their ``data_ptr()`` never changes.
+another order), pool contents at 1e-5 on the pages the tables name. With
+int8 pools, logits at 1e-3 and scales at rtol 1e-5; the int8 entries may
+differ by one where the K/V projections, summed in another order, land on
+the other side of a rounding boundary. The port writes its pools in place:
+their ``data_ptr()`` never changes.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,8 @@ C, B_SLOTS, MAX_SEQ, BLK = 3, 2, 32, 8
 SENTINEL = 1 << 30
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 POOL_TOL = dict(atol=1e-5, rtol=1e-5)
+QUANT_LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
+SCALE_TOL = dict(atol=0, rtol=1e-5)
 
 CONFIGS = {
     "tiny": dict(),
@@ -130,23 +135,47 @@ def _named_pages(tbl, Pl, L):
 
 
 def _assert_pools(port_caches, jax_caches, pages):
+    """Pools on the named pages, and positions. int8 entries may differ by
+    one on at most 0.1% of the written entries (rows whose scale is set);
+    returns the count of entries that differ."""
     got = convert.caches_to_numpy(port_caches)
-    for leaf in ("k", "v"):
-        g = got["layers"][leaf].reshape((-1,) + got["layers"][leaf].shape[2:])
+    flat = {}
+    for leaf in got["layers"]:
+        g = got["layers"][leaf]
         w = np.asarray(jax_caches["layers"][leaf])
-        w = w.reshape((-1,) + w.shape[2:])
-        np.testing.assert_allclose(g[pages], w[pages], **POOL_TOL)
+        flat[leaf] = (g.reshape((-1,) + g.shape[2:])[pages],
+                      w.reshape((-1,) + w.shape[2:])[pages])
     np.testing.assert_array_equal(got["pos"], np.asarray(jax_caches["pos"]))
+    if "k_s" not in flat:
+        for leaf in ("k", "v"):
+            np.testing.assert_allclose(*flat[leaf], **POOL_TOL)
+        return 0
+    n_diff = 0
+    for leaf in ("k", "v"):
+        g, w = flat[leaf]
+        np.testing.assert_allclose(*flat[leaf + "_s"], **SCALE_TOL)
+        diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+        written = (flat[leaf + "_s"][1] > 0).sum() * g.shape[-1]
+        assert diff.max() <= 1, f"{leaf}: int8 entries differ by {diff.max()}"
+        assert (diff > 0).sum() <= 1e-3 * written, \
+            f"{leaf}: {(diff > 0).sum()} of {written} int8 entries differ"
+        n_diff += int((diff > 0).sum())
+    return n_diff
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_compact_prefill_and_decode_match_reference(name):
+def _compact_prefill_and_decode(name, quant):
+    """Compacted prefill then one decode step of the same rows, in both
+    packages; pools checked after each. Returns the count of int8 entries
+    that differ (0 unquantized)."""
     cfg, acfg, np_base, np_bank = make_system(name, seed=1)
     pc = port_config(cfg)
     pacfg = pcfg.AdapterConfig(method="lora", rank=4, alpha=8.0,
                                targets=("q", "v"))
-    scfg = ServeConfig(n_clients=C, max_seq=MAX_SEQ, page_block=BLK)
-    pscfg = pcfg.ServeConfig(n_clients=C, max_seq=MAX_SEQ, page_block=BLK)
+    scfg = ServeConfig(n_clients=C, max_seq=MAX_SEQ, page_block=BLK,
+                       kv_quant=quant)
+    pscfg = pcfg.ServeConfig(n_clients=C, max_seq=MAX_SEQ, page_block=BLK,
+                             kv_quant=quant)
+    logit_tol = QUANT_LOGIT_TOL if quant else LOGIT_TOL
     P = B_SLOTS * (MAX_SEQ // BLK)
     rng = np.random.default_rng(2)
 
@@ -165,11 +194,14 @@ def test_compact_prefill_and_decode_match_reference(name):
     tbl = _table(lengths, rows, P)
 
     jcaches = jax_sym.init_client_caches(cfg, C, B_SLOTS, MAX_SEQ,
-                                         page_block=BLK, pool_pages=P)
+                                         page_block=BLK, pool_pages=P,
+                                         quant=quant)
     jcaches = dict(jcaches, block_tbl=jnp.asarray(tbl))
     pcaches = convert.caches_from_numpy(jax.tree.map(np.asarray, jcaches),
                                         "cpu")
-    ptrs = [pcaches["layers"][k].data_ptr() for k in ("k", "v")]
+    assert sorted(pcaches["layers"]) == (["k", "k_s", "v", "v_s"] if quant
+                                         else ["k", "v"])
+    ptrs = {k: t.data_ptr() for k, t in pcaches["layers"].items()}
     base_t = convert.params_from_numpy(pc, np_base, "cpu")
     bank_t = convert.bank_from_numpy(pacfg, np_bank, "cpu")
     jbank = jax.tree.map(jnp.asarray, np_bank)
@@ -186,8 +218,8 @@ def test_compact_prefill_and_decode_match_reference(name):
                            *(torch.from_numpy(a) for a in
                              (toks, lens, clients, slots, mask)))
     np.testing.assert_allclose(plg.numpy()[:3], np.asarray(jlg)[:3],
-                               **LOGIT_TOL)
-    _assert_pools(pcaches, jcaches, pages)
+                               **logit_tol)
+    n_diff = _assert_pools(pcaches, jcaches, pages)
 
     # one decode step for the same rows; padding row again aliases (0, 0)
     nxt = np.append(np.asarray(jlg)[:3].argmax(-1), 0).astype(np.int32)
@@ -201,9 +233,24 @@ def test_compact_prefill_and_decode_match_reference(name):
                                    (nxt, clients, slots, mask)))
     assert finite.all()
     np.testing.assert_allclose(plg2.numpy()[:3], np.asarray(jlg2)[:3],
-                               **LOGIT_TOL)
-    _assert_pools(pcaches, jcaches, pages)
-    assert [pcaches["layers"][k].data_ptr() for k in ("k", "v")] == ptrs
+                               **logit_tol)
+    n_diff += _assert_pools(pcaches, jcaches, pages)
+    assert {k: t.data_ptr() for k, t in pcaches["layers"].items()} == ptrs
+    return n_diff
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_compact_prefill_and_decode_match_reference(name):
+    _compact_prefill_and_decode(name, quant=False)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_quant_compact_prefill_and_decode_match_reference(name):
+    """int8 pools (``kv_quant=True``) against the JAX steps. The count of
+    int8 entries that differ is printed; it was 0 in both configurations
+    on the CPU when this test was written."""
+    n_diff = _compact_prefill_and_decode(name, quant=True)
+    print(f"{name}: {n_diff} int8 entries differ from the JAX package's")
 
 
 def test_lora_delta_reaches_logits():

@@ -14,7 +14,14 @@ exits non-zero and prints no result. Phases, each raising on failure:
    scales; SGMV din 4096, dout 4096/1024, rank 8, including the inputs
    ``sgmv_pallas`` accepts: ids in range or negative), fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
-   fp32 on the same bf16 inputs;
+   fp32 on the same bf16 inputs; and so the kernels no serving path runs: dense decode attention at
+   granite's K=8, G=4, hd=128 over T=4096 (one row at pos -1, whose
+   output must be exact zeros; one case with a window) and a prime T;
+   flash attention at granite's H=32, K=8 (S=T=2048 causal, and
+   non-causal cross S=512/T=2048), gemma2-27b's H=32, K=16 with its 4096
+   window at S=T=8192, and S > T with rows that see no key; the ragged
+   linear at din 4096 / dout 12800 with a bias, n_live 1001 of 1024 and
+   700 of 2048 (a live count on the card), rows past it exact +0.0;
 3. model wiring: granite-3-8b at full width, 2 layers, bf16 and int8
    caches, one compacted prefill and one decode step with the kernels and
    under ``blocks.plain_kernels()``, logits compared at 2e-2; the kernel
@@ -32,8 +39,18 @@ exits non-zero and prints no result. Phases, each raising on failure:
    attention launches and no bf16 ones per decode tick, the same first
    token per request as phase 4, the router's ledger conserved and empty
    after the drain; the same 8-row tick profile, beside phase 4's;
-5. timings at the phase-4 and 4b shapes: kernel (L2-cold and L2-warm),
-   plain version, a library yardstick and the memory/compute bound.
+5. timings at the phase-4, 4b and 6 shapes: kernel (L2-cold and L2-warm),
+   plain version, a library yardstick and the memory/compute bound;
+6. the slice without a serving path: the port's public kernel ops and
+   the §3.7 packed base executor. A ``BaseExecutor`` over phase 4's own
+   granite-3-8b weights (40 layers x 7 projections, held as views) runs
+   every (layer, projection) for 4 clients' bf16 segments of 37, 200, 64
+   and 700 tokens (budget 1024), then of 1,030 tokens (budget 2048, past
+   the live count 7 of 16 row tiles are dead): exactly one ragged-linear
+   launch per call, every output held against ``frozen_dense`` at 2e-2;
+   then ``kernels.decode_attn`` on a dense [8, 4096, 8, 128] bf16 cache
+   and ``kernels.flash_attn`` on [1, 4096, 32, 128] causal, one launch
+   each, held against their plain versions.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -60,7 +77,10 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.common.hardware import H100  # noqa: E402
 from repro_torch.config import AdapterConfig, ServeConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.core import symbiosis  # noqa: E402
+from repro_torch.core.base_executor import BaseExecutor, _bucket  # noqa: E402
+from repro_torch.core.frozen_linear import frozen_dense  # noqa: E402
 from repro_torch.core.engine_spec import BankSpec, EngineSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
@@ -75,11 +95,16 @@ DEV = "cuda"
 # the kernel modules (the packages re-export ops functions of the same name)
 da = importlib.import_module("repro_torch.kernels.decode_attn.decode_attn")
 sg = importlib.import_module("repro_torch.kernels.sgmv.sgmv")
+fa = importlib.import_module("repro_torch.kernels.flash_attn.flash_attn")
+rl = importlib.import_module("repro_torch.kernels.ragged_linear.ragged_linear")
 KERNELS = {   # name: (launch wrapper, source, the TPU kernel it replaces)
     "paged_decode_attn": (da.paged_decode_attn_cuda, da.SOURCE, da.REPLACES),
     "paged_decode_attn_quant": (da.paged_decode_attn_quant_cuda, da.SOURCE,
                                 da.QUANT_REPLACES),
     "sgmv": (sg.sgmv_cuda, sg.SOURCE, sg.REPLACES),
+    "decode_attn": (da.decode_attn_cuda, da.SOURCE, da.DENSE_REPLACES),
+    "flash_attn": (fa.flash_attn_cuda, fa.SOURCE, fa.REPLACES),
+    "ragged_linear": (rl.ragged_linear_cuda, rl.SOURCE, rl.REPLACES),
 }
 
 
@@ -90,6 +115,10 @@ def reset_counts():
 
 def read_counts():
     return {name: w.launches for name, (w, _, _) in KERNELS.items()}
+
+
+def launch_count(name):
+    return KERNELS[name][0].launches
 
 
 def log(msg):
@@ -228,6 +257,115 @@ def check_sgmv(errs):
                 raise AssertionError(f"sgmv {name}: dead rows not zero")
             errs.append(e)
             log(f"[phase 2] sgmv {name:30s} {str(dtype):15s} max_abs_err={e:.3e}")
+
+
+def plain_call(op, *args, **kw):
+    """The public op's plain version on the card, with the op's own
+    blocks."""
+    with kernels.plain_kernels():
+        return op(*args, **kw)
+
+
+def plain_op(op, *args, **kw):
+    """``plain_call`` in fp32 on the same inputs (bf16 ones widened
+    exactly): the reference a kernel is held against."""
+    return plain_call(op, *[a.float() if torch.is_tensor(a)
+                            and a.is_floating_point() else a for a in args],
+                      **kw)
+
+
+DENSE_CASES = {   # (B, T, window, pos): granite K=8, G=4, hd=128
+    "granite_T4096": (4, 4096, 0, [-1, 0, 2047, 4095]),
+    "granite_T4096_window": (4, 4096, 1000, [100, 1500, 4095, 999]),
+    "granite_T4093_prime": (2, 4093, 0, [4092, 77]),
+}
+
+
+def check_dense(errs):
+    K, G, hd = 8, 4, 128
+    for i, (name, (B, T, window, pos)) in enumerate(DENSE_CASES.items()):
+        g = gen(500 + i)
+        q = torch.randn((B, K, G, hd), generator=g, device=DEV)
+        k = torch.randn((B, T, K, hd), generator=g, device=DEV)
+        v = torch.randn((B, T, K, hd), generator=g, device=DEV)
+        p = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = da.decode_attn_cuda(qd, kd, vd, p, window=window)
+            want = plain_op(kernels.decode_attn, qd, kd, vd, p, window=window)
+            torch.cuda.synchronize()
+            e = compare(f"decode_attn {name} {dtype}", got, want, tol)
+            if got[p < 0].any():
+                raise AssertionError(f"decode_attn {name}: a row at pos -1 "
+                                     "is not exact zeros")
+            errs.append(e)
+            log(f"[phase 2] decode_attn {name:24s} {str(dtype):15s} "
+                f"max_abs_err={e:.3e}")
+
+
+FLASH_CASES = {   # (B, S, T, H, K, causal, window), hd 128
+    "granite_causal_2048": (1, 2048, 2048, 32, 8, True, 0),
+    "granite_cross_512x2048": (1, 512, 2048, 32, 8, False, 0),
+    "gemma2_window_8192": (1, 8192, 8192, 32, 16, True, 4096),
+    "s_above_t_no_key_rows": (2, 300, 200, 8, 2, True, 50),
+}
+
+
+def check_flash(errs):
+    hd = 128
+    for i, (name, (B, S, T, H, K, causal, window)) in enumerate(
+            FLASH_CASES.items()):
+        g = gen(600 + i)
+        q = torch.randn((B, S, H, hd), generator=g, device=DEV)
+        k = torch.randn((B, T, K, hd), generator=g, device=DEV)
+        v = torch.randn((B, T, K, hd), generator=g, device=DEV)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = fa.flash_attn_cuda(qd, kd, vd, causal=causal, window=window)
+            want = plain_op(kernels.flash_attn, qd, kd, vd, causal=causal,
+                            window=window)
+            torch.cuda.synchronize()
+            e = compare(f"flash_attn {name} {dtype}", got, want, tol)
+            if causal and window and S > T + window - 1 \
+                    and got[:, T + window - 1:].any():
+                raise AssertionError(f"flash_attn {name}: rows that see no "
+                                     "key are not zeros")
+            errs.append(e)
+            log(f"[phase 2] flash_attn {name:24s} {str(dtype):15s} "
+                f"max_abs_err={e:.3e}")
+            del got, want
+
+
+RAGGED_CASES = {  # (budget, din, dout, n_live, live count on the card)
+    "granite_up_1001_of_1024": (1024, 4096, 12800, 1001, False),
+    "granite_up_700_of_2048": (2048, 4096, 12800, 700, True),
+    "no_tile_divides": (1000, 4100, 1001, 999, True),
+}
+
+
+def check_ragged(errs):
+    for i, (name, (budget, din, dout, n, on_card)) in enumerate(
+            RAGGED_CASES.items()):
+        g = gen(700 + i)
+        x = torch.randn((budget, din), generator=g, device=DEV)
+        w = (torch.rand((din, dout), generator=g, device=DEV) * 2 - 1) \
+            / din ** 0.5
+        b = torch.randn((dout,), generator=g, device=DEV) * 0.1
+        n_live = torch.tensor(n, dtype=torch.int32, device=DEV) if on_card \
+            else n
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            xd, wd, bd = (t.to(dtype) for t in (x, w, b))
+            got = rl.ragged_linear_cuda(xd, wd, bd, n_live)
+            want = plain_op(kernels.ragged_linear, xd, wd, bd, n_live)
+            torch.cuda.synchronize()
+            e = compare(f"ragged_linear {name} {dtype}", got, want, tol)
+            tail = got[n:]
+            if tail.any() or torch.signbit(tail).any():
+                raise AssertionError(f"ragged_linear {name}: rows past "
+                                     "n_live are not exact +0.0")
+            errs.append(e)
+            log(f"[phase 2] ragged_linear {name:24s} {str(dtype):15s} "
+                f"max_abs_err={e:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +911,247 @@ def time_sgmv(bank):
     return results["decode"]
 
 
+DENSE_SHAPE = (8, 4096, 8, 4, 128)     # phase 6's dense cache: B, T, K, G, hd
+FLASH_SHAPE = (1, 4096, 32, 8, 128)    # phase 6's prefill: B, S=T, H, K, hd
+
+
+def dense_inputs(seed):
+    """bf16 q [B, K, G, hd] and a dense cache [B, T, K, hd], positions
+    spread evenly over [0, T - 1]."""
+    B, T, K, G, hd = DENSE_SHAPE
+    g = gen(seed)
+    q = torch.randn((B, K, G, hd), generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn((B, T, K, hd), generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn((B, T, K, hd), generator=g, device=DEV).to(torch.bfloat16)
+    pos = torch.linspace(0, T - 1, B, device=DEV).round().to(torch.int32)
+    return q, k, v, pos
+
+
+def flash_inputs(seed, S=None, K=None):
+    B, S0, H, K0, hd = FLASH_SHAPE
+    S, K = S or S0, K or K0
+    g = gen(seed)
+    return tuple(torch.randn((B, S, n, hd), generator=g, device=DEV)
+                 .to(torch.bfloat16) for n in (H, K, K))
+
+
+def sdpa_gqa(q, k, v, **kw):
+    """One ``scaled_dot_product_attention`` over [B, heads, len, hd] views,
+    the KV heads shared by groups of query heads."""
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+    G = q.shape[1] // k.shape[1]
+    return F.scaled_dot_product_attention(
+        q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1), **kw)
+
+
+def timing_fields(label, kernel, plain, library, nbytes, flops, shape,
+                  rows=None):
+    """Kernel L2-cold and L2-warm, plain version, one library call, and the
+    bound; the library call's difference from the kernel (over the first
+    ``rows`` rows, where given) is reported."""
+    lib_err = float((kernel()[:rows].float() - library()[:rows].float())
+                    .abs().max())
+    ms = time_ms(kernel)
+    warm_ms = time_ms(kernel, l2_cold=False)
+    plain_ms = time_ms(plain, n=10, warmup=1)
+    lib_ms = time_ms(library)
+    bound_ms, by = bound(nbytes, flops)
+    log(f"[phase 5] {label} {shape}, L2-cold: kernel {ms:.4f} ms (L2-warm "
+        f"{warm_ms:.4f}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+        f"(differs by {lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, "
+        f"{nbytes} B, {flops:.4g} flops)")
+    return dict(ms=ms, ms_l2_warm=warm_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
+def time_dense_decode():
+    """Phase 6's dense decode; library: SDPA with a position mask and GQA."""
+    q, k, v, pos = dense_inputs(10)
+    B, T, K, G, hd = DENSE_SHAPE
+    mask = (torch.arange(T, device=DEV)[None, :] <= pos[:, None].long())
+    mask = mask[:, None, None, :]
+
+    def library():
+        out = sdpa_gqa(q.reshape(B, K * G, 1, hd), k.transpose(1, 2),
+                       v.transpose(1, 2), attn_mask=mask)
+        return out.reshape(B, K, G, hd)
+    tokens = int((pos.long() + 1).sum())
+    nbytes = 2 * q.numel() * 2 + 2 * tokens * K * hd * 2 + pos.numel() * 4
+    return timing_fields(
+        "decode_attn", lambda: da.decode_attn_cuda(q, k, v, pos),
+        lambda: plain_call(kernels.decode_attn, q, k, v, pos), library,
+        nbytes, 4 * tokens * K * G * hd,
+        f"q {list(q.shape)} cache {list(k.shape)}, {tokens} live tokens")
+
+
+def visible_pairs(S, T, window):
+    """(query, key) pairs a causal mask with this window lets through."""
+    i = torch.arange(S, dtype=torch.float64)
+    n = torch.clamp(i + 1, max=T)
+    if window:
+        n = torch.clamp(n, max=window)
+    return int(n.sum())
+
+
+def time_flash(S=None, K=None, window=0):
+    """Causal flash attention; library: SDPA ``is_causal`` (with a window,
+    an explicit mask)."""
+    q, k, v = flash_inputs(11, S, K)
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        t = torch.arange(S, device=DEV)
+        mask = (t[:, None] >= t[None, :]) & (t[:, None] - t[None, :] < window)
+        kw = dict(attn_mask=mask)
+    else:
+        kw = dict(is_causal=True)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
+    flops = 4 * B * H * hd * visible_pairs(S, S, window)
+    return timing_fields(
+        "flash_attn", lambda: fa.flash_attn_cuda(q, k, v, window=window),
+        lambda: plain_call(kernels.flash_attn, q, k, v, window=window),
+        lambda: sdpa_gqa(qh, kh, vh, **kw).transpose(1, 2), nbytes, flops,
+        f"q [{B},{S},{H},{hd}] k/v [{B},{S},{K},{hd}] causal window {window}")
+
+
+def time_ragged(w, n_live, budget):
+    """One packed projection over phase 4's weight ``w`` (no bias, as
+    granite's). Library: ``torch.addmm`` over the whole buffer, which
+    computes every row and does not zero those past the live count."""
+    g = gen(12)
+    din, dout = w.shape
+    x = torch.randn((budget, din), generator=g, device=DEV).to(w.dtype)
+    b = torch.zeros((dout,), dtype=w.dtype, device=DEV)
+    nbytes = 2 * (n_live * din + din * dout + budget * dout)
+    return timing_fields(
+        "ragged_linear", lambda: rl.ragged_linear_cuda(x, w, None, n_live),
+        lambda: plain_call(kernels.ragged_linear, x, w, None, n_live),
+        lambda: torch.addmm(b, x, w), nbytes, 2 * n_live * din * dout,
+        f"buf [{budget},{din}] @ w [{din},{dout}], n_live {n_live}",
+        rows=n_live)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the public kernel ops and the packed base executor
+# ---------------------------------------------------------------------------
+
+PROJECTIONS = (("q", "attn", "wq"), ("k", "attn", "wk"), ("v", "attn", "wv"),
+               ("o", "attn", "wo"), ("gate", "mlp", "gate"),
+               ("up", "mlp", "up"), ("down", "mlp", "down"))
+SEGMENTS = ((37, 200, 64, 700), (37, 200, 64, 729))   # 1,001 and 1,030 tokens
+
+
+def base_executor_path(cfg, base):
+    """Every (layer, projection) of ``base`` through one ``BaseExecutor``,
+    for each segment set, timed between synchronisations."""
+    weights = {(i, path): (layer[grp][name], None)
+               for i, layer in enumerate(base["layers"])
+               for path, grp, name in PROJECTIONS}
+    ex = BaseExecutor(weights, device=DEV)
+    if any(ex.weights[key][0] is not w for key, (w, _) in weights.items()):
+        raise AssertionError("[phase 6] the executor copied a weight")
+    g = gen(13)
+    for lens in SEGMENTS:
+        segs = {din: [torch.randn((n, din), generator=g, device=DEV)
+                      .to(torch.bfloat16) for n in lens]
+                for din in {w.shape[0] for w, _ in weights.values()}}
+        worst, wall = 0.0, 0.0
+        for key, (w, _) in weights.items():
+            before = launch_count("ragged_linear")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = ex.run_layer(*key, segs[w.shape[0]])
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            n = launch_count("ragged_linear") - before
+            if n != 1:
+                raise AssertionError(f"[phase 6] {key}: {n} ragged-linear "
+                                     "launches, not 1")
+            for s, o in zip(segs[w.shape[0]], outs):
+                worst = max(worst, compare(f"[phase 6] {key}", o,
+                                           frozen_dense(s, w), BF16_TOL))
+        total = sum(lens)
+        budget = _bucket(total)
+        flops = 2 * total * sum(w.numel() for w, _ in weights.values())
+        log(f"[phase 6] base executor, {cfg.name}: {len(weights)} packed "
+            f"projections ({cfg.n_layers} layers x {len(PROJECTIONS)}), "
+            f"segments {list(lens)} = {total} tokens in budget {budget} "
+            f"({-(-total // 128)} of {budget // 128} row tiles live): "
+            f"{wall:.3f} s synchronised, {total * len(weights) / wall:.0f} "
+            f"token-projections/s, {flops / wall / 1e12:.2f} TFLOP/s; max "
+            f"abs err against frozen_dense {worst:.3e} (bf16, {BF16_TOL})")
+    if ex.stats["calls"] != len(SEGMENTS) * len(weights):
+        raise AssertionError(f"[phase 6] executor stats {ex.stats}")
+    log(f"[phase 6] executor stats {ex.stats}")
+
+
+def public_ops():
+    """``kernels.decode_attn`` (dense) and ``kernels.flash_attn`` at phase
+    6's shapes, one launch each, against their plain versions."""
+    q, k, v, pos = dense_inputs(14)
+    cache = list(k.shape)
+    before = launch_count("decode_attn")
+    got = kernels.decode_attn(q, k, v, pos)
+    if launch_count("decode_attn") != before + 1:
+        raise AssertionError("[phase 6] kernels.decode_attn did not launch "
+                             "the dense kernel once")
+    e1 = compare("[phase 6] decode_attn", got,
+                 plain_op(kernels.decode_attn, q, k, v, pos), BF16_TOL)
+    q, k, v = flash_inputs(15)
+    before = launch_count("flash_attn")
+    got = kernels.flash_attn(q, k, v)
+    if launch_count("flash_attn") != before + 1:
+        raise AssertionError("[phase 6] kernels.flash_attn did not launch "
+                             "the flash kernel once")
+    e2 = compare("[phase 6] flash_attn", got,
+                 plain_op(kernels.flash_attn, q, k, v), BF16_TOL)
+    log(f"[phase 6] kernels.decode_attn dense {cache} bf16, pos "
+        f"{pos.tolist()}: max abs err {e1:.3e}; kernels.flash_attn "
+        f"{list(q.shape)} causal: max abs err {e2:.3e} (against the plain "
+        "versions)")
+
+
+def time_unserved(base):
+    """Phase 5 for the kernels of phase 6: its shapes, a granite projection
+    of phase 4's own weights for the ragged linear; and two logged extras,
+    gemma2-27b's windowed prefill and the ragged linear's dead-tile skip."""
+    B, S, H, K, hd = FLASH_SHAPE
+    up = base["layers"][0]["mlp"]["up"]
+    out = {"decode_attn": time_dense_decode(), "flash_attn": time_flash(),
+           "ragged_linear": time_ragged(up, sum(SEGMENTS[0]), 1024)}
+    time_flash(S=2 * S, K=2 * K, window=S)   # gemma2-27b: K=16, window 4096
+    skip = time_ragged(up, sum(SEGMENTS[1]), 2048)["ms"]
+    full = time_ragged(up, 2048, 2048)["ms"]
+    log(f"[phase 5] ragged_linear dead-tile skip at budget 2048: "
+        f"{skip:.4f} ms with {sum(SEGMENTS[1])} live rows against "
+        f"{full:.4f} ms with all 2048 live (L2-cold)")
+    return out
+
+
+PATH6 = ("decode_attn", "flash_attn", "ragged_linear")
+
+
+def phase6(cfg, base):
+    """The base executor and the public ops with every launch count set to
+    0 just before and read just after; returns phase 6's counts of its
+    kernels after checking them: one ragged linear per (pass, layer,
+    projection), one dense decode, one flash, nothing else."""
+    reset_counts()
+    base_executor_path(cfg, base)
+    public_ops()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {n: 0 for n in KERNELS}
+    want.update(decode_attn=1, flash_attn=1, ragged_linear=len(SEGMENTS)
+                * cfg.n_layers * len(PROJECTIONS))
+    if counts != want:
+        raise AssertionError(f"[phase 6] launches {counts}, expected {want}")
+    log(f"[phase 6] launches {counts} (as expected)")
+    return {n: counts[n] for n in PATH6}
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -809,6 +1188,10 @@ def main() -> int:
     check_paged(errs["paged_decode_attn"])
     check_paged_quant(errs["paged_decode_attn_quant"])
     check_sgmv(errs["sgmv"])
+    check_dense(errs["decode_attn"])
+    check_flash(errs["flash_attn"])
+    check_ragged(errs["ragged_linear"])
+    torch.cuda.empty_cache()
     log(f"[phase 2] kernels agree with their plain versions "
         f"({time.perf_counter() - t:.1f} s)")
 
@@ -832,11 +1215,19 @@ def main() -> int:
                "paged_decode_attn_quant": time_decode_attn_quant(
                    cfg, caches_q, lengths_q),
                "sgmv": time_sgmv(bank)}
-    log(f"[phase 5] done ({time.perf_counter() - t:.1f} s); total "
+    del caches, caches_q
+    torch.cuda.empty_cache()
+    timings.update(time_unserved(base))
+    log(f"[phase 5] done ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    launches.update(phase6(cfg, base))
+    log(f"[phase 6] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    # launches: phase 4's counts, and phase 4b's for the int8 kernel (each
-    # the path that runs the kernel, counted from 0 over that path alone)
+    # launches: phase 4's counts, phase 4b's for the int8 kernel and phase
+    # 6's for the kernels no serving path runs (each the path that runs the
+    # kernel, counted from 0 over that path alone)
     summary = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], max_abs_err=max(errs[name]),
                     **timings[name])

@@ -1,4 +1,4 @@
-"""Paged decode attention: the CUDA kernels' launch wrappers and their plain
+"""Decode attention: the CUDA kernels' launch wrappers and their plain
 PyTorch versions.
 
 ``paged_decode_attn_cuda`` launches ``csrc/paged_decode_attn.cu`` (which
@@ -9,10 +9,14 @@ skipping pages outside [pos-window+1, pos], with an fp32 online softmax.
 ``paged_decode_attn_quant_cuda`` launches the same source's int8 variant
 (replacing ``paged_decode_attn_quant_pallas``): int8 pools with f32
 per-head scales [P, blk, K, 1], dequantized page by page as they stream.
-``paged_decode_attn_plain`` and ``paged_decode_attn_quant_plain`` run the
-same blocked math as PyTorch ops, one step per table column over all rows
-at once, like the JAX twin ``_stream`` (``_page_update`` is the per-page
-step of all four).
+``decode_attn_cuda`` launches the same source's dense entry point
+(replacing ``decode_attn_pallas``): the cache is [B, T, K, hd] per row,
+read in chunks of ``DENSE_CHUNK`` tokens, chunks outside [pos-window+1,
+pos] skipped. ``paged_decode_attn_plain``, ``paged_decode_attn_quant_plain``
+and ``decode_attn_plain`` run the same blocked math as PyTorch ops, one step
+per table column (or, dense, per ``block_kv`` chunk) over all rows at once,
+like the JAX twin ``_stream`` (``_page_update`` is the per-page step of all
+six).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -27,6 +32,8 @@ NAME = "paged_decode_attn"
 SOURCE = "src/repro_torch/csrc/paged_decode_attn.cu"
 REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:255"
 QUANT_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:274"
+DENSE_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:102"
+DENSE_CHUNK = 64      # the dense kernel's tokens per chunk (shared memory)
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -83,31 +90,41 @@ def _page_update(q, k, v, ks, vs, t0, p, m, l, acc, *, window: int):
     return m_new, l, acc
 
 
-def _stream(q, pool_k, pool_v, pool_ks, pool_vs, tbl, pos, *, window: int):
-    """One step per table column; each step gathers exactly the pages the
-    column names (ids clamped into [0, P)) and updates the rows for which
-    that page is live."""
-    B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos, pool_ks,
-                                      pool_vs)
+def _online_softmax(q, pos, chunks, *, blk: int, window: int):
+    """The running softmax over ``chunks``, an iterable of (t0, k, v, ks,
+    vs) with k/v [B, blk, K, hd] and ks/vs [B, blk, K] or None: each chunk
+    updates the rows for which it is live (it meets [pos-window+1, pos]).
+    Returns acc / max(l, 1e-30) in q's dtype."""
+    B, K, G, hd = q.shape
     qf = q.float()
     p = pos.long()
     m = torch.full((B, K, G, 1), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, K, G, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, K, G, hd), dtype=torch.float32, device=q.device)
     lo = (p - window + 1) if window else torch.zeros_like(p)
-    for c in range(nb):
-        t0 = c * blk
-        page = tbl[:, c].long().clamp(0, P - 1)
-        ks = pool_ks[page][..., 0] if pool_ks is not None else None
-        vs = pool_vs[page][..., 0] if pool_vs is not None else None
+    for t0, k, v, ks, vs in chunks:
         m_new, l_new, acc_new = _page_update(
-            qf, pool_k[page].float(), pool_v[page].float(), ks, vs, t0, p, m,
-            l, acc, window=window)
+            qf, k.float(), v.float(), ks, vs, t0, p, m, l, acc, window=window)
         live = ((t0 <= p) & (t0 + blk > lo))[:, None, None, None]
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live, acc_new, acc)
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _stream(q, pool_k, pool_v, pool_ks, pool_vs, tbl, pos, *, window: int):
+    """One step per table column; each step gathers exactly the pages the
+    column names (ids clamped into [0, P))."""
+    B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos, pool_ks,
+                                      pool_vs)
+
+    def pages():
+        for c in range(nb):
+            page = tbl[:, c].long().clamp(0, P - 1)
+            ks = pool_ks[page][..., 0] if pool_ks is not None else None
+            vs = pool_vs[page][..., 0] if pool_vs is not None else None
+            yield c * blk, pool_k[page], pool_v[page], ks, vs
+    return _online_softmax(q, pos, pages(), blk=blk, window=window)
 
 
 def paged_decode_attn_plain(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
@@ -122,6 +139,33 @@ def paged_decode_attn_quant_plain(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
                    window=window)
 
 
+def _dense_shapes(q, k, v, pos):
+    B, K, G, hd = q.shape
+    if k.ndim != 4 or k.shape[0] != B or k.shape[2:] != (K, hd) \
+            or v.shape != k.shape or k.shape[1] < 1:
+        raise ValueError(f"dense decode attention: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if pos.shape != (B,):
+        raise ValueError(f"dense decode attention: pos {tuple(pos.shape)} "
+                         f"needs {B} rows")
+    return B, K, G, hd, k.shape[1]
+
+
+def decode_attn_plain(q, k, v, pos, *, block_kv: int, window: int = 0):
+    """Plain version of ``decode_attn_cuda`` with the TPU kernel's blocks:
+    chunks of ``block_kv`` tokens over a dense cache [B, T, K, hd], the last
+    one zero-padded as the JAX wrapper pads (its pad positions lie past
+    every pos, so they are masked)."""
+    B, K, G, hd, T = _dense_shapes(q, k, v, pos)
+    pad = (-T) % block_kv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    chunks = ((t0, k[:, t0:t0 + block_kv], v[:, t0:t0 + block_kv], None,
+               None) for t0 in range(0, T + pad, block_kv))
+    return _online_softmax(q, pos, chunks, blk=block_kv, window=window)
+
+
 def _check_launch(q, pools, tbl, pos, what):
     """The kernel's dtype code for q; raises unless every tensor is on q's
     CUDA device and q and the pools are contiguous."""
@@ -129,7 +173,8 @@ def _check_launch(q, pools, tbl, pos, what):
     if dtype is None:
         raise TypeError(f"{what}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
-    if not all(t.is_cuda and t.device == q.device for t in (*pools, tbl, pos)):
+    if not all(t.is_cuda and t.device == q.device
+               for t in (*pools, tbl, pos) if t is not None):
         raise ValueError(f"{what}: all tensors must be on one CUDA device")
     if not all(t.is_contiguous() for t in (q, *pools)):
         raise ValueError(f"{what}: q and pools must be contiguous")
@@ -192,9 +237,37 @@ def paged_decode_attn_quant_cuda(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
 paged_decode_attn_quant_cuda.launches = 0
 
 
+def decode_attn_cuda(q, k, v, pos, *, window: int = 0):
+    """Launch the dense kernel: one block per (row, KV head), the row's
+    cache [T, K, hd] walked in chunks of ``DENSE_CHUNK`` tokens."""
+    B, K, G, hd, T = _dense_shapes(q, k, v, pos)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"dense decode attention: q/k/v must share float32 "
+                        f"or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    dtype = _check_launch(q, (k, v), None, pos, "dense decode attention")
+    pos = pos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _build.load(NAME, _bind)
+    err = lib.decode_attn_dense(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), B, K, G, hd, T, DENSE_CHUNK, window,
+        1.0 / math.sqrt(hd), dtype, _build.stream_ptr(q))
+    _build.check(lib, err, "dense decode attention")
+    decode_attn_cuda.launches += 1
+    return out
+
+
+decode_attn_cuda.launches = 0
+
+
 def _bind(lib):
     tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.paged_decode_attn.argtypes = [ctypes.c_void_p] * 6 + tail
     lib.paged_decode_attn.restype = ctypes.c_int
     lib.paged_decode_attn_quant.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.paged_decode_attn_quant.restype = ctypes.c_int
+    lib.decode_attn_dense.argtypes = ([ctypes.c_void_p] * 5
+                                      + [ctypes.c_int] * 7
+                                      + [ctypes.c_float, ctypes.c_int,
+                                         ctypes.c_void_p])
+    lib.decode_attn_dense.restype = ctypes.c_int

@@ -1,7 +1,7 @@
 """Public SGMV op: dispatch by device (see ``repro_torch.kernels``)."""
 from __future__ import annotations
 
-from repro_torch.kernels import launches_kernel
+from repro_torch.kernels._dispatch import launches_kernel
 from repro_torch.kernels.sgmv.sgmv import sgmv_cuda, sgmv_plain
 
 

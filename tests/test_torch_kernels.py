@@ -1,13 +1,16 @@
-"""PyTorch port vs the JAX reference: the ported kernels (paged decode
-attention over bf16/fp32 and over int8 pools, SGMV) and the int8 K/V
-quantizer.
+"""PyTorch port vs the JAX reference: the ported kernels (decode attention
+over a dense cache, paged over bf16/fp32 and over int8 pools, SGMV), the
+int8 K/V quantizer and the kernel package's public names.
 
 On the CPU the port's ops run their plain versions and the JAX ops run
-their jnp stream twins (``interpret=None``), so this holds the port's
-blocked math against the reference's at atol = rtol = 1e-5 (fp32; the two
-frameworks sum in different orders). The CUDA kernels themselves are held
+their jnp stream twins (``interpret=None``; the dense decode op runs its
+Pallas kernel in interpret mode), so this holds the port's blocked math
+against the reference's at atol = rtol = 1e-5 (fp32; the two frameworks
+sum in different orders). The CUDA kernels themselves are held
 against these plain versions on the card by ``chip_smoke.py``.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,11 +22,17 @@ from repro.kernels.decode_attn.decode_attn import (
 from repro.kernels.decode_attn.ref import decode_attn_ref as jax_decode_ref
 from repro.kernels.sgmv import sgmv as jax_sgmv
 from repro.kernels.sgmv import sgmv_ref as jax_sgmv_ref
+import repro.kernels as jax_kernels
 from repro.models.blocks import quantize_head as jax_quantize_head
+import repro_torch.kernels as port_kernels
 from repro_torch import convert
-from repro_torch.kernels import decode_attn as port_da
-from repro_torch.kernels import sgmv as port_sgmv
 from repro_torch.models.blocks import quantize_head
+
+# the subpackages (``repro_torch.kernels.decode_attn`` as an attribute is
+# the op, as in the JAX package)
+port_da = importlib.import_module("repro_torch.kernels.decode_attn")
+port_sgmv = importlib.import_module("repro_torch.kernels.sgmv")
+da_mod = importlib.import_module("repro_torch.kernels.decode_attn.decode_attn")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SENTINEL = 1 << 30
@@ -100,6 +109,99 @@ def test_plain_paged_matches_oracle():
     want = port_da.decode_attn_ref(*args, torch.from_numpy(pos), window=9,
                                    block_tbl=torch.from_numpy(tbl))
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# dense caches: (B, T, K, G, hd, block_kv, window, pos); T = 32 divides the
+# block, T = 40 makes ``_dense_block_kv`` shrink it to 10, T = 37 (prime)
+# pads it to 48; pos -1 (nothing to attend) and T - 1 (the whole cache)
+DENSE_CASES = {
+    "divides": (3, 32, 2, 2, 16, 16, 0, [0, 17, 31]),
+    "divides_window": (3, 32, 2, 2, 16, 16, 9, [4, 20, 31]),
+    "shrinks_40_to_10": (2, 40, 2, 4, 16, 16, 0, [39, 12]),
+    "shrinks_window": (2, 40, 1, 4, 16, 16, 13, [39, 25]),
+    "prime_pads": (3, 37, 2, 2, 16, 16, 0, [36, 0, 20]),
+    "prime_pads_window": (2, 37, 2, 1, 32, 16, 7, [36, 30]),
+    "pos_minus_one": (3, 32, 2, 2, 16, 16, 0, [-1, 31, -1]),
+    "granite_heads": (2, 24, 8, 4, 128, 512, 0, [23, 5]),
+}
+
+
+def _dense_case(B, T, K, G, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, K, G, hd)).astype(np.float32)
+    k = rng.standard_normal((B, T, K, hd)).astype(np.float32)
+    v = rng.standard_normal((B, T, K, hd)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_decode_attn_matches_reference(name):
+    B, T, K, G, hd, bkv, window, pos = DENSE_CASES[name]
+    q, k, v = _dense_case(B, T, K, G, hd, seed=len(name))
+    pos = np.asarray(pos, np.int32)
+    want = np.asarray(jax_decode_attn(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        block_kv=bkv, window=window))
+    got = port_da.decode_attn(*(torch.from_numpy(a) for a in (q, k, v, pos)),
+                              block_kv=bkv, window=window).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    dead = pos < 0            # nothing to attend: exact zeros, as the kernel
+    assert not got[dead].any() and not want[dead].any()
+    live = ~dead
+    np.testing.assert_allclose(got[live], np.asarray(jax_decode_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        window=window))[live], **TOL)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_dense_decode_attn_ref_matches_reference_ref(window):
+    """pos = -1 included: the oracle's full softmax over all-masked scores
+    is the mean of V (the op's kernel gives zeros there)."""
+    q, k, v = _dense_case(3, 20, 2, 2, 16, seed=4)
+    pos = np.asarray([19, -1, 7], np.int32)
+    want = np.asarray(jax_decode_ref(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(pos),
+                                     window=window))
+    got = port_da.decode_attn_ref(*(torch.from_numpy(a)
+                                    for a in (q, k, v, pos)),
+                                  window=window).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.abs(got[1]).max() > 0
+
+
+def test_dense_bf16_matches_reference():
+    q, k, v = _dense_case(2, 40, 2, 4, 32, seed=5)
+    pos = np.asarray([39, 11], np.int32)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jax_decode_attn(*bf, jnp.asarray(pos), block_kv=16))
+    got = port_da.decode_attn(*(convert.tensor_from_numpy(np.asarray(a), "cpu")
+                                for a in bf), torch.from_numpy(pos),
+                              block_kv=16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_dense_chunks_do_not_change_the_result():
+    """The CUDA kernel's chunk is its own (``DENSE_CHUNK``): chunking
+    changes only the summation order."""
+    q, k, v = (torch.from_numpy(a) for a in _dense_case(3, 37, 2, 2, 16, 6))
+    pos = torch.tensor([36, 3, 20], dtype=torch.int32)
+    a = port_da.decode_attn_plain(q, k, v, pos, block_kv=8, window=11)
+    b = port_da.decode_attn_plain(q, k, v, pos, block_kv=da_mod.DENSE_CHUNK,
+                                  window=11)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+def test_kernels_export_the_reference_public_names():
+    public = {n for n in dir(jax_kernels) if not n.startswith("_")
+              and callable(getattr(jax_kernels, n))}
+    assert public == {"sgmv", "sgmv_ref", "ragged_linear",
+                      "ragged_linear_ref", "decode_attn", "decode_attn_ref",
+                      "flash_attn", "flash_attn_ref"}
+    for name in public:
+        assert callable(getattr(port_kernels, name)), name
+    assert port_kernels.decode_attn is port_da.decode_attn
 
 
 # int8 pools: the paged cases, and one with G = 1 (a KV head per query head)
@@ -254,7 +356,8 @@ def test_cpu_tensors_never_launch():
     """A CPU tensor runs the plain version: the launch counts stay put."""
     before = (port_sgmv.sgmv_cuda.launches,
               port_da.paged_decode_attn_cuda.launches,
-              port_da.paged_decode_attn_quant_cuda.launches)
+              port_da.paged_decode_attn_quant_cuda.launches,
+              port_da.decode_attn_cuda.launches)
     x, A, B = _sgmv_case(2, 16, 2, 8, 2, seed=1)
     port_sgmv.sgmv(torch.from_numpy(x), torch.from_numpy(A),
                    torch.from_numpy(B), torch.tensor([0, 1], dtype=torch.int32),
@@ -267,9 +370,13 @@ def test_cpu_tensors_never_launch():
                         block_tbl=torch.from_numpy(tbl),
                         k_scale=torch.from_numpy(ks),
                         v_scale=torch.from_numpy(vs))
+    q, k, v = _dense_case(2, 12, 1, 2, 16, seed=1)
+    port_da.decode_attn(*(torch.from_numpy(a) for a in (q, k, v)),
+                        torch.tensor([11, -1], dtype=torch.int32))
     assert (port_sgmv.sgmv_cuda.launches,
             port_da.paged_decode_attn_cuda.launches,
-            port_da.paged_decode_attn_quant_cuda.launches) == before
+            port_da.paged_decode_attn_quant_cuda.launches,
+            port_da.decode_attn_cuda.launches) == before
 
 
 def test_bad_shapes_raise():
@@ -302,4 +409,26 @@ def test_quant_wrapper_refuses_what_the_kernel_does_not_take():
         launch(q.half(), pk, ks, pv, vs, tbl, pos)
     with pytest.raises(ValueError, match="one CUDA device"):
         launch(q, pk, ks, pv, vs, tbl, pos)
+    assert launch.launches == 0
+
+
+def test_dense_wrapper_refuses_what_the_kernel_does_not_take():
+    """The dense launch wrapper checks before it builds or launches:
+    matching shapes, one fp32/bf16 dtype, one CUDA device (a CPU tensor
+    handed to it raises instead of running anywhere); int8 scales need the
+    paged layout."""
+    q, k, v = (torch.from_numpy(a) for a in _dense_case(2, 12, 1, 2, 16, 1))
+    pos = torch.tensor([11, 3], dtype=torch.int32)
+    launch = port_da.decode_attn_cuda
+    with pytest.raises(ValueError, match="do not match"):
+        launch(q, k[:, :, :, :8], v, pos)
+    with pytest.raises(ValueError, match="needs 2 rows"):
+        launch(q, k, v, pos[:1])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch(q, k.bfloat16(), v, pos)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        launch(q, k, v, pos)
+    with pytest.raises(ValueError, match="paged layout"):
+        port_da.decode_attn(q, k, v, pos, k_scale=k[..., :1],
+                            v_scale=v[..., :1])
     assert launch.launches == 0

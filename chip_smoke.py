@@ -14,14 +14,23 @@ exits non-zero and prints no result. Phases, each raising on failure:
    scales; SGMV din 4096, dout 4096/1024, rank 8, including the inputs
    ``sgmv_pallas`` accepts: ids in range or negative), fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
-   fp32 on the same bf16 inputs; and so the kernels no serving path runs: dense decode attention at
-   granite's K=8, G=4, hd=128 over T=4096 (one row at pos -1, whose
-   output must be exact zeros; one case with a window) and a prime T;
-   flash attention at granite's H=32, K=8 (S=T=2048 causal, and
-   non-causal cross S=512/T=2048), gemma2-27b's H=32, K=16 with its 4096
-   window at S=T=8192, and S > T with rows that see no key; the ragged
-   linear at din 4096 / dout 12800 with a bias, n_live 1001 of 1024 and
-   700 of 2048 (a live count on the card), rows past it exact +0.0;
+   fp32 on the same bf16 inputs; and so the kernels no serving path
+   runs: dense decode attention (split-KV and a combine) at granite's
+   K=8, G=4, hd=128 over T=4096 (one row at pos -1, whose output must be
+   exact zeros; one case with a window), a prime T, T=32,768 in one row
+   (128 splits) and a window whose edge cuts a split; flash attention at
+   granite's H=32, K=8 (S=T=2048 causal, and non-causal cross
+   S=512/T=2048), gemma2-27b's H=32, K=16 with its 4096 window at
+   S=T=8192, and S > T with rows that see no key; the ragged linear, rows
+   past the live count exact +0.0, each launch's entry point checked by
+   its counter: bf16 on the tensor cores at din 4096 / dout 12800 with a
+   bias (n_live 1001 of 1024, and 700 of 2048 counted on the card), at
+   4096 / 4096 with 1030 of 2048 live (each of the kernel's three tile
+   widths runs), at edges no tile divides (1000 x 4104 x 1000, 999 live),
+   at n_live 0, and
+   on a column view of a granite ``up`` weight at offset 1024; bf16 on the
+   SIMT kernel at 1000 x 4100 x 1001 and on the view at offset 4; every
+   fp32 case on the SIMT kernel;
 3. model wiring: granite-3-8b at full width, 2 layers, bf16 and int8
    caches, one compacted prefill and one decode step with the kernels and
    under ``blocks.plain_kernels()``, logits compared at 2e-2; the kernel
@@ -40,17 +49,21 @@ exits non-zero and prints no result. Phases, each raising on failure:
    token per request as phase 4, the router's ledger conserved and empty
    after the drain; the same 8-row tick profile, beside phase 4's;
 5. timings at the phase-4, 4b and 6 shapes: kernel (L2-cold and L2-warm),
-   plain version, a library yardstick and the memory/compute bound;
+   plain version, a library yardstick and the memory/compute bound; each
+   granite-shape ragged-linear launch must take the tensor cores;
 6. the slice without a serving path: the port's public kernel ops and
    the §3.7 packed base executor. A ``BaseExecutor`` over phase 4's own
    granite-3-8b weights (40 layers x 7 projections, held as views) runs
    every (layer, projection) for 4 clients' bf16 segments of 37, 200, 64
    and 700 tokens (budget 1024), then of 1,030 tokens (budget 2048, past
    the live count 7 of 16 row tiles are dead): exactly one ragged-linear
-   launch per call, every output held against ``frozen_dense`` at 2e-2;
-   then ``kernels.decode_attn`` on a dense [8, 4096, 8, 128] bf16 cache
-   and ``kernels.flash_attn`` on [1, 4096, 32, 128] causal, one launch
-   each, held against their plain versions.
+   launch per call, on the tensor cores, every output held against
+   ``frozen_dense`` at 2e-2, the pass timed between synchronisations; each
+   pass runs again traced by torch.profiler (device activity only) for
+   its device time in the ragged-linear kernels; then
+   ``kernels.decode_attn`` on a dense [8, 4096, 8, 128] bf16 cache (two
+   launches: split and combine) and ``kernels.flash_attn`` on
+   [1, 4096, 32, 128] causal (one), held against their plain versions.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -102,7 +115,7 @@ KERNELS = {   # name: (launch wrapper, source, the TPU kernel it replaces)
     "paged_decode_attn_quant": (da.paged_decode_attn_quant_cuda, da.SOURCE,
                                 da.QUANT_REPLACES),
     "sgmv": (sg.sgmv_cuda, sg.SOURCE, sg.REPLACES),
-    "decode_attn": (da.decode_attn_cuda, da.SOURCE, da.DENSE_REPLACES),
+    "decode_attn": (da.decode_attn_cuda, da.DENSE_SOURCE, da.DENSE_REPLACES),
     "flash_attn": (fa.flash_attn_cuda, fa.SOURCE, fa.REPLACES),
     "ragged_linear": (rl.ragged_linear_cuda, rl.SOURCE, rl.REPLACES),
 }
@@ -111,6 +124,8 @@ KERNELS = {   # name: (launch wrapper, source, the TPU kernel it replaces)
 def reset_counts():
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
+    for entry in rl.ragged_linear_cuda.by_entry:
+        rl.ragged_linear_cuda.by_entry[entry] = 0
 
 
 def read_counts():
@@ -278,6 +293,8 @@ DENSE_CASES = {   # (B, T, window, pos): granite K=8, G=4, hd=128
     "granite_T4096": (4, 4096, 0, [-1, 0, 2047, 4095]),
     "granite_T4096_window": (4, 4096, 1000, [100, 1500, 4095, 999]),
     "granite_T4093_prime": (2, 4093, 0, [4092, 77]),
+    "granite_B1_T32768_many_splits": (1, 32768, 0, [32767]),
+    "granite_window_cuts_a_split": (2, 4096, 300, [700, 4095]),
 }
 
 
@@ -336,15 +353,46 @@ def check_flash(errs):
             del got, want
 
 
-RAGGED_CASES = {  # (budget, din, dout, n_live, live count on the card)
-    "granite_up_1001_of_1024": (1024, 4096, 12800, 1001, False),
-    "granite_up_700_of_2048": (2048, 4096, 12800, 700, True),
-    "no_tile_divides": (1000, 4100, 1001, 999, True),
+RAGGED_CASES = {  # (budget, din, dout, n_live, live count on the card,
+    #                bf16 entry point; fp32 always takes the SIMT one). The
+    #                tensor-core cases cover its three tile widths: 256 (up),
+    #                128 (o at 1,030 of 2,048), 64 (the last two)
+    "granite_up_1001_of_1024": (1024, 4096, 12800, 1001, False, rl.WGMMA),
+    "granite_up_700_of_2048": (2048, 4096, 12800, 700, True, rl.WGMMA),
+    "granite_o_1030_of_2048": (2048, 4096, 4096, 1030, False, rl.WGMMA),
+    "tc_no_tile_divides": (1000, 4104, 1000, 999, True, rl.WGMMA),
+    "n_live_0": (256, 4096, 4096, 0, True, rl.WGMMA),
+    "simt_no_tile_divides": (1000, 4100, 1001, 999, True, rl.SIMT),
 }
+UP_VIEW = (1024, 4096, 1001)  # budget, view columns, n_live: a column view
+#                               of granite's up [4096, 12800] at offset 1024
+
+
+def check_ragged_case(name, x, w, b, n, n_live, want_entry, errs):
+    """One launch against the plain version in fp32 on the same inputs;
+    the entry point it took (by its counter) must be ``want_entry``."""
+    before = dict(rl.ragged_linear_cuda.by_entry)
+    got = rl.ragged_linear_cuda(x, w, b, n_live)
+    took = [e for e, c in rl.ragged_linear_cuda.by_entry.items()
+            if c != before[e]]
+    if took != [want_entry]:
+        raise AssertionError(f"ragged_linear {name} {x.dtype}: took {took}, "
+                             f"not {want_entry}")
+    want = plain_op(kernels.ragged_linear, x, w, b, n_live)
+    torch.cuda.synchronize()
+    tol = F32_TOL if x.dtype == torch.float32 else BF16_TOL
+    e = compare(f"ragged_linear {name} {x.dtype}", got, want, tol)
+    tail = got[n:]
+    if tail.any() or torch.signbit(tail).any():
+        raise AssertionError(f"ragged_linear {name}: rows past n_live are "
+                             "not exact +0.0")
+    errs.append(e)
+    log(f"[phase 2] ragged_linear {name:24s} {str(x.dtype):15s} "
+        f"{want_entry:5s} max_abs_err={e:.3e}")
 
 
 def check_ragged(errs):
-    for i, (name, (budget, din, dout, n, on_card)) in enumerate(
+    for i, (name, (budget, din, dout, n, on_card, entry)) in enumerate(
             RAGGED_CASES.items()):
         g = gen(700 + i)
         x = torch.randn((budget, din), generator=g, device=DEV)
@@ -353,19 +401,19 @@ def check_ragged(errs):
         b = torch.randn((dout,), generator=g, device=DEV) * 0.1
         n_live = torch.tensor(n, dtype=torch.int32, device=DEV) if on_card \
             else n
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            xd, wd, bd = (t.to(dtype) for t in (x, w, b))
-            got = rl.ragged_linear_cuda(xd, wd, bd, n_live)
-            want = plain_op(kernels.ragged_linear, xd, wd, bd, n_live)
-            torch.cuda.synchronize()
-            e = compare(f"ragged_linear {name} {dtype}", got, want, tol)
-            tail = got[n:]
-            if tail.any() or torch.signbit(tail).any():
-                raise AssertionError(f"ragged_linear {name}: rows past "
-                                     "n_live are not exact +0.0")
-            errs.append(e)
-            log(f"[phase 2] ragged_linear {name:24s} {str(dtype):15s} "
-                f"max_abs_err={e:.3e}")
+        for dtype in (torch.float32, torch.bfloat16):
+            check_ragged_case(name, *(t.to(dtype) for t in (x, w, b)), n,
+                              n_live, entry if dtype == torch.bfloat16
+                              else rl.SIMT, errs)
+    budget, cols, n = UP_VIEW
+    g = gen(750)
+    up = ((torch.rand((4096, 12800), generator=g, device=DEV) * 2 - 1) / 64) \
+        .to(torch.bfloat16)
+    x = torch.randn((budget, 4096), generator=g, device=DEV)
+    for off, entry in ((1024, rl.WGMMA), (4, rl.SIMT)):
+        w = up[:, off:off + cols]
+        check_ragged_case(f"up_view_at_{off}", x.to(torch.bfloat16), w, None,
+                          n, n, entry, errs)
 
 
 # ---------------------------------------------------------------------------
@@ -742,9 +790,8 @@ def time_ms(fn, n=30, warmup=3, l2_cold=True):
 def bound(nbytes, flops):
     """The least time for the work: bytes over the H100's HBM rate, or its
     operations over the dense bf16 tensor-core peak, whichever is larger
-    (the kernels do their arithmetic in fp32 on the CUDA cores, so the
-    operations bound is optimistic; every attention and SGMV case here is
-    bound by bytes by a wide margin)."""
+    (every attention and SGMV case here is bound by bytes by a wide margin;
+    the bf16 ragged linear, on ``wgmma``, by operations)."""
     b_ms = nbytes / H100.hbm_bandwidth * 1e3
     f_ms = flops / H100.peak_flops_bf16 * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
@@ -1025,12 +1072,21 @@ def time_ragged(w, n_live, budget):
     x = torch.randn((budget, din), generator=g, device=DEV).to(w.dtype)
     b = torch.zeros((dout,), dtype=w.dtype, device=DEV)
     nbytes = 2 * (n_live * din + din * dout + budget * dout)
-    return timing_fields(
+    before = dict(rl.ragged_linear_cuda.by_entry)
+    out = timing_fields(
         "ragged_linear", lambda: rl.ragged_linear_cuda(x, w, None, n_live),
         lambda: plain_call(kernels.ragged_linear, x, w, None, n_live),
         lambda: torch.addmm(b, x, w), nbytes, 2 * n_live * din * dout,
         f"buf [{budget},{din}] @ w [{din},{dout}], n_live {n_live}",
         rows=n_live)
+    took = {e: c - before[e] for e, c in rl.ragged_linear_cuda.by_entry.items()}
+    if took[rl.SIMT] or not took[rl.WGMMA]:
+        raise AssertionError(f"[phase 5] ragged_linear at a granite shape "
+                             f"took the entry points {took}")
+    log(f"[phase 5] ragged_linear {budget}x{din}x{dout}: every launch on the "
+        f"tensor cores ({took[rl.WGMMA]}); {out['ms'] / out['library_ms']:.2f}x "
+        f"addmm, {2 * n_live * din * dout / out['ms'] / 1e9:.1f} TFLOP/s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1043,9 +1099,38 @@ PROJECTIONS = (("q", "attn", "wq"), ("k", "attn", "wk"), ("v", "attn", "wv"),
 SEGMENTS = ((37, 200, 64, 700), (37, 200, 64, 729))   # 1,001 and 1,030 tokens
 
 
+def ragged_device_ms(fn):
+    """Run ``fn`` once traced by torch.profiler (device activity only):
+    (device ms in the ragged-linear kernels, their count, all device ms,
+    traced wall s between synchronisations, the other kernels' (ms, count,
+    name) by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in kern if "ragged_linear" in e.name]
+    others = {}
+    for e in kern:
+        if "ragged_linear" not in e.name:
+            ms, n = others.get(e.name, (0.0, 0))
+            others[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(((ms, n, name) for name, (ms, n) in others.items()),
+                 reverse=True)
+    return (sum(e.time_range.elapsed_us() for e in mine) / 1e3, len(mine),
+            sum(e.time_range.elapsed_us() for e in kern) / 1e3, wall, top)
+
+
 def base_executor_path(cfg, base):
     """Every (layer, projection) of ``base`` through one ``BaseExecutor``,
-    for each segment set, timed between synchronisations."""
+    for each segment set: a pass timed between synchronisations, every
+    call one launch on the tensor-core entry point and every output held
+    against ``frozen_dense``; then the same pass again, traced, for the
+    device time in the ragged-linear kernels."""
     weights = {(i, path): (layer[grp][name], None)
                for i, layer in enumerate(base["layers"])
                for path, grp, name in PROJECTIONS}
@@ -1053,22 +1138,24 @@ def base_executor_path(cfg, base):
     if any(ex.weights[key][0] is not w for key, (w, _) in weights.items()):
         raise AssertionError("[phase 6] the executor copied a weight")
     g = gen(13)
+    by_entry = rl.ragged_linear_cuda.by_entry
     for lens in SEGMENTS:
         segs = {din: [torch.randn((n, din), generator=g, device=DEV)
                       .to(torch.bfloat16) for n in lens]
                 for din in {w.shape[0] for w, _ in weights.values()}}
         worst, wall = 0.0, 0.0
         for key, (w, _) in weights.items():
-            before = launch_count("ragged_linear")
+            before = dict(by_entry)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs = ex.run_layer(*key, segs[w.shape[0]])
             torch.cuda.synchronize()
             wall += time.perf_counter() - t0
-            n = launch_count("ragged_linear") - before
-            if n != 1:
-                raise AssertionError(f"[phase 6] {key}: {n} ragged-linear "
-                                     "launches, not 1")
+            took = {e: c - before[e] for e, c in by_entry.items()}
+            if took != {rl.WGMMA: 1, rl.SIMT: 0}:
+                raise AssertionError(f"[phase 6] {key}: ragged-linear "
+                                     f"launches {took}, not one on the "
+                                     "tensor cores")
             for s, o in zip(segs[w.shape[0]], outs):
                 worst = max(worst, compare(f"[phase 6] {key}", o,
                                            frozen_dense(s, w), BF16_TOL))
@@ -1081,22 +1168,40 @@ def base_executor_path(cfg, base):
             f"({-(-total // 128)} of {budget // 128} row tiles live): "
             f"{wall:.3f} s synchronised, {total * len(weights) / wall:.0f} "
             f"token-projections/s, {flops / wall / 1e12:.2f} TFLOP/s; max "
-            f"abs err against frozen_dense {worst:.3e} (bf16, {BF16_TOL})")
-    if ex.stats["calls"] != len(SEGMENTS) * len(weights):
+            f"abs err against frozen_dense {worst:.3e} (bf16, {BF16_TOL}); "
+            "every launch on the tensor cores")
+
+        def again():
+            for key, (w, _) in weights.items():
+                ex.run_layer(*key, segs[w.shape[0]])
+        dev_ms, n, all_ms, traced, top = ragged_device_ms(again)
+        if n != len(weights):
+            raise AssertionError(f"[phase 6] traced pass: {n} ragged-linear "
+                                 f"kernels, not {len(weights)}")
+        log(f"[phase 6]   traced again: {dev_ms:.3f} ms of device time in "
+            f"{n} ragged-linear kernels ({flops / dev_ms / 1e9:.1f} TFLOP/s) "
+            f"and {all_ms:.3f} ms in all kernels, against {wall * 1e3:.3f} "
+            f"ms synchronised unprofiled ({traced * 1e3:.3f} ms traced): the "
+            f"host holds {100 * (1 - all_ms / (wall * 1e3)):.1f}% of the "
+            "unprofiled pass; the other kernels by device time:")
+        for ms, count, name in top[:4]:
+            log(f"[phase 6]     {ms:8.3f} ms  {count:5d}x  {name[:90]}")
+    if ex.stats["calls"] != 2 * len(SEGMENTS) * len(weights):
         raise AssertionError(f"[phase 6] executor stats {ex.stats}")
     log(f"[phase 6] executor stats {ex.stats}")
 
 
 def public_ops():
-    """``kernels.decode_attn`` (dense) and ``kernels.flash_attn`` at phase
-    6's shapes, one launch each, against their plain versions."""
+    """``kernels.decode_attn`` (dense: two launches, split and combine) and
+    ``kernels.flash_attn`` (one) at phase 6's shapes, against their plain
+    versions."""
     q, k, v, pos = dense_inputs(14)
     cache = list(k.shape)
     before = launch_count("decode_attn")
     got = kernels.decode_attn(q, k, v, pos)
-    if launch_count("decode_attn") != before + 1:
+    if launch_count("decode_attn") != before + 2:
         raise AssertionError("[phase 6] kernels.decode_attn did not launch "
-                             "the dense kernel once")
+                             "the dense split and combine kernels once each")
     e1 = compare("[phase 6] decode_attn", got,
                  plain_op(kernels.decode_attn, q, k, v, pos), BF16_TOL)
     q, k, v = flash_inputs(15)
@@ -1137,18 +1242,23 @@ def phase6(cfg, base):
     """The base executor and the public ops with every launch count set to
     0 just before and read just after; returns phase 6's counts of its
     kernels after checking them: one ragged linear per (pass, layer,
-    projection), one dense decode, one flash, nothing else."""
+    projection), two passes (timed, traced) per segment set, all on the
+    tensor cores; two dense decode launches (split, combine), one flash,
+    nothing else."""
     reset_counts()
     base_executor_path(cfg, base)
     public_ops()
     torch.cuda.synchronize()
     counts = read_counts()
     want = {n: 0 for n in KERNELS}
-    want.update(decode_attn=1, flash_attn=1, ragged_linear=len(SEGMENTS)
+    want.update(decode_attn=2, flash_attn=1, ragged_linear=2 * len(SEGMENTS)
                 * cfg.n_layers * len(PROJECTIONS))
-    if counts != want:
-        raise AssertionError(f"[phase 6] launches {counts}, expected {want}")
-    log(f"[phase 6] launches {counts} (as expected)")
+    entries = dict(rl.ragged_linear_cuda.by_entry)
+    if counts != want or entries[rl.SIMT]:
+        raise AssertionError(f"[phase 6] launches {counts} ({entries}), "
+                             f"expected {want}, none on the SIMT entry")
+    log(f"[phase 6] launches {counts} (as expected; ragged_linear by entry "
+        f"point {entries})")
     return {n: counts[n] for n in PATH6}
 
 

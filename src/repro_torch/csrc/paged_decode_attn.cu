@@ -1,16 +1,10 @@
-// Single-query GQA decode attention for Hopper (sm_90a): paged over bf16/fp32
-// pools, paged over int8 pools with per-head f32 scales, and over a dense
-// [B, T, K, hd] cache.
+// Paged single-query GQA decode attention for Hopper (sm_90a), over bf16/fp32
+// pools and over int8 pools with per-head f32 scales.
 //
 // Replaces the TPU kernels src/repro/kernels/decode_attn/decode_attn.py:255
 // paged_decode_attn_pallas (_paged_kernel :168) and :274
 // paged_decode_attn_quant_pallas (_paged_quant_kernel :204); both share the
 // per-page math _page_update (:142), and here both share one templated body.
-// The dense entry point replaces :102 decode_attn_pallas (_da_kernel :52): the
-// same body with dense addressing (kDense), chunk c of row b being tokens
-// [c*blk, c*blk + blk) of the row's own cache; the chunk size is the card's
-// choice (the TPU's block_kv of 512 x hd 128 for K and V in fp32 is 512 KB,
-// more than shared memory holds), and positions past T are masked.
 // The TPU grid (row b, table column c) walked the KV axis sequentially with
 // the running softmax state in VMEM scratch. Blocks of a CUDA grid run in
 // no order, so the column axis becomes a loop inside the block: one block
@@ -58,20 +52,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// TQ: q and out; TKV: pool entries; kQuant: int8 entries with f32 scales;
-// kDense: pool_k/pool_v are dense caches [B, T, K, hd] read in chunks of blk
-// (tbl unused), not page pools
-template <typename TQ, typename TKV, bool kQuant, bool kDense>
+// TQ: q and out; TKV: pool entries; kQuant: int8 entries with f32 scales
+template <typename TQ, typename TKV, bool kQuant>
 __global__ void __launch_bounds__(kThreads) paged_decode_attn_kernel(
     const TQ* __restrict__ q,           // [B, K, G, hd]
-    const TKV* __restrict__ pool_k,     // [P, blk, K, hd] (kDense: [B, T, K, hd])
+    const TKV* __restrict__ pool_k,     // [P, blk, K, hd]
     const float* __restrict__ pool_ks,  // [P, blk, K, 1] (kQuant only)
     const TKV* __restrict__ pool_v,     // [P, blk, K, hd]
     const float* __restrict__ pool_vs,  // [P, blk, K, 1] (kQuant only)
     const int32_t* __restrict__ tbl,    // [B, nb]
     const int32_t* __restrict__ pos,    // [B] last valid position
     TQ* __restrict__ out,               // [B, K, G, hd]
-    int K, int G, int hd, int P, int blk, int nb, int T, int window, float scale) {
+    int K, int G, int hd, int P, int blk, int nb, int window, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, k = blockIdx.y;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -104,30 +96,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attn_kernel(
   for (int c = 0; c < nb; ++c) {
     const int t0 = c * blk;
     if (!(t0 <= p && t0 + blk > lo)) continue;  // dead page: never read
-    size_t base;
-    int n_t = blk;  // tokens of this page or chunk that exist
-    int page = 0;
-    if constexpr (kDense) {
-      base = ((size_t)b * T + t0) * tstride + (size_t)k * hd;
-      n_t = min(blk, T - t0);
-    } else {
-      page = tbl[(size_t)b * nb + c];
-      page = page < 0 ? 0 : (page >= P ? P - 1 : page);
-      base = (size_t)page * blk * tstride + (size_t)k * hd;
-    }
-    if constexpr (kDense) {  // a chunk may run past T: zeros there
-      for (int i = tid; i < blk * hd; i += nt) {
-        const int t = i / hd, d = i - t * hd;
-        const bool in = t < n_t;
-        k_s[t * ldk + d] = in ? to_f(pool_k[base + t * tstride + d]) : 0.f;
-        v_s[t * hd + d] = in ? to_f(pool_v[base + t * tstride + d]) : 0.f;
-      }
-    } else {  // a page is whole
-      for (int i = tid; i < blk * hd; i += nt) {
-        const int t = i / hd, d = i - t * hd;
-        k_s[t * ldk + d] = to_f(pool_k[base + t * tstride + d]);
-        v_s[t * hd + d] = to_f(pool_v[base + t * tstride + d]);
-      }
+    int page = tbl[(size_t)b * nb + c];
+    page = page < 0 ? 0 : (page >= P ? P - 1 : page);
+    const size_t base = (size_t)page * blk * tstride + (size_t)k * hd;
+    for (int i = tid; i < blk * hd; i += nt) {
+      const int t = i / hd, d = i - t * hd;
+      k_s[t * ldk + d] = to_f(pool_k[base + t * tstride + d]);
+      v_s[t * hd + d] = to_f(pool_v[base + t * tstride + d]);
     }
     if constexpr (kQuant) {
       for (int t = tid; t < blk; t += nt) {
@@ -146,8 +121,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attn_kernel(
       if constexpr (kQuant) s *= ks_s[t];
       s *= scale;
       const int ta = t0 + t;
-      const bool valid =
-          (!kDense || t < n_t) && ta <= p && (window == 0 || p - ta < window);
+      const bool valid = ta <= p && (window == 0 || p - ta < window);
       s_s[i] = valid ? s : kNeg;
     }
     __syncthreads();
@@ -185,15 +159,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attn_kernel(
     ob[i] = from_f<TQ>(acc[i] / fmaxf(l_s[i / hd], 1e-30f));
 }
 
-template <typename TQ, typename TKV, bool kQuant, bool kDense = false>
+template <typename TQ, typename TKV, bool kQuant>
 int launch(const void* q, const void* pool_k, const void* pool_ks, const void* pool_v,
            const void* pool_vs, const void* tbl, const void* pos, void* out, int B,
            int K, int G, int hd, int P, int blk, int nb, int window, float scale,
-           cudaStream_t stream, int T = 0) {
+           cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)G * hd + (size_t)blk * (hd + 1) + (size_t)blk * hd +
                        (size_t)G * blk + 3 * (size_t)G + (kQuant ? 2 * (size_t)blk : 0));
-  auto kernel = paged_decode_attn_kernel<TQ, TKV, kQuant, kDense>;
+  auto kernel = paged_decode_attn_kernel<TQ, TKV, kQuant>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -204,7 +178,7 @@ int launch(const void* q, const void* pool_k, const void* pool_ks, const void* p
       static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
       static_cast<const float*>(pool_ks), static_cast<const TKV*>(pool_v),
       static_cast<const float*>(pool_vs), static_cast<const int32_t*>(tbl),
-      static_cast<const int32_t*>(pos), static_cast<TQ*>(out), K, G, hd, P, blk, nb, T,
+      static_cast<const int32_t*>(pos), static_cast<TQ*>(out), K, G, hd, P, blk, nb,
       window, scale);
   return (int)cudaGetLastError();
 }
@@ -245,24 +219,6 @@ extern "C" int paged_decode_attn_quant(const void* q, const void* pool_k,
     return launch<__nv_bfloat16, int8_t, true>(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
                                                pos, out, B, K, G, hd, P, blk, nb, window,
                                                scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Dense caches k/v [B, T, K, hd] in q's dtype, read in chunks of blk tokens.
-extern "C" int decode_attn_dense(const void* q, const void* k, const void* v,
-                                 const void* pos, void* out, int B, int K, int G, int hd,
-                                 int T, int blk, int window, float scale, int dtype,
-                                 void* stream) {
-  if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (T + blk - 1) / blk;
-  if (dtype == 0)
-    return launch<float, float, false, true>(q, k, nullptr, v, nullptr, nullptr, pos, out,
-                                             B, K, G, hd, 0, blk, nb, window, scale, s, T);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false, true>(
-        q, k, nullptr, v, nullptr, nullptr, pos, out, B, K, G, hd, 0, blk, nb, window,
-        scale, s, T);
   return (int)cudaErrorInvalidValue;
 }
 

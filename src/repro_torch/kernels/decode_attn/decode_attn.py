@@ -9,14 +9,17 @@ skipping pages outside [pos-window+1, pos], with an fp32 online softmax.
 ``paged_decode_attn_quant_cuda`` launches the same source's int8 variant
 (replacing ``paged_decode_attn_quant_pallas``): int8 pools with f32
 per-head scales [P, blk, K, 1], dequantized page by page as they stream.
-``decode_attn_cuda`` launches the same source's dense entry point
-(replacing ``decode_attn_pallas``): the cache is [B, T, K, hd] per row,
-read in chunks of ``DENSE_CHUNK`` tokens, chunks outside [pos-window+1,
-pos] skipped. ``paged_decode_attn_plain``, ``paged_decode_attn_quant_plain``
-and ``decode_attn_plain`` run the same blocked math as PyTorch ops, one step
-per table column (or, dense, per ``block_kv`` chunk) over all rows at once,
-like the JAX twin ``_stream`` (``_page_update`` is the per-page step of all
-six).
+``decode_attn_cuda`` launches ``csrc/decode_attn.cu`` (replacing
+``decode_attn_pallas``): the dense cache [B, T, K, hd] is cut into splits
+of ``DENSE_SPLIT`` tokens, one block per (row, KV head, split), splits
+outside [pos-window+1, pos] skipped, then a combine kernel merges the
+splits' softmax states. ``paged_decode_attn_plain``,
+``paged_decode_attn_quant_plain`` and ``decode_attn_plain`` run the same
+blocked math as PyTorch ops, one step per table column (or, dense, per
+``block_kv`` chunk) over all rows at once, like the JAX twin ``_stream``
+(``_page_update`` is the per-page step of all six).
+``decode_attn_split_plain`` writes out the dense kernel's split-and-combine
+math for the tests.
 """
 from __future__ import annotations
 
@@ -32,8 +35,11 @@ NAME = "paged_decode_attn"
 SOURCE = "src/repro_torch/csrc/paged_decode_attn.cu"
 REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:255"
 QUANT_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:274"
+DENSE_NAME = "decode_attn"
+DENSE_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
 DENSE_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:102"
-DENSE_CHUNK = 64      # the dense kernel's tokens per chunk (shared memory)
+DENSE_SPLIT = 256     # the dense kernel's tokens per split (one block each)
+DENSE_MAX_HD = 256    # the dense kernel's largest head dimension
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -166,6 +172,39 @@ def decode_attn_plain(q, k, v, pos, *, block_kv: int, window: int = 0):
     return _online_softmax(q, pos, chunks, blk=block_kv, window=window)
 
 
+def decode_attn_split_plain(q, k, v, pos, *, split: int, window: int = 0):
+    """The dense kernel's math as PyTorch ops (tests only): the cache cut
+    into splits of ``split`` tokens; each split that holds a valid
+    position keeps (m, l, acc) over its valid tokens; the combine weighs
+    the live splits by e^(m_s - M) and divides by max(sum, 1e-30), so a
+    row with no live split (pos -1) is exact zeros."""
+    B, K, G, hd, T = _dense_shapes(q, k, v, pos)
+    p = pos.long()
+    lo = (p - window + 1).clamp_min(0) if window else torch.zeros_like(p)
+    hi = p.clamp(max=T - 1)
+    qf = q.float()
+    ms, ls, accs, lives = [], [], [], []
+    for t0 in range(0, T, split):
+        t = torch.arange(t0, min(t0 + split, T), device=q.device)
+        valid = (t[None, :] >= lo[:, None]) & (t[None, :] <= hi[:, None])
+        s = torch.einsum("bkgh,btkh->bkgt", qf, k[:, t0:t0 + split].float())
+        s = s * (1.0 / math.sqrt(hd))
+        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG))
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        ls.append(e.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bkgt,btkh->bkgh", e,
+                                 v[:, t0:t0 + split].float()))
+        ms.append(m)
+        lives.append(valid.any(dim=-1)[:, None, None, None])
+    live = torch.stack(lives)                       # [nsplit, B, 1, 1, 1]
+    m = torch.stack(ms).masked_fill(~live, _NEG)
+    w = torch.exp(m - m.amax(dim=0)) * live         # dead splits weigh 0
+    l = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w * torch.stack(accs)).sum(dim=0)
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
 def _check_launch(q, pools, tbl, pos, what):
     """The kernel's dtype code for q; raises unless every tensor is on q's
     CUDA device and q and the pools are contiguous."""
@@ -238,22 +277,36 @@ paged_decode_attn_quant_cuda.launches = 0
 
 
 def decode_attn_cuda(q, k, v, pos, *, window: int = 0):
-    """Launch the dense kernel: one block per (row, KV head), the row's
-    cache [T, K, hd] walked in chunks of ``DENSE_CHUNK`` tokens."""
+    """Launch the dense kernels: one block per (row, KV head, split of
+    ``DENSE_SPLIT`` tokens), then one per (row, KV head) to combine; both
+    launches count. hd must make 16-byte rows, at most ``DENSE_MAX_HD``."""
     B, K, G, hd, T = _dense_shapes(q, k, v, pos)
+    if hd * q.element_size() % 16 or hd > DENSE_MAX_HD:
+        raise ValueError(f"dense decode attention: the kernel takes hd a "
+                         f"multiple of {16 // q.element_size()} up to "
+                         f"{DENSE_MAX_HD}, got {hd}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dense decode attention: q/k/v must share float32 "
                         f"or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     dtype = _check_launch(q, (k, v), None, pos, "dense decode attention")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("dense decode attention: q, k and v must start on "
+                         "16-byte boundaries")
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = _build.load(NAME, _bind)
+    nsplit = -(-T // DENSE_SPLIT)
+    part_acc = torch.empty((B, K, nsplit, G, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, K, nsplit, G, 2), dtype=torch.float32,
+                          device=q.device)
+    lib = _build.load(DENSE_NAME, _bind_dense)
     err = lib.decode_attn_dense(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, K, G, hd, T, DENSE_CHUNK, window,
-        1.0 / math.sqrt(hd), dtype, _build.stream_ptr(q))
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, K, G, hd,
+        T, DENSE_SPLIT, window, 1.0 / math.sqrt(hd), dtype,
+        _build.stream_ptr(q))
     _build.check(lib, err, "dense decode attention")
-    decode_attn_cuda.launches += 1
+    decode_attn_cuda.launches += 2
     return out
 
 
@@ -266,7 +319,10 @@ def _bind(lib):
     lib.paged_decode_attn.restype = ctypes.c_int
     lib.paged_decode_attn_quant.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.paged_decode_attn_quant.restype = ctypes.c_int
-    lib.decode_attn_dense.argtypes = ([ctypes.c_void_p] * 5
+
+
+def _bind_dense(lib):
+    lib.decode_attn_dense.argtypes = ([ctypes.c_void_p] * 7
                                       + [ctypes.c_int] * 7
                                       + [ctypes.c_float, ctypes.c_int,
                                          ctypes.c_void_p])

@@ -5,11 +5,14 @@ plain PyTorch version.
 the TPU kernel ``repro.kernels.ragged_linear.ragged_linear.
 ragged_linear_pallas``): ``buf [budget, din] @ w [din, dout] + b`` with
 fp32 accumulation, row tiles wholly past the live count skipped and rows
-``>= n_live`` written as exact zeros. ``ragged_linear_plain`` runs the
-blocked math of the Pallas kernel (``_rl_kernel``) as PyTorch ops: token
-tile x dout tile x din tile, the fp32 sum carried over the din tiles, a
-tile with no live row left at zero, then the bias and the zeroed tail.
-Neither pads: shapes are used as given.
+``>= n_live`` written as exact zeros. The source has two entry points, and
+``entry_point`` picks one from dtype, strides and alignment before the
+launch: bf16 that a TMA tensor map can describe runs on the tensor cores
+(``wgmma``), the rest (fp32, other row strides or bases) on the SIMT
+kernel. ``ragged_linear_plain`` runs the blocked math of the Pallas kernel
+(``_rl_kernel``) as PyTorch ops: token tile x dout tile x din tile, the
+fp32 sum carried over the din tiles, a tile with no live row left at zero,
+then the bias and the zeroed tail. Neither pads: shapes are used as given.
 """
 from __future__ import annotations
 
@@ -23,6 +26,21 @@ NAME = "ragged_linear"
 SOURCE = "src/repro_torch/csrc/ragged_linear.cu"
 REPLACES = "src/repro/kernels/ragged_linear/ragged_linear.py:54"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA, SIMT = "wgmma", "simt"     # the kernel's two entry points
+
+
+def entry_point(buf, w) -> str:
+    """The entry point that takes (buf, w): ``WGMMA`` (tensor cores, fed
+    by TMA) for bf16 whose rows a tensor map can describe, i.e. row strides
+    of buf and w that are multiples of 16 bytes and bases on 16-byte
+    boundaries; ``SIMT`` for the rest: fp32 (``wgmma`` would compute in
+    TF32) and bf16 on other strides or bases."""
+    if buf.dtype != torch.bfloat16:
+        return SIMT
+    if any(t.stride(0) * t.element_size() % 16 or t.data_ptr() % 16
+           for t in (buf, w)):
+        return SIMT
+    return WGMMA
 
 
 def _shapes(buf, w, b):
@@ -73,11 +91,12 @@ def ragged_linear_plain(buf, w, b=None, n_live=None, *, block_t: int = 256,
 
 
 def ragged_linear_cuda(buf, w, b=None, n_live=None):
-    """Launch the CUDA kernel: one block per 128 x 128 output tile. buf
+    """Launch the CUDA kernel at the entry point ``entry_point`` picks. buf
     must be contiguous; w may be a view whose rows are strided (its
     columns contiguous). ``n_live`` (None = all rows) is an int, passed by
     value, or a 0-d integer tensor on the card, which the kernel reads
-    from device memory (the host never waits for it)."""
+    from device memory (the host never waits for it). Counts the launch in
+    ``launches`` and in ``by_entry`` under its entry point."""
     budget, din, dout = _shapes(buf, w, b)
     dtype = _DTYPES.get(buf.dtype)
     if dtype is None or w.dtype != buf.dtype or (
@@ -103,23 +122,29 @@ def ragged_linear_cuda(buf, w, b=None, n_live=None):
     elif n_live is not None:
         n_host = max(0, min(int(n_live), budget))
     y = torch.empty((budget, dout), dtype=buf.dtype, device=buf.device)
+    entry = entry_point(buf, w)
     lib = _build.load(NAME, _bind)
-    err = lib.ragged_linear(
-        buf.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        None if n_dev is None else n_dev.data_ptr(), n_host, y.data_ptr(),
-        budget, din, dout, w.stride(0), dtype, _build.stream_ptr(buf))
-    _build.check(lib, err, "ragged_linear")
+    args = (buf.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            None if n_dev is None else n_dev.data_ptr(), n_host, y.data_ptr(),
+            budget, din, dout, w.stride(0))
+    if entry == WGMMA:
+        err = lib.ragged_linear_tc(*args, _build.stream_ptr(buf))
+    else:
+        err = lib.ragged_linear(*args, dtype, _build.stream_ptr(buf))
+    _build.check(lib, err, f"ragged_linear ({entry})")
     ragged_linear_cuda.launches += 1
+    ragged_linear_cuda.by_entry[entry] += 1
     return y
 
 
 ragged_linear_cuda.launches = 0
+ragged_linear_cuda.by_entry = {WGMMA: 0, SIMT: 0}
 
 
 def _bind(lib):
-    lib.ragged_linear.argtypes = ([ctypes.c_void_p] * 4
-                                  + [ctypes.c_int, ctypes.c_void_p]
-                                  + [ctypes.c_int] * 3
-                                  + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p])
+    head = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 3 + [ctypes.c_longlong])
+    lib.ragged_linear.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
     lib.ragged_linear.restype = ctypes.c_int
+    lib.ragged_linear_tc.argtypes = head + [ctypes.c_void_p]
+    lib.ragged_linear_tc.restype = ctypes.c_int

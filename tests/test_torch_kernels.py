@@ -183,14 +183,44 @@ def test_dense_bf16_matches_reference():
 
 
 def test_dense_chunks_do_not_change_the_result():
-    """The CUDA kernel's chunk is its own (``DENSE_CHUNK``): chunking
+    """The CUDA kernel's split is its own (``DENSE_SPLIT``): chunking
     changes only the summation order."""
     q, k, v = (torch.from_numpy(a) for a in _dense_case(3, 37, 2, 2, 16, 6))
     pos = torch.tensor([36, 3, 20], dtype=torch.int32)
     a = port_da.decode_attn_plain(q, k, v, pos, block_kv=8, window=11)
-    b = port_da.decode_attn_plain(q, k, v, pos, block_kv=da_mod.DENSE_CHUNK,
+    b = port_da.decode_attn_plain(q, k, v, pos, block_kv=da_mod.DENSE_SPLIT,
                                   window=11)
     np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+# the dense kernel's split-and-combine math: (B, T, K, G, hd, split,
+# window, pos). Splits that divide T, that do not, and one longer than T;
+# windows whose edge leaves each row one partial live split; pos -1 rows.
+SPLIT_CASES = {
+    "split_divides": (3, 32, 2, 2, 16, 8, 0, [0, 17, 31]),
+    "split_does_not_divide": (3, 37, 2, 2, 16, 8, 0, [36, 0, 20]),
+    "split_exceeds_t": (2, 20, 1, 4, 16, 64, 0, [19, 7]),
+    "window_one_partial_split": (3, 40, 2, 2, 16, 16, 5, [20, 39, 9]),
+    "window_across_splits": (2, 40, 2, 1, 32, 8, 13, [39, 25]),
+    "pos_minus_one": (3, 32, 2, 2, 16, 8, 0, [-1, 31, -1]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_dense_split_combine_matches_reference(name):
+    B, T, K, G, hd, split, window, pos = SPLIT_CASES[name]
+    q, k, v = _dense_case(B, T, K, G, hd, seed=len(name) + 40)
+    pos = np.asarray(pos, np.int32)
+    want = np.asarray(jax_decode_attn(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        block_kv=16, window=window))
+    got = da_mod.decode_attn_split_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, pos)), split=split,
+        window=window).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    dead = pos < 0            # no live split: exact zeros, as the kernel
+    assert np.array_equal(got[dead], np.zeros_like(got[dead]))
+    assert not np.signbit(got[dead]).any()
 
 
 def test_kernels_export_the_reference_public_names():
@@ -428,6 +458,12 @@ def test_dense_wrapper_refuses_what_the_kernel_does_not_take():
         launch(q, k.bfloat16(), v, pos)
     with pytest.raises(ValueError, match="one CUDA device"):
         launch(q, k, v, pos)
+    with pytest.raises(ValueError, match="multiple of 4 up to"):
+        launch(q[..., :6], k[..., :6], v[..., :6], pos)   # rows of 24 bytes
+    with pytest.raises(ValueError, match="multiple of 8 up to"):
+        launch(torch.zeros(2, 1, 2, 264, dtype=torch.bfloat16),
+               *(torch.zeros(2, 12, 1, 264, dtype=torch.bfloat16)
+                 for _ in range(2)), pos)                 # past the kernel's hd
     with pytest.raises(ValueError, match="paged layout"):
         port_da.decode_attn(q, k, v, pos, k_scale=k[..., :1],
                             v_scale=v[..., :1])

@@ -5,7 +5,9 @@ On the CPU the port's op runs its plain version and the JAX op runs its
 Pallas kernel in interpret mode, so this holds the port's blocked math
 against the reference's at atol = rtol = 1e-5 (fp32; the two frameworks
 sum in different orders) and 2e-2 (bf16). Rows >= n_live must be zero bit
-for bit. The CUDA kernel is held against the plain version on the card by
+for bit. The rule that picks the CUDA kernel's entry point (tensor cores or
+SIMT) from dtype, strides and alignment is held here on CPU tensors; the
+kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
 """
 import jax.numpy as jnp
@@ -19,6 +21,8 @@ from repro_torch import convert
 from repro_torch.kernels import ragged_linear, ragged_linear_ref
 from repro_torch.kernels.ragged_linear import (ragged_linear_cuda,
                                                ragged_linear_plain)
+from repro_torch.kernels.ragged_linear.ragged_linear import (SIMT, WGMMA,
+                                                             entry_point)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -112,10 +116,47 @@ def test_strided_weight_view():
 
 def test_cpu_tensors_never_launch():
     buf, w, b = _case(16, 24, 40, seed=1)
-    before = ragged_linear_cuda.launches
+    before = (ragged_linear_cuda.launches,
+              dict(ragged_linear_cuda.by_entry))
     ragged_linear(_t(buf), _t(w), _t(b), n_live=5)
     ragged_linear(_t(buf), _t(w), _t(b), n_live=torch.tensor(5))
-    assert ragged_linear_cuda.launches == before
+    assert (ragged_linear_cuda.launches,
+            ragged_linear_cuda.by_entry) == before
+
+
+def _granite_up():
+    """granite-3-8b's up projection, [4096, 12800] bf16 (never written)."""
+    return torch.empty((4096, 12800), dtype=torch.bfloat16)
+
+
+# (buf, w) -> the entry point the shape/dtype rule must pick: a tensor map
+# needs row strides of 16-byte multiples and 16-byte aligned bases
+ENTRY_CASES = {
+    "bf16_contiguous": (lambda: (torch.empty((16, 4096), dtype=torch.bfloat16),
+                                 torch.empty((4096, 1024),
+                                             dtype=torch.bfloat16)), WGMMA),
+    "fp32": (lambda: (torch.empty((16, 4096)), torch.empty((4096, 1024))),
+             SIMT),
+    "din_4100_rows_of_8200_bytes": (
+        lambda: (torch.empty((16, 4100), dtype=torch.bfloat16),
+                 torch.empty((4100, 1024), dtype=torch.bfloat16)), SIMT),
+    "dout_1001": (lambda: (torch.empty((16, 4096), dtype=torch.bfloat16),
+                           torch.empty((4096, 1001), dtype=torch.bfloat16)),
+                  SIMT),
+    "column_view_at_1024": (
+        lambda: (torch.empty((16, 4096), dtype=torch.bfloat16),
+                 _granite_up()[:, 1024:2048]), WGMMA),
+    "column_view_at_4": (
+        lambda: (torch.empty((16, 4096), dtype=torch.bfloat16),
+                 _granite_up()[:, 4:1028]), SIMT),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_CASES))
+def test_entry_point_rule(name):
+    make, want = ENTRY_CASES[name]
+    buf, w = make()
+    assert entry_point(buf, w) == want
 
 
 def test_bad_shapes_raise():

@@ -9,9 +9,12 @@ exits non-zero and prints no result. Phases, each raising on failure:
 
 1. device and build: the card's name and power limit, every kernel built;
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (granite-3-8b: K=8, G=4, hd=128, page 16; the
-   int8 attention kernel over int8 pools drawn over [-127, 127] with f32
-   scales; SGMV din 4096, dout 4096/1024, rank 8, including the inputs
+   serving path's shapes (granite-3-8b: K=8, G=4, hd=128, page 16, tables
+   with sentinels past each row's pages, rows at pos -1 whose output must
+   be exact zeros, one 8,192-token row over a 512-column table and a
+   window whose edge cuts a split; the bf16 attention kernel one launch per
+   call; the int8 attention kernel on the same cases over int8 pools drawn
+   over [-127, 127] with f32 scales; SGMV din 4096, dout 4096/1024, rank 8, including the inputs
    ``sgmv_pallas`` accepts: ids in range or negative), fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
    fp32 on the same bf16 inputs; and so the kernels no serving path
@@ -21,7 +24,9 @@ exits non-zero and prints no result. Phases, each raising on failure:
    (128 splits) and a window whose edge cuts a split; flash attention at
    granite's H=32, K=8 (S=T=2048 causal, and non-causal cross
    S=512/T=2048), gemma2-27b's H=32, K=16 with its 4096 window at
-   S=T=8192, and S > T with rows that see no key; the ragged linear, rows
+   S=T=8192, and S > T with rows that see no key (exact zeros), each case
+   in bf16 on the tensor-core entry point and in fp32 on the SIMT one
+   (each launch's entry checked by its counter); the ragged linear, rows
    past the live count exact +0.0, each launch's entry point checked by
    its counter: bf16 on the tensor cores at din 4096 / dout 12800 with a
    bias (n_live 1001 of 1024, and 700 of 2048 counted on the card), at
@@ -41,16 +46,20 @@ exits non-zero and prints no result. Phases, each raising on failure:
    LoRA clients, 8 staggered requests, greedy, with the kernels' launch
    counts checked per tick; then an 8-row decode tick timed unprofiled
    and traced once with torch.profiler (device activity only): device
-   busy share, kernels per tick, top kernels by device time;
+   busy share, kernels per tick (beside the count with the one-block-per-
+   head paged attention kernel), top kernels by device time;
 4b. the same 8 requests over int8 KV pages (``kv_quant=True``) behind a
    ``PlacementRouter`` whose one slot holds 4 of the requests' int8
    charges but not all 8, so admission queues on the card: 40 int8
    attention launches and no bf16 ones per decode tick, the same first
    token per request as phase 4, the router's ledger conserved and empty
    after the drain; the same 8-row tick profile, beside phase 4's;
-5. timings at the phase-4, 4b and 6 shapes: kernel (L2-cold and L2-warm),
-   plain version, a library yardstick and the memory/compute bound; each
-   granite-shape ragged-linear launch must take the tensor cores;
+5. timings at the phase-4, 4b and 6 shapes: kernel (L2-cold and L2-warm;
+   for the paged attention kernels and flash also the device time with the
+   host's enqueue hidden behind a spin kernel), plain version, a library
+   yardstick and the memory/compute bound; each granite-shape
+   ragged-linear and bf16 flash launch must take the tensor cores; flash's
+   and SDPA's max errors against the plain version;
 6. the slice without a serving path: the port's public kernel ops and
    the §3.7 packed base executor. A ``BaseExecutor`` over phase 4's own
    granite-3-8b weights (40 layers x 7 projections, held as views) runs
@@ -63,7 +72,8 @@ exits non-zero and prints no result. Phases, each raising on failure:
    its device time in the ragged-linear kernels; then
    ``kernels.decode_attn`` on a dense [8, 4096, 8, 128] bf16 cache (two
    launches: split and combine) and ``kernels.flash_attn`` on
-   [1, 4096, 32, 128] causal (one), held against their plain versions.
+   [1, 4096, 32, 128] causal (one, on the tensor cores), held against
+   their plain versions.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -112,10 +122,10 @@ fa = importlib.import_module("repro_torch.kernels.flash_attn.flash_attn")
 rl = importlib.import_module("repro_torch.kernels.ragged_linear.ragged_linear")
 KERNELS = {   # name: (launch wrapper, source, the TPU kernel it replaces)
     "paged_decode_attn": (da.paged_decode_attn_cuda, da.SOURCE, da.REPLACES),
-    "paged_decode_attn_quant": (da.paged_decode_attn_quant_cuda, da.SOURCE,
-                                da.QUANT_REPLACES),
+    "paged_decode_attn_quant": (da.paged_decode_attn_quant_cuda,
+                                da.QUANT_SOURCE, da.QUANT_REPLACES),
     "sgmv": (sg.sgmv_cuda, sg.SOURCE, sg.REPLACES),
-    "decode_attn": (da.decode_attn_cuda, da.DENSE_SOURCE, da.DENSE_REPLACES),
+    "decode_attn": (da.decode_attn_cuda, da.SOURCE, da.DENSE_REPLACES),
     "flash_attn": (fa.flash_attn_cuda, fa.SOURCE, fa.REPLACES),
     "ragged_linear": (rl.ragged_linear_cuda, rl.SOURCE, rl.REPLACES),
 }
@@ -124,8 +134,9 @@ KERNELS = {   # name: (launch wrapper, source, the TPU kernel it replaces)
 def reset_counts():
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-    for entry in rl.ragged_linear_cuda.by_entry:
-        rl.ragged_linear_cuda.by_entry[entry] = 0
+    for counts in (rl.ragged_linear_cuda.by_entry, fa.flash_attn_cuda.by_entry):
+        for entry in counts:
+            counts[entry] = 0
 
 
 def read_counts():
@@ -184,7 +195,20 @@ PAGED_CASES = {   # (B, K, G, hd, blk, nb, window, pos)
     "granite_uneven_rows": (5, 8, 4, 128, 16, 32, 0, None),
     "granite_window": (8, 8, 4, 128, 16, 32, 100, None),
     "g1_hd64": (6, 8, 1, 64, 16, 32, 0, None),
+    "granite_pos_minus_one": (4, 8, 4, 128, 16, 32, 0, [-1, 40, -1, 300]),
+    # one 8,192-token row over a 512-column table: many splits to merge
+    "granite_one_row_8192": (1, 8, 4, 128, 16, 512, 0, [8191]),
+    # window edges 7 and 39 tokens into a split of any power-of-two pages
+    "granite_window_cuts_a_split": (3, 8, 4, 128, 16, 32, 70,
+                                    [300, 108, 511]),
 }
+
+
+def zeros_at_pos_minus_one(what, got, pos):
+    """Rows at pos -1 attend nothing: exact +0.0."""
+    dead = got[pos < 0]
+    if dead.any() or torch.signbit(dead).any():
+        raise AssertionError(f"{what}: a row at pos -1 is not exact zeros")
 
 
 def check_paged(errs):
@@ -193,11 +217,16 @@ def check_paged(errs):
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             q, pk, pv, tbl, p = paged_case(B, K, G, hd, blk, nb, 100 + i, pos,
                                            dtype)
+            before = launch_count("paged_decode_attn")
             got = da.paged_decode_attn_cuda(q, pk, pv, tbl, p, window=window)
+            if launch_count("paged_decode_attn") != before + 1:
+                raise AssertionError(f"paged_decode_attn {name}: not one "
+                                     "launch")
             want = da.paged_decode_attn_plain(q.float(), pk.float(), pv.float(),
                                               tbl, p, window=window)
             torch.cuda.synchronize()
             e = compare(f"paged_decode_attn {name} {dtype}", got, want, tol)
+            zeros_at_pos_minus_one(f"paged_decode_attn {name}", got, p)
             errs.append(e)
             log(f"[phase 2] paged_decode_attn {name:24s} {str(dtype):15s} "
                 f"max_abs_err={e:.3e}")
@@ -225,6 +254,7 @@ def check_paged_quant(errs):
             torch.cuda.synchronize()
             e = compare(f"paged_decode_attn_quant {name} {dtype}", got, want,
                         tol)
+            zeros_at_pos_minus_one(f"paged_decode_attn_quant {name}", got, p)
             if got.dtype != q.dtype:
                 raise AssertionError(f"int8 attention returned {got.dtype} "
                                      f"for q in {q.dtype}")
@@ -312,9 +342,7 @@ def check_dense(errs):
             want = plain_op(kernels.decode_attn, qd, kd, vd, p, window=window)
             torch.cuda.synchronize()
             e = compare(f"decode_attn {name} {dtype}", got, want, tol)
-            if got[p < 0].any():
-                raise AssertionError(f"decode_attn {name}: a row at pos -1 "
-                                     "is not exact zeros")
+            zeros_at_pos_minus_one(f"decode_attn {name}", got, p)
             errs.append(e)
             log(f"[phase 2] decode_attn {name:24s} {str(dtype):15s} "
                 f"max_abs_err={e:.3e}")
@@ -329,6 +357,8 @@ FLASH_CASES = {   # (B, S, T, H, K, causal, window), hd 128
 
 
 def check_flash(errs):
+    """Every case in fp32 on the SIMT entry point and in bf16 on the
+    tensor-core one (each launch's entry asserted by its counter)."""
     hd = 128
     for i, (name, (B, S, T, H, K, causal, window)) in enumerate(
             FLASH_CASES.items()):
@@ -336,20 +366,27 @@ def check_flash(errs):
         q = torch.randn((B, S, H, hd), generator=g, device=DEV)
         k = torch.randn((B, T, K, hd), generator=g, device=DEV)
         v = torch.randn((B, T, K, hd), generator=g, device=DEV)
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype, tol, entry in ((torch.float32, F32_TOL, fa.SIMT),
+                                  (torch.bfloat16, BF16_TOL, fa.WGMMA)):
             qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            before = dict(fa.flash_attn_cuda.by_entry)
             got = fa.flash_attn_cuda(qd, kd, vd, causal=causal, window=window)
+            took = [e for e, c in fa.flash_attn_cuda.by_entry.items()
+                    if c != before[e]]
+            if took != [entry]:
+                raise AssertionError(f"flash_attn {name} {dtype}: took "
+                                     f"{took}, not {entry}")
             want = plain_op(kernels.flash_attn, qd, kd, vd, causal=causal,
                             window=window)
             torch.cuda.synchronize()
             e = compare(f"flash_attn {name} {dtype}", got, want, tol)
-            if causal and window and S > T + window - 1 \
-                    and got[:, T + window - 1:].any():
+            blind = got[:, T + window - 1:] if causal and window else got[:, :0]
+            if blind.any() or torch.signbit(blind).any():
                 raise AssertionError(f"flash_attn {name}: rows that see no "
-                                     "key are not zeros")
+                                     "key are not exact zeros")
             errs.append(e)
             log(f"[phase 2] flash_attn {name:24s} {str(dtype):15s} "
-                f"max_abs_err={e:.3e}")
+                f"{entry:5s} max_abs_err={e:.3e}")
             del got, want
 
 
@@ -686,6 +723,13 @@ def serve_quant(cfg, base, bank, first, times4):
     return launches, eng.caches, [r.prompt.shape[1] for r in reqs]
 
 
+# Kernels per traced 8-row decode tick with the paged attention kernel of
+# one block per (row, KV head), as this script counted them on the H100
+# (phase 4b's count differs by one from run to run): the split kernel
+# merges in its own launch, so the count should not rise.
+KERNELS_PER_TICK_BEFORE = {"phase 4": 3469, "phase 4b": 4589}
+
+
 def profile_tick(cfg, base, bank, spec, label):
     """An 8-row decode tick: its median over 5 unprofiled ticks on the host
     clock, then one tick traced by torch.profiler with device activity only.
@@ -693,7 +737,6 @@ def profile_tick(cfg, base, bank, spec, label):
     over the unprofiled median tick (and over the traced tick's own host
     time, which tracing lengthens). Also the kernel count and the kernels
     that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
     eng = ServingEngine(spec, base, [bank], device=DEV)
     rng = np.random.default_rng(5)
     for i in range(8):
@@ -709,7 +752,7 @@ def profile_tick(cfg, base, bank, spec, label):
         torch.cuda.synchronize()
         ticks.append(time.perf_counter() - t0)
     tick_us = statistics.median(ticks) * 1e6
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         eng.service_tick()
         torch.cuda.synchronize()
@@ -732,11 +775,13 @@ def profile_tick(cfg, base, bank, spec, label):
     for e in kern:
         n, d = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
+    before = KERNELS_PER_TICK_BEFORE[label]
     log(f"[{label}] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
         f"unprofiled, {traced_us / 1e3:.3f} ms traced; device busy "
         f"{busy / 1e3:.3f} ms = {100 * busy / tick_us:.1f}% of the "
         f"unprofiled tick ({100 * busy / traced_us:.1f}% of the traced "
-        f"one); {len(kern)} kernels")
+        f"one); {len(kern)} kernels ({before} with the one-block-per-head "
+        "paged attention kernel)")
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"[{label}]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
     out.update(busy_ms=busy / 1e3, busy_pct=100 * busy / tick_us,
@@ -785,6 +830,61 @@ def time_ms(fn, n=30, warmup=3, l2_cold=True):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n=20):
+    """Median device time of one L2-cold call of ``fn`` (one kernel launch)
+    over ``n`` calls, with the host's enqueue hidden. The events of
+    ``time_ms`` also count the device's wait for the host to enqueue the
+    launch, which the 256 MB flush hides only while the wrapper's host time
+    is shorter than the flush (and L2-warm, with no flush, never): a kernel
+    of tens of us reads slower there than it runs. Here a spin kernel
+    (``torch.cuda._sleep``) holds the stream while the host enqueues all
+    ``n`` rounds of (flush, start event, call, end event), so each pair of
+    events brackets work that was queued before the device reached it. If
+    the spin was over before the last round was enqueued, the rounds run
+    again behind a spin four times as long."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(64 << 20, dtype=torch.int32, device=DEV))
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 25                   # ~17 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        rounds = []
+        for _ in range(n):
+            _L2_FLUSH[0].zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            rounds.append((start, end))
+        ahead = not spun.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return statistics.median(s.elapsed_time(e) for s, e in rounds)
+        cycles *= 4
+    raise AssertionError(f"[phase 5] the host took longer to enqueue {n} "
+                         f"calls than a spin of {cycles // 4} cycles")
+
+
+@contextlib.contextmanager
+def traced(idle_s=0.05):
+    """torch.profiler (device activity only) over the block, the device
+    idle for ``idle_s`` before and after it. The profiler keeps a device
+    event only if it falls inside the trace's window on the host's clock,
+    so a skew between the two clocks would drop the kernels at the
+    window's edges."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(idle_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(idle_s)
 
 
 def bound(nbytes, flops):
@@ -846,7 +946,8 @@ def sdpa_over_pages(q, k, v, tbl, pos, dequant=None):
 
 
 def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes):
-    """Kernel L2-cold and L2-warm, plain version and library yardstick, and
+    """Kernel L2-cold and L2-warm, its device time with the host's enqueue
+    hidden (``device_ms``), plain version and library yardstick, and
     the byte bound: ``pool_bytes`` (the live tokens' pool bytes), plus q
     and out in bf16, the table and the positions. Returns the JSON fields,
     the yardstick's time as ``library_ms``."""
@@ -854,6 +955,7 @@ def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes):
     lib_err = float((got.float() - library().float()).abs().max())
     ms = time_ms(kernel)
     warm_ms = time_ms(kernel, l2_cold=False)
+    dev_ms = device_ms(kernel)
     plain_ms = time_ms(plain, n=20)
     lib_ms = time_ms(library)
     B, K, G, hd = q.shape
@@ -862,11 +964,13 @@ def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes):
               + pos.numel() * 4)
     bound_ms, by = bound(nbytes, 4 * tokens * K * G * hd)
     log(f"[phase 5] {label} B={B} K={K} G={G} hd={hd}, {tokens} live "
-        f"tokens, L2-cold: kernel {ms:.4f} ms (L2-warm {warm_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (differs by "
-        f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, {nbytes} B)")
-    return dict(ms=ms, ms_l2_warm=warm_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+        f"tokens, L2-cold: kernel {ms:.4f} ms (L2-warm {warm_ms:.4f}; device "
+        f"time, enqueue hidden, {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms (differs by {lib_err:.2e}), bound "
+        f"{bound_ms:.4f} ms ({by}, {nbytes} B)")
+    return dict(ms=ms, ms_l2_warm=warm_ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms)
 
 
 def time_decode_attn(cfg, caches, lengths):
@@ -1042,8 +1146,10 @@ def visible_pairs(S, T, window):
 
 
 def time_flash(S=None, K=None, window=0):
-    """Causal flash attention; library: SDPA ``is_causal`` (with a window,
-    an explicit mask)."""
+    """Causal flash attention on the tensor-core entry point; library: SDPA
+    ``is_causal`` (with a window, an explicit mask). The kernel's and
+    SDPA's max errors against the plain version in fp32 are logged side by
+    side."""
     q, k, v = flash_inputs(11, S, K)
     B, S, H, hd = q.shape
     K = k.shape[2]
@@ -1054,13 +1160,35 @@ def time_flash(S=None, K=None, window=0):
         kw = dict(attn_mask=mask)
     else:
         kw = dict(is_causal=True)
+
+    def library():
+        return sdpa_gqa(qh, kh, vh, **kw).transpose(1, 2)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
     flops = 4 * B * H * hd * visible_pairs(S, S, window)
-    return timing_fields(
+    before = dict(fa.flash_attn_cuda.by_entry)
+    want = plain_op(kernels.flash_attn, q, k, v, window=window)
+    err = (fa.flash_attn_cuda(q, k, v, window=window).float() - want).abs()
+    lib_err = (library().float() - want).abs()
+    del want
+    out = timing_fields(
         "flash_attn", lambda: fa.flash_attn_cuda(q, k, v, window=window),
         lambda: plain_call(kernels.flash_attn, q, k, v, window=window),
-        lambda: sdpa_gqa(qh, kh, vh, **kw).transpose(1, 2), nbytes, flops,
+        library, nbytes, flops,
         f"q [{B},{S},{H},{hd}] k/v [{B},{S},{K},{hd}] causal window {window}")
+    out["device_ms"] = device_ms(
+        lambda: fa.flash_attn_cuda(q, k, v, window=window), n=10)
+    took = {e: c - before[e] for e, c in fa.flash_attn_cuda.by_entry.items()}
+    if took[fa.SIMT] or not took[fa.WGMMA]:
+        raise AssertionError(f"[phase 5] flash_attn bf16 took the entry "
+                             f"points {took}")
+    log(f"[phase 5] flash_attn [{B},{S},{H},{hd}] window {window}: every "
+        f"launch on the tensor cores ({took[fa.WGMMA]}); device time, enqueue "
+        f"hidden, {out['device_ms']:.4f} ms; "
+        f"{flops / out['ms'] / 1e9:.1f} TFLOP/s, {out['ms'] / out['library_ms']:.2f}x "
+        f"SDPA; max (mean) abs err against the plain version in fp32: "
+        f"kernel {float(err.max()):.3e} ({float(err.mean()):.3e}), SDPA "
+        f"{float(lib_err.max()):.3e} ({float(lib_err.mean()):.3e})")
+    return out
 
 
 def time_ragged(w, n_live, budget):
@@ -1104,9 +1232,7 @@ def ragged_device_ms(fn):
     (device ms in the ragged-linear kernels, their count, all device ms,
     traced wall s between synchronisations, the other kernels' (ms, count,
     name) by device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1205,11 +1331,11 @@ def public_ops():
     e1 = compare("[phase 6] decode_attn", got,
                  plain_op(kernels.decode_attn, q, k, v, pos), BF16_TOL)
     q, k, v = flash_inputs(15)
-    before = launch_count("flash_attn")
+    before = fa.flash_attn_cuda.by_entry[fa.WGMMA]
     got = kernels.flash_attn(q, k, v)
-    if launch_count("flash_attn") != before + 1:
+    if fa.flash_attn_cuda.by_entry[fa.WGMMA] != before + 1:
         raise AssertionError("[phase 6] kernels.flash_attn did not launch "
-                             "the flash kernel once")
+                             "the tensor-core flash kernel once")
     e2 = compare("[phase 6] flash_attn", got,
                  plain_op(kernels.flash_attn, q, k, v), BF16_TOL)
     log(f"[phase 6] kernels.decode_attn dense {cache} bf16, pos "
@@ -1254,11 +1380,13 @@ def phase6(cfg, base):
     want.update(decode_attn=2, flash_attn=1, ragged_linear=2 * len(SEGMENTS)
                 * cfg.n_layers * len(PROJECTIONS))
     entries = dict(rl.ragged_linear_cuda.by_entry)
-    if counts != want or entries[rl.SIMT]:
-        raise AssertionError(f"[phase 6] launches {counts} ({entries}), "
-                             f"expected {want}, none on the SIMT entry")
+    flash = dict(fa.flash_attn_cuda.by_entry)
+    if counts != want or entries[rl.SIMT] or flash[fa.SIMT]:
+        raise AssertionError(f"[phase 6] launches {counts} ({entries}, "
+                             f"flash {flash}), expected {want}, none on a "
+                             "SIMT entry")
     log(f"[phase 6] launches {counts} (as expected; ragged_linear by entry "
-        f"point {entries})")
+        f"point {entries}, flash_attn {flash})")
     return {n: counts[n] for n in PATH6}
 
 

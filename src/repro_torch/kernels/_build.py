@@ -6,11 +6,12 @@ own shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas=-v -o build/repro_torch/lib<name>-<hash>.so
 
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from ``build/repro_torch/``
-(git-ignored) at once. ``build()`` starts one ``nvcc`` per missing source,
-all at the same time, and waits for them. Nothing outside the repository is
-compiled and nothing is fetched. The C entry points return
+The file name carries a hash of the source, of every ``csrc/*.cuh`` header
+it includes and of the flags, so an edited source or header rebuilds and
+an unchanged one loads from ``build/repro_torch/`` (git-ignored) at once.
+``build()`` starts one ``nvcc`` per missing source, all at the same time,
+and waits for them. Nothing outside the repository is compiled and nothing
+is fetched. The C entry points return
 ``cudaGetLastError()`` after the launch; ``check()`` raises when it is not 0
 (a refused launch never runs, and a later synchronise would not report it).
 """
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,11 +41,31 @@ def _nvcc() -> str:
     return found
 
 
-def lib_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str, csrc: Path = CSRC) -> list:
+    """``csrc/<name>.cu`` and every header it includes with quotes, headers
+    included by headers too, each once, in the order first met."""
+    found, todo = [], [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
+def lib_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives once built: its name
+    hashes the source, the headers it includes and the flags."""
+    digest = hashlib.sha256()
+    for path in sources(name, csrc):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict:

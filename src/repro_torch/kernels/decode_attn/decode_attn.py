@@ -1,25 +1,26 @@
 """Decode attention: the CUDA kernels' launch wrappers and their plain
 PyTorch versions.
 
-``paged_decode_attn_cuda`` launches ``csrc/paged_decode_attn.cu`` (which
-replaces the TPU kernel ``repro.kernels.decode_attn.decode_attn.
-paged_decode_attn_pallas``): single-query GQA attention per row, reading
-K/V pages in place from a pool [P, blk, K, hd] through the block table,
-skipping pages outside [pos-window+1, pos], with an fp32 online softmax.
-``paged_decode_attn_quant_cuda`` launches the same source's int8 variant
+``paged_decode_attn_cuda`` launches the paged layout of ``csrc/
+decode_attn.cu`` (which replaces the TPU kernel ``repro.kernels.
+decode_attn.decode_attn.paged_decode_attn_pallas``): single-query GQA
+attention per row, K/V read in place from a pool [P, blk, K, hd] through
+the block table, cut into splits of ``PAGED_SPLIT_PAGES`` pages, one block
+per (row, KV head, split), splits outside [pos-window+1, pos] skipped; the
+split that finishes last merges the splits' softmax states in the same
+launch. ``decode_attn_cuda`` launches the dense layout of the same source
+(replacing ``decode_attn_pallas``): the dense cache [B, T, K, hd] in
+splits of ``DENSE_SPLIT`` tokens, then a combine kernel.
+``paged_decode_attn_quant_cuda`` launches ``csrc/paged_decode_attn.cu``
 (replacing ``paged_decode_attn_quant_pallas``): int8 pools with f32
-per-head scales [P, blk, K, 1], dequantized page by page as they stream.
-``decode_attn_cuda`` launches ``csrc/decode_attn.cu`` (replacing
-``decode_attn_pallas``): the dense cache [B, T, K, hd] is cut into splits
-of ``DENSE_SPLIT`` tokens, one block per (row, KV head, split), splits
-outside [pos-window+1, pos] skipped, then a combine kernel merges the
-splits' softmax states. ``paged_decode_attn_plain``,
+per-head scales [P, blk, K, 1], one block per (row, KV head) walking the
+pages and dequantizing them as they stream. ``paged_decode_attn_plain``,
 ``paged_decode_attn_quant_plain`` and ``decode_attn_plain`` run the same
 blocked math as PyTorch ops, one step per table column (or, dense, per
 ``block_kv`` chunk) over all rows at once, like the JAX twin ``_stream``
 (``_page_update`` is the per-page step of all six).
-``decode_attn_split_plain`` writes out the dense kernel's split-and-combine
-math for the tests.
+``decode_attn_split_plain`` and ``paged_decode_attn_split_plain`` write out
+the split kernels' split-and-combine math for the tests.
 """
 from __future__ import annotations
 
@@ -31,15 +32,19 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-NAME = "paged_decode_attn"
-SOURCE = "src/repro_torch/csrc/paged_decode_attn.cu"
+NAME = "decode_attn"      # the split kernels, paged and dense
+SOURCE = "src/repro_torch/csrc/decode_attn.cu"
 REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:255"
-QUANT_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:274"
-DENSE_NAME = "decode_attn"
-DENSE_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
 DENSE_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:102"
+QUANT_NAME = "paged_decode_attn"
+QUANT_SOURCE = "src/repro_torch/csrc/paged_decode_attn.cu"
+QUANT_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:274"
+# the paged kernel's pages per split (one block each): the fastest of 1, 2,
+# 4 and 8 at the serving path's shape (tools/kernel_sweeps.py)
+PAGED_SPLIT_PAGES = 2
 DENSE_SPLIT = 256     # the dense kernel's tokens per split (one block each)
-DENSE_MAX_HD = 256    # the dense kernel's largest head dimension
+MAX_HD = 256          # the split kernels' largest head dimension
+MAX_SPLIT = 512       # and their most tokens per split
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -205,6 +210,20 @@ def decode_attn_split_plain(q, k, v, pos, *, split: int, window: int = 0):
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def paged_decode_attn_split_plain(q, pool_k, pool_v, tbl, pos, *,
+                                  split_pages: int, window: int = 0):
+    """The paged kernel's math as PyTorch ops (tests only): token t of row b
+    is row t % blk of page tbl[b, t // blk] clamped into [0, P); over those
+    tokens, the dense kernel's split-and-combine (``decode_attn_split_plain``)
+    with splits of ``split_pages`` pages."""
+    B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos)
+    pages = tbl.long().clamp(0, P - 1)
+    k = pool_k[pages].reshape(B, nb * blk, K, hd)
+    v = pool_v[pages].reshape(B, nb * blk, K, hd)
+    return decode_attn_split_plain(q, k, v, pos, split=split_pages * blk,
+                                   window=window)
+
+
 def _check_launch(q, pools, tbl, pos, what):
     """The kernel's dtype code for q; raises unless every tensor is on q's
     CUDA device and q and the pools are contiguous."""
@@ -220,24 +239,74 @@ def _check_launch(q, pools, tbl, pos, what):
     return dtype
 
 
+def _check_rows(q, k, v, what):
+    """Raises unless the split kernels take these rows: hd a multiple of 16
+    bytes' worth of elements up to ``MAX_HD``, one dtype."""
+    hd = q.shape[-1]
+    if hd * q.element_size() % 16 or hd > MAX_HD:
+        raise ValueError(f"{what}: the kernel takes hd a multiple of "
+                         f"{16 // q.element_size()} up to {MAX_HD}, got {hd}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+
+
+def _check_aligned(tensors, what):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: q and the keys and values must start "
+                         "on 16-byte boundaries")
+
+
+_workspace: dict = {}
+
+
+def _paged_workspace(device, n_acc: int, n_ml: int, n_tickets: int):
+    """The paged kernel's scratch on ``device``: fp32 partial states (acc,
+    then (m, l)) and int32 tickets, at least the given sizes. Allocated, the
+    tickets zeroed, only when a call needs more than the last one held
+    (grow-only); otherwise reused, so a call allocates, clears and launches
+    nothing beside its kernel. The kernel leaves every ticket at 0. One
+    workspace per device: calls on one stream at a time, as the port makes
+    them."""
+    ws = _workspace.get(device)
+    need = (n_acc, n_ml, n_tickets)
+    if ws is None or any(t.numel() < n for t, n in zip(ws, need)):
+        size = [max(n, 0 if ws is None else t.numel())
+                for t, n in zip(ws or (None,) * 3, need)]
+        ws = (torch.empty(size[0], dtype=torch.float32, device=device),
+              torch.empty(size[1], dtype=torch.float32, device=device),
+              torch.zeros(size[2], dtype=torch.int32, device=device))
+        _workspace[device] = ws
+    return ws
+
+
 def paged_decode_attn_cuda(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
-    """Launch the CUDA kernel: one block per (row, KV head)."""
+    """Launch the paged split kernel: one block per (row, KV head with up to
+    4 of its query heads, split of ``PAGED_SPLIT_PAGES`` pages); the split
+    that finishes last merges the row's splits. One launch per call. hd
+    must make 16-byte rows, at most ``MAX_HD``."""
     B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos)
-    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
-        raise TypeError(f"paged decode attention: q/pools must share float32 "
-                        f"or bfloat16, got {q.dtype}/{pool_k.dtype}/"
-                        f"{pool_v.dtype}")
-    dtype = _check_launch(q, (pool_k, pool_v), tbl, pos,
-                          "paged decode attention")
+    what = "paged decode attention"
+    _check_rows(q, pool_k, pool_v, what)
+    if PAGED_SPLIT_PAGES * blk > MAX_SPLIT:
+        raise ValueError(f"{what}: splits of {PAGED_SPLIT_PAGES} pages of "
+                         f"{blk} tokens pass the kernel's {MAX_SPLIT}")
+    dtype = _check_launch(q, (pool_k, pool_v), tbl, pos, what)
+    _check_aligned((q, pool_k, pool_v), what)
     tbl = tbl.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    nsplit = -(-nb // PAGED_SPLIT_PAGES)
+    part_acc, part_ml, tickets = _paged_workspace(
+        q.device, B * K * nsplit * G * hd, B * K * nsplit * G * 2, B * K * G)
     lib = _build.load(NAME, _bind)
-    err = lib.paged_decode_attn(
+    err = lib.decode_attn_paged(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tbl.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, K, G, hd, P, blk, nb, window,
-        1.0 / math.sqrt(hd), dtype, _build.stream_ptr(q))
-    _build.check(lib, err, "paged decode attention")
+        pos.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), B, K, G, hd, P, blk, nb,
+        PAGED_SPLIT_PAGES, window, 1.0 / math.sqrt(hd), dtype,
+        _build.stream_ptr(q))
+    _build.check(lib, err, what)
     paged_decode_attn_cuda.launches += 1
     return out
 
@@ -262,7 +331,7 @@ def paged_decode_attn_quant_cuda(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
     tbl = tbl.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = _build.load(NAME, _bind)
+    lib = _build.load(QUANT_NAME, _bind_quant)
     err = lib.paged_decode_attn_quant(
         q.data_ptr(), pool_k.data_ptr(), pool_ks.data_ptr(), pool_v.data_ptr(),
         pool_vs.data_ptr(), tbl.data_ptr(), pos.data_ptr(), out.data_ptr(), B,
@@ -279,19 +348,12 @@ paged_decode_attn_quant_cuda.launches = 0
 def decode_attn_cuda(q, k, v, pos, *, window: int = 0):
     """Launch the dense kernels: one block per (row, KV head, split of
     ``DENSE_SPLIT`` tokens), then one per (row, KV head) to combine; both
-    launches count. hd must make 16-byte rows, at most ``DENSE_MAX_HD``."""
+    launches count. hd must make 16-byte rows, at most ``MAX_HD``."""
     B, K, G, hd, T = _dense_shapes(q, k, v, pos)
-    if hd * q.element_size() % 16 or hd > DENSE_MAX_HD:
-        raise ValueError(f"dense decode attention: the kernel takes hd a "
-                         f"multiple of {16 // q.element_size()} up to "
-                         f"{DENSE_MAX_HD}, got {hd}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"dense decode attention: q/k/v must share float32 "
-                        f"or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    dtype = _check_launch(q, (k, v), None, pos, "dense decode attention")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("dense decode attention: q, k and v must start on "
-                         "16-byte boundaries")
+    what = "dense decode attention"
+    _check_rows(q, k, v, what)
+    dtype = _check_launch(q, (k, v), None, pos, what)
+    _check_aligned((q, k, v), what)
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     nsplit = -(-T // DENSE_SPLIT)
@@ -299,7 +361,7 @@ def decode_attn_cuda(q, k, v, pos, *, window: int = 0):
                            device=q.device)
     part_ml = torch.empty((B, K, nsplit, G, 2), dtype=torch.float32,
                           device=q.device)
-    lib = _build.load(DENSE_NAME, _bind_dense)
+    lib = _build.load(NAME, _bind)
     err = lib.decode_attn_dense(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, K, G, hd,
@@ -314,16 +376,18 @@ decode_attn_cuda.launches = 0
 
 
 def _bind(lib):
-    tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.paged_decode_attn.argtypes = [ctypes.c_void_p] * 6 + tail
-    lib.paged_decode_attn.restype = ctypes.c_int
-    lib.paged_decode_attn_quant.argtypes = [ctypes.c_void_p] * 8 + tail
-    lib.paged_decode_attn_quant.restype = ctypes.c_int
-
-
-def _bind_dense(lib):
+    tail = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.decode_attn_dense.argtypes = ([ctypes.c_void_p] * 7
-                                      + [ctypes.c_int] * 7
-                                      + [ctypes.c_float, ctypes.c_int,
-                                         ctypes.c_void_p])
+                                      + [ctypes.c_int] * 7 + tail)
     lib.decode_attn_dense.restype = ctypes.c_int
+    lib.decode_attn_paged.argtypes = ([ctypes.c_void_p] * 9
+                                      + [ctypes.c_int] * 9 + tail)
+    lib.decode_attn_paged.restype = ctypes.c_int
+
+
+def _bind_quant(lib):
+    lib.paged_decode_attn_quant.argtypes = ([ctypes.c_void_p] * 8
+                                            + [ctypes.c_int] * 8
+                                            + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+    lib.paged_decode_attn_quant.restype = ctypes.c_int

@@ -3,11 +3,15 @@ its plain PyTorch version.
 
 ``flash_attn_cuda`` launches ``csrc/flash_attn.cu`` (which replaces the
 TPU kernel ``repro.kernels.flash_attn.flash_attn.flash_attn_pallas``): one
-block per (64-row q tile, head, batch) walking 64-token kv tiles with an
-fp32 online softmax, kv tiles no row can see pruned under causality.
-``flash_attn_plain`` runs the blocked math of the Pallas kernel
-(``_fa_kernel``) as PyTorch ops, one step per (q block, kv block) over all
-batches and heads at once, with the same block pruning.
+block per (q tile, head, batch) walking the kv tiles with an fp32 online
+softmax, kv tiles no row can see pruned under causality. The source has
+two entry points, and ``entry_point`` picks one before the launch: bf16
+at hd 128 that TMA tensor maps can describe runs on the tensor cores
+(``wgmma``, 128-row q tiles, K/V fed by TMA), fp32 on the SIMT kernel
+(64 x 64 tiles on the CUDA cores). ``flash_attn_plain`` runs the blocked
+math of the Pallas kernel (``_fa_kernel``) as PyTorch ops, one step per
+(q block, kv block) over all batches and heads at once, with the same
+block pruning.
 
 Both follow the op's documented contract where the TPU wrapper does not:
 kv positions >= T (the wrapper's zero pads) are never attended, and a
@@ -26,9 +30,24 @@ from repro_torch.kernels import _build
 NAME = "flash_attn"
 SOURCE = "src/repro_torch/csrc/flash_attn.cu"
 REPLACES = "src/repro/kernels/flash_attn/flash_attn.py:83"
-HEAD_DIM = 128      # the CUDA kernel's one instantiation (see its source)
+HEAD_DIM = 128      # the CUDA kernels' one head dim (see their source)
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA, SIMT = "wgmma", "simt"     # the kernel's two entry points
+
+
+def entry_point(q, k, v) -> str:
+    """The entry point that takes (q, k, v): ``WGMMA`` (tensor cores, fed
+    by TMA) for bf16 at hd ``HEAD_DIM`` that tensor maps can describe, i.e.
+    contiguous tensors on 16-byte boundaries; ``SIMT`` for the rest: fp32
+    (``wgmma`` would compute in TF32), and bf16 on other head dims, strides
+    or bases, which the launch wrapper then refuses as the SIMT kernel
+    does."""
+    if q.shape[-1] != HEAD_DIM or any(
+            t.dtype != torch.bfloat16 or not t.is_contiguous()
+            or t.data_ptr() % 16 for t in (q, k, v)):
+        return SIMT
+    return WGMMA
 
 
 def _shapes(q, k, v):
@@ -92,8 +111,10 @@ def flash_attn_plain(q, k, v, *, block_q: int, block_kv: int,
 
 
 def flash_attn_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the CUDA kernel: q [B,S,H,hd], k/v [B,T,K,hd], contiguous and
-    16-byte aligned, one dtype (float32 or bfloat16), hd == HEAD_DIM."""
+    """Launch the CUDA kernel at the entry point ``entry_point`` picks: q
+    [B,S,H,hd], k/v [B,T,K,hd], contiguous and 16-byte aligned, one dtype
+    (float32 or bfloat16), hd == HEAD_DIM. Counts the launch in
+    ``launches`` and in ``by_entry`` under its entry point."""
     B, S, H, hd, T, K = _shapes(q, k, v)
     dtype = _DTYPES.get(q.dtype)
     if dtype is None or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -109,17 +130,26 @@ def flash_attn_cuda(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attn: q/k/v must be contiguous and 16-byte "
                          "aligned")
     out = torch.empty_like(q)
+    entry = entry_point(q, k, v)
     lib = _build.load(NAME, _bind)
-    err = lib.flash_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), B, S, T, H, K, hd, int(causal),
-                         window if causal else 0, 1.0 / math.sqrt(hd), dtype,
-                         _build.stream_ptr(q))
-    _build.check(lib, err, "flash_attn")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    attend = (int(causal), window if causal else 0, 1.0 / math.sqrt(hd))
+    if entry == WGMMA:
+        err = lib.flash_attn_tc(*ptrs, B, S, T, H, K, *attend,
+                                _build.stream_ptr(q))
+    else:
+        # fp32 only: every bf16 input the SIMT kernel could take is WGMMA's,
+        # and the checks above refuse the rest
+        err = lib.flash_attn(*ptrs, B, S, T, H, K, hd, *attend, dtype,
+                             _build.stream_ptr(q))
+    _build.check(lib, err, f"flash_attn ({entry})")
     flash_attn_cuda.launches += 1
+    flash_attn_cuda.by_entry[entry] += 1
     return out
 
 
 flash_attn_cuda.launches = 0
+flash_attn_cuda.by_entry = {WGMMA: 0, SIMT: 0}
 
 
 def _bind(lib):
@@ -127,3 +157,6 @@ def _bind(lib):
                                + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p])
     lib.flash_attn.restype = ctypes.c_int
+    lib.flash_attn_tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                  + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attn_tc.restype = ctypes.c_int

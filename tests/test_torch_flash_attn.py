@@ -17,6 +17,7 @@ from repro.kernels import flash_attn_ref as jax_flash_ref
 from repro_torch import convert
 from repro_torch.kernels import flash_attn, flash_attn_ref
 from repro_torch.kernels.flash_attn import flash_attn_cuda, flash_attn_plain
+from repro_torch.kernels.flash_attn.flash_attn import SIMT, WGMMA, entry_point
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -160,3 +161,43 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attn_cuda(q, k, v)
     assert flash_attn_cuda.launches == 0
+
+
+def _qkv(hd=128, dtype=torch.bfloat16, view=None):
+    q, k, v = (torch.zeros(shape, dtype=dtype) for shape in
+               ((1, 16, 4, hd), (1, 16, 2, hd), (1, 16, 2, hd)))
+    return (q, k, view(v)) if view else (q, k, v)
+
+
+def _shifted(t):
+    """t's values in a copy whose base lies one element past a 16-byte
+    boundary."""
+    flat = torch.zeros(t.numel() + 8, dtype=t.dtype)[1:1 + t.numel()]
+    return flat.view(t.shape)
+
+
+# (q, k, v) -> the entry point the rule must pick: a tensor map needs bf16
+# rows of hd 128, contiguous, on 16-byte boundaries
+FLASH_ENTRY_CASES = {
+    "bf16_hd128": (lambda: _qkv(), WGMMA),
+    "fp32_hd128": (lambda: _qkv(dtype=torch.float32), SIMT),
+    "bf16_hd64": (lambda: _qkv(hd=64), SIMT),
+    "bf16_misaligned_v": (lambda: _qkv(view=_shifted), SIMT),
+    "bf16_strided_v": (lambda: _qkv(view=lambda t: t.transpose(1, 2)), SIMT),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_ENTRY_CASES))
+def test_entry_point_rule(name):
+    make, want = FLASH_ENTRY_CASES[name]
+    assert entry_point(*make()) == want
+
+
+def test_wrapper_refuses_what_the_simt_entry_does_not_take():
+    """The inputs the rule sends to SIMT but the SIMT kernel cannot take
+    raise before anything is built or launched (here on the CPU, which
+    raises as well)."""
+    for q, k, v in (_qkv(view=_shifted), _qkv(view=lambda t: t.transpose(1, 2))):
+        with pytest.raises(ValueError):
+            flash_attn_cuda(q, k, v)
+    assert flash_attn_cuda.by_entry == {WGMMA: 0, SIMT: 0}

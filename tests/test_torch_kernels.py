@@ -223,6 +223,59 @@ def test_dense_split_combine_matches_reference(name):
     assert not np.signbit(got[dead]).any()
 
 
+# the paged kernel's split-and-combine math: (B, K, G, hd, P, blk, nb,
+# split_pages, window, pos, table). The tiny cases of PAGED_CASES in splits
+# of two pages; tables with sentinels and negative entries past each row's
+# pages; rows at pos -1; a window whose edge cuts a split; a row longer than
+# 8 splits.
+PAGED_SPLIT_CASES = dict(
+    {f"paged_{name}": (B, K, G, hd, P, blk, nb, 2, window, pos,
+                       "sentinel" if sentinel else "plain")
+     for name, (B, K, G, hd, P, blk, nb, window, pos, sentinel)
+     in PAGED_CASES.items()},
+    sentinel_and_negative=(3, 2, 2, 16, 20, 4, 5, 2, 0, [3, 9, 17],
+                           "negative"),
+    pos_minus_one=(3, 2, 2, 16, 16, 4, 4, 2, 0, [-1, 11, -1], "sentinel"),
+    window_cuts_a_split=(2, 2, 2, 16, 16, 4, 6, 2, 5, [13, 21], "sentinel"),
+    row_longer_than_8_splits=(1, 2, 2, 16, 24, 4, 20, 2, 0, [77],
+                              "sentinel"),
+)
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_SPLIT_CASES))
+def test_paged_split_combine_matches_reference(name):
+    B, K, G, hd, P, blk, nb, pages, window, pos, table = PAGED_SPLIT_CASES[name]
+    q, pk, pv, tbl, pos = _paged_case(B, K, G, hd, P, blk, nb, seed=len(name),
+                                      pos=pos, sentinel=table != "plain")
+    if table == "negative":              # unmapped entries below 0 clamp too
+        for b in range(B):
+            tbl[b, pos[b] // blk + 1::2] = -1 - b
+    want = _jax_paged(q, pk, pv, tbl, pos, window)
+    got = da_mod.paged_decode_attn_split_plain(
+        *(torch.from_numpy(a) for a in (q, pk, pv, tbl, pos)),
+        split_pages=pages, window=window).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    dead = pos < 0            # no live split: exact zeros, as the kernel
+    assert np.array_equal(got[dead], np.zeros_like(got[dead]))
+    assert not np.signbit(got[dead]).any()
+
+
+def test_paged_workspace_grows_and_is_reused():
+    """The paged kernel's scratch: reused while a call fits it, grown (never
+    shrunk) when one does not, the tickets zeroed only then."""
+    da_mod._workspace.pop(torch.device("cpu"), None)
+    try:
+        a = da_mod._paged_workspace(torch.device("cpu"), 64, 8, 4)
+        assert [t.numel() for t in a] == [64, 8, 4] and not a[2].any()
+        assert all(x is y for x, y in zip(
+            da_mod._paged_workspace(torch.device("cpu"), 32, 8, 2), a))
+        b = da_mod._paged_workspace(torch.device("cpu"), 16, 20, 2)
+        assert [t.numel() for t in b] == [64, 20, 4] and not b[2].any()
+        assert a[1] is not b[1]
+    finally:
+        da_mod._workspace.pop(torch.device("cpu"), None)
+
+
 def test_kernels_export_the_reference_public_names():
     public = {n for n in dir(jax_kernels) if not n.startswith("_")
               and callable(getattr(jax_kernels, n))}
@@ -439,6 +492,26 @@ def test_quant_wrapper_refuses_what_the_kernel_does_not_take():
         launch(q.half(), pk, ks, pv, vs, tbl, pos)
     with pytest.raises(ValueError, match="one CUDA device"):
         launch(q, pk, ks, pv, vs, tbl, pos)
+    assert launch.launches == 0
+
+
+def test_paged_wrapper_refuses_what_the_kernel_does_not_take():
+    """The paged launch wrapper checks before it builds or launches: rows
+    of 16-byte multiples up to the kernel's hd, one fp32/bf16 dtype, one
+    CUDA device (a CPU tensor handed to it raises instead of running
+    anywhere), splits within the kernel's length."""
+    q, pk, pv, tbl, pos = (torch.from_numpy(a) for a in _paged_case(
+        2, 1, 2, 16, 8, 4, 2, seed=1))
+    launch = port_da.paged_decode_attn_cuda
+    with pytest.raises(ValueError, match="multiple of 4 up to"):
+        launch(q[..., :6], pk[..., :6], pv[..., :6], tbl, pos)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        launch(q, pk.bfloat16(), pv, tbl, pos)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        launch(q, pk, pv, tbl, pos)
+    blk = da_mod.MAX_SPLIT // da_mod.PAGED_SPLIT_PAGES + 1   # a split too long
+    with pytest.raises(ValueError, match="pass the kernel's 512"):
+        launch(q, *(torch.zeros(8, blk, 1, 16) for _ in range(2)), tbl, pos)
     assert launch.launches == 0
 
 

@@ -4,7 +4,7 @@
     python3 tools/kernel_sweeps.py
 
 Needs one CUDA device and ``nvcc``. Times are L2-cold (a 256 MB write
-before each call, outside the CUDA events), medians of 30 calls. Two
+before each call, outside the CUDA events), medians of 30 calls. Four
 sweeps, printed one line per shape after the card's name and power limit:
 
 1. the ragged linear's tensor-core entry point at each of its tile widths
@@ -17,7 +17,21 @@ sweeps, printed one line per shape after the card's name and power limit:
    port launches; each width is first held against the plain version;
 2. dense decode attention at ``chip_smoke.py``'s phase-6 shape with splits
    of 64 to 512 tokens: the call's time, and the split and combine kernels'
-   device times by ``torch.profiler``, beside SDPA with a mask and GQA.
+   device times by ``torch.profiler``, beside SDPA with a mask and GQA;
+3. flash attention's tensor-core entry point at kv tiles of 64 and 128 rows
+   and rings of 2 and 3 stages, at ``chip_smoke.py``'s phase-5 shape
+   (granite's [1, 4096, 32, 128], causal) and gemma2-27b's windowed
+   [1, 8192, 32, 128] over 16 KV heads, beside SDPA; the source is compiled
+   once more with an extra C entry point that takes both from its caller,
+   each pair first held against SDPA's output;
+4. paged decode attention at 1, 2, 4 and 8 pages per split at phase 5's
+   shape (8 rows of granite heads over a 40-layer pool of 16-token pages,
+   the rows' positions those of ``chip_smoke.py``'s requests), L2-cold and
+   L2-warm by events and L2-cold by ``chip_smoke.device_ms`` (events
+   around a call of tens of us also count the host's enqueue; there the
+   calls queue behind a spin kernel), beside the
+   page gather + SDPA yardstick, each split size first held against the
+   plain version.
 """
 from __future__ import annotations
 
@@ -30,15 +44,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+import chip_smoke  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 DEV = "cuda"
 rl = importlib.import_module("repro_torch.kernels.ragged_linear.ragged_linear")
 da = importlib.import_module("repro_torch.kernels.decode_attn.decode_attn")
+fa = importlib.import_module("repro_torch.kernels.flash_attn.flash_attn")
 
 SWEEP_ENTRIES = r'''
 extern "C" int sweep_ragged_linear_tc(const void* x, const void* w, const void* bias,
@@ -62,13 +80,29 @@ extern "C" int sweep_tile_width(int rows, int dout, int sms) {
   return tc::tile_width(rows, dout, sms);
 }
 '''
+FLASH_ENTRY = r'''
+extern "C" int sweep_flash_attn_tc(const void* q, const void* k, const void* v, void* out,
+                                   int B, int S, int T, int H, int K, int causal, int window,
+                                   float scale, int bkv, int stages, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bkv == 64 && stages == 2)
+    return tc::run<64, 2>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  if (bkv == 64 && stages == 3)
+    return tc::run<64, 3>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  if (bkv == 128 && stages == 3)
+    return tc::run<128, 3>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  return tc::run<128, 2>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+}
+
+extern "C" int sweep_flash_tile() { return tc::kBKV * 10 + tc::kStages; }
+'''
 PROJECTIONS = {"q, o": (4096, 4096), "k, v": (4096, 1024),
                "gate, up": (4096, 12800), "down": (12800, 4096)}
 ROWS = ((1024, 1001), (2048, 1030), (2048, 2048))   # budget, live rows
 _FLUSH = []
 
 
-def time_ms(fn, n=30):
+def time_ms(fn, n=30, l2_cold=True):
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.int32, device=DEV))
     for _ in range(3):
@@ -76,7 +110,8 @@ def time_ms(fn, n=30):
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
-        _FLUSH[0].zero_()
+        if l2_cold:
+            _FLUSH[0].zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -87,17 +122,25 @@ def time_ms(fn, n=30):
     return statistics.median(times)
 
 
-def sweep_library():
-    """The kernel source plus the two sweep entry points, built into
-    build/ beside the port's libraries."""
-    src = (_build.CSRC / "ragged_linear.cu").read_text() + SWEEP_ENTRIES
+def sweep_library(name, entries):
+    """``csrc/<name>.cu`` plus the sweep's extra entry points, built into
+    build/ beside the port's libraries (its headers from csrc/)."""
+    src = (_build.CSRC / f"{name}.cu").read_text() + entries
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _build.BUILD_DIR / "ragged_linear_sweep.cu"
-    so = _build.BUILD_DIR / "libragged_linear_sweep.so"
+    cu = _build.BUILD_DIR / f"{name}_sweep.cu"
+    so = _build.BUILD_DIR / f"lib{name}_sweep.so"
     cu.write_text(src)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                   check=True, capture_output=True, text=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-o", str(so), str(cu)], check=True, capture_output=True,
+                   text=True)
     lib = ctypes.CDLL(str(so))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ragged_sweep():
+    lib = sweep_library("ragged_linear", SWEEP_ENTRIES)
     lib.sweep_ragged_linear_tc.argtypes = ([ctypes.c_void_p] * 4
                                            + [ctypes.c_int] * 4
                                            + [ctypes.c_longlong, ctypes.c_int,
@@ -105,13 +148,6 @@ def sweep_library():
     lib.sweep_ragged_linear_tc.restype = ctypes.c_int
     lib.sweep_tile_width.argtypes = [ctypes.c_int] * 3
     lib.sweep_tile_width.restype = ctypes.c_int
-    lib.error_string.argtypes = [ctypes.c_int]
-    lib.error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def ragged_sweep():
-    lib = sweep_library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -150,7 +186,6 @@ def ragged_sweep():
 
 
 def dense_sweep():
-    from torch.profiler import ProfilerActivity, profile
     B, T, K, G, hd = 8, 4096, 8, 4, 128
     g = torch.Generator(device=DEV).manual_seed(10)
     q = torch.randn((B, K, G, hd), generator=g, device=DEV).to(torch.bfloat16)
@@ -171,21 +206,120 @@ def dense_sweep():
             err = float((da.decode_attn_cuda(q, k, v, pos).float() - want)
                         .abs().max())
             ms = time_ms(lambda: da.decode_attn_cuda(q, k, v, pos))
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with chip_smoke.traced() as prof:
                 for _ in range(5):
                     _FLUSH[0].zero_()
                     da.decode_attn_cuda(q, k, v, pos)
-                torch.cuda.synchronize()
             dev = {name: sum(e.device_time_total for e in prof.key_averages()
                              if name in e.key) / 5
-                   for name in ("dense_split_kernel", "dense_combine_kernel")}
+                   for name in ("split_kernel", "dense_combine_kernel")}
             print(f"decode_attn dense {[B, T, K, hd]} bf16, split {split}: "
-                  f"{ms:.4f} ms (split kernel {dev['dense_split_kernel']:.1f} "
+                  f"{ms:.4f} ms (split kernel {dev['split_kernel']:.1f} "
                   f"us, combine {dev['dense_combine_kernel']:.1f} us), max "
                   f"abs err {err:.2e}; SDPA with a mask {sdpa:.4f} ms",
                   flush=True)
     finally:
         da.DENSE_SPLIT = chosen
+
+
+def flash_sweep():
+    lib = sweep_library("flash_attn", FLASH_ENTRY)
+    lib.sweep_flash_attn_tc.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p])
+    lib.sweep_flash_attn_tc.restype = ctypes.c_int
+    tile = lib.sweep_flash_tile()
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=DEV).manual_seed(11)
+    for S, H, K, window in ((4096, 32, 8, 0), (8192, 32, 16, 4096)):
+        q = torch.randn((1, S, H, 128), generator=g, device=DEV).bfloat16()
+        k, v = (torch.randn((1, S, K, 128), generator=g, device=DEV)
+                .bfloat16() for _ in range(2))
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            t = torch.arange(S, device=DEV)
+            kw = dict(attn_mask=(t[:, None] >= t[None, :])
+                      & (t[:, None] - t[None, :] < window))
+        else:
+            kw = dict(is_causal=True)
+
+        def sdpa():
+            return chip_smoke.sdpa_gqa(qh, kh, vh, **kw).transpose(1, 2)
+        want = sdpa().float()
+        flops = 4 * H * 128 * chip_smoke.visible_pairs(S, S, window)
+
+        def call(bkv, stages):
+            out = torch.empty_like(q)
+            err = lib.sweep_flash_attn_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1,
+                S, S, H, K, 1, window, 1 / 128 ** 0.5, bkv, stages, stream)
+            _build.check(lib, err, f"flash sweep (kv {bkv}, {stages} stages)")
+            return out
+        ms = {}
+        for bkv in (64, 128):
+            for stages in (2, 3):
+                got = call(bkv, stages).float()
+                bad = (got - want).abs() > 2e-2 + 2e-2 * want.abs()
+                if bad.any():
+                    raise AssertionError(f"flash kv {bkv} x {stages} stages: "
+                                         f"{int(bad.sum())} elements off")
+                ms[bkv, stages] = time_ms(lambda: call(bkv, stages))
+        lib_ms = time_ms(sdpa)
+        print(f"flash_attn_tc [1,{S},{H},128] over {K} KV heads, causal, "
+              f"window {window}: " + ", ".join(
+                  f"kv {b} x {st} stages {t:.4f} ms "
+                  f"({flops / t / 1e9:.1f} TFLOP/s)"
+                  for (b, st), t in ms.items())
+              + f"; SDPA {lib_ms:.4f} ms; the port's entry takes kv "
+              f"{tile // 10} x {tile % 10} stages, fastest "
+              f"{min(ms, key=ms.get)}", flush=True)
+        del q, k, v, qh, kh, vh, want
+
+
+def paged_sweep():
+    """Phase 5's paged shape: 8 bf16 rows of granite heads (K 8, G 4, hd
+    128) over a pool of 40 layers x 256 pages of 16 tokens, the table drawn
+    from the first layer's pages, positions 15 past the requests'
+    prompts."""
+    cfg = get_config("granite-3-8b")
+    lengths = [r.prompt.shape[1] for r in chip_smoke.make_requests(cfg, 4)]
+    B, K, G, hd, blk, Pl, L = 8, cfg.n_kv_heads, cfg.q_per_kv, cfg.hd, 16, 256, 40
+    nb = Pl // B
+    g = torch.Generator(device=DEV).manual_seed(7)
+    pk, pv = (torch.randn((L * Pl, blk, K, hd), generator=g, device=DEV)
+              .bfloat16() for _ in range(2))
+    q = torch.randn((B, K, G, hd), generator=g, device=DEV).bfloat16()
+    pos = torch.tensor([n + 15 for n in lengths], dtype=torch.int32,
+                       device=DEV)
+    tbl = torch.randperm(Pl, generator=g, device=DEV)[:B * nb].reshape(B, nb)
+    cols = torch.arange(nb, device=DEV)[None, :]
+    tbl = torch.where(cols > (pos // blk)[:, None], chip_smoke.SENTINEL,
+                      tbl).to(torch.int32)
+    want = da.paged_decode_attn_plain(q.float(), pk.float(), pv.float(), tbl,
+                                      pos)
+    lib_ms = time_ms(lambda: chip_smoke.sdpa_over_pages(q, pk, pv, tbl, pos))
+    chosen = da.PAGED_SPLIT_PAGES
+    try:
+        for pages in (1, 2, 4, 8):
+            da.PAGED_SPLIT_PAGES = pages
+            got = da.paged_decode_attn_cuda(q, pk, pv, tbl, pos).float()
+            err = float((got - want).abs().max())
+            if err > 2e-2:
+                raise AssertionError(f"paged split {pages}: max err {err}")
+
+            def call():
+                return da.paged_decode_attn_cuda(q, pk, pv, tbl, pos)
+            print(f"paged_decode_attn q {list(q.shape)}, {int((pos + 1).sum())}"
+                  f" live tokens, {pages} pages ({pages * blk} tokens) per "
+                  f"split: {time_ms(call):.4f} ms L2-cold, "
+                  f"{time_ms(call, l2_cold=False):.4f} ms L2-warm, device "
+                  f"time, enqueue hidden, "
+                  f"{chip_smoke.device_ms(call):.4f} ms "
+                  f"L2-cold, max abs err {err:.2e}; page gather + SDPA "
+                  f"{lib_ms:.4f} ms; the port takes {chosen}", flush=True)
+    finally:
+        da.PAGED_SPLIT_PAGES = chosen
 
 
 def main() -> int:
@@ -197,6 +331,8 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip())
     ragged_sweep()
     dense_sweep()
+    flash_sweep()
+    paged_sweep()
     return 0
 
 

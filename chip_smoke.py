@@ -13,9 +13,13 @@ exits non-zero and prints no result. Phases, each raising on failure:
    with sentinels past each row's pages, rows at pos -1 whose output must
    be exact zeros, one 8,192-token row over a 512-column table and a
    window whose edge cuts a split; the bf16 attention kernel one launch per
-   call; the int8 attention kernel on the same cases over int8 pools drawn
-   over [-127, 127] with f32 scales; SGMV din 4096, dout 4096/1024, rank 8, including the inputs
-   ``sgmv_pallas`` accepts: ids in range or negative), fp32 at atol = rtol
+   call; the int8 attention kernel, one launch per call too, on the same
+   cases over int8 pools drawn over [-127, 127] with f32 scales; SGMV din
+   4096, dout 4096/1024, rank 8, one launch per call, including the inputs
+   ``sgmv_pallas`` accepts (ids in range or negative), those the JAX op
+   takes by padding (T no multiple of block_t, fewer ids than blocks, the
+   default block_t of 128), a block_t-256 prefill with a short last block,
+   and ranks 16 and 12, dead rows exact +0.0), fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
    fp32 on the same bf16 inputs; and so the kernels no serving path
    runs: dense decode attention (split-KV and a combine) at granite's
@@ -25,8 +29,9 @@ exits non-zero and prints no result. Phases, each raising on failure:
    granite's H=32, K=8 (S=T=2048 causal, and non-causal cross
    S=512/T=2048), gemma2-27b's H=32, K=16 with its 4096 window at
    S=T=8192, and S > T with rows that see no key (exact zeros), each case
-   in bf16 on the tensor-core entry point and in fp32 on the SIMT one
-   (each launch's entry checked by its counter); the ragged linear, rows
+   in bf16 on the tensor-core entry point and in fp32 on the SIMT one, and
+   stablelm-12b's hd 160 (causal, and cross non-causal) in both dtypes on
+   the SIMT one (each launch's entry checked by its counter); the ragged linear, rows
    past the live count exact +0.0, each launch's entry point checked by
    its counter: bf16 on the tensor cores at din 4096 / dout 12800 with a
    bias (n_live 1001 of 1024, and 700 of 2048 counted on the card), at
@@ -46,17 +51,19 @@ exits non-zero and prints no result. Phases, each raising on failure:
    LoRA clients, 8 staggered requests, greedy, with the kernels' launch
    counts checked per tick; then an 8-row decode tick timed unprofiled
    and traced once with torch.profiler (device activity only): device
-   busy share, kernels per tick (beside the count with the one-block-per-
-   head paged attention kernel), top kernels by device time;
+   busy share, kernels per tick (no more than before the attention and
+   SGMV kernels were split across blocks), top kernels by device time,
+   the SGMV and attention kernels' device time per tick beside their aims;
 4b. the same 8 requests over int8 KV pages (``kv_quant=True``) behind a
    ``PlacementRouter`` whose one slot holds 4 of the requests' int8
    charges but not all 8, so admission queues on the card: 40 int8
    attention launches and no bf16 ones per decode tick, the same first
    token per request as phase 4, the router's ledger conserved and empty
    after the drain; the same 8-row tick profile, beside phase 4's;
-5. timings at the phase-4, 4b and 6 shapes: kernel (L2-cold and L2-warm;
-   for the paged attention kernels and flash also the device time with the
-   host's enqueue hidden behind a spin kernel), plain version, a library
+5. timings at the phase-4, 4b and 6 shapes: kernel (L2-cold and L2-warm,
+   and the device time with the host's enqueue hidden behind a spin
+   kernel, beside its aim for the int8 attention kernel and SGMV at decode
+   and prefill), plain version, a library
    yardstick and the memory/compute bound; each granite-shape
    ragged-linear and bf16 flash launch must take the tensor cores; flash's
    and SDPA's max errors against the plain version;
@@ -247,8 +254,12 @@ def check_paged_quant(errs):
                       for _ in range(2))
             ks, vs = (torch.rand((P, blk, K, 1), generator=g, device=DEV)
                       * 0.025 + 0.005 for _ in range(2))
+            before = launch_count("paged_decode_attn_quant")
             got = da.paged_decode_attn_quant_cuda(q, pk, ks, pv, vs, tbl, p,
                                                   window=window)
+            if launch_count("paged_decode_attn_quant") != before + 1:
+                raise AssertionError(f"paged_decode_attn_quant {name}: not "
+                                     "one launch")
             want = da.paged_decode_attn_quant_plain(q.float(), pk, ks, pv, vs,
                                                     tbl, p, window=window)
             torch.cuda.synchronize()
@@ -263,43 +274,61 @@ def check_paged_quant(errs):
                 f"{str(dtype):15s} max_abs_err={e:.3e}")
 
 
-SGMV_CASES = {    # (rows, block_t, dout, ids)
-    "decode_1row_q": (1, 1, 4096, [2]),
-    "decode_5rows_v": (5, 1, 1024, [0, -1, 3, 9, 1]),
-    "decode_16rows_q": (16, 1, 4096, [0, 1, 2, 3, -1, 5, 1, 1, 0, 2, 3, 3, 7,
-                                      -1, 2, 0]),
-    "decode_16rows_v": (16, 1, 1024, [3, 2, 1, 0, 0, -1, 4, 1, 2, 2, 3, 1, 0,
-                                      0, -1, 3]),
-    "prefill_S128_q": (3, 128, 4096, [1, -1, 9]),
-    "prefill_S256_v": (2, 256, 1024, [3, 0]),
+SGMV_CASES = {    # (T, block_t, dout, rank, ids), din 4096
+    "decode_1row_q": (1, 1, 4096, 8, [2]),
+    "decode_5rows_v": (5, 1, 1024, 8, [0, -1, 3, 9, 1]),
+    "decode_16rows_q": (16, 1, 4096, 8, [0, 1, 2, 3, -1, 5, 1, 1, 0, 2, 3, 3,
+                                         7, -1, 2, 0]),
+    "decode_16rows_v": (16, 1, 1024, 8, [3, 2, 1, 0, 0, -1, 4, 1, 2, 2, 3, 1,
+                                         0, 0, -1, 3]),
+    "prefill_S128_q": (384, 128, 4096, 8, [1, -1, 9]),
+    "prefill_S256_v": (512, 256, 1024, 8, [3, 0]),
     # what sgmv_pallas (unclamped index_map) accepts: ids in range or dead
-    "pallas_ids_decode_8rows_q": (8, 1, 4096, [0, 3, -1, 2, 1, -1, 3, 0]),
-    "pallas_ids_prefill_S64_v": (4, 64, 1024, [2, -1, 0, 3]),
+    "pallas_ids_decode_8rows_q": (8, 1, 4096, 8, [0, 3, -1, 2, 1, -1, 3, 0]),
+    "pallas_ids_prefill_S64_v": (256, 64, 1024, 8, [2, -1, 0, 3]),
+    # what the JAX op takes by padding: T no multiple of block_t, fewer ids
+    # than blocks (the rest dead), the default block_t of 128
+    "t100_block32_last_short": (100, 32, 4096, 8, [1, 2, -1, 0]),
+    "t64_block16_2_of_4_ids": (64, 16, 1024, 8, [3, 1]),
+    "t300_default_block_1_id": (300, 128, 4096, 8, [2]),
+    # the prefill shape in blocks of 256, the last one short
+    "prefill_block256_short_last": (1000, 256, 4096, 8, [0, 1, 2, 3]),
+    # rank 16 (the fast path's other rank) and 12 (the generic path)
+    "rank16_decode_q": (8, 1, 4096, 16, [0, 1, 2, 3, 3, 2, -1, 0]),
+    "rank16_prefill_v": (300, 128, 1024, 16, [1, 0, 2]),
+    "rank12_decode_v": (5, 1, 1024, 12, [3, -1, 0, 1, 1]),
+    "rank12_prefill_q": (200, 64, 4096, 12, [2, 0, -1, 1]),
 }
 
 
 def check_sgmv(errs):
-    din, r, n = 4096, 8, 4
-    for i, (name, (rows, bt, dout, ids)) in enumerate(SGMV_CASES.items()):
+    din, n = 4096, 4
+    for i, (name, (T, bt, dout, r, ids)) in enumerate(SGMV_CASES.items()):
         g = gen(200 + i)
-        x = torch.randn((rows * bt, din), generator=g, device=DEV)
+        x = torch.randn((T, din), generator=g, device=DEV)
         bank_a = torch.randn((n, 3, din, r), generator=g, device=DEV) / din ** 0.5
         bank_b = torch.randn((n, 3, r, dout), generator=g, device=DEV) * 0.05
         ids_t = torch.tensor(ids, dtype=torch.int32, device=DEV)
+        live = torch.zeros(T, dtype=torch.bool, device=DEV)
+        for b, a in enumerate(ids):
+            live[b * bt:(b + 1) * bt] = a >= 0
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             # layer-major views of a [C, L, ...] bank: a strided client axis,
             # as the serving path passes it
             xd = x.to(dtype)
             Ad = bank_a.to(dtype).transpose(0, 1)[1]
             Bd = bank_b.to(dtype).transpose(0, 1)[1]
+            before = launch_count("sgmv")
             got = sg.sgmv_cuda(xd, Ad, Bd, ids_t, block_t=bt, scale=2.0)
+            if launch_count("sgmv") != before + 1:
+                raise AssertionError(f"sgmv {name}: not one launch")
             want = sg.sgmv_plain(xd.float(), Ad.float(), Bd.float(), ids_t,
                                  block_t=bt, scale=2.0)
             torch.cuda.synchronize()
             e = compare(f"sgmv {name} {dtype}", got, want, tol)
-            dead = (ids_t < 0).repeat_interleave(bt)
-            if got[dead].any():
-                raise AssertionError(f"sgmv {name}: dead rows not zero")
+            dead = got[~live]
+            if dead.any() or torch.signbit(dead).any():
+                raise AssertionError(f"sgmv {name}: dead rows not exact +0.0")
             errs.append(e)
             log(f"[phase 2] sgmv {name:30s} {str(dtype):15s} max_abs_err={e:.3e}")
 
@@ -348,26 +377,30 @@ def check_dense(errs):
                 f"max_abs_err={e:.3e}")
 
 
-FLASH_CASES = {   # (B, S, T, H, K, causal, window), hd 128
-    "granite_causal_2048": (1, 2048, 2048, 32, 8, True, 0),
-    "granite_cross_512x2048": (1, 512, 2048, 32, 8, False, 0),
-    "gemma2_window_8192": (1, 8192, 8192, 32, 16, True, 4096),
-    "s_above_t_no_key_rows": (2, 300, 200, 8, 2, True, 50),
+FLASH_CASES = {   # (B, S, T, H, K, causal, window, hd)
+    "granite_causal_2048": (1, 2048, 2048, 32, 8, True, 0, 128),
+    "granite_cross_512x2048": (1, 512, 2048, 32, 8, False, 0, 128),
+    "gemma2_window_8192": (1, 8192, 8192, 32, 16, True, 4096, 128),
+    "s_above_t_no_key_rows": (2, 300, 200, 8, 2, True, 50, 128),
+    # stablelm-12b: 32 / 8 heads of 160 (the SIMT entry in both dtypes)
+    "stablelm_hd160_causal_1024": (1, 1024, 1024, 32, 8, True, 0, 160),
+    "stablelm_hd160_cross_100x300": (2, 100, 300, 32, 8, False, 0, 160),
 }
 
 
 def check_flash(errs):
     """Every case in fp32 on the SIMT entry point and in bf16 on the
-    tensor-core one (each launch's entry asserted by its counter)."""
-    hd = 128
-    for i, (name, (B, S, T, H, K, causal, window)) in enumerate(
+    tensor-core one at hd 128, on the SIMT one at hd 160 (each launch's
+    entry asserted by its counter)."""
+    for i, (name, (B, S, T, H, K, causal, window, hd)) in enumerate(
             FLASH_CASES.items()):
         g = gen(600 + i)
         q = torch.randn((B, S, H, hd), generator=g, device=DEV)
         k = torch.randn((B, T, K, hd), generator=g, device=DEV)
         v = torch.randn((B, T, K, hd), generator=g, device=DEV)
+        bf16_entry = fa.WGMMA if hd == fa.HEAD_DIM else fa.SIMT
         for dtype, tol, entry in ((torch.float32, F32_TOL, fa.SIMT),
-                                  (torch.bfloat16, BF16_TOL, fa.WGMMA)):
+                                  (torch.bfloat16, BF16_TOL, bf16_entry)):
             qd, kd, vd = (t.to(dtype) for t in (q, k, v))
             before = dict(fa.flash_attn_cuda.by_entry)
             got = fa.flash_attn_cuda(qd, kd, vd, causal=causal, window=window)
@@ -385,7 +418,7 @@ def check_flash(errs):
                 raise AssertionError(f"flash_attn {name}: rows that see no "
                                      "key are not exact zeros")
             errs.append(e)
-            log(f"[phase 2] flash_attn {name:24s} {str(dtype):15s} "
+            log(f"[phase 2] flash_attn {name:28s} hd {hd} {str(dtype):15s} "
                 f"{entry:5s} max_abs_err={e:.3e}")
             del got, want
 
@@ -723,11 +756,14 @@ def serve_quant(cfg, base, bank, first, times4):
     return launches, eng.caches, [r.prompt.shape[1] for r in reqs]
 
 
-# Kernels per traced 8-row decode tick with the paged attention kernel of
-# one block per (row, KV head), as this script counted them on the H100
-# (phase 4b's count differs by one from run to run): the split kernel
-# merges in its own launch, so the count should not rise.
+# Kernels per traced 8-row decode tick before the attention kernels were
+# split across blocks and SGMV across dout tiles, as this script counted
+# them on the H100 (phase 4b's count differs by one from run to run): every
+# kernel stays one launch per call, so the count must not rise.
 KERNELS_PER_TICK_BEFORE = {"phase 4": 3469, "phase 4b": 4589}
+# traced device time per 8-row decode tick that the SGMV launches (80) and
+# the attention launches (40) aim to stay under, ms
+TICK_AIMS_MS = {"sgmv": 1.0, "split_kernel": 1.0}
 
 
 def profile_tick(cfg, base, bank, spec, label):
@@ -780,10 +816,19 @@ def profile_tick(cfg, base, bank, spec, label):
         f"unprofiled, {traced_us / 1e3:.3f} ms traced; device busy "
         f"{busy / 1e3:.3f} ms = {100 * busy / tick_us:.1f}% of the "
         f"unprofiled tick ({100 * busy / traced_us:.1f}% of the traced "
-        f"one); {len(kern)} kernels ({before} with the one-block-per-head "
-        "paged attention kernel)")
+        f"one); {len(kern)} kernels (at most {before}: every kernel one "
+        "launch per call)")
+    if len(kern) > before:
+        raise AssertionError(f"[{label}] {len(kern)} kernels per decode tick,"
+                             f" more than {before}")
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"[{label}]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+    for key, aim in TICK_AIMS_MS.items():   # the attention is split_kernel
+        n = sum(c for name, (c, _) in by_name.items() if key in name)
+        d = sum(t for name, (_, t) in by_name.items() if key in name) / 1e3
+        log(f"[{label}] {key}: {n} launches, {d:.3f} ms of device time per "
+            f"tick, aim <= {aim} ms: {'met' if d <= aim else 'missed'}")
+        out[f"{key}_tick_ms"] = d
     out.update(busy_ms=busy / 1e3, busy_pct=100 * busy / tick_us,
                kernels_per_tick=float(len(kern)))
     return out
@@ -965,9 +1010,9 @@ def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes):
     bound_ms, by = bound(nbytes, 4 * tokens * K * G * hd)
     log(f"[phase 5] {label} B={B} K={K} G={G} hd={hd}, {tokens} live "
         f"tokens, L2-cold: kernel {ms:.4f} ms (L2-warm {warm_ms:.4f}; device "
-        f"time, enqueue hidden, {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
-        f"library {lib_ms:.4f} ms (differs by {lib_err:.2e}), bound "
-        f"{bound_ms:.4f} ms ({by}, {nbytes} B)")
+        f"time, enqueue hidden, {dev_ms:.4f}{aim_note(label, dev_ms)}), "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (differs by "
+        f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, {nbytes} B)")
     return dict(ms=ms, ms_l2_warm=warm_ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=lib_ms)
@@ -1013,15 +1058,32 @@ def time_decode_attn_quant(cfg, caches, lengths):
     return out
 
 
+# device time (enqueue hidden) each redesigned kernel aims to stay under
+# at phase 5's shapes, ms
+DEVICE_AIMS_MS = {"paged_decode_attn_quant": 0.020, "sgmv decode": 0.010,
+                  "sgmv prefill": 0.020}
+
+
+def aim_note(label, dev_ms):
+    aim = DEVICE_AIMS_MS.get(label)
+    if aim is None:
+        return ""
+    return f", aim <= {aim} ms: {'met' if dev_ms <= aim else 'missed'}"
+
+
 def time_sgmv(bank):
-    """q-projection LoRA delta of one layer, decode (8 rows, block_t=1) and
-    compacted prefill (4 rows of 256 tokens) shapes."""
-    A = bank["layers"]["q"]["A"].transpose(0, 1)[0]      # [C, din, r] view
-    Bw = bank["layers"]["q"]["B"].transpose(0, 1)[0]
-    n, din, r = A.shape
-    dout = Bw.shape[-1]
+    """LoRA deltas of one layer at the serving path's shapes: decode (8
+    rows, block_t=1) for the q and v projections and compacted prefill (4
+    rows of 256 tokens) for q. Returns the q decode fields, with the
+    others' under ``decode_v`` and ``prefill``."""
     results = {}
-    for label, rows, bt in (("decode", 8, 1), ("prefill", 4, 256)):
+    for label, path, rows, bt in (("decode", "q", 8, 1),
+                                  ("decode_v", "v", 8, 1),
+                                  ("prefill", "q", 4, 256)):
+        A = bank["layers"][path]["A"].transpose(0, 1)[0]   # [C, din, r] view
+        Bw = bank["layers"][path]["B"].transpose(0, 1)[0]
+        n, din, r = A.shape
+        dout = Bw.shape[-1]
         g = gen(8)
         x = torch.randn((rows * bt, din), generator=g, device=DEV) \
             .to(torch.bfloat16)
@@ -1039,10 +1101,12 @@ def time_sgmv(bank):
         # the yardstick rounds h to bf16 between its two products, the
         # kernel keeps it in fp32: the difference is reported, not held
         lib_err = float((got.float() - library().float()).abs().max())
-        ms = time_ms(lambda: sg.sgmv_cuda(x, A, Bw, ids, block_t=bt,
-                                          scale=scale))
-        warm_ms = time_ms(lambda: sg.sgmv_cuda(x, A, Bw, ids, block_t=bt,
-                                               scale=scale), l2_cold=False)
+
+        def kernel():
+            return sg.sgmv_cuda(x, A, Bw, ids, block_t=bt, scale=scale)
+        ms = time_ms(kernel)
+        warm_ms = time_ms(kernel, l2_cold=False)
+        dev_ms = device_ms(kernel)
         plain_ms = time_ms(lambda: sg.sgmv_plain(x, A, Bw, ids, block_t=bt,
                                                  scale=scale), n=20)
         lib_ms = time_ms(library)
@@ -1053,13 +1117,16 @@ def time_sgmv(bank):
         bound_ms, by = bound(nbytes, 2 * T * r * (din + dout))
         log(f"[phase 5] sgmv {label} T={T} block_t={bt} din={din} r={r} "
             f"dout={dout}, L2-cold: kernel {ms:.4f} ms (L2-warm "
-            f"{warm_ms:.4f}), plain {plain_ms:.4f} ms, gather+bmm "
-            f"{lib_ms:.4f} ms (differs by {lib_err:.2e}), bound "
+            f"{warm_ms:.4f}; device time, enqueue hidden, {dev_ms:.4f}"
+            f"{aim_note('sgmv ' + label, dev_ms)}), plain {plain_ms:.4f} ms, "
+            f"gather+bmm {lib_ms:.4f} ms (differs by {lib_err:.2e}), bound "
             f"{bound_ms:.4f} ms ({by})")
-        results[label] = dict(ms=ms, ms_l2_warm=warm_ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=by,
-                              library_ms=lib_ms)
-    return results["decode"]
+        results[label] = dict(ms=ms, ms_l2_warm=warm_ms, device_ms=dev_ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=by, library_ms=lib_ms)
+    out = results.pop("decode")
+    out.update(results)
+    return out
 
 
 DENSE_SHAPE = (8, 4096, 8, 4, 128)     # phase 6's dense cache: B, T, K, G, hd
@@ -1098,22 +1165,26 @@ def sdpa_gqa(q, k, v, **kw):
 
 def timing_fields(label, kernel, plain, library, nbytes, flops, shape,
                   rows=None):
-    """Kernel L2-cold and L2-warm, plain version, one library call, and the
+    """Kernel L2-cold and L2-warm, its device time with the host's enqueue
+    hidden (``device_ms``), plain version, one library call, and the
     bound; the library call's difference from the kernel (over the first
     ``rows`` rows, where given) is reported."""
     lib_err = float((kernel()[:rows].float() - library()[:rows].float())
                     .abs().max())
     ms = time_ms(kernel)
     warm_ms = time_ms(kernel, l2_cold=False)
+    dev_ms = device_ms(kernel, n=10)
     plain_ms = time_ms(plain, n=10, warmup=1)
     lib_ms = time_ms(library)
     bound_ms, by = bound(nbytes, flops)
     log(f"[phase 5] {label} {shape}, L2-cold: kernel {ms:.4f} ms (L2-warm "
-        f"{warm_ms:.4f}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-        f"(differs by {lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, "
-        f"{nbytes} B, {flops:.4g} flops)")
-    return dict(ms=ms, ms_l2_warm=warm_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+        f"{warm_ms:.4f}; device time, enqueue hidden, {dev_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (differs by "
+        f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, {nbytes} B, "
+        f"{flops:.4g} flops)")
+    return dict(ms=ms, ms_l2_warm=warm_ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=lib_ms)
 
 
 def time_dense_decode():
@@ -1175,8 +1246,6 @@ def time_flash(S=None, K=None, window=0):
         lambda: plain_call(kernels.flash_attn, q, k, v, window=window),
         library, nbytes, flops,
         f"q [{B},{S},{H},{hd}] k/v [{B},{S},{K},{hd}] causal window {window}")
-    out["device_ms"] = device_ms(
-        lambda: fa.flash_attn_cuda(q, k, v, window=window), n=10)
     took = {e: c - before[e] for e, c in fa.flash_attn_cuda.by_entry.items()}
     if took[fa.SIMT] or not took[fa.WGMMA]:
         raise AssertionError(f"[phase 5] flash_attn bf16 took the entry "

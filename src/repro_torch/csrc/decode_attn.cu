@@ -1,11 +1,13 @@
 // Single-query GQA decode attention for Hopper (sm_90a), split across
 // blocks along the KV axis: over a dense [B, T, K, hd] cache (a split kernel,
 // then a combine kernel), and over paged pools [P, blk, K, hd] read through
-// a block table (one launch: the split that ends last combines).
+// a block table (one launch: the split that ends last combines), whose
+// entries are q's dtype or int8 with f32 scales [P, blk, K, 1].
 //
 // Replaces the TPU kernels src/repro/kernels/decode_attn/decode_attn.py:102
-// decode_attn_pallas (_da_kernel :52) and :255 paged_decode_attn_pallas
-// (_paged_kernel :168, whose per-page math is _page_update :142). The TPU
+// decode_attn_pallas (_da_kernel :52), :255 paged_decode_attn_pallas
+// (_paged_kernel :168, whose per-page math is _page_update :142) and :274
+// paged_decode_attn_quant_pallas (_paged_quant_kernel :204). The TPU
 // grids (row b, KV chunk or table column c) walked a row's chunks in order,
 // the running softmax state in VMEM scratch, and skipped chunks outside
 // [pos-window+1, pos] by scalar prefetch. Blocks of a CUDA grid run in no
@@ -53,14 +55,26 @@
 // which allocates them once and reuses them: calls on one stream only.
 // The dense instance compiles none of this (if constexpr).
 //
+// int8 pools (the paged layout only): a lane's 16-byte load holds 16 int8
+// entries, so an int8 pool moves half a bf16 pool's bytes and is never
+// dequantized into a wider copy. A live split stages the k- and v-scales of
+// its valid tokens (head k) in shared memory beside its page ids. The JAX
+// order, exactly: the score is q.k, times the k-scale, times 1/sqrt(hd);
+// the denominator sums the raw exponentials and only the numerator weighs
+// them by the v-scale. Everything int8 is chosen at compile time (a
+// runtime branch in this shared template cost the paged kernels 23-84%).
+//
 // Semantics (the JAX kernels'): scores q.k * scale (scale = 1/sqrt(hd)),
 // positions t <= pos and, with a window, pos - t < window; fp32 softmax;
 // output in q's dtype. q and k/v (or the pools) in fp32 or bf16 (one dtype),
-// hd a multiple of 16 bytes' worth of elements and at most kMaxHd.
+// or q in fp32 or bf16 over int8 pools; hd a multiple of 16 bytes' worth of
+// pool elements and at most kMaxHd.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -101,8 +115,28 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
+template <> struct Vec<int8_t> {
+  static constexpr int n = 16;
+  __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * j)));
+  }
+};
+
 __device__ __forceinline__ uint4 ld16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// E consecutive elements of T (16-byte aligned) as floats
+template <typename T, int E>
+__device__ __forceinline__ void load_floats(const T* p, float* f) {
+  static_assert(E % Vec<T>::n == 0, "whole 16-byte loads");
+#pragma unroll
+  for (int i = 0; i < E; i += Vec<T>::n) Vec<T>::unpack(ld16(p + i), f + i);
 }
 
 // The valid positions of row b: [lo, hi] (empty when hi < lo).
@@ -163,6 +197,8 @@ __device__ __forceinline__ void live_splits(int lo, int hi, int split, int& s_lo
   n = hi < lo ? 0 : hi / split - s_lo + 1;
 }
 
+// TQ: q and out; TE: the cache's entries (TQ, or int8 in the paged layout:
+// then k_scale / v_scale are the f32 pools [P, blk, K, 1]).
 // NC: 16-byte chunks per lane per token row (hd * sizeof(TE) / 16 / LPT,
 // rounded up). LPT (lanes per token, a power of two <= 32) is a launch arg.
 // kPaged: K/V are pools [P, blk, K, hd] read through the block table (T is
@@ -171,11 +207,12 @@ __device__ __forceinline__ void live_splits(int lo, int hi, int split, int& s_lo
 // the output in this launch; otherwise K/V are a dense [B, T, K, hd] cache
 // and dense_combine_kernel merges. Dynamic shared memory: scores
 // [kGB][split], then the warps' partial accumulators [kWarps][kGB][hd],
-// floats; kPaged adds the split's page ids [split / blk] (int), then the
-// combine's weights [kGB][n_max] and denominators [kGB].
-template <typename TE, int NC, bool kPaged>
+// floats; kPaged adds the split's page ids [split / blk] (int), with int8
+// entries the split's k- and v-scales [2][split], then the combine's
+// weights [kGB][n_max] and denominators [kGB].
+template <typename TQ, typename TE, int NC, bool kPaged>
 __global__ void __launch_bounds__(kThreads) split_kernel(
-    const TE* __restrict__ q,        // [B, K, G, hd]
+    const TQ* __restrict__ q,        // [B, K, G, hd]
     const TE* __restrict__ k,        // [B, T, K, hd], or the pool [P, blk, K, hd]
     const TE* __restrict__ v,        // as k
     const int32_t* __restrict__ pos,
@@ -185,8 +222,12 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     float scale,
     const int32_t* __restrict__ tbl,  // [B, nb] page ids (kPaged)
     int32_t* __restrict__ tickets,    // [B, K * ngrp], zeros between calls (kPaged)
-    TE* __restrict__ out,             // [B, K, G, hd] (kPaged)
-    int P, int blk, int nb, int n_max) {
+    TQ* __restrict__ out,             // [B, K, G, hd] (kPaged)
+    int P, int blk, int nb, int n_max,
+    const float* __restrict__ k_scale,  // [P, blk, K, 1] (int8 entries)
+    const float* __restrict__ v_scale) {
+  constexpr bool kQuant = std::is_same_v<TE, int8_t>;
+  static_assert(kPaged || !kQuant, "int8 entries come in pages");
   constexpr int E = Vec<TE>::n;
   extern __shared__ float smem[];
   float* s_s = smem;                   // [kGB][split]: scores, then exponentials
@@ -207,7 +248,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
       // exact zeros
       if (s == 0 && hi < lo)
         for (int i = threadIdx.x; i < ng * hd; i += kThreads)
-          out[(((size_t)b * K + kh) * G + g0) * hd + i] = from_f<TE>(0.f);
+          out[(((size_t)b * K + kh) * G + g0) * hd + i] = from_f<TQ>(0.f);
     }
     return;
   }
@@ -223,6 +264,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   const TE* kb;
   const TE* vb;
   Pages pg{nullptr, t0, blk};
+  float* ks_s = nullptr;  // [split]: the split's k-scales, then v-scales (int8)
   if constexpr (kPaged) {
     int* ids = reinterpret_cast<int*>(red_s + kWarps * kGB * hd);
     for (int i = tid; i < split / blk; i += kThreads) {
@@ -232,6 +274,15 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     }
     __syncthreads();
     pg.ids = ids;
+    if constexpr (kQuant) {  // read after the next barrier
+      ks_s = reinterpret_cast<float*>(ids + split / blk);
+      for (int i = a - t0 + tid; i <= e - t0; i += kThreads) {
+        const int pi = i / blk;
+        const size_t at = ((size_t)ids[pi] * blk + (i - pi * blk)) * K + kh;
+        ks_s[i] = k_scale[at];
+        ks_s[split + i] = v_scale[at];
+      }
+    }
     kb = k + (size_t)kh * hd;
     vb = v + (size_t)kh * hd;
   } else {
@@ -251,8 +302,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     for (int c = 0; c < NC; ++c) {
       const int ch = sub + c * lpt;
       if (h < ng && ch < chunks) {
-        Vec<TE>::unpack(ld16(q + (((size_t)b * K + kh) * G + g0 + h) * hd + ch * E),
-                        qr[h][c]);
+        load_floats<TQ, E>(q + (((size_t)b * K + kh) * G + g0 + h) * hd + ch * E, qr[h][c]);
       } else {
 #pragma unroll
         for (int i = 0; i < E; ++i) qr[h][c][i] = 0.f;
@@ -283,9 +333,9 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
         for (int off = lpt / 2; off > 0; off /= 2)
           dot[h] += __shfl_xor_sync(0xffffffffu, dot[h], off);
       const int t = base + u * step + slot;
-      if (sub == 0 && t <= e) {
+      if (sub == 0 && t <= e) {  // int8: scaled in the softmax step
 #pragma unroll
-        for (int h = 0; h < kGB; ++h) s_s[h * split + t - t0] = dot[h] * scale;
+        for (int h = 0; h < kGB; ++h) s_s[h * split + t - t0] = kQuant ? dot[h] : dot[h] * scale;
       }
     }
     take<NC>(cur, nxt);
@@ -299,6 +349,9 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   float m = -INFINITY;
   if (warp < ng) {
     float* sh = s_s + warp * split + i0;
+    if constexpr (kQuant) {  // (q.k * k-scale) / sqrt(hd), as the JAX kernel
+      for (int i = lane; i < n; i += 32) sh[i] = sh[i] * ks_s[i0 + i] * scale;
+    }
     for (int i = lane; i < n; i += 32) m = fmaxf(m, sh[i]);
     for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     float l = 0.f;
@@ -330,6 +383,11 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
       float pr[kGB];
 #pragma unroll
       for (int h = 0; h < kGB; ++h) pr[h] = s_s[h * split + t - t0];
+      if constexpr (kQuant) {  // the v-scale weighs the numerator only
+        const float vsc = ks_s[split + t - t0];
+#pragma unroll
+        for (int h = 0; h < kGB; ++h) pr[h] *= vsc;
+      }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         float vf[E];
@@ -396,7 +454,8 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     }
     __syncthreads();
     if (!last) return;
-    float* w_s = red_s + kWarps * kGB * hd + split / blk;  // [kGB][n_max], past the ids
+    // [kGB][n_max], past the ids (and the scales)
+    float* w_s = red_s + kWarps * kGB * hd + split / blk + (kQuant ? 2 * split : 0);
     float* lw_s = w_s + kGB * n_max;  // [kGB] max(sum_s weight * l_s, 1e-30)
     const float* ml = part_ml + (((size_t)b * K + kh) * nsplit + s_lo) * G * 2;  // [n][G][2]
     const float* pl = part_acc + (((size_t)b * K + kh) * nsplit + s_lo) * G * hd;
@@ -415,14 +474,14 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
       if (lane == 0) lw_s[warp] = fmaxf(l, 1e-30f);
     }
     __syncthreads();
-    TE* ob = out + (((size_t)b * K + kh) * G + g0) * hd;
+    TQ* ob = out + (((size_t)b * K + kh) * G + g0) * hd;
     for (int j = tid; j < ng * hd; j += kThreads) {
       const int hh = j / hd;
       const float* wg = w_s + hh * n_max;
       const float* src = pl + (size_t)g0 * hd + j;
       float x = 0.f;
       for (int i = 0; i < n; ++i) x = fmaf(wg[i], __ldcg(src + (size_t)i * G * hd), x);
-      ob[j] = from_f<TE>(x / lw_s[hh]);
+      ob[j] = from_f<TQ>(x / lw_s[hh]);
     }
   }
 }
@@ -474,10 +533,10 @@ int launch(const void* q, const void* k, const void* v, const void* pos, float* 
   const int nsplit = (T + split - 1) / split;
   dim3 grid(B, K * ((G + kGB - 1) / kGB), nsplit);
   const size_t smem = sizeof(float) * ((size_t)kGB * split + (size_t)kWarps * kGB * hd);
-  split_kernel<TE, NC, false><<<grid, kThreads, smem, stream>>>(
+  split_kernel<TE, TE, NC, false><<<grid, kThreads, smem, stream>>>(
       static_cast<const TE*>(q), static_cast<const TE*>(k), static_cast<const TE*>(v),
       static_cast<const int32_t*>(pos), part_acc, part_ml, K, G, hd, T, split, nsplit, lpt,
-      window, scale, nullptr, nullptr, nullptr, 0, 1, 0, 0);
+      window, scale, nullptr, nullptr, nullptr, 0, 1, 0, 0, nullptr, nullptr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int n_max = min(nsplit, window ? window / split + 2 : nsplit);  // live splits
@@ -493,29 +552,34 @@ int launch(const void* q, const void* k, const void* v, const void* pos, float* 
   return (int)cudaGetLastError();
 }
 
-// The paged layout: one launch, splits of split_pages pages.
-template <typename TE, int NC>
+// The paged layout: one launch, splits of split_pages pages; with int8
+// entries (TE), the scale pools k_scale / v_scale.
+template <typename TQ, typename TE, int NC>
 int launch_paged(const void* q, const void* pool_k, const void* pool_v, const void* tbl,
                  const void* pos, float* part_acc, float* part_ml, int32_t* tickets,
                  void* out, int B, int K, int G, int hd, int P, int blk, int nb,
-                 int split_pages, int lpt, int window, float scale, cudaStream_t stream) {
+                 int split_pages, int lpt, int window, float scale, cudaStream_t stream,
+                 const void* k_scale = nullptr, const void* v_scale = nullptr) {
+  constexpr bool kQuant = std::is_same_v<TE, int8_t>;
   const int split = split_pages * blk, T = nb * blk;
   const int nsplit = (nb + split_pages - 1) / split_pages;
   const int n_max = min(nsplit, window ? window / split + 2 : nsplit);  // live splits
   dim3 grid(B, K * ((G + kGB - 1) / kGB), nsplit);
   const size_t smem = sizeof(float) * ((size_t)kGB * split + (size_t)kWarps * kGB * hd +
-                                       split_pages + (size_t)kGB * (n_max + 1));
-  auto kernel = split_kernel<TE, NC, true>;
+                                       split_pages + (kQuant ? 2 * (size_t)split : 0) +
+                                       (size_t)kGB * (n_max + 1));
+  auto kernel = split_kernel<TQ, TE, NC, true>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TE*>(q), static_cast<const TE*>(pool_k),
+      static_cast<const TQ*>(q), static_cast<const TE*>(pool_k),
       static_cast<const TE*>(pool_v), static_cast<const int32_t*>(pos), part_acc, part_ml, K,
       G, hd, T, split, nsplit, lpt, window, scale, static_cast<const int32_t*>(tbl), tickets,
-      static_cast<TE*>(out), P, blk, nb, n_max);
+      static_cast<TQ*>(out), P, blk, nb, n_max, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale));
   return (int)cudaGetLastError();
 }
 
@@ -578,14 +642,45 @@ extern "C" int decode_attn_paged(const void* q, const void* pool_k, const void* 
   float* pm = static_cast<float*>(part_ml);
   int32_t* tk = static_cast<int32_t*>(tickets);
   if (dtype == 0)
-    return nc == 1 ? launch_paged<float, 1>(q, pool_k, pool_v, tbl, pos, pa, pm, tk, out, B,
-                                            K, G, hd, P, blk, nb, split_pages, lpt, window,
-                                            scale, s)
-                   : launch_paged<float, 2>(q, pool_k, pool_v, tbl, pos, pa, pm, tk, out, B,
-                                            K, G, hd, P, blk, nb, split_pages, lpt, window,
-                                            scale, s);
-  return launch_paged<__nv_bfloat16, 1>(q, pool_k, pool_v, tbl, pos, pa, pm, tk, out, B, K,
-                                        G, hd, P, blk, nb, split_pages, lpt, window, scale, s);
+    return nc == 1 ? launch_paged<float, float, 1>(q, pool_k, pool_v, tbl, pos, pa, pm, tk,
+                                                   out, B, K, G, hd, P, blk, nb, split_pages,
+                                                   lpt, window, scale, s)
+                   : launch_paged<float, float, 2>(q, pool_k, pool_v, tbl, pos, pa, pm, tk,
+                                                   out, B, K, G, hd, P, blk, nb, split_pages,
+                                                   lpt, window, scale, s);
+  return launch_paged<__nv_bfloat16, __nv_bfloat16, 1>(q, pool_k, pool_v, tbl, pos, pa, pm,
+                                                       tk, out, B, K, G, hd, P, blk, nb,
+                                                       split_pages, lpt, window, scale, s);
+}
+
+// The paged layout over int8 pools [P, blk, K, hd] with f32 scales
+// [P, blk, K, 1] (pool_ks, pool_vs); q and out in fp32 (dtype 0) or bf16
+// (dtype 1); hd a multiple of 16 up to kMaxHd. Scratch, tickets, table and
+// splits as decode_attn_paged's. One launch; returns cudaGetLastError()
+// after it.
+extern "C" int decode_attn_paged_quant(const void* q, const void* pool_k, const void* pool_ks,
+                                       const void* pool_v, const void* pool_vs,
+                                       const void* tbl, const void* pos, void* part_acc,
+                                       void* part_ml, void* tickets, void* out, int B, int K,
+                                       int G, int hd, int P, int blk, int nb, int split_pages,
+                                       int window, float scale, int dtype, void* stream) {
+  if (B == 0 || K == 0 || G == 0) return 0;
+  if ((dtype != 0 && dtype != 1) || hd % 16 || hd > kMaxHd || P < 1 || blk < 1 || nb < 1 ||
+      split_pages < 1 || split_pages * blk > kMaxSplit)
+    return (int)cudaErrorInvalidValue;
+  int lpt, nc;
+  lanes(hd, 1, lpt, nc);  // nc is 1: 16 int8 entries per 16-byte chunk, hd <= 256
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  int32_t* tk = static_cast<int32_t*>(tickets);
+  if (dtype == 0)
+    return launch_paged<float, int8_t, 1>(q, pool_k, pool_v, tbl, pos, pa, pm, tk, out, B, K,
+                                          G, hd, P, blk, nb, split_pages, lpt, window, scale,
+                                          s, pool_ks, pool_vs);
+  return launch_paged<__nv_bfloat16, int8_t, 1>(q, pool_k, pool_v, tbl, pos, pa, pm, tk, out,
+                                                B, K, G, hd, P, blk, nb, split_pages, lpt,
+                                                window, scale, s, pool_ks, pool_vs);
 }
 
 extern "C" const char* error_string(int err) {

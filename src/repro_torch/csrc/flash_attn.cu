@@ -58,9 +58,13 @@
 // QK^T, ping-pong scheduling between the two warpgroups, and a persistent
 // grid over the q tiles.
 //
-// flash_attn (fp32, where wgmma would compute in TF32): 64 x 64 tiles on the CUDA cores in fp32, 256 threads
-// each owning 4 query rows x 4 kv columns of the scores and 4 rows x hd/16
-// columns of the output, the max and denominator of each row in registers
+// flash_attn (fp32, where wgmma would compute in TF32; and bf16 or fp32 at
+// hd 160, stablelm-12b's, which the tensor-core entry's 64-column TMA boxes
+// do not divide): 64 x 64 tiles on the CUDA cores in fp32, 256 threads
+// each owning 4 query rows x 4 kv columns of the scores and 4 rows x 4
+// columns of each 64-column chunk of the output (at hd 160 the last chunk
+// is half wide: half the threads own its columns), the max and
+// denominator of each row in registers
 // (replicated over the 16 threads that share the row), the probabilities
 // through shared memory, 16-byte shared-memory reads on padded rows,
 // 16-byte global loads, K and V sharing one buffer so two blocks fit an SM,
@@ -79,14 +83,27 @@ constexpr int kLdP = kBKV + 4;  // probability rows, 16-byte aligned
 
 template <typename T> struct Vec;  // elements in one 16-byte load
 template <> struct Vec<float> { static constexpr int N = 4; };
+template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void widen(const uint4& raw, float* out, float) {
   const float4 f = *reinterpret_cast<const float4*>(&raw);
   out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
 }
 
+__device__ __forceinline__ void widen(const uint4& raw, float* out, __nv_bfloat16) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 // rows x HD elements (row r at src + r * stride) into dst[r * (HD + 4)] as
 // float; rows >= n_valid are zeros
@@ -117,7 +134,11 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
     const E* __restrict__ v,  // [B, T, K, HD]
     E* __restrict__ out,      // [B, S, H, HD]
     int S, int T, int H, int K, int causal, int window, float scale) {
-  constexpr int kLd = HD + 4, kOC = HD / 64;  // output column chunks of 64
+  // output column chunks of 64, each thread 4 adjacent columns of each; a
+  // last partial chunk (HD 160: columns 128..159) is taken by the threads
+  // whose columns exist
+  constexpr int kLd = HD + 4, kOC = (HD + 63) / 64;
+  static_assert(HD % 16 == 0, "rows of 16-byte loads and 4-column groups");
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                 // [kBQ][kLd]
   float* kv_s = q_s + kBQ * kLd;     // [kBKV][kLd], K then V of each tile
@@ -224,6 +245,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
       for (int u = 0; u < 4; ++u) {
 #pragma unroll
         for (int c = 0; c < kOC; ++c) {
+          if (HD % 64 && c == kOC - 1 && tx * 4 >= HD % 64) continue;  // past HD
           const float4 va =
               *reinterpret_cast<const float4*>(kv_s + (t + u) * kLd + c * 64 + tx * 4);
 #pragma unroll
@@ -247,10 +269,12 @@ __global__ void __launch_bounds__(kThreads) flash_attn_kernel(
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     E* o = out + (((size_t)b * S + qp) * H + h) * HD;
 #pragma unroll
-    for (int c = 0; c < kOC; ++c)
+    for (int c = 0; c < kOC; ++c) {
+      if (HD % 64 && c == kOC - 1 && tx * 4 >= HD % 64) continue;  // past HD
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         o[c * 64 + tx * 4 + e] = from_f<E>(seen ? acc[i][c][e] * inv : 0.f);
+    }
   }
 }
 
@@ -656,17 +680,22 @@ int run(const void* q, const void* k, const void* v, void* out, int B, int S, in
 }  // namespace tc
 }  // namespace
 
-// The SIMT entry point: float32 q/k/v/out (dtype 0; any other is refused),
-// hd 128 (the head dim of every configuration the port carries but
-// stablelm-12b's 160); tensors contiguous and 16-byte aligned. Returns
-// cudaGetLastError() of the launch.
+// The SIMT entry point: float32 (dtype 0) q/k/v/out at hd 128 or 160, and
+// bfloat16 (dtype 1) at hd 160 (stablelm-12b's; bf16 at hd 128 is the
+// tensor-core entry's); any other pair is refused. Tensors contiguous and
+// 16-byte aligned. Returns cudaGetLastError() of the launch.
 extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out, int B,
                           int S, int T, int H, int K, int hd, int causal, int window,
                           float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (hd != 128 || dtype != 0) return (int)cudaErrorInvalidValue;
-  return launch<float, 128>(q, k, v, out, B, S, T, H, K, causal, window, scale,
-                            static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 128 && dtype == 0)
+    return launch<float, 128>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  if (hd == 160 && dtype == 0)
+    return launch<float, 160>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  if (hd == 160 && dtype == 1)
+    return launch<__nv_bfloat16, 160>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The tensor-core entry point: bf16 q [B, S, H, 128] and k/v [B, T, K, 128],

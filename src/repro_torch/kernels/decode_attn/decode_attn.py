@@ -11,16 +11,17 @@ split that finishes last merges the splits' softmax states in the same
 launch. ``decode_attn_cuda`` launches the dense layout of the same source
 (replacing ``decode_attn_pallas``): the dense cache [B, T, K, hd] in
 splits of ``DENSE_SPLIT`` tokens, then a combine kernel.
-``paged_decode_attn_quant_cuda`` launches ``csrc/paged_decode_attn.cu``
-(replacing ``paged_decode_attn_quant_pallas``): int8 pools with f32
-per-head scales [P, blk, K, 1], one block per (row, KV head) walking the
-pages and dequantizing them as they stream. ``paged_decode_attn_plain``,
+``paged_decode_attn_quant_cuda`` launches the same paged split over int8
+pools with f32 per-head scales [P, blk, K, 1] (replacing
+``paged_decode_attn_quant_pallas``), splits of ``PAGED_QUANT_SPLIT_PAGES``
+pages, one launch per call. ``paged_decode_attn_plain``,
 ``paged_decode_attn_quant_plain`` and ``decode_attn_plain`` run the same
 blocked math as PyTorch ops, one step per table column (or, dense, per
 ``block_kv`` chunk) over all rows at once, like the JAX twin ``_stream``
 (``_page_update`` is the per-page step of all six).
-``decode_attn_split_plain`` and ``paged_decode_attn_split_plain`` write out
-the split kernels' split-and-combine math for the tests.
+``decode_attn_split_plain``, ``paged_decode_attn_split_plain`` and
+``paged_decode_attn_quant_split_plain`` write out the split kernels'
+split-and-combine math for the tests.
 """
 from __future__ import annotations
 
@@ -32,16 +33,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-NAME = "decode_attn"      # the split kernels, paged and dense
+NAME = "decode_attn"      # the split kernels: paged (bf16/fp32, int8), dense
 SOURCE = "src/repro_torch/csrc/decode_attn.cu"
 REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:255"
 DENSE_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:102"
-QUANT_NAME = "paged_decode_attn"
-QUANT_SOURCE = "src/repro_torch/csrc/paged_decode_attn.cu"
+QUANT_SOURCE = SOURCE
 QUANT_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:274"
-# the paged kernel's pages per split (one block each): the fastest of 1, 2,
-# 4 and 8 at the serving path's shape (tools/kernel_sweeps.py)
+# the paged kernel's pages per split (one block each), over bf16 and over
+# int8 pools: the fastest of 1, 2, 4 and 8 at the serving path's shape
+# (tools/kernel_sweeps.py)
 PAGED_SPLIT_PAGES = 2
+PAGED_QUANT_SPLIT_PAGES = 4
 DENSE_SPLIT = 256     # the dense kernel's tokens per split (one block each)
 MAX_HD = 256          # the split kernels' largest head dimension
 MAX_SPLIT = 512       # and their most tokens per split
@@ -177,12 +179,14 @@ def decode_attn_plain(q, k, v, pos, *, block_kv: int, window: int = 0):
     return _online_softmax(q, pos, chunks, blk=block_kv, window=window)
 
 
-def decode_attn_split_plain(q, k, v, pos, *, split: int, window: int = 0):
-    """The dense kernel's math as PyTorch ops (tests only): the cache cut
-    into splits of ``split`` tokens; each split that holds a valid
-    position keeps (m, l, acc) over its valid tokens; the combine weighs
-    the live splits by e^(m_s - M) and divides by max(sum, 1e-30), so a
-    row with no live split (pos -1) is exact zeros."""
+def _split_combine(q, k, v, pos, ks, vs, *, split: int, window: int):
+    """The split kernels' math over a dense [B, T, K, hd] view: each split
+    of ``split`` tokens that holds a valid position keeps (m, l, acc) over
+    its valid tokens; the combine weighs the live splits by e^(m_s - M) and
+    divides by max(sum, 1e-30), so a row with no live split (pos -1) is
+    exact zeros. With int8 entries, ks/vs [B, T, K] are their scales: the
+    score is q.k * ks / sqrt(hd), the denominator sums the raw
+    exponentials and only the numerator weighs them by vs."""
     B, K, G, hd, T = _dense_shapes(q, k, v, pos)
     p = pos.long()
     lo = (p - window + 1).clamp_min(0) if window else torch.zeros_like(p)
@@ -193,11 +197,15 @@ def decode_attn_split_plain(q, k, v, pos, *, split: int, window: int = 0):
         t = torch.arange(t0, min(t0 + split, T), device=q.device)
         valid = (t[None, :] >= lo[:, None]) & (t[None, :] <= hi[:, None])
         s = torch.einsum("bkgh,btkh->bkgt", qf, k[:, t0:t0 + split].float())
+        if ks is not None:
+            s = s * _per_score(ks[:, t0:t0 + split])
         s = s * (1.0 / math.sqrt(hd))
         s = torch.where(valid[:, None, None, :], s, torch.full_like(s, _NEG))
         m = s.amax(dim=-1, keepdim=True)
         e = torch.exp(s - m)
         ls.append(e.sum(dim=-1, keepdim=True))
+        if vs is not None:
+            e = e * _per_score(vs[:, t0:t0 + split])
         accs.append(torch.einsum("bkgt,btkh->bkgh", e,
                                  v[:, t0:t0 + split].float()))
         ms.append(m)
@@ -210,18 +218,43 @@ def decode_attn_split_plain(q, k, v, pos, *, split: int, window: int = 0):
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def decode_attn_split_plain(q, k, v, pos, *, split: int, window: int = 0):
+    """The dense kernel's math as PyTorch ops (tests only): the cache cut
+    into splits of ``split`` tokens, merged as ``_split_combine`` says."""
+    return _split_combine(q, k, v, pos, None, None, split=split,
+                          window=window)
+
+
+def _pages(pool, tbl, P):
+    """Token t of row b: row t % blk of page tbl[b, t // blk] clamped into
+    [0, P), as a dense [B, nb * blk, ...] view."""
+    pages = tbl.long().clamp(0, P - 1)
+    return pool[pages].reshape((tbl.shape[0], -1) + pool.shape[2:])
+
+
 def paged_decode_attn_split_plain(q, pool_k, pool_v, tbl, pos, *,
                                   split_pages: int, window: int = 0):
-    """The paged kernel's math as PyTorch ops (tests only): token t of row b
-    is row t % blk of page tbl[b, t // blk] clamped into [0, P); over those
-    tokens, the dense kernel's split-and-combine (``decode_attn_split_plain``)
-    with splits of ``split_pages`` pages."""
+    """The paged kernel's math as PyTorch ops (tests only): over the
+    table's tokens, the dense kernel's split-and-combine with splits of
+    ``split_pages`` pages."""
     B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos)
-    pages = tbl.long().clamp(0, P - 1)
-    k = pool_k[pages].reshape(B, nb * blk, K, hd)
-    v = pool_v[pages].reshape(B, nb * blk, K, hd)
-    return decode_attn_split_plain(q, k, v, pos, split=split_pages * blk,
-                                   window=window)
+    return _split_combine(q, _pages(pool_k, tbl, P), _pages(pool_v, tbl, P),
+                          pos, None, None, split=split_pages * blk,
+                          window=window)
+
+
+def paged_decode_attn_quant_split_plain(q, pool_k, pool_ks, pool_v, pool_vs,
+                                        tbl, pos, *, split_pages: int,
+                                        window: int = 0):
+    """The paged kernel's math over int8 pools (tests only): as
+    ``paged_decode_attn_split_plain``, each token's k- and v-scale of its
+    head applied in the JAX order (``_split_combine``)."""
+    B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos, pool_ks,
+                                      pool_vs)
+    return _split_combine(
+        q, _pages(pool_k, tbl, P), _pages(pool_v, tbl, P), pos,
+        _pages(pool_ks, tbl, P)[..., 0], _pages(pool_vs, tbl, P)[..., 0],
+        split=split_pages * blk, window=window)
 
 
 def _check_launch(q, pools, tbl, pos, what):
@@ -316,28 +349,43 @@ paged_decode_attn_cuda.launches = 0
 
 def paged_decode_attn_quant_cuda(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
                                  pos, *, window: int = 0):
-    """Launch the int8 variant: one block per (row, KV head), int8 pools
-    [P, blk, K, hd] with f32 scales [P, blk, K, 1]; output in q's dtype."""
+    """Launch the paged split kernel over int8 pools [P, blk, K, hd] with
+    f32 scales [P, blk, K, 1]: as ``paged_decode_attn_cuda``, splits of
+    ``PAGED_QUANT_SPLIT_PAGES`` pages, one launch per call, its scratch
+    shared with it (one stream at a time); output in q's dtype. hd must be
+    a multiple of 16, at most ``MAX_HD``."""
     B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos, pool_ks,
                                       pool_vs)
+    what = "int8 paged decode attention"
     if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
-        raise TypeError(f"int8 paged decode attention: pools must be int8, "
-                        f"got {pool_k.dtype}/{pool_v.dtype}")
+        raise TypeError(f"{what}: pools must be int8, got "
+                        f"{pool_k.dtype}/{pool_v.dtype}")
     if pool_ks.dtype != torch.float32 or pool_vs.dtype != torch.float32:
-        raise TypeError(f"int8 paged decode attention: scales must be "
-                        f"float32, got {pool_ks.dtype}/{pool_vs.dtype}")
+        raise TypeError(f"{what}: scales must be float32, got "
+                        f"{pool_ks.dtype}/{pool_vs.dtype}")
     dtype = _check_launch(q, (pool_k, pool_ks, pool_v, pool_vs), tbl, pos,
-                          "int8 paged decode attention")
+                          what)
+    if hd % 16 or hd > MAX_HD:
+        raise ValueError(f"{what}: the kernel takes hd a multiple of 16 up "
+                         f"to {MAX_HD}, got {hd}")
+    if PAGED_QUANT_SPLIT_PAGES * blk > MAX_SPLIT:
+        raise ValueError(f"{what}: splits of {PAGED_QUANT_SPLIT_PAGES} pages "
+                         f"of {blk} tokens pass the kernel's {MAX_SPLIT}")
+    _check_aligned((q, pool_k, pool_v), what)
     tbl = tbl.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = _build.load(QUANT_NAME, _bind_quant)
-    err = lib.paged_decode_attn_quant(
+    nsplit = -(-nb // PAGED_QUANT_SPLIT_PAGES)
+    part_acc, part_ml, tickets = _paged_workspace(
+        q.device, B * K * nsplit * G * hd, B * K * nsplit * G * 2, B * K * G)
+    lib = _build.load(NAME, _bind)
+    err = lib.decode_attn_paged_quant(
         q.data_ptr(), pool_k.data_ptr(), pool_ks.data_ptr(), pool_v.data_ptr(),
-        pool_vs.data_ptr(), tbl.data_ptr(), pos.data_ptr(), out.data_ptr(), B,
-        K, G, hd, P, blk, nb, window, 1.0 / math.sqrt(hd), dtype,
-        _build.stream_ptr(q))
-    _build.check(lib, err, "int8 paged decode attention")
+        pool_vs.data_ptr(), tbl.data_ptr(), pos.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), B, K, G, hd, P, blk, nb, PAGED_QUANT_SPLIT_PAGES,
+        window, 1.0 / math.sqrt(hd), dtype, _build.stream_ptr(q))
+    _build.check(lib, err, what)
     paged_decode_attn_quant_cuda.launches += 1
     return out
 
@@ -383,11 +431,6 @@ def _bind(lib):
     lib.decode_attn_paged.argtypes = ([ctypes.c_void_p] * 9
                                       + [ctypes.c_int] * 9 + tail)
     lib.decode_attn_paged.restype = ctypes.c_int
-
-
-def _bind_quant(lib):
-    lib.paged_decode_attn_quant.argtypes = ([ctypes.c_void_p] * 8
-                                            + [ctypes.c_int] * 8
-                                            + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p])
-    lib.paged_decode_attn_quant.restype = ctypes.c_int
+    lib.decode_attn_paged_quant.argtypes = ([ctypes.c_void_p] * 11
+                                            + [ctypes.c_int] * 9 + tail)
+    lib.decode_attn_paged_quant.restype = ctypes.c_int

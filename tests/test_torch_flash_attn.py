@@ -69,6 +69,24 @@ def test_flash_attn_matches_reference(name):
             window=window)), **TOL)
 
 
+# stablelm-12b's hd 160 (d 5120 over 32 heads), which the CUDA kernels take
+# on the SIMT entry: (B, S, T, H, K, block_q, block_kv, causal, window)
+HD160_CASES = {
+    "causal": (1, 24, 24, 4, 2, 8, 8, True, 0),
+    "window": (1, 32, 32, 4, 1, 8, 16, True, 9),
+    "full": (2, 8, 16, 2, 2, 8, 8, False, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HD160_CASES))
+def test_flash_attn_hd160_matches_reference(name):
+    B, S, T, H, K, bq, bkv, causal, window = HD160_CASES[name]
+    q, k, v = _case(B, S, T, H, K, 160, seed=len(name) + 3)
+    kw = dict(block_q=bq, block_kv=bkv, causal=causal, window=window)
+    np.testing.assert_allclose(_port(q, k, v, **kw), _jax(q, k, v, **kw),
+                               **TOL)
+
+
 def test_s_above_t_follows_the_documented_contract():
     """S > T with T no multiple of block_kv. The JAX op pads k/v with zero
     keys that its query rows >= T attend (a reference-side defect: its
@@ -151,12 +169,12 @@ def test_bad_shapes_raise():
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     """The launch wrapper checks before it builds or launches: fp32/bf16,
-    the head dim the kernel is built for, one CUDA device (a CPU tensor
+    the head dims the kernels are built for, one CUDA device (a CPU tensor
     handed to it raises instead of running anywhere)."""
     q, k, v = (torch.from_numpy(a) for a in _case(1, 8, 8, 4, 2, 128, seed=1))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attn_cuda(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="head dim 128, got 64"):
+    with pytest.raises(ValueError, match="head dim 128 or 160, got 64"):
         flash_attn_cuda(q[..., :64], k[..., :64], v[..., :64])
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attn_cuda(q, k, v)
@@ -182,6 +200,7 @@ FLASH_ENTRY_CASES = {
     "bf16_hd128": (lambda: _qkv(), WGMMA),
     "fp32_hd128": (lambda: _qkv(dtype=torch.float32), SIMT),
     "bf16_hd64": (lambda: _qkv(hd=64), SIMT),
+    "bf16_hd160": (lambda: _qkv(hd=160), SIMT),
     "bf16_misaligned_v": (lambda: _qkv(view=_shifted), SIMT),
     "bf16_strided_v": (lambda: _qkv(view=lambda t: t.transpose(1, 2)), SIMT),
 }

@@ -260,6 +260,40 @@ def test_paged_split_combine_matches_reference(name):
     assert not np.signbit(got[dead]).any()
 
 
+# the int8 paged kernel's split-and-combine math: (B, K, G, hd, P, blk, nb,
+# split_pages, window, pos) against the JAX int8 op; splits of 1, 2 and 4
+# pages, a window whose edge cuts a split, rows at pos -1, a row longer
+# than 8 splits
+QUANT_SPLIT_CASES = {
+    "granite_heads_1_page": (3, 8, 4, 128, 12, 16, 4, 1, 0, [0, 16, 40]),
+    "two_pages": (3, 2, 2, 32, 16, 8, 4, 2, 0, None),
+    "four_pages": (2, 2, 2, 32, 24, 8, 8, 4, 0, [63, 20]),
+    "g1_window": (3, 2, 1, 32, 16, 8, 4, 2, 12, None),
+    "window_cuts_a_split": (2, 2, 2, 16, 16, 4, 6, 2, 5, [13, 21]),
+    "pos_minus_one": (3, 2, 2, 16, 16, 4, 4, 2, 0, [-1, 11, -1]),
+    "row_longer_than_8_splits": (1, 2, 2, 16, 24, 4, 20, 2, 0, [77]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(QUANT_SPLIT_CASES))
+def test_paged_quant_split_combine_matches_reference(name):
+    B, K, G, hd, P, blk, nb, pages, window, pos = QUANT_SPLIT_CASES[name]
+    q, pk, ks, pv, vs, tbl, pos = _quant_case(B, K, G, hd, P, blk, nb,
+                                              seed=len(name), pos=pos,
+                                              sentinel=True)
+    j = [jnp.asarray(a) for a in (q, pk, ks, pv, vs, tbl, pos)]
+    want = np.asarray(jax_decode_attn(j[0], j[1], j[3], j[6], block_tbl=j[5],
+                                      window=window, k_scale=j[2],
+                                      v_scale=j[4]))
+    got = da_mod.paged_decode_attn_quant_split_plain(
+        *(torch.from_numpy(a) for a in (q, pk, ks, pv, vs, tbl, pos)),
+        split_pages=pages, window=window).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    dead = pos < 0            # no live split: exact zeros, as the kernel
+    assert np.array_equal(got[dead], np.zeros_like(got[dead]))
+    assert not np.signbit(got[dead]).any()
+
+
 def test_paged_workspace_grows_and_is_reused():
     """The paged kernel's scratch: reused while a call fits it, grown (never
     shrunk) when one does not, the tickets zeroed only then."""
@@ -421,6 +455,41 @@ def test_sgmv_ref_matches_reference_ref(block_t):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+# (T, din, r, dout, n, block_t, ids): shapes the JAX op pads and the port
+# takes as they are. T no multiple of block_t (the last block short), fewer
+# ids than blocks (the blocks past them dead), the JAX default block_t
+# (None here: one block of 128 holds all T rows).
+SGMV_RAGGED_CASES = {
+    "t6_block4_ids_0_1": (6, 16, 2, 8, 2, 4, [0, 1]),
+    "t6_block1_one_id": (6, 16, 2, 8, 2, 1, [1]),
+    "default_block_t": (6, 16, 2, 8, 2, None, [1]),
+    "default_block_t_dead": (20, 32, 4, 16, 3, None, [-1]),
+    "t7_block3_last_short": (7, 32, 4, 16, 3, 3, [2, -1, 0]),
+    "t9_block4_two_of_three_ids": (9, 32, 8, 24, 3, 4, [5, 1]),
+    "no_ids": (5, 16, 2, 8, 2, 2, []),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SGMV_RAGGED_CASES))
+def test_sgmv_ragged_shapes_match_reference(name):
+    T, din, r, dout, n, block_t, ids = SGMV_RAGGED_CASES[name]
+    x, A, B = _sgmv_case(T, din, r, dout, n, seed=len(name) + 7)
+    ids = np.asarray(ids, np.int32)
+    kw = dict(scale=0.5) if block_t is None else dict(block_t=block_t,
+                                                      scale=0.5)
+    want = np.asarray(jax_sgmv(jnp.asarray(x), jnp.asarray(A), jnp.asarray(B),
+                               jnp.asarray(ids), **kw))
+    got = port_sgmv.sgmv(*(torch.from_numpy(a) for a in (x, A, B, ids)),
+                         **kw).numpy()
+    assert got.shape == want.shape == (T, dout)
+    np.testing.assert_allclose(got, want, **TOL)
+    bt = kw.get("block_t", 128)
+    live = np.zeros(T, bool)
+    for i, a in enumerate(ids):
+        live[i * bt:(i + 1) * bt] = a >= 0
+    assert not got[~live].any(), "dead and id-less blocks must be exact zeros"
+
+
 def test_sgmv_strided_client_axis():
     """Layer-major views of a bank (strided client axis) give the same
     result as contiguous weights."""
@@ -470,11 +539,19 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="scale pools"):
         port_da.decode_attn(q, pk, pv, pos, block_tbl=tbl, k_scale=ks[..., 0],
                             v_scale=vs[..., 0])
+    # sgmv takes what the JAX op takes (T no multiple of block_t: the last
+    # block short), and refuses more ids than blocks, as the JAX op does
     x, A, B = _sgmv_case(6, 16, 2, 8, 2, seed=1)
-    with pytest.raises(ValueError, match="ids"):
+    ids = np.array([0, 1], np.int32)
+    want = np.asarray(jax_sgmv(jnp.asarray(x), jnp.asarray(A), jnp.asarray(B),
+                               jnp.asarray(ids), block_t=4))
+    got = port_sgmv.sgmv(*(torch.from_numpy(a) for a in (x, A, B, ids)),
+                         block_t=4)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    with pytest.raises(ValueError, match="at most 2 ids"):
         port_sgmv.sgmv(torch.from_numpy(x), torch.from_numpy(A),
                        torch.from_numpy(B),
-                       torch.tensor([0, 1], dtype=torch.int32), block_t=4)
+                       torch.tensor([0, 1, 0], dtype=torch.int32), block_t=4)
 
 
 def test_quant_wrapper_refuses_what_the_kernel_does_not_take():

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Tile-width and split-size sweeps of the port's redesigned Hopper kernels.
 
-    python3 tools/kernel_sweeps.py
+    python3 tools/kernel_sweeps.py [ragged dense flash paged paged_quant sgmv]
 
 Needs one CUDA device and ``nvcc``. Times are L2-cold (a 256 MB write
-before each call, outside the CUDA events), medians of 30 calls. Four
+before each call, outside the CUDA events), medians of 30 calls. Five
 sweeps, printed one line per shape after the card's name and power limit:
 
 1. the ragged linear's tensor-core entry point at each of its tile widths
@@ -31,6 +31,12 @@ sweeps, printed one line per shape after the card's name and power limit:
    around a call of tens of us also count the host's enqueue; there the
    calls queue behind a spin kernel), beside the
    page gather + SDPA yardstick, each split size first held against the
+   plain version; then the same over int8 pools with f32 scales
+   (``PAGED_QUANT_SPLIT_PAGES``);
+5. SGMV's tile: columns per block at decode (8 rows, block_t 1) and tokens
+   x columns per block at prefill (4 rows of 256 tokens), for granite's q
+   (dout 4096) and v (dout 1024) projections at rank 8 over 4 adapters,
+   L2-cold by ``chip_smoke.device_ms``, each tile first held against the
    plain version.
 """
 from __future__ import annotations
@@ -57,6 +63,7 @@ DEV = "cuda"
 rl = importlib.import_module("repro_torch.kernels.ragged_linear.ragged_linear")
 da = importlib.import_module("repro_torch.kernels.decode_attn.decode_attn")
 fa = importlib.import_module("repro_torch.kernels.flash_attn.flash_attn")
+sg = importlib.import_module("repro_torch.kernels.sgmv.sgmv")
 
 SWEEP_ENTRIES = r'''
 extern "C" int sweep_ragged_linear_tc(const void* x, const void* w, const void* bias,
@@ -277,11 +284,12 @@ def flash_sweep():
         del q, k, v, qh, kh, vh, want
 
 
-def paged_sweep():
+def paged_sweep(quant=False):
     """Phase 5's paged shape: 8 bf16 rows of granite heads (K 8, G 4, hd
     128) over a pool of 40 layers x 256 pages of 16 tokens, the table drawn
     from the first layer's pages, positions 15 past the requests'
-    prompts."""
+    prompts; with ``quant``, int8 pools drawn over [-127, 127] with f32
+    scales."""
     cfg = get_config("granite-3-8b")
     lengths = [r.prompt.shape[1] for r in chip_smoke.make_requests(cfg, 4)]
     B, K, G, hd, blk, Pl, L = 8, cfg.n_kv_heads, cfg.q_per_kv, cfg.hd, 16, 256, 40
@@ -296,30 +304,100 @@ def paged_sweep():
     cols = torch.arange(nb, device=DEV)[None, :]
     tbl = torch.where(cols > (pos // blk)[:, None], chip_smoke.SENTINEL,
                       tbl).to(torch.int32)
-    want = da.paged_decode_attn_plain(q.float(), pk.float(), pv.float(), tbl,
-                                      pos)
-    lib_ms = time_ms(lambda: chip_smoke.sdpa_over_pages(q, pk, pv, tbl, pos))
-    chosen = da.PAGED_SPLIT_PAGES
+    const = "PAGED_QUANT_SPLIT_PAGES" if quant else "PAGED_SPLIT_PAGES"
+    if quant:
+        pk, pv = (torch.randint(-127, 128, pk.shape, generator=g, device=DEV,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((L * Pl, blk, K, 1), generator=g, device=DEV)
+                  * 0.025 + 0.005 for _ in range(2))
+        want = da.paged_decode_attn_quant_plain(q.float(), pk, ks, pv, vs,
+                                                tbl, pos)
+
+        def call():
+            return da.paged_decode_attn_quant_cuda(q, pk, ks, pv, vs, tbl, pos)
+
+        def library():
+            return chip_smoke.sdpa_over_pages(q, pk, pv, tbl, pos,
+                                              dequant=(ks, vs))
+    else:
+        want = da.paged_decode_attn_plain(q.float(), pk.float(), pv.float(),
+                                          tbl, pos)
+
+        def call():
+            return da.paged_decode_attn_cuda(q, pk, pv, tbl, pos)
+
+        def library():
+            return chip_smoke.sdpa_over_pages(q, pk, pv, tbl, pos)
+    lib_ms = time_ms(library)
+    chosen = getattr(da, const)
     try:
         for pages in (1, 2, 4, 8):
-            da.PAGED_SPLIT_PAGES = pages
-            got = da.paged_decode_attn_cuda(q, pk, pv, tbl, pos).float()
-            err = float((got - want).abs().max())
+            setattr(da, const, pages)
+            err = float((call().float() - want).abs().max())
             if err > 2e-2:
-                raise AssertionError(f"paged split {pages}: max err {err}")
-
-            def call():
-                return da.paged_decode_attn_cuda(q, pk, pv, tbl, pos)
-            print(f"paged_decode_attn q {list(q.shape)}, {int((pos + 1).sum())}"
-                  f" live tokens, {pages} pages ({pages * blk} tokens) per "
+                raise AssertionError(f"{const} {pages}: max err {err}")
+            print(f"paged_decode_attn{'_quant' if quant else ''} q "
+                  f"{list(q.shape)}, {int((pos + 1).sum())} live tokens, "
+                  f"{pages} pages ({pages * blk} tokens) per "
                   f"split: {time_ms(call):.4f} ms L2-cold, "
                   f"{time_ms(call, l2_cold=False):.4f} ms L2-warm, device "
                   f"time, enqueue hidden, "
                   f"{chip_smoke.device_ms(call):.4f} ms "
-                  f"L2-cold, max abs err {err:.2e}; page gather + SDPA "
+                  f"L2-cold, max abs err {err:.2e}; page gather"
+                  f"{' + dequantize' if quant else ''} + SDPA "
                   f"{lib_ms:.4f} ms; the port takes {chosen}", flush=True)
     finally:
-        da.PAGED_SPLIT_PAGES = chosen
+        setattr(da, const, chosen)
+
+
+def sgmv_sweep():
+    """Phase 5's SGMV shapes over layer views of a 4-client rank-8 bank:
+    decode at each column tile, prefill at each (tokens, columns) tile."""
+    din, r, n, L = 4096, 8, 4, 3
+    g = torch.Generator(device=DEV).manual_seed(8)
+    chosen = (sg.DECODE_COLS, sg.PREFILL_TOKENS, sg.PREFILL_COLS)
+    decode_tiles = [(1, c, None) for c in (64, 128, 256, 512, 1024)]
+    prefill_tiles = [(1, None, c) for c in (256,)] + [
+        (t, None, c) for t in (4, 8) for c in (512, 1024, 2048, 4096)]
+    try:
+        for dout in (4096, 1024):
+            bank_a = (torch.randn((n, L, din, r), generator=g, device=DEV)
+                      / din ** 0.5).bfloat16()
+            bank_b = (torch.randn((n, L, r, dout), generator=g, device=DEV)
+                      * 0.05).bfloat16()
+            A, B = bank_a.transpose(0, 1)[1], bank_b.transpose(0, 1)[1]
+            for label, rows, bt, tiles in (("decode", 8, 1, decode_tiles),
+                                           ("prefill", 4, 256, prefill_tiles)):
+                x = torch.randn((rows * bt, din), generator=g,
+                                device=DEV).bfloat16()
+                ids = torch.arange(rows, device=DEV, dtype=torch.int32) % n
+                want = sg.sgmv_plain(x.float(), A.float(), B.float(), ids,
+                                     block_t=bt, scale=2.0)
+
+                def call():
+                    return sg.sgmv_cuda(x, A, B, ids, block_t=bt, scale=2.0)
+                times = []
+                for tokens, dcols, pcols in tiles:
+                    if bt == 1:
+                        sg.DECODE_COLS = dcols
+                    else:
+                        sg.PREFILL_TOKENS, sg.PREFILL_COLS = tokens, pcols
+                    got = call().float()
+                    bad = (got - want).abs() > 2e-2 + 2e-2 * want.abs()
+                    if bad.any():
+                        raise AssertionError(f"sgmv {label} tile {tokens} x "
+                                             f"{dcols or pcols}: "
+                                             f"{int(bad.sum())} elements off")
+                    times.append((chip_smoke.device_ms(call),
+                                  tokens, dcols or pcols))
+                print(f"sgmv {label} x [{rows * bt}, {din}] block_t {bt} "
+                      f"dout {dout}, device time, enqueue hidden, L2-cold, "
+                      f"by tokens x columns per block: " + ", ".join(
+                          f"{t} x {c} {ms:.4f} ms" for ms, t, c in times)
+                      + f"; fastest {min(times)[1]} x {min(times)[2]}; the "
+                      f"port takes {chosen}", flush=True)
+    finally:
+        sg.DECODE_COLS, sg.PREFILL_TOKENS, sg.PREFILL_COLS = chosen
 
 
 def main() -> int:
@@ -329,11 +407,16 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
-    ragged_sweep()
-    dense_sweep()
-    flash_sweep()
-    paged_sweep()
+    for name in sys.argv[1:] or SWEEPS:
+        SWEEPS[name]()
     return 0
+
+
+# every sweep by name: ``python3 tools/kernel_sweeps.py [name ...]`` runs
+# the named ones, in order (all of them without arguments)
+SWEEPS = {"ragged": ragged_sweep, "dense": dense_sweep, "flash": flash_sweep,
+          "paged": paged_sweep, "paged_quant": lambda: paged_sweep(quant=True),
+          "sgmv": sgmv_sweep}
 
 
 if __name__ == "__main__":

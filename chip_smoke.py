@@ -31,7 +31,12 @@ exits non-zero and prints no result. Phases, each raising on failure:
    S=T=8192, and S > T with rows that see no key (exact zeros), each case
    in bf16 on the tensor-core entry point and in fp32 on the SIMT one, and
    stablelm-12b's hd 160 (causal, and cross non-causal) in both dtypes on
-   the SIMT one (each launch's entry checked by its counter); the ragged linear, rows
+   the SIMT one, and whisper-small's hd 64 (1,500 frames, non-causal; a
+   448-token causal decoder), hd 96, 256, 80 and 112 (a last partial
+   column chunk of 32, 16 and 48) on the SIMT entry in both dtypes (each
+   launch's entry checked by its counter); paged decode
+   (bf16 and int8) also at page_block 64, 256 and 512, fewer pages per
+   split; the ragged linear, rows
    past the live count exact +0.0, each launch's entry point checked by
    its counter: bf16 on the tensor cores at din 4096 / dout 12800 with a
    bias (n_live 1001 of 1024, and 700 of 2048 counted on the card), at
@@ -80,7 +85,27 @@ exits non-zero and prints no result. Phases, each raising on failure:
    ``kernels.decode_attn`` on a dense [8, 4096, 8, 128] bf16 cache (two
    launches: split and combine) and ``kernels.flash_attn`` on
    [1, 4096, 32, 128] causal (one, on the tensor cores), held against
-   their plain versions.
+   their plain versions;
+7. fine-tuning on the card, whose path runs none of the kernels (the
+   JAX training forward reaches no Pallas kernel): 7a granite-3-8b's
+   width, 2 layers, fp32, the compact multi-job step over 4 jobs of 2 x
+   256 tokens against each job's ``make_baseline_train_step`` (losses at
+   1e-4; adapters and AdamW moments at rtol 1e-4 with an atol of 1e-3 of
+   each leaf's largest magnitude, at most 1e-4), then a padding row and a
+   NaN-poisoned row that must commit nothing while the other rows equal
+   the unpoisoned call bit for bit, and ``frozen_dense``'s dx against
+   autograd with the weight its only saved tensor; 7b a ``FinetuneEngine``
+   over phase 4's 40-layer base, 5 LoRA jobs (rank 8, q and v, 3 steps)
+   behind a router whose slot makes the fifth wait: finite losses, the
+   ledger conserved and empty, job 0's losses against its solo run at
+   atol 2e-3 and its adapter's update (final minus initial) within 0.25
+   of the solo run's in relative norm, tick
+   times on the host clock and one tick traced (device activity only);
+   7c the peak memory beyond the base of one step at 1 and 4 jobs, §3.6
+   path and torch-like baseline (printed); 7d a ``SymbiosisEngine``
+   serving phase 4's requests beside 4 jobs on the same base tensors:
+   every greedy stream equal to phase 4's, every job's losses to 7b's,
+   the launch counts to phase 4's (tick by tick).
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -105,18 +130,25 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.common.hardware import H100  # noqa: E402
-from repro_torch.config import AdapterConfig, ServeConfig  # noqa: E402
+from repro_torch.common.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.config import (AdapterConfig, FinetuneConfig,  # noqa: E402
+                                ServeConfig, TrainConfig)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.core import symbiosis  # noqa: E402
+from repro_torch.core import adapters, symbiosis  # noqa: E402
 from repro_torch.core.base_executor import BaseExecutor, _bucket  # noqa: E402
 from repro_torch.core.frozen_linear import frozen_dense  # noqa: E402
 from repro_torch.core.engine_spec import BankSpec, EngineSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.models import blocks  # noqa: E402
+from repro_torch.data import SyntheticLMDataset  # noqa: E402
+from repro_torch.models import blocks, get_model  # noqa: E402
+from repro_torch.optim import AdamWState, adamw_init  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.router import PlacementRouter, Slot  # noqa: E402
+from repro_torch.training import (FinetuneEngine, FinetuneJob,  # noqa: E402
+                                  SymbiosisEngine, job_hbm_bytes,
+                                  make_job_stream)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -205,6 +237,11 @@ PAGED_CASES = {   # (B, K, G, hd, blk, nb, window, pos)
     "granite_pos_minus_one": (4, 8, 4, 128, 16, 32, 0, [-1, 40, -1, 300]),
     # one 8,192-token row over a 512-column table: many splits to merge
     "granite_one_row_8192": (1, 8, 4, 128, 16, 512, 0, [8191]),
+    # pages longer than the tuned splits: the wrapper takes fewer pages per
+    # split (one page of 512 tokens is one split)
+    "granite_page_block_64": (4, 8, 4, 128, 64, 8, 0, [0, 63, 64, 511]),
+    "granite_page_block_256": (3, 8, 4, 128, 256, 3, 40, [255, 256, 767]),
+    "granite_page_block_512": (2, 8, 4, 128, 512, 2, 0, [511, 1000]),
     # window edges 7 and 39 tokens into a split of any power-of-two pages
     "granite_window_cuts_a_split": (3, 8, 4, 128, 16, 32, 70,
                                     [300, 108, 511]),
@@ -385,13 +422,23 @@ FLASH_CASES = {   # (B, S, T, H, K, causal, window, hd)
     # stablelm-12b: 32 / 8 heads of 160 (the SIMT entry in both dtypes)
     "stablelm_hd160_causal_1024": (1, 1024, 1024, 32, 8, True, 0, 160),
     "stablelm_hd160_cross_100x300": (2, 100, 300, 32, 8, False, 0, 160),
+    # whisper-small: 12 heads of 64, 1,500 encoder frames (non-causal) and
+    # a 448-token causal decoder; and hd 96 and 256 (the SIMT entry)
+    "whisper_hd64_encoder_1500": (1, 1500, 1500, 12, 12, False, 0, 64),
+    "whisper_hd64_causal_448": (2, 448, 448, 12, 12, True, 0, 64),
+    "hd96_window_512": (1, 512, 512, 16, 4, True, 100, 96),
+    "hd256_causal_1024": (1, 1024, 1024, 16, 8, True, 0, 256),
+    # a last partial 64-column chunk of 16 and of 48 columns (hd 160 and
+    # 96 leave 32): the SIMT kernel's column guard at every remainder
+    "hd80_causal_512": (1, 512, 512, 16, 4, True, 0, 80),
+    "hd112_cross_100x300": (2, 100, 300, 8, 8, False, 0, 112),
 }
 
 
 def check_flash(errs):
     """Every case in fp32 on the SIMT entry point and in bf16 on the
-    tensor-core one at hd 128, on the SIMT one at hd 160 (each launch's
-    entry asserted by its counter)."""
+    tensor-core one at hd 128, on the SIMT one at every other head dim
+    (each launch's entry asserted by its counter)."""
     for i, (name, (B, S, T, H, K, causal, window, hd)) in enumerate(
             FLASH_CASES.items()):
         g = gen(600 + i)
@@ -409,8 +456,10 @@ def check_flash(errs):
             if took != [entry]:
                 raise AssertionError(f"flash_attn {name} {dtype}: took "
                                      f"{took}, not {entry}")
+            # non-causal: one kv block, since the op's blocks must divide T
             want = plain_op(kernels.flash_attn, qd, kd, vd, causal=causal,
-                            window=window)
+                            window=window, **({} if causal else
+                                              {"block_kv": T}))
             torch.cuda.synchronize()
             e = compare(f"flash_attn {name} {dtype}", got, want, tol)
             blind = got[:, T + window - 1:] if causal and window else got[:, :0]
@@ -698,7 +747,9 @@ def serve_full():
     times.update(profile_tick(cfg, base, bank, spec, "phase 4"))
     first = [int(r.generated[0, 0]) for r in reqs]
     lengths = [r.prompt.shape[1] for r in reqs]
-    return launches, cfg, eng.caches, base, bank, lengths, first, times
+    streams = [r.generated.copy() for r in reqs]
+    return (launches, cfg, eng.caches, base, bank, lengths, first, times,
+            streams)
 
 
 def serve_quant(cfg, base, bank, first, times4):
@@ -1460,6 +1511,487 @@ def phase6(cfg, base):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: fine-tuning on the card
+# ---------------------------------------------------------------------------
+
+F32_STEP_TOL = dict(atol=1e-4, rtol=1e-4)
+# 7b: job 0 in the bank against its solo run, bf16 (reading on the H100:
+# 3.9e-4 on losses of ~11 that move ~1e-2 a step)
+LOSS_7B_TOL = dict(atol=2e-3, rtol=0.0)
+# its adapter's update (final minus initial) against the solo run's, in
+# relative norm: a missing or doubled update reads 1; Adam's first steps
+# move each weight by ~lr * sign(grad), so a weight whose grad is within
+# bf16 rounding of zero may step the other way in one of the two runs
+UPDATE_7B_REL = 0.25
+# kernel-name fragments of cuBLAS's matrix products on the H100
+GEMM_NAMES = ("nvjet", "gemm", "xmma", "cutlass")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 256, 3
+
+
+def state_tol(want):
+    """7a's tolerance for one adapter or AdamW leaf: rtol 1e-4 and an atol
+    of 1e-3 of the leaf's largest magnitude, at most 1e-4, so a second
+    moment of ~1e-6 is held to its own scale."""
+    return dict(atol=min(1e-4, 1e-3 * float(want.abs().max())), rtol=1e-4)
+
+
+def tree_clone(tree):
+    return tree_map(lambda x: x.clone(), tree)
+
+
+def random_lora(cfg, n, seed):
+    """``n`` LoRA trees stacked on a leading axis, fp32, A and B drawn (a
+    fresh adapter's B is zero, which would leave the B grads alone)."""
+    g = gen(seed)
+    bank = adapters.init_client_bank(cfg, LORA, n, g, device=DEV)
+    for leaf in bank["layers"].values():
+        leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g, device=DEV)
+                        * 0.02)
+    return bank
+
+
+def train_batches(cfg, n_rows, seed):
+    """One step's batch for ``n_rows`` jobs, [R, B, S], from the synthetic
+    pipeline."""
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_S,
+                            n_clients=n_rows, batch_per_client=TRAIN_B,
+                            seed=seed, device=DEV)
+    return ds.batch(0)
+
+
+def step7a_hyper(R):
+    return {"step": torch.tensor([0, 3, 1, 7][:R], dtype=torch.int32,
+                                 device=DEV),
+            "lr": torch.tensor([1e-3, 3e-4, 2e-3, 5e-4][:R], device=DEV),
+            "warmup": torch.tensor([2.0, 0.0, 1.0, 3.0][:R], device=DEV),
+            "total": torch.tensor([10.0, 8.0, 6.0, 20.0][:R], device=DEV),
+            "wd": torch.tensor([0.0, 0.1, 0.0, 0.01][:R], device=DEV),
+            "gnorm": torch.tensor([1.0, float("inf"), 0.5, 2.0][:R],
+                                  device=DEV)}
+
+
+def check_step_on_card():
+    """7a: granite-3-8b's width, 2 layers, fp32 (TF32 off): the compact
+    step for 4 rows against each row's ``make_baseline_train_step``; then a
+    call with a padding row and a NaN-poisoned row, against the same call
+    unpoisoned; then ``frozen_dense``'s dx and residuals."""
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    base = get_model(cfg).init_params(gen(70), DEV)
+    R, cap = 4, 8
+    slots = torch.tensor([5, 2, 7, 0], dtype=torch.int32, device=DEV)
+    bank = tree_map(lambda x: x.repeat((2,) + (1,) * (x.ndim - 1)),
+                    random_lora(cfg, cap // 2, 71))
+    opt = AdamWState(step=torch.arange(cap, dtype=torch.int32, device=DEV),
+                     m=tree_map(lambda x: torch.randn_like(x) * 1e-3, bank),
+                     v=tree_map(lambda x: torch.rand_like(x) * 1e-6, bank))
+    batch = train_batches(cfg, R, 72)
+    hyper = step7a_hyper(R)
+    step = symbiosis.make_compact_train_step(cfg, LORA, remat=False)
+    start = (tree_clone(bank), tree_clone(opt))
+    t0 = time.perf_counter()
+    new_bank, new_opt, m = step(base, tree_clone(bank), tree_clone(opt),
+                                batch, slots, torch.ones(R, dtype=torch.bool,
+                                                         device=DEV), hyper)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    if not m["finite"].all():
+        raise AssertionError(f"[phase 7a] non-finite rows {m['finite']}")
+    worst = 0.0
+    for i in range(R):
+        s = int(slots[i])
+        tcfg = TrainConfig(lr=float(hyper["lr"][i]),
+                           warmup_steps=int(hyper["warmup"][i]),
+                           total_steps=int(hyper["total"][i]),
+                           weight_decay=float(hyper["wd"][i]),
+                           max_grad_norm=(0.0 if torch.isinf(hyper["gnorm"][i])
+                                          else float(hyper["gnorm"][i])),
+                           remat=False)
+        solo = symbiosis.make_baseline_train_step(cfg, LORA, tcfg)
+        a, o, sm = solo(base, tree_map(lambda x: x[s].clone(), start[0]),
+                        tree_map(lambda x: x[s].clone(), start[1]),
+                        {k: v[i] for k, v in batch.items()},
+                        int(hyper["step"][i]))
+        worst = max(worst, compare(f"[phase 7a] row {i} loss", m["loss"][i],
+                                   sm["loss"], F32_STEP_TOL))
+        for name, x, y in (("adapter", new_bank, a), ("m", new_opt.m, o.m),
+                           ("v", new_opt.v, o.v)):
+            for xl, yl in zip(tree_leaves(x), tree_leaves(y)):
+                worst = max(worst, compare(f"[phase 7a] row {i} {name}",
+                                           xl[s], yl, state_tol(yl)))
+    log(f"[phase 7a] {cfg.name} width, 2 layers, fp32: compact step over "
+        f"{R} rows x {TRAIN_B} x {TRAIN_S} tokens ({t_step * 1e3:.1f} ms, "
+        f"first call) against each row's make_baseline_train_step: losses "
+        f"{[round(float(x), 4) for x in m['loss']]}, max abs err {worst:.3e}"
+        f" (losses {F32_STEP_TOL}; states rtol 1e-4, atol 1e-3 x max|leaf| "
+        f"up to 1e-4)")
+
+    mask = torch.tensor([True, True, True, False], device=DEV)
+    clean = dict(batch, mask=torch.ones(batch["labels"].shape, device=DEV))
+    poisoned = dict(clean, mask=clean["mask"].clone())
+    poisoned["mask"][1] = float("nan")                  # the row at slot 2
+    outs = []
+    for b in (clean, poisoned):
+        st = step(base, tree_clone(start[0]), tree_clone(start[1]), b, slots,
+                  mask, hyper)
+        outs.append(st)
+    if not outs[0][2]["finite"].all() or bool(outs[1][2]["finite"][1]) \
+            or not outs[1][2]["finite"][[0, 2]].all():
+        raise AssertionError(f"[phase 7a] probes {outs[0][2]['finite']} / "
+                             f"{outs[1][2]['finite']}")
+    for full, ref, before in zip(tree_leaves(outs[1][:2]),
+                                 tree_leaves(outs[0][:2]),
+                                 tree_leaves(start)):
+        for s in (2, 0, 1, 3, 4, 6):       # poisoned, padding, outside
+            if not torch.equal(full[s], before[s]):
+                raise AssertionError(f"[phase 7a] slot {s} changed")
+        for s in (5, 7):                   # survivors
+            if not torch.equal(full[s], ref[s]):
+                raise AssertionError(f"[phase 7a] survivor slot {s} differs "
+                                     "from the unpoisoned run")
+    log("[phase 7a] a padding row and a NaN-poisoned row committed nothing "
+        "(their slots and the slots outside the call bit for bit); the "
+        "other rows equal the unpoisoned call bit for bit")
+
+    g = gen(73)
+    x = torch.randn((TRAIN_B * TRAIN_S, cfg.d_model), generator=g,
+                    device=DEV, requires_grad=True)
+    w = base["layers"][0]["mlp"]["up"]
+    gy = torch.randn((x.shape[0], w.shape[1]), generator=g, device=DEV)
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = frozen_dense(x, w)
+    (dx,) = torch.autograd.grad(y, [x], gy)
+    x2 = x.detach().requires_grad_(True)
+    (dx_ref,) = torch.autograd.grad(x2 @ w, [x2], gy)
+    e = compare("[phase 7a] frozen_dense dx", dx, dx_ref, F32_TOL)
+    if saved != [tuple(w.shape)]:
+        raise AssertionError(f"[phase 7a] frozen_dense saved {saved}")
+    log(f"[phase 7a] frozen_dense [{x.shape[0]}, {w.shape[0]}] @ "
+        f"{list(w.shape)}: dx max abs err {e:.3e} against autograd through "
+        f"x @ w ({F32_TOL}); saved for the backward: {saved} (the weight "
+        "only)")
+    del base, bank, opt, new_bank, new_opt, outs, start
+    torch.cuda.empty_cache()
+
+
+def train_jobs(cfg, n, steps=TRAIN_STEPS, first_seed=0):
+    return [FinetuneJob(acfg=LORA, batch_size=TRAIN_B, seq_len=TRAIN_S,
+                        steps=steps, lr=1e-3, warmup_steps=1,
+                        seed=first_seed + i, name=f"job-{first_seed + i}",
+                        data=make_job_stream(cfg, TRAIN_B, TRAIN_S,
+                                             seed=first_seed + i, device=DEV))
+            for i in range(n)]
+
+
+def solo_run(cfg, base, job):
+    """The job alone through ``make_baseline_train_step`` from the adapter
+    the engine initialises for its seed: its losses, the initial adapter
+    and the final one."""
+    tcfg = TrainConfig(lr=job.lr, weight_decay=job.weight_decay,
+                       warmup_steps=job.warmup_steps,
+                       total_steps=job.schedule_total,
+                       max_grad_norm=job.max_grad_norm, remat=False)
+    step = symbiosis.make_baseline_train_step(cfg, LORA, tcfg)
+    gen_ = torch.Generator(device=DEV).manual_seed(job.seed)
+    a = adapters.init_adapter(cfg, LORA, gen_, device=DEV)
+    first = tree_clone(a)
+    o = adamw_init(a)
+    stream = make_job_stream(cfg, TRAIN_B, TRAIN_S, seed=job.seed, device=DEV)
+    out = []
+    for t in range(job.steps):
+        a, o, m = step(base, a, o, stream.batch(t), t)
+        out.append(float(m["loss"]))
+    return out, first, a
+
+
+def update_rel_diff(got, want, first):
+    """|| (got - first) - (want - first) || / || want - first || over every
+    leaf: how far one run's optimizer updates are from another's (a
+    missing update reads 1)."""
+    num = den = 0.0
+    for g, w, f in zip(tree_leaves(got), tree_leaves(want),
+                       tree_leaves(first)):
+        num += float(((g.float() - w.float()) ** 2).sum())
+        den += float(((w.float() - f.float()) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def timed_ticks(eng):
+    """Drive ``eng`` to the end; host-clock seconds of each train tick
+    (synchronised)."""
+    ticks = []
+    more = True
+    while more:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = eng.train_tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    return ticks
+
+
+def serve_train(cfg, base):
+    """7b: the service at full size behind a router whose slot holds 4
+    jobs' charges, not 5; returns the 4 jobs' losses and tick times."""
+    jobs = train_jobs(cfg, 5)
+    charge = job_hbm_bytes(cfg, jobs[0])
+    router = PlacementRouter(cfg, [Slot(0, free_hbm=4.5 * charge)])
+    eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()), base,
+                         device=DEV, router=router)
+    admitted = {}
+    try_admit = eng._try_admit
+
+    def record(job):
+        ok = try_admit(job)
+        if ok:
+            admitted[job.name] = eng.stats["train_ticks"]
+        return ok
+    eng._try_admit = record
+    for j in jobs:
+        eng.submit(j)
+    ticks = timed_ticks(eng)
+    if len(eng.finished) != 5 or any(j.status != "finished" for j in jobs):
+        raise AssertionError(f"[phase 7b] statuses {[j.status for j in jobs]}")
+    losses = [j.losses for j in jobs]
+    if not all(len(x) == TRAIN_STEPS and np.isfinite(x).all()
+               for x in losses):
+        raise AssertionError(f"[phase 7b] losses {losses}")
+    if admitted["job-4"] < TRAIN_STEPS or eng.stats["peak_jobs"] != 4:
+        raise AssertionError(f"[phase 7b] the router never held job 4 back: "
+                             f"admitted at {admitted}, peak "
+                             f"{eng.stats['peak_jobs']}")
+    used = router.utilization()
+    if router.conservation_errors() or used["committed_bytes"] \
+            or used["placements"]:
+        raise AssertionError(f"[phase 7b] router after the drain: "
+                             f"{router.conservation_errors()}, {used}")
+    solo, first, solo_adapter = solo_run(cfg, base, jobs[0])
+    e = compare("[phase 7b] job 0 losses against its solo run",
+                torch.tensor(losses[0]), torch.tensor(solo), LOSS_7B_TOL)
+    upd = update_rel_diff(jobs[0].result.adapter, solo_adapter, first)
+    if not upd <= UPDATE_7B_REL:
+        raise AssertionError(f"[phase 7b] job 0's adapter update is {upd:.3e}"
+                             f" (relative norm) from its solo run's, limit "
+                             f"{UPDATE_7B_REL}")
+    st = eng.stats
+    tokens = TRAIN_B * TRAIN_S
+    steady = ticks[1:TRAIN_STEPS]            # 4 rows, after the first tick
+    log(f"[phase 7b] {cfg.name}: {cfg.n_layers} layers bf16, 5 LoRA jobs "
+        f"(rank {LORA.rank}, q and v, {TRAIN_B} x {TRAIN_S} tokens, "
+        f"{TRAIN_STEPS} steps each), router slot {4.5 * charge:.0f} B for "
+        f"job charges of {charge} B: job 4 admitted at tick "
+        f"{admitted['job-4']} (the others at 0); {st['train_ticks']} train "
+        f"ticks, {st['train_steps']} steps, {st['train_tokens']} tokens, "
+        f"stats {st}; router ledger conserved and empty after the drain")
+    log(f"[phase 7b] losses {[[round(x, 4) for x in l] for l in losses]}; "
+        f"job 0 against its solo make_baseline_train_step: {solo} (max abs "
+        f"err {e:.3e}, {LOSS_7B_TOL}); its adapter's update against the "
+        f"solo run's: {upd:.3e} relative norm (limit {UPDATE_7B_REL})")
+    log(f"[phase 7b] tick ms (host clock, synchronised): "
+        f"{[round(t * 1e3, 3) for t in ticks]}; 4-row ticks after the "
+        f"first: {4 * tokens} tokens per tick, "
+        f"{statistics.median(steady) * 1e3:.3f} ms median, "
+        f"{4 * tokens / statistics.median(steady):.0f} tokens/s")
+    return losses[:4], ticks
+
+
+def profile_train_tick(cfg, base):
+    """One 4-row train tick traced by torch.profiler (device activity only)
+    after three unprofiled ones: device busy time, kernels per tick and the
+    top kernels by device time."""
+    eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()), base,
+                         device=DEV)
+    for j in train_jobs(cfg, 4, steps=6, first_seed=10):
+        eng.submit(j)
+    eng.train_tick()
+    ticks = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    tick_ms = statistics.median(ticks) * 1e3
+    with traced() as prof:
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not kern:
+        log(f"[phase 7b] train tick (4 rows): {tick_ms:.3f} ms median "
+            "unprofiled; the profiler saw no device events: device busy "
+            "not measured")
+        return
+    busy, end = 0.0, float("-inf")
+    by_name = {}
+    for e in kern:
+        s, t = e.time_range.start, e.time_range.end
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+        n, d = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
+    busy_ms = busy / 1e3
+    gemm = [(n, d) for name, (n, d) in by_name.items()
+            if any(k in name for k in GEMM_NAMES)]
+    gemm_ms = sum(d for _, d in gemm) / 1e3
+    log(f"[phase 7b] train tick (4 rows x {TRAIN_B * TRAIN_S} tokens): "
+        f"{tick_ms:.3f} ms median of 3 unprofiled, {traced_ms:.3f} ms traced;"
+        f" device busy {busy_ms:.3f} ms = {100 * busy_ms / tick_ms:.1f}% of "
+        f"the unprofiled tick; {len(kern)} kernels per tick, "
+        f"{sum(n for n, _ in gemm)} of them matrix products taking "
+        f"{gemm_ms:.3f} ms ({100 * gemm_ms / busy_ms:.1f}% of the busy time); "
+        "top kernels:")
+    for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"[phase 7b]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+
+
+def train_memory(cfg, base):
+    """7c: peak device memory beyond what is resident (base, bank) for one
+    bank step at 1 and 4 jobs, with the §3.6 path and the torch-like
+    baseline, at FinetuneConfig's remat. Printed, not asserted."""
+    remat = FinetuneConfig().remat
+    out = {}
+    for mo in (True, False):
+        step = symbiosis.make_compact_train_step(cfg, LORA, remat=remat,
+                                                 memory_optimized=mo)
+        for R in (1, 4):
+            bank = random_lora(cfg, R, 74)
+            opt = AdamWState(step=torch.zeros(R, dtype=torch.int32,
+                                              device=DEV),
+                             m=tree_map(torch.zeros_like, bank),
+                             v=tree_map(torch.zeros_like, bank))
+            batch = train_batches(cfg, R, 75)
+            hyper = step7a_hyper(R)
+            args = (torch.arange(R, dtype=torch.int32, device=DEV),
+                    torch.ones(R, dtype=torch.bool, device=DEV))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            step(base, bank, opt, batch, *args, hyper)
+            torch.cuda.synchronize()
+            out[(mo, R)] = (torch.cuda.max_memory_allocated() - before) / 2**30
+            del bank, opt, batch
+    torch.cuda.empty_cache()
+    log(f"[phase 7c] peak device memory beyond the resident base and bank, "
+        f"one bank step ({cfg.n_layers} layers bf16, {TRAIN_B} x {TRAIN_S} "
+        f"tokens per job, remat={remat}), GiB: " + "; ".join(
+            f"{'§3.6' if mo else 'baseline'} {R} job{'s' if R > 1 else ''} "
+            f"{gib:.3f}" for (mo, R), gib in out.items()))
+    for R in (1, 4):
+        log(f"[phase 7c] {R} job(s): the baseline holds "
+            f"{out[(False, R)] - out[(True, R)]:.3f} GiB more than §3.6")
+    log(f"[phase 7c] from 1 to 4 jobs: §3.6 grows "
+        f"{out[(True, 4)] / out[(True, 1)]:.2f}x, the baseline "
+        f"{out[(False, 4)] / out[(False, 1)]:.2f}x")
+
+
+def serve_and_train(cfg, base, bank, streams4, launches4, times4, losses7b,
+                    ticks7b):
+    """7d: one SymbiosisEngine over the same base object: phase 4's 8
+    requests beside 7b's first 4 jobs, every launch count set to 0 just
+    before and read just after."""
+    spec = dataclasses.replace(serve_spec(cfg, quant=False),
+                               finetune=FinetuneConfig())
+    sym = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                    device=DEV)
+    if sym.serving.base is not base or sym.finetune.base is not base:
+        raise AssertionError("[phase 7d] an engine holds another base")
+    reqs = make_requests(cfg, 4)
+    jobs = train_jobs(cfg, 4)
+    for item in reqs + jobs:
+        sym.submit(item)
+    L = cfg.n_layers
+    serving = sym.serving
+    attn, sgmv = KERNELS["paged_decode_attn"][0], KERNELS["sgmv"][0]
+    tick_t, serve_t, train_t = [], [], []
+    serving.service_tick = _timed(serving.service_tick, serve_t)
+    sym.finetune.train_tick = _timed(sym.finetune.train_tick, train_t)
+    prefill_t = []
+    serving._prefill_step = _timed(serving._prefill_step, prefill_t)
+    torch.cuda.synchronize()
+    reset_counts()
+    more = True
+    while more:
+        before = (attn.launches, sgmv.launches, serving.stats["ticks"],
+                  serving.stats["compact_prefill_batches"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        more = sym.tick()
+        torch.cuda.synchronize()
+        tick_t.append(time.perf_counter() - t0)
+        d_at, d_sg, d_tick, d_pre = (a - b for a, b in zip(
+            (attn.launches, sgmv.launches, serving.stats["ticks"],
+             serving.stats["compact_prefill_batches"]), before))
+        if d_at != L * d_tick or d_sg != 2 * L * (d_tick + d_pre):
+            raise AssertionError(f"[phase 7d] a tick launched {d_at} "
+                                 f"attention and {d_sg} SGMV kernels for "
+                                 f"{d_tick} decode ticks, {d_pre} prefills")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != launches4:
+        raise AssertionError(f"[phase 7d] launches {counts}, phase 4's "
+                             f"serving path launched {launches4}")
+    done_r, done_j = serving.drain_done(), sym.finetune.finished
+    if len(done_r) != 8 or len(done_j) != 4:
+        raise AssertionError(f"[phase 7d] {len(done_r)} requests and "
+                             f"{len(done_j)} jobs finished")
+    for i, r in enumerate(reqs):
+        if not np.array_equal(r.generated, streams4[i]):
+            raise AssertionError(f"[phase 7d] request {i}'s greedy stream "
+                                 "differs from phase 4's")
+    worst = 0.0
+    for j, want_l in zip(jobs, losses7b):
+        got, ref = np.array(j.losses), np.array(want_l)
+        rel = np.abs(got - ref) / np.abs(ref)
+        if got.shape != ref.shape or not (rel <= 1e-3).all():
+            raise AssertionError(f"[phase 7d] {j.name} losses {got} against "
+                                 f"7b's {ref}")
+        worst = max(worst, float(rel.max()))
+    st = sym.stats
+    log(f"[phase 7d] SymbiosisEngine over phase 4's base object: 8 requests "
+        f"beside 4 jobs in {st['ticks']} ticks ({st['decode_ticks']} serving,"
+        f" {st['train_ticks']} train); every greedy stream equals phase 4's "
+        f"exactly; job losses equal 7b's (max relative difference "
+        f"{worst:.2e}, limit 1e-3); launches {counts}, the serving path's of "
+        f"phase 4 (checked tick by tick)")
+    ms = lambda ts: [round(t * 1e3, 3) for t in ts]
+    n_pre = serving.stats["compact_prefill_batches"]
+    log(f"[phase 7d] tick ms (host clock, synchronised; each a serving tick, "
+        f"the first {TRAIN_STEPS} then a train tick, the first {n_pre} with "
+        f"an admission's prefill): {ms(tick_t)}; of which serving "
+        f"{ms(serve_t)}, training {ms(train_t)}, prefill steps "
+        f"{ms(prefill_t)}")
+    log(f"[phase 7d] medians beside the engines alone: train tick after the "
+        f"first {statistics.median(train_t[1:]) * 1e3:.3f} ms (7b "
+        f"{statistics.median(ticks7b[1:TRAIN_STEPS]) * 1e3:.3f}); serving "
+        f"tick without admission "
+        f"{statistics.median(serve_t[n_pre:]) * 1e3:.3f} ms (phase 4 "
+        f"{times4['tick_ms']:.3f}); prefill step "
+        f"{statistics.median(prefill_t) * 1e3:.3f} ms")
+
+
+def phase7(cfg, base, bank, streams4, launches4, times4):
+    """Fine-tuning on the card: 7a the step at full width, 7b the service
+    at full size, 7c memory, 7d serving and training on one base."""
+    check_step_on_card()
+    losses7b, ticks7b = serve_train(cfg, base)
+    profile_train_tick(cfg, base)
+    train_memory(cfg, base)
+    serve_and_train(cfg, base, bank, streams4, launches4, times4, losses7b,
+                    ticks7b)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1509,8 +2041,10 @@ def main() -> int:
     log(f"[phase 3] done ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    launches, cfg, caches, base, bank, lengths, first, times4 = serve_full()
+    (launches, cfg, caches, base, bank, lengths, first, times4,
+     streams4) = serve_full()
     log(f"[phase 4] done ({time.perf_counter() - t:.1f} s)")
+    launches4 = dict(launches)
     t = time.perf_counter()
     launches_q, caches_q, lengths_q = serve_quant(cfg, base, bank, first,
                                                   times4)
@@ -1529,7 +2063,11 @@ def main() -> int:
 
     t = time.perf_counter()
     launches.update(phase6(cfg, base))
-    log(f"[phase 6] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 6] done ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    phase7(cfg, base, bank, streams4, launches4, times4)
+    log(f"[phase 7] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel and phase

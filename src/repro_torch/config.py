@@ -1,7 +1,8 @@
-"""Configuration dataclasses of the PyTorch port: model / adapter / serve.
+"""Configuration dataclasses of the PyTorch port: model / adapter / train /
+fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-dense, paged LoRA serving path reads. The port keeps its own copy so that
+dense, paged LoRA serving path and its LoRA fine-tuning service read. The port keeps its own copy so that
 it imports nothing of the JAX package; the fields it keeps have the same
 names and defaults, so a dense config describes the same model in both.
 """
@@ -72,6 +73,34 @@ class AdapterConfig:
     rank: int = 8
     alpha: float = 16.0
     targets: Sequence[str] = ("q", "v")   # subset of q,k,v,o,gate,up,down
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """One trainer's knobs (``core.symbiosis.make_baseline_train_step``)."""
+    microbatch: int = 0               # 0 -> no gradient accumulation
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    warmup_steps: int = 10
+    total_steps: int = 100
+    max_grad_norm: float = 1.0
+    remat: bool = True                # activation checkpointing of the layer body
+
+
+@dataclass(frozen=True)
+class FinetuneConfig:
+    """Fine-tuning-as-a-service configuration (``training.FinetuneEngine``).
+
+    * ``max_jobs`` — service-wide concurrent-job ceiling across all banks;
+      a job that does not fit yet stays queued without blocking later ones.
+    * ``memory_optimized`` — §3.6 frozen-base backward for every job; False
+      runs the torch-like baseline, which holds every base linear's input
+      for the backward.
+    * ``remat`` — activation checkpointing of the layer body in every step.
+    """
+    max_jobs: int = 16
+    memory_optimized: bool = True
+    remat: bool = False
 
 
 @dataclass(frozen=True)

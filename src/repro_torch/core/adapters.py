@@ -5,6 +5,12 @@ An adapter tree mirrors the model's layer container: ``{"layers": {path:
 stacks clients on a leading axis, ``{"layers": {path: {"A": [C, L, din, r],
 "B": [C, L, r, dout]}}}`` — the JAX package's layout, so banks cross over
 through numpy unchanged (``convert.bank_from_numpy``).
+
+Three ways to apply a delta: one client's tree (``apply_adapter``), a
+compacted serving batch whose rows name their client (``apply_adapter_rows``,
+through the SGMV kernel), and a merged training batch of bank rows
+(``apply_adapter_bank``, a ``bmm`` pair outside any kernel, as the JAX
+training step computes it).
 """
 from __future__ import annotations
 
@@ -72,6 +78,17 @@ def init_client_bank(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
                        for path in per[0]["layers"]}}
 
 
+def adapter_bytes(cfg: ModelConfig, acfg: AdapterConfig,
+                  dtype=torch.float32) -> tuple:
+    """(param_count, param_bytes) of one client's adapter in ``dtype``
+    (``init_adapter``'s default fp32): what a fine-tuning job pins beyond
+    the shared base (the AdamW moments add 2 x param_count x 4 bytes)."""
+    _check_lora(acfg)
+    n = sum(cfg.n_layers * acfg.rank * (din + dout)
+            for _, (din, dout) in resolve_targets(cfg, acfg))
+    return n, n * torch.empty((), dtype=dtype).element_size()
+
+
 def apply_adapter(y, x, path, ad_slice, acfg: AdapterConfig, cfg: ModelConfig):
     """Post-hook for one client: given base output y = base(x), add the
     LoRA delta of ``path`` (A/B cast to the activation dtype first)."""
@@ -101,6 +118,24 @@ def apply_adapter_rows(y, x, path, ad_slice, acfg: AdapterConfig,
                  leaf["B"].to(x.dtype), rows_client, block_t=S,
                  scale=acfg.alpha / acfg.rank)
     return y + delta.reshape(y.shape)
+
+
+def apply_adapter_bank(y, x, path, ad_slice, acfg: AdapterConfig,
+                       cfg: ModelConfig, n_rows: int):
+    """Post-hook for a merged multi-job training batch: x [n_rows * B, S,
+    din] holds the bank rows' batches back to back and ``ad_slice`` leaves
+    are row-stacked ([n_rows, din, r] / [n_rows, r, dout]). The LoRA delta
+    of every row is one ``bmm`` pair over [n_rows, B*S, din] (what the JAX
+    step's ``vmap`` of ``apply_adapter`` computes), A/B cast to the
+    activation dtype first."""
+    leaf = ad_slice.get(path) if isinstance(ad_slice, dict) else None
+    if leaf is None:
+        return y
+    _check_lora(acfg)
+    xr = x.reshape(n_rows, -1, x.shape[-1])
+    delta = torch.bmm(torch.bmm(xr, leaf["A"].to(x.dtype)),
+                      leaf["B"].to(x.dtype))
+    return y + (acfg.alpha / acfg.rank) * delta.reshape(y.shape)
 
 
 def compact_adapter_bank(bank):

@@ -1,9 +1,13 @@
 """VirtLayer: the client-side splice over frozen base layers (paper §3.2) —
 ``make_client_ctx`` (without privacy) and ``make_compact_ctx`` of
-``repro.core.virtlayer``.
+``repro.core.virtlayer``, and ``make_bank_ctx`` for the merged multi-job
+training batch.
 
 A context's ``LinearFns`` run the frozen base matmul and fold in the
-client's LoRA delta on targeted paths; model code is untouched.
+client's LoRA delta on targeted paths; model code is untouched. With
+``memory_optimized`` (the default) the base matmul is ``frozen_dense``,
+whose backward holds the weight only (§3.6); False runs the plain product,
+the torch-like baseline of the Fig 9/10 comparison.
 """
 from __future__ import annotations
 
@@ -11,28 +15,38 @@ from typing import Optional
 
 from repro_torch.config import AdapterConfig, ModelConfig
 from repro_torch.core import adapters as adapters_lib
-from repro_torch.core.frozen_linear import frozen_dense
+from repro_torch.core.frozen_linear import frozen_dense, plain_dense
 from repro_torch.models.blocks import LinearFns
 from repro_torch.models.transformer import LinCtx
 
-_TOP = LinearFns(dense=lambda x, w, b, path: frozen_dense(x, w, b))
 
-
-def make_client_ctx(cfg: ModelConfig,
-                    acfg: Optional[AdapterConfig] = None) -> LinCtx:
-    """Context for ONE client's adapter (``for_layer`` binds its per-layer
-    slice); ``acfg=None`` runs the bare base."""
+def _ctx(base_dense, hook) -> LinCtx:
+    """LinCtx whose layer linears add ``hook(y, x, path, ad_slice)`` to the
+    base product (embed and lm_head get the bare base)."""
 
     def for_layer(ad_slice) -> LinearFns:
         def dense(x, w, b, path):
-            y = frozen_dense(x, w, b)
-            if acfg is not None:
-                y = adapters_lib.apply_adapter(y, x, path, ad_slice, acfg, cfg)
-            return y
+            return hook(base_dense(x, w, b), x, path, ad_slice)
 
         return LinearFns(dense=dense)
 
-    return LinCtx(top=_TOP, for_layer=for_layer)
+    return LinCtx(top=LinearFns(dense=lambda x, w, b, path: base_dense(x, w, b)),
+                  for_layer=for_layer)
+
+
+def _base(memory_optimized: bool):
+    return frozen_dense if memory_optimized else plain_dense
+
+
+def make_client_ctx(cfg: ModelConfig, acfg: Optional[AdapterConfig] = None,
+                    *, memory_optimized: bool = True) -> LinCtx:
+    """Context for ONE client's adapter (``for_layer`` binds its per-layer
+    slice); ``acfg=None`` runs the bare base."""
+    if acfg is None:
+        return _ctx(_base(memory_optimized), lambda y, x, path, ad: y)
+    return _ctx(_base(memory_optimized),
+                lambda y, x, path, ad: adapters_lib.apply_adapter(
+                    y, x, path, ad, acfg, cfg))
 
 
 def make_compact_ctx(cfg: ModelConfig, acfg: AdapterConfig,
@@ -41,13 +55,18 @@ def make_compact_ctx(cfg: ModelConfig, acfg: AdapterConfig,
     maps each row to its client, per-layer adapter slices arrive
     client-stacked ([C, ...], see ``adapters.compact_adapter_bank``) and
     LoRA deltas are applied per row through the SGMV kernel."""
+    return _ctx(frozen_dense,
+                lambda y, x, path, ad: adapters_lib.apply_adapter_rows(
+                    y, x, path, ad, acfg, cfg, rows_client))
 
-    def for_layer(ad_slice) -> LinearFns:
-        def dense(x, w, b, path):
-            return adapters_lib.apply_adapter_rows(
-                frozen_dense(x, w, b), x, path, ad_slice, acfg, cfg,
-                rows_client)
 
-        return LinearFns(dense=dense)
-
-    return LinCtx(top=_TOP, for_layer=for_layer)
+def make_bank_ctx(cfg: ModelConfig, acfg: AdapterConfig, n_rows: int, *,
+                  memory_optimized: bool = True) -> LinCtx:
+    """Context for a merged multi-job training batch: ``n_rows`` bank rows'
+    batches back to back on the batch axis, per-layer adapter slices
+    row-stacked ([n_rows, ...]). The base linears see every row's tokens in
+    one product (§3.7 batching); each row's LoRA delta is applied by
+    ``adapters.apply_adapter_bank``."""
+    return _ctx(_base(memory_optimized),
+                lambda y, x, path, ad: adapters_lib.apply_adapter_bank(
+                    y, x, path, ad, acfg, cfg, n_rows))

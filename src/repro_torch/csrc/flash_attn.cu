@@ -58,12 +58,14 @@
 // QK^T, ping-pong scheduling between the two warpgroups, and a persistent
 // grid over the q tiles.
 //
-// flash_attn (fp32, where wgmma would compute in TF32; and bf16 or fp32 at
-// hd 160, stablelm-12b's, which the tensor-core entry's 64-column TMA boxes
-// do not divide): 64 x 64 tiles on the CUDA cores in fp32, 256 threads
-// each owning 4 query rows x 4 kv columns of the scores and 4 rows x 4
-// columns of each 64-column chunk of the output (at hd 160 the last chunk
-// is half wide: half the threads own its columns), the max and
+// flash_attn (fp32, where wgmma would compute in TF32; and bf16 at every
+// head dim but 128, which the tensor-core entry does not take: stablelm-12b's
+// 160, whisper-small's 64): every hd that is a multiple of 16 up to 256, one
+// compile-time instance each, 64 x 64 tiles on the CUDA cores in fp32, 256
+// threads each owning 4 query rows x 4 kv columns of the scores and 4 rows x
+// 4 columns of each 64-column chunk of the output (where hd is no multiple
+// of 64 the last chunk is partial, e.g. half wide at 160: only the threads
+// whose columns exist own it), the max and
 // denominator of each row in registers
 // (replicated over the 16 threads that share the row), the probabilities
 // through shared memory, 16-byte shared-memory reads on padded rows,
@@ -680,21 +682,36 @@ int run(const void* q, const void* k, const void* v, void* out, int B, int S, in
 }  // namespace tc
 }  // namespace
 
-// The SIMT entry point: float32 (dtype 0) q/k/v/out at hd 128 or 160, and
-// bfloat16 (dtype 1) at hd 160 (stablelm-12b's; bf16 at hd 128 is the
-// tensor-core entry's); any other pair is refused. Tensors contiguous and
-// 16-byte aligned. Returns cudaGetLastError() of the launch.
+namespace {
+
+constexpr int kSimtMaxHd = 256;
+
+// the instance for hd, walking HD = 16, 32, ..., kSimtMaxHd
+template <typename E, int HD = 16>
+int launch_hd(int hd, const void* q, const void* k, const void* v, void* out, int B, int S,
+              int T, int H, int K, int causal, int window, float scale, cudaStream_t s) {
+  if (hd == HD) return launch<E, HD>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  if constexpr (HD < kSimtMaxHd)
+    return launch_hd<E, HD + 16>(hd, q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The SIMT entry point: float32 (dtype 0) or bfloat16 (dtype 1) q/k/v/out at
+// any hd that is a multiple of 16 up to 256 (bf16 at hd 128 is the
+// tensor-core entry's, though this one takes it too); anything else is
+// refused. Tensors contiguous and 16-byte aligned. Returns
+// cudaGetLastError() of the launch.
 extern "C" int flash_attn(const void* q, const void* k, const void* v, void* out, int B,
                           int S, int T, int H, int K, int hd, int causal, int window,
                           float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128 && dtype == 0)
-    return launch<float, 128>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
-  if (hd == 160 && dtype == 0)
-    return launch<float, 160>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
-  if (hd == 160 && dtype == 1)
-    return launch<__nv_bfloat16, 160>(q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  if (dtype == 0)
+    return launch_hd<float>(hd, q, k, v, out, B, S, T, H, K, causal, window, scale, s);
+  if (dtype == 1)
+    return launch_hd<__nv_bfloat16>(hd, q, k, v, out, B, S, T, H, K, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -40,8 +40,9 @@ DENSE_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:102"
 QUANT_SOURCE = SOURCE
 QUANT_REPLACES = "src/repro/kernels/decode_attn/decode_attn.py:274"
 # the paged kernel's pages per split (one block each), over bf16 and over
-# int8 pools: the fastest of 1, 2, 4 and 8 at the serving path's shape
-# (tools/kernel_sweeps.py)
+# int8 pools: the fastest of 1, 2, 4 and 8 at the serving path's shape,
+# page_block 16 (tools/kernel_sweeps.py); a call with longer pages takes
+# fewer (``split_pages``)
 PAGED_SPLIT_PAGES = 2
 PAGED_QUANT_SPLIT_PAGES = 4
 DENSE_SPLIT = 256     # the dense kernel's tokens per split (one block each)
@@ -290,6 +291,16 @@ def _check_aligned(tensors, what):
                          "on 16-byte boundaries")
 
 
+def split_pages(tuned: int, blk: int, what: str) -> int:
+    """Pages per split for pages of ``blk`` tokens: the tuned count, or as
+    many as fit the kernel's ``MAX_SPLIT`` tokens (at least one), so any
+    page length up to ``MAX_SPLIT`` runs."""
+    if blk > MAX_SPLIT:
+        raise ValueError(f"{what}: pages of {blk} tokens pass the kernel's "
+                         f"{MAX_SPLIT}-token splits")
+    return min(tuned, max(1, MAX_SPLIT // blk))
+
+
 _workspace: dict = {}
 
 
@@ -315,21 +326,21 @@ def _paged_workspace(device, n_acc: int, n_ml: int, n_tickets: int):
 
 def paged_decode_attn_cuda(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
     """Launch the paged split kernel: one block per (row, KV head with up to
-    4 of its query heads, split of ``PAGED_SPLIT_PAGES`` pages); the split
+    4 of its query heads, split of ``PAGED_SPLIT_PAGES`` pages, fewer for
+    pages longer than ``MAX_SPLIT // PAGED_SPLIT_PAGES`` tokens); the split
     that finishes last merges the row's splits. One launch per call. hd
-    must make 16-byte rows, at most ``MAX_HD``."""
+    must make 16-byte rows, at most ``MAX_HD``; pages at most ``MAX_SPLIT``
+    tokens."""
     B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos)
     what = "paged decode attention"
     _check_rows(q, pool_k, pool_v, what)
-    if PAGED_SPLIT_PAGES * blk > MAX_SPLIT:
-        raise ValueError(f"{what}: splits of {PAGED_SPLIT_PAGES} pages of "
-                         f"{blk} tokens pass the kernel's {MAX_SPLIT}")
+    pages = split_pages(PAGED_SPLIT_PAGES, blk, what)
     dtype = _check_launch(q, (pool_k, pool_v), tbl, pos, what)
     _check_aligned((q, pool_k, pool_v), what)
     tbl = tbl.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    nsplit = -(-nb // PAGED_SPLIT_PAGES)
+    nsplit = -(-nb // pages)
     part_acc, part_ml, tickets = _paged_workspace(
         q.device, B * K * nsplit * G * hd, B * K * nsplit * G * 2, B * K * G)
     lib = _build.load(NAME, _bind)
@@ -337,7 +348,7 @@ def paged_decode_attn_cuda(q, pool_k, pool_v, tbl, pos, *, window: int = 0):
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tbl.data_ptr(),
         pos.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
         tickets.data_ptr(), out.data_ptr(), B, K, G, hd, P, blk, nb,
-        PAGED_SPLIT_PAGES, window, 1.0 / math.sqrt(hd), dtype,
+        pages, window, 1.0 / math.sqrt(hd), dtype,
         _build.stream_ptr(q))
     _build.check(lib, err, what)
     paged_decode_attn_cuda.launches += 1
@@ -351,7 +362,8 @@ def paged_decode_attn_quant_cuda(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
                                  pos, *, window: int = 0):
     """Launch the paged split kernel over int8 pools [P, blk, K, hd] with
     f32 scales [P, blk, K, 1]: as ``paged_decode_attn_cuda``, splits of
-    ``PAGED_QUANT_SPLIT_PAGES`` pages, one launch per call, its scratch
+    ``PAGED_QUANT_SPLIT_PAGES`` pages (fewer for long pages), one launch
+    per call, its scratch
     shared with it (one stream at a time); output in q's dtype. hd must be
     a multiple of 16, at most ``MAX_HD``."""
     B, K, G, hd, P, blk, nb = _shapes(q, pool_k, pool_v, tbl, pos, pool_ks,
@@ -368,14 +380,12 @@ def paged_decode_attn_quant_cuda(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
     if hd % 16 or hd > MAX_HD:
         raise ValueError(f"{what}: the kernel takes hd a multiple of 16 up "
                          f"to {MAX_HD}, got {hd}")
-    if PAGED_QUANT_SPLIT_PAGES * blk > MAX_SPLIT:
-        raise ValueError(f"{what}: splits of {PAGED_QUANT_SPLIT_PAGES} pages "
-                         f"of {blk} tokens pass the kernel's {MAX_SPLIT}")
+    pages = split_pages(PAGED_QUANT_SPLIT_PAGES, blk, what)
     _check_aligned((q, pool_k, pool_v), what)
     tbl = tbl.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    nsplit = -(-nb // PAGED_QUANT_SPLIT_PAGES)
+    nsplit = -(-nb // pages)
     part_acc, part_ml, tickets = _paged_workspace(
         q.device, B * K * nsplit * G * hd, B * K * nsplit * G * 2, B * K * G)
     lib = _build.load(NAME, _bind)
@@ -383,7 +393,7 @@ def paged_decode_attn_quant_cuda(q, pool_k, pool_ks, pool_v, pool_vs, tbl,
         q.data_ptr(), pool_k.data_ptr(), pool_ks.data_ptr(), pool_v.data_ptr(),
         pool_vs.data_ptr(), tbl.data_ptr(), pos.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
-        out.data_ptr(), B, K, G, hd, P, blk, nb, PAGED_QUANT_SPLIT_PAGES,
+        out.data_ptr(), B, K, G, hd, P, blk, nb, pages,
         window, 1.0 / math.sqrt(hd), dtype, _build.stream_ptr(q))
     _build.check(lib, err, what)
     paged_decode_attn_quant_cuda.launches += 1

@@ -7,9 +7,11 @@ block per (q tile, head, batch) walking the kv tiles with an fp32 online
 softmax, kv tiles no row can see pruned under causality. The source has
 two entry points, and ``entry_point`` picks one before the launch: bf16
 at hd 128 that TMA tensor maps can describe runs on the tensor cores
-(``wgmma``, 128-row q tiles, K/V fed by TMA); fp32, and bf16 at
-stablelm-12b's hd 160, on the SIMT kernel (64 x 64 tiles on the CUDA
-cores). ``flash_attn_plain`` runs the blocked
+(``wgmma``, 128-row q tiles, K/V fed by TMA); fp32, and bf16 at every
+other head dim a multiple of 16 up to 256 (stablelm-12b's 160,
+whisper-small's 64), on the SIMT kernel (64 x 64 tiles on the CUDA
+cores, one compile-time instance per head dim). ``flash_attn_plain`` runs
+the blocked
 math of the Pallas kernel (``_fa_kernel``) as PyTorch ops, one step per
 (q block, kv block) over all batches and heads at once, with the same
 block pruning.
@@ -32,7 +34,7 @@ NAME = "flash_attn"
 SOURCE = "src/repro_torch/csrc/flash_attn.cu"
 REPLACES = "src/repro/kernels/flash_attn/flash_attn.py:83"
 HEAD_DIM = 128      # the tensor-core entry's one head dim (see the source)
-SIMT_HEAD_DIMS = (128, 160)   # the SIMT entry's: fp32 at both, bf16 at 160
+SIMT_MAX_HD = 256   # the SIMT entry takes every hd a multiple of 16 up to it
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA, SIMT = "wgmma", "simt"     # the kernel's two entry points
@@ -42,8 +44,8 @@ def entry_point(q, k, v) -> str:
     """The entry point that takes (q, k, v): ``WGMMA`` (tensor cores, fed
     by TMA) for bf16 at hd ``HEAD_DIM`` that tensor maps can describe, i.e.
     contiguous tensors on 16-byte boundaries; ``SIMT`` for the rest: fp32
-    (``wgmma`` would compute in TF32), bf16 at hd 160, and bf16 on other
-    head dims, strides or bases, which the launch wrapper then refuses as
+    (``wgmma`` would compute in TF32), bf16 at other head dims, and bf16
+    on other strides or bases, which the launch wrapper then refuses as
     the SIMT kernel does."""
     if q.shape[-1] != HEAD_DIM or any(
             t.dtype != torch.bfloat16 or not t.is_contiguous()
@@ -115,17 +117,17 @@ def flash_attn_plain(q, k, v, *, block_q: int, block_kv: int,
 def flash_attn_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the CUDA kernel at the entry point ``entry_point`` picks: q
     [B,S,H,hd], k/v [B,T,K,hd], contiguous and 16-byte aligned, one dtype
-    (float32 or bfloat16), hd in ``SIMT_HEAD_DIMS`` (128 or 160). Counts
-    the launch in ``launches`` and in ``by_entry`` under its entry
+    (float32 or bfloat16), hd a multiple of 16 up to ``SIMT_MAX_HD``.
+    Counts the launch in ``launches`` and in ``by_entry`` under its entry
     point."""
     B, S, H, hd, T, K = _shapes(q, k, v)
     dtype = _DTYPES.get(q.dtype)
     if dtype is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attn: q/k/v must share float32 or bfloat16, "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in SIMT_HEAD_DIMS:
-        raise ValueError(f"flash_attn: the kernels take head dim "
-                         f"{' or '.join(map(str, SIMT_HEAD_DIMS))}, got {hd}")
+    if hd % 16 or not 16 <= hd <= SIMT_MAX_HD:
+        raise ValueError(f"flash_attn: the kernels take a head dim that is a "
+                         f"multiple of 16 up to {SIMT_MAX_HD}, got {hd}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attn: all tensors must be on one CUDA device")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -141,9 +143,9 @@ def flash_attn_cuda(q, k, v, *, causal: bool = True, window: int = 0):
         err = lib.flash_attn_tc(*ptrs, B, S, T, H, K, *attend,
                                 _build.stream_ptr(q))
     else:
-        # fp32 at hd 128 or 160, bf16 at hd 160: every other bf16 input the
-        # SIMT kernel could take is WGMMA's, and the checks above refuse the
-        # rest
+        # fp32, and bf16 at head dims other than 128: every other bf16
+        # input the SIMT kernel could take is WGMMA's, and the checks above
+        # refuse the rest
         err = lib.flash_attn(*ptrs, B, S, T, H, K, hd, *attend, dtype,
                              _build.stream_ptr(q))
     _build.check(lib, err, f"flash_attn ({entry})")

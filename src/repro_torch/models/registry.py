@@ -8,8 +8,9 @@ from repro_torch.models import transformer
 
 
 def get_model(cfg: ModelConfig):
-    """Namespace with init_params / init_cache / prefill / decode_step, all
-    taking ``cfg`` pre-bound. Only the dense family is ported so far."""
+    """Namespace with init_params / init_cache / forward / prefill /
+    decode_step, all taking ``cfg`` pre-bound. Only the dense family is
+    ported so far."""
     if cfg.arch != DENSE:
         raise ValueError(f"the port serves the dense family only; "
                          f"{cfg.name} is {cfg.arch!r}")
@@ -22,6 +23,7 @@ def get_model(cfg: ModelConfig):
         cfg=cfg,
         init_params=bind("init_params"),
         init_cache=bind("init_cache"),
+        forward=bind("forward"),
         prefill=bind("prefill"),
         decode_step=bind("decode_step"),
     )

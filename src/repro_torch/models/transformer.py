@@ -1,5 +1,5 @@
-"""Decoder-only dense transformer on the paged KV layout — the dense branch
-of ``repro.models.transformer``.
+"""Decoder-only dense transformer: the training forward and the paged KV
+layout — the dense branch of ``repro.models.transformer``.
 
 Parameters are plain dicts of tensors: ``embed`` [V,d], ``final_norm``,
 ``lm_head`` [d,V] and ``layers``, a list with one dict per layer (the JAX
@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import DENSE, ModelConfig
@@ -131,6 +132,37 @@ def lm_head(cfg, params, x, lin: LinearFns):
     if w is None:
         w = params["embed"].T
     return lin.dense(x, w, None, "lm_head")
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / scoring)
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params, batch, ctx: LinCtx = DEFAULT_CTX,
+            adapter=None, *, remat: bool = True):
+    """Training / scoring forward over whole sequences. batch: tokens [B,S].
+    Returns logits [B,S,V] (the dense family has no auxiliary loss).
+    Attention is the plain ``blocks.mha_forward``, as in the JAX package,
+    whose training forward reaches no kernel. ``remat`` recomputes each
+    layer body in the backward (``torch.utils.checkpoint``, the JAX
+    package's ``jax.checkpoint`` of the scan body), so only the layer
+    inputs are held between the passes."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens, ctx.top)
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    for i, p in enumerate(params["layers"]):
+        lin = ctx.for_layer(_adapter_layer(adapter, i))
+
+        def body(x, p=p, lin=lin):
+            return _layer_forward(p, cfg, x, positions, lin)[0]
+
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
+        else:
+            x = body(x)
+    x = blocks.rmsnorm(params["final_norm"], x)
+    return lm_head(cfg, params, x, ctx.top)
 
 
 # ---------------------------------------------------------------------------

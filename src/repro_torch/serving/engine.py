@@ -60,6 +60,7 @@ from repro_torch.config import DENSE
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.core.scheduler import TickPolicy
+from repro_torch.serving.router import AdmissionStall, NoCapacity
 
 
 @dataclasses.dataclass
@@ -96,6 +97,8 @@ class ServingEngine:
     def __init__(self, spec: EngineSpec, base_params, banks, *,
                  device="cuda", router=None,
                  prefix_cache: Optional[bool] = None, mesh=None, obs=None):
+        if spec.serve is None:
+            raise ValueError("ServingEngine needs a spec with serve=")
         for name, val in (("mesh", mesh), ("obs", obs)):
             if val is not None:
                 raise ValueError(f"{name}= is not ported yet: the port serves "
@@ -207,6 +210,16 @@ class ServingEngine:
             raise ValueError(f"unknown sampling method {req.sampling.method!r}")
         self._queue.append(req)
 
+    def pending(self) -> bool:
+        """True while any request is queued, waiting, or in flight."""
+        return bool(self._queue or self._waiting or self._inflight)
+
+    @property
+    def n_inflight(self) -> int:
+        """Requests holding slots, pages or router capacity (what a
+        co-scheduler checks before treating an admission stall as fatal)."""
+        return len(self._inflight)
+
     def drain_done(self) -> List[Request]:
         """Hand over (and forget) the finished-request list."""
         done, self._done = self._done, []
@@ -247,9 +260,9 @@ class ServingEngine:
                 inflight.remove(req)
                 self._done.append(req)
         if not inflight and attempted and not newly and not serve:
-            raise RuntimeError(f"{len(attempted)} request(s) can never be "
-                               "admitted (no free capacity and nothing in "
-                               "flight)")
+            raise AdmissionStall(f"{len(attempted)} request(s) can never "
+                                 "be admitted (no free capacity and "
+                                 "nothing in flight)")
         tick += 1
         if not inflight and waiting and all(r.arrive_tick > tick for r in waiting):
             tick = min(r.arrive_tick for r in waiting)           # idle skip
@@ -286,7 +299,7 @@ class ServingEngine:
                 self._placement[id(req)] = self.router.route(
                     ctx_tokens, B, alloc_tokens=-(-need * self._blk // B),
                     quant=self._quant)
-            except RuntimeError:
+            except NoCapacity:
                 return None                  # stays queued until memory frees
         slots = free[:B]
         for s in slots:

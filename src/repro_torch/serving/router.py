@@ -7,7 +7,8 @@ first slot it fits, priced with the analytic model of
 ``serving.kvcache``. ``ServingEngine`` uses it as admission control: a
 request is admitted only when ``route()`` finds (and commits) a
 placement, and its charge is released when its slots free, so queued
-requests take the capacity the moment it returns.
+requests take the capacity the moment it returns. ``route_train``
+charges a fine-tuning job's state the same way (``training.FinetuneEngine``).
 
 The port's engine keeps every cache on the card, so the reference's
 off-card placements (``gpu_offload``, ``hetero``) are not offered: a
@@ -24,6 +25,18 @@ from typing import List
 from repro_torch.common.hardware import H100, Chip
 from repro_torch.config import ModelConfig
 from repro_torch.serving.kvcache import cache_bytes, decode_token_cost
+
+
+class NoCapacity(RuntimeError):
+    """No slot fits the charge: the tenant stays queued until capacity
+    returns."""
+
+
+class AdmissionStall(RuntimeError):
+    """Queued work can never be admitted: no free capacity, and nothing
+    running in the engine that raised it that could free any. Under a
+    SHARED router another engine may still free some
+    (``training.SymbiosisEngine``)."""
 
 
 @dataclasses.dataclass
@@ -62,7 +75,7 @@ class PlacementRouter:
         """Commit the request's cache to the first slot it fits.
         ``context_len`` drives the latency estimate; ``alloc_tokens``
         (0: ``context_len``) the memory charge, i.e. the tokens the cache
-        layout pins; ``quant`` prices int8 entries. Raises RuntimeError
+        layout pins; ``quant`` prices int8 entries. Raises NoCapacity
         when no slot fits."""
         need = cache_bytes(self.cfg, alloc_tokens or context_len, batch,
                            quant=quant)
@@ -72,9 +85,24 @@ class PlacementRouter:
                 p = Placement(s.slot_id, cost * batch, need)
                 self.commit(p)
                 return p
-        raise RuntimeError(
+        raise NoCapacity(
             f"no slot fits {need / 1e9:.1f} GB cache "
             f"(context {context_len} x batch {batch})")
+
+    def route_train(self, nbytes: float) -> Placement:
+        """Commit one FINE-TUNING job's client-side state (adapter + AdamW
+        moments + activation working set, ``training.job_hbm_bytes``) to
+        the first slot it fits. Training state is touched every step, so it
+        is placed on the card only; the FinetuneEngine releases the charge
+        when the job retires. Raises NoCapacity when no slot fits."""
+        for s in self.slots.values():
+            if s.fits(nbytes):
+                p = Placement(s.slot_id, 0.0, int(nbytes))
+                self.commit(p)
+                return p
+        raise NoCapacity(
+            f"no accelerator slot fits {nbytes / 1e9:.2f} GB of training "
+            f"state (adapter + optimizer + activations)")
 
     def commit(self, p: Placement):
         self.slots[p.slot_id].free_hbm -= p.cache_bytes

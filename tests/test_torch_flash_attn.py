@@ -87,6 +87,34 @@ def test_flash_attn_hd160_matches_reference(name):
                                **TOL)
 
 
+# head dims the SIMT entry takes besides 128 and 160: whisper-small's 64,
+# 96, the largest, 256, and 80 and 112, whose last 64-column chunk holds
+# 16 and 48 columns (B, S, T, H, K, block_q, block_kv, causal, window);
+# bf16 as well, which the card runs on the SIMT entry at these head dims
+SIMT_HD_CASES = {
+    64: (1, 24, 24, 4, 2, 8, 8, True, 0),
+    96: (1, 32, 32, 4, 1, 8, 16, True, 9),
+    256: (2, 8, 16, 2, 2, 8, 8, False, 0),
+    80: (1, 16, 16, 2, 2, 8, 8, True, 0),
+    112: (1, 8, 24, 2, 1, 8, 8, False, 0),
+}
+
+
+@pytest.mark.parametrize("hd", sorted(SIMT_HD_CASES))
+def test_flash_attn_simt_head_dims_match_reference(hd):
+    B, S, T, H, K, bq, bkv, causal, window = SIMT_HD_CASES[hd]
+    q, k, v = _case(B, S, T, H, K, hd, seed=hd)
+    kw = dict(block_q=bq, block_kv=bkv, causal=causal, window=window)
+    np.testing.assert_allclose(_port(q, k, v, **kw), _jax(q, k, v, **kw),
+                               **TOL)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jax_flash_attn(*bf, **kw)).astype(np.float32)
+    pt = [convert.tensor_from_numpy(np.asarray(a), "cpu") for a in bf]
+    assert entry_point(*pt) == SIMT
+    got = flash_attn(*pt, **kw)
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
 def test_s_above_t_follows_the_documented_contract():
     """S > T with T no multiple of block_kv. The JAX op pads k/v with zero
     keys that its query rows >= T attend (a reference-side defect: its
@@ -174,8 +202,11 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(a) for a in _case(1, 8, 8, 4, 2, 128, seed=1))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attn_cuda(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="head dim 128 or 160, got 64"):
-        flash_attn_cuda(q[..., :64], k[..., :64], v[..., :64])
+    with pytest.raises(ValueError, match="multiple of 16 up to 256, got 72"):
+        flash_attn_cuda(q[..., :72], k[..., :72], v[..., :72])
+    big = [torch.zeros(t.shape[:-1] + (272,)) for t in (q, k, v)]
+    with pytest.raises(ValueError, match="multiple of 16 up to 256, got 272"):
+        flash_attn_cuda(*big)
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attn_cuda(q, k, v)
     assert flash_attn_cuda.launches == 0

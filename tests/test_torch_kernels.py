@@ -294,6 +294,41 @@ def test_paged_quant_split_combine_matches_reference(name):
     assert not np.signbit(got[dead]).any()
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("blk", [64, 256, 512])
+def test_long_pages_split_as_the_wrapper_splits_them(blk, quant):
+    """Pages of 64, 256 and 512 tokens: the wrapper takes fewer pages per
+    split than its tuned count (one page of 512 is one split), and that
+    split-and-combine math matches the JAX op over bf16-layout and int8
+    pools."""
+    tuned = da_mod.PAGED_QUANT_SPLIT_PAGES if quant else da_mod.PAGED_SPLIT_PAGES
+    pages = da_mod.split_pages(tuned, blk, "test")
+    assert pages == min(tuned, da_mod.MAX_SPLIT // blk)
+    assert pages * blk <= da_mod.MAX_SPLIT
+    nb, P = 3, 11
+    pos = [3 * blk - 1, blk, -1]
+    if quant:
+        q, pk, ks, pv, vs, tbl, pos = _quant_case(3, 2, 2, 16, P, blk, nb,
+                                                  seed=blk, pos=pos,
+                                                  sentinel=True)
+        j = [jnp.asarray(a) for a in (q, pk, ks, pv, vs, tbl, pos)]
+        want = np.asarray(jax_decode_attn(j[0], j[1], j[3], j[6],
+                                          block_tbl=j[5], k_scale=j[2],
+                                          v_scale=j[4]))
+        got = da_mod.paged_decode_attn_quant_split_plain(
+            *(torch.from_numpy(a) for a in (q, pk, ks, pv, vs, tbl, pos)),
+            split_pages=pages).numpy()
+    else:
+        q, pk, pv, tbl, pos = _paged_case(3, 2, 2, 16, P, blk, nb, seed=blk,
+                                          pos=pos, sentinel=True)
+        want = _jax_paged(q, pk, pv, tbl, pos, 0)
+        got = da_mod.paged_decode_attn_split_plain(
+            *(torch.from_numpy(a) for a in (q, pk, pv, tbl, pos)),
+            split_pages=pages).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[2].any()              # the row at pos -1
+
+
 def test_paged_workspace_grows_and_is_reused():
     """The paged kernel's scratch: reused while a call fits it, grown (never
     shrunk) when one does not, the tickets zeroed only then."""
@@ -586,7 +621,7 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take():
         launch(q, pk.bfloat16(), pv, tbl, pos)
     with pytest.raises(ValueError, match="one CUDA device"):
         launch(q, pk, pv, tbl, pos)
-    blk = da_mod.MAX_SPLIT // da_mod.PAGED_SPLIT_PAGES + 1   # a split too long
+    blk = da_mod.MAX_SPLIT + 1            # a page longer than any split
     with pytest.raises(ValueError, match="pass the kernel's 512"):
         launch(q, *(torch.zeros(8, blk, 1, 16) for _ in range(2)), tbl, pos)
     assert launch.launches == 0

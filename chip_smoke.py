@@ -105,7 +105,33 @@ exits non-zero and prints no result. Phases, each raising on failure:
    path and torch-like baseline (printed); 7d a ``SymbiosisEngine``
    serving phase 4's requests beside 4 jobs on the same base tensors:
    every greedy stream equal to phase 4's, every job's losses to 7b's,
-   the launch counts to phase 4's (tick by tick).
+   the launch counts to phase 4's (tick by tick);
+8. mixed-method banks and shared-prefix pages on phase 4's base tensors
+   (bf16 pools, page_block 16, max_seq 512): banks LoRA r8 (q, v), IA3
+   (k, v, down) and prefix (16 tokens), 2 clients each, behind a router
+   whose slot holds the bank charges and the requests' pages; each client
+   sends its own 232-token template + 40, + 1, + 24 and + another 1
+   tokens, 3 ticks apart, 16 new tokens greedy; a LoRA r16 (q, k, v, o)
+   bank is admitted at tick 4 (its clients send template + 40 and + 1)
+   and retired after the drain. ``debug=True`` audits conservation every
+   tick; after the drain every refcount is 0, every page back in its
+   owner's free list and the router ledger empty once the banks are
+   released. The prefix hits, pages shared, copies on write and computed
+   prompt tokens equal the counts the JAX engine gives for the same
+   schedule (pinned from ``tests/test_torch_prefix_cache.py``); every
+   published page equals its copy at publish when its last reference
+   drops, and every copy-on-write page its source on the copied tokens;
+   SGMV launches per decode tick or prefill batch equal the count derived
+   from the registry (3 per layer, 9 once the r16 bank joins), paged
+   attention one per layer, int8 none. The workload again with the IA3
+   scales x 1.5: every other bank's stream and pool page bit for bit.
+   Then, at granite's width with 2 layers, a suffix prefill over 14
+   shared pages against the full prefill (fp32 at 1e-5, TF32 off; bf16
+   at 2e-2) and an 8-row mixed decode step against each bank's
+   single-method step (its rows bit for bit). Printed: the workload with
+   ``prefix_cache=False`` (streams equal to the shared run's, and where
+   one differs, the step and its top-2 logit gap), hit and miss prefill
+   batch times, and an 8-row mixed decode tick profiled as phase 4's.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -596,7 +622,8 @@ def model_wiring(quant):
                                               quant=quant, device=DEV)
         caches["block_tbl"] = torch.tensor(tbl, device=DEV)
         prompts = (torch.tensor(toks, device=DEV),
-                   torch.tensor(lengths, device=DEV))
+                   torch.tensor(lengths, device=DEV),
+                   torch.zeros(C, dtype=torch.int32, device=DEV))
         with blocks.plain_kernels() if plain else no_host_sync():
             lg1, _, caches = prefill(base, bank, caches, *prompts, *rows)
             if nxt is None:
@@ -744,7 +771,7 @@ def serve_full():
     reqs = make_requests(cfg, C)
     launches, times = drive(eng, reqs, "phase 4", "paged_decode_attn",
                             "paged_decode_attn_quant")
-    times.update(profile_tick(cfg, base, bank, spec, "phase 4"))
+    times.update(profile_tick(cfg, base, [bank], spec, "phase 4"))
     first = [int(r.generated[0, 0]) for r in reqs]
     lengths = [r.prompt.shape[1] for r in reqs]
     streams = [r.generated.copy() for r in reqs]
@@ -800,7 +827,7 @@ def serve_quant(cfg, base, bank, first, times4):
     log(f"[phase 4b] ticks each request waited for the router: {waits}; "
         f"first tokens equal phase 4's; router ledger conserved and empty "
         f"after the drain")
-    times.update(profile_tick(cfg, base, bank, spec, "phase 4b"))
+    times.update(profile_tick(cfg, base, [bank], spec, "phase 4b"))
     log("[phase 4b] beside phase 4 (bf16 -> int8): " + ", ".join(
         f"{k} {times4[k]:.3f} -> {times[k]:.3f}" for k in times
         if k in times4))
@@ -817,18 +844,19 @@ KERNELS_PER_TICK_BEFORE = {"phase 4": 3469, "phase 4b": 4589}
 TICK_AIMS_MS = {"sgmv": 1.0, "split_kernel": 1.0}
 
 
-def profile_tick(cfg, base, bank, spec, label):
-    """An 8-row decode tick: its median over 5 unprofiled ticks on the host
-    clock, then one tick traced by torch.profiler with device activity only.
+def profile_tick(cfg, base, banks, spec, label):
+    """An 8-row decode tick over ``banks``' clients in turn: its median
+    over 5 unprofiled ticks on the host clock, then one tick traced by
+    torch.profiler with device activity only.
     The device's busy share is the union of the traced kernel intervals
     over the unprofiled median tick (and over the traced tick's own host
     time, which tracing lengthens). Also the kernel count and the kernels
     that take the most device time."""
-    eng = ServingEngine(spec, base, [bank], device=DEV)
+    eng = ServingEngine(spec, base, banks, device=DEV)
     rng = np.random.default_rng(5)
     for i in range(8):
-        eng.submit(Request(i % 4, rng.integers(0, cfg.vocab, (1, 192))
-                           .astype(np.int32), 16))
+        eng.submit(Request(i % eng.n_clients, rng.integers(
+            0, cfg.vocab, (1, 192)).astype(np.int32), 16))
     eng.service_tick()               # admission, prefill, first decode tick
     eng.service_tick()
     ticks = []
@@ -862,14 +890,15 @@ def profile_tick(cfg, base, bank, spec, label):
     for e in kern:
         n, d = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
-    before = KERNELS_PER_TICK_BEFORE[label]
+    before = KERNELS_PER_TICK_BEFORE.get(label)
     log(f"[{label}] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
         f"unprofiled, {traced_us / 1e3:.3f} ms traced; device busy "
         f"{busy / 1e3:.3f} ms = {100 * busy / tick_us:.1f}% of the "
         f"unprofiled tick ({100 * busy / traced_us:.1f}% of the traced "
-        f"one); {len(kern)} kernels (at most {before}: every kernel one "
-        "launch per call)")
-    if len(kern) > before:
+        f"one); {len(kern)} kernels" + (
+            "" if before is None else f" (at most {before}: every kernel one "
+            "launch per call)"))
+    if before is not None and len(kern) > before:
         raise AssertionError(f"[{label}] {len(kern)} kernels per decode tick,"
                              f" more than {before}")
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
@@ -1992,6 +2021,518 @@ def phase7(cfg, base, bank, streams4, launches4, times4):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: mixed-method banks and shared-prefix pages
+# ---------------------------------------------------------------------------
+
+# the serving schedule: each client of the first banks sends, P8_EVERY
+# ticks apart, its own 232-token template followed by 40 tokens, 1, 24 and
+# another 1 (the two single tokens differ); the bank admitted at tick
+# P8_ADMIT sends template + 40 and template + 1 from tick P8_LATE_FIRST.
+# Every request takes 16 new tokens, greedy; 4 slots per client.
+P8_TEMPLATE, P8_EVERY, P8_NEW, P8_MAX_B, P8_BLK = 232, 3, 16, 4, 16
+P8_TAILS, P8_LATE_TAILS = (40, 1, 24, 1), (40, 1)
+P8_ADMIT, P8_LATE_FIRST = 4, 5
+# the schedule's prefix counts, from the same schedule run through the JAX
+# engine at tiny width on the CPU (tests/test_torch_prefix_cache.py::
+# test_phase8_schedule_matches_reference); they depend only on prompt
+# lengths, token equality, page_block, slots and arrivals
+P8_PINNED = {"prefix_hits": 20, "pages_shared": 280, "cow_copies": 6,
+             "prefill_tokens": 6974, "prefill_tokens_computed": 2446}
+
+
+def phase8_work(vocab, clients, tails, first_tick, seed):
+    """Phase 8's requests (dicts of ``Request`` fields) for ``clients``:
+    per client a template of P8_TEMPLATE tokens and one request per entry
+    of ``tails``, that many tokens after the template, P8_EVERY ticks
+    apart from ``first_tick``. Single-token tails take the client's two
+    distinct tokens in turn, so the first and the second differ."""
+    rng = np.random.default_rng(seed)
+    work = []
+    for c in clients:
+        tpl = rng.integers(0, vocab, P8_TEMPLATE)
+        one = int(rng.integers(0, vocab))
+        ones = iter((one, (one + 1) % vocab))
+        for i, n in enumerate(tails):
+            tail = ([next(ones)] if n == 1
+                    else list(rng.integers(0, vocab, n)))
+            work.append(dict(client_id=c, max_new_tokens=P8_NEW,
+                             arrive_tick=first_tick + P8_EVERY * i,
+                             prompt=np.concatenate([tpl, tail])
+                             .astype(np.int32)[None, :]))
+    return work
+
+
+P8_ACFGS = (AdapterConfig(method="lora", rank=8, alpha=16.0,
+                           targets=("q", "v")),
+            AdapterConfig(method="ia3", targets=("k", "v", "down")),
+            AdapterConfig(method="prefix", targets=("q", "v"), n_prefix=16))
+P8_LATE_ACFG = AdapterConfig(method="lora", rank=16, alpha=32.0,
+                             targets=("q", "k", "v", "o"))
+
+
+def p8_bank(cfg, acfg, n, seed, dtype=torch.bfloat16):
+    """A bank of ``n`` clients, every adapter non-trivial: LoRA B drawn
+    (zero at init), IA3 scales 1 + 0.2 * normal, prefix K/V normal."""
+    g = gen(seed)
+    bank = adapters.init_client_bank(cfg, acfg, n, g, dtype=dtype,
+                                     device=DEV)
+    for path, leaf in bank["layers"].items():
+        if acfg.method == "lora":
+            leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g,
+                                        device=DEV) * 0.05)
+        elif acfg.method == "ia3":
+            leaf["scale"].copy_(1 + 0.2 * torch.randn(
+                leaf["scale"].shape, generator=g, device=DEV))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=DEV))
+    return bank
+
+
+def sgmv_per_layer(cfg, bank_cfgs):
+    """SGMV launches per layer of a compacted step, from the registry: one
+    per LoRA bank and targeted projection, and, for every prefix bank, one
+    per LoRA bank targeting q or o (the prefix branch's own q and o go
+    through the linear hooks)."""
+    lora = [a for a in bank_cfgs if a.method == "lora"]
+    n_prefix = sum(a.method == "prefix" for a in bank_cfgs)
+    return (sum(len(adapters.resolve_targets(cfg, a)) for a in lora)
+            + n_prefix * sum(("q" in a.targets) + ("o" in a.targets)
+                             for a in lora))
+
+
+def p8_spec(cfg, acfgs):
+    scfg = ServeConfig(n_clients=2 * len(acfgs), max_seq=512,
+                       page_block=P8_BLK, policy="opportunistic")
+    return EngineSpec(cfg=cfg, banks=tuple(
+        BankSpec(f"{a.method}{m}", a, 2) for m, a in enumerate(acfgs)),
+        serve=scfg, max_batch_per_client=P8_MAX_B)
+
+
+def p8_serve(cfg, base, banks, late_bank, *, prefix_cache=None, label,
+             watch=False):
+    """Phase 8's workload on one engine behind a router (debug=True: the
+    conservation audit after every tick), the late bank admitted at tick
+    P8_ADMIT and retired after the drain. Checks the SGMV and attention
+    launches of every tick against the registry. With ``watch``, also
+    holds every published page against its copy at its last deref and
+    every copy-on-write destination against its source. Returns the
+    requests, the engine, per-request top-2 logit gaps per step, the
+    prefill calls' (ext, rows, suffix tokens, ms) and the decode steps'
+    ms."""
+    L = cfg.n_layers
+    work = phase8_work(cfg.vocab, range(6), P8_TAILS, 0, seed=0)
+    late = phase8_work(cfg.vocab, (6, 7), P8_LATE_TAILS, P8_LATE_FIRST,
+                       seed=1)
+    charges = [adapters.adapter_bytes(cfg, a)[1] * 2
+               for a in P8_ACFGS + (P8_LATE_ACFG,)]
+    pages = [kvcache.cache_bytes(cfg, w["prompt"].shape[1] + P8_NEW, 1,
+                                 page_block=P8_BLK) for w in work + late]
+    router = PlacementRouter(cfg, [Slot(0, free_hbm=sum(charges)
+                                        + sum(pages))])
+    eng = ServingEngine(p8_spec(cfg, P8_ACFGS), base, banks, device=DEV,
+                        router=router, debug=True, prefix_cache=prefix_cache)
+    reqs = [Request(**w) for w in work]
+    for r in reqs:
+        eng.submit(r)
+    gaps = {}
+    sample = eng._sample
+
+    def record_gap(logits, req):
+        top = np.sort(logits, axis=-1)[:, -2:]
+        gaps.setdefault(id(req), []).append(float((top[:, 1]
+                                                   - top[:, 0]).min()))
+        return sample(logits, req)
+    eng._sample = record_gap
+    pre, dec_t = [], []
+    prefill = eng._prefill_step
+
+    def timed_prefill(ext, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(ext, *args)
+        torch.cuda.synchronize()
+        mask = args[-1]
+        pre.append((ext, int(mask.sum()), int(args[4][mask].sum()),
+                    (time.perf_counter() - t0) * 1e3))
+        if watch:
+            check_cow()
+        return out
+    eng._prefill_step = timed_prefill
+    published, cow, checked = {}, [], [0, 0]
+    if watch:
+        index = eng._prefix_index
+        publish, deref, lookup = index.publish, index.deref, index.lookup
+        tails = {}
+
+        def page_of(p):
+            return [t[:, p].clone() for t in eng.caches["layers"].values()]
+
+        def watch_publish(*a):
+            took = publish(*a)
+            for p in took:
+                published[p] = page_of(p)
+            return took
+
+        def watch_deref(p):
+            last = deref(p)
+            if last:
+                now = page_of(p)
+                if not all(torch.equal(x, y) for x, y in
+                           zip(published.pop(p), now)):
+                    raise AssertionError(f"[{label}] shared page {p} changed "
+                                         "between its publish and its last "
+                                         "deref")
+                checked[0] += 1
+            return last
+
+        def watch_lookup(*a):
+            hit = lookup(*a)
+            if hit.tail_page is not None:
+                tails[hit.tail_page] = hit.tail_tokens
+            return hit
+        index.publish, index.deref = watch_publish, watch_deref
+        index.lookup = watch_lookup
+        page_copy = eng._page_copy
+
+        def watch_copy(caches, src, dst):
+            cow.append((src, dst, tails[src]))
+            return page_copy(caches, src, dst)
+        eng._page_copy = watch_copy
+
+    def check_cow():
+        while cow:
+            src, dst, n = cow.pop()
+            for t in eng.caches["layers"].values():
+                if not torch.equal(t[:, dst, :n], t[:, src, :n]):
+                    raise AssertionError(f"[{label}] copy-on-write page {dst}"
+                                         f" differs from its source {src} on "
+                                         f"the {n} copied tokens")
+            checked[1] += 1
+
+    attn, idle, sg = (KERNELS[n][0] for n in (
+        "paged_decode_attn", "paged_decode_attn_quant", "sgmv"))
+    adm, late_reqs = None, []
+    per_tick = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    more = True
+    while more:
+        if eng._tick == P8_ADMIT and adm is None:
+            adm = eng.admit_bank(P8_LATE_ACFG, late_bank)
+            late_reqs = [Request(**w) for w in late]
+            for r in late_reqs:
+                eng.submit(r)
+        decode = eng._decode_step
+        eng._decode_step = _timed(decode, dec_t)
+        per_layer = sgmv_per_layer(cfg, eng.bank_cfgs)
+        before = (attn.launches, idle.launches, sg.launches,
+                  eng.stats["ticks"], eng.stats["compact_prefill_batches"])
+        more = eng.service_tick()
+        eng._decode_step = decode
+        d_at, d_idle, d_sg, d_tick, d_pre = (
+            a - b for a, b in zip((attn.launches, idle.launches, sg.launches,
+                                   eng.stats["ticks"],
+                                   eng.stats["compact_prefill_batches"]),
+                                  before))
+        if d_at != L * d_tick or d_idle or \
+                d_sg != per_layer * L * (d_tick + d_pre):
+            raise AssertionError(
+                f"[{label}] tick {eng._tick}: {d_at} paged attention, "
+                f"{d_idle} int8 and {d_sg} SGMV launches for {d_tick} decode "
+                f"ticks and {d_pre} prefills ({per_layer} SGMV per layer)")
+        if d_tick:
+            per_tick[len(eng.bank_cfgs)] = (d_sg // (d_tick + d_pre), d_at)
+    torch.cuda.synchronize()
+    reqs += late_reqs
+    done = eng.drain_done()
+    if len(done) != len(reqs) or any(r.status != "ok" for r in reqs):
+        raise AssertionError(f"[{label}] {len(done)} of {len(reqs)} finished,"
+                             f" statuses {[r.status for r in reqs]}")
+    for r in reqs:
+        g = r.generated
+        if g.shape != (1, P8_NEW) or g.min() < 0 or g.max() >= cfg.vocab:
+            raise AssertionError(f"[{label}] client {r.client_id}: {g}")
+    P = eng._pool_pages
+    if eng._prefix_index.page_refs() or eng._slot_shared or any(
+            sorted(f) != list(range(c * P, (c + 1) * P))
+            for c, f in enumerate(eng._free_pages)):
+        raise AssertionError(f"[{label}] after the drain: refs "
+                             f"{eng._prefix_index.page_refs()}, pages not "
+                             "all back in their owners' free lists")
+    banks_held = router.utilization()
+    eng.retire_bank(adm)
+    eng.release_banks()
+    used = router.utilization()
+    if router.conservation_errors() or used["placements"] \
+            or used["committed_bytes"] or banks_held["placements"] != 4:
+        raise AssertionError(f"[{label}] router after the drain: "
+                             f"{router.conservation_errors()}, {banks_held}"
+                             f" with the banks, {used} after their release")
+    if watch and (published or checked[1] != eng.stats["cow_copies"]):
+        raise AssertionError(f"[{label}] {len(published)} published pages "
+                             f"never released, {checked[1]} copy-on-write "
+                             "pages checked")
+    return dict(reqs=reqs, eng=eng, gaps=[gaps[id(r)] for r in reqs],
+                pre=pre, dec_t=dec_t, per_tick=per_tick, checked=checked)
+
+
+def p8_mixed_rows(cfg2, base2, banks2):
+    """One 8-row mixed decode step at granite's width (2 layers, bf16),
+    then each bank's single-method step over the same rows with the other
+    banks' rows masked out and pointed at this bank's client 0, every step
+    from a copy of the same caches: each bank's rows equal bit for bit."""
+    C, max_b, max_seq = 6, 2, 512
+    scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=P8_BLK)
+    nb, P = max_seq // P8_BLK, max_b * (max_seq // P8_BLK)
+    rng = np.random.default_rng(8)
+    rows = [(c, 0) for c in range(C)] + [(0, 1), (4, 1)]
+    lengths = rng.integers(40, 250, len(rows)).astype(np.int32)
+    toks = np.zeros((8, 256), np.int32)
+    tbl = np.full((C, max_b, nb), SENTINEL, np.int32)
+    nxt = [c * P for c in range(C)]
+    for r, ((c, s), n) in enumerate(zip(rows, lengths)):
+        toks[r, :n] = rng.integers(0, cfg2.vocab, n)
+        need = n // P8_BLK + 1
+        tbl[c, s, :need] = np.arange(nxt[c], nxt[c] + need)
+        nxt[c] += need
+    clients = np.array([c for c, _ in rows], np.int32)
+    t = {k: torch.tensor(v, device=DEV) for k, v in dict(
+        toks=toks, lens=lengths, clients=clients,
+        slots=np.array([s for _, s in rows], np.int32),
+        methods=clients // 2, locals_=clients % 2,
+        mask=np.ones(8, bool)).items()}
+    caches = symbiosis.init_client_caches(cfg2, C, max_b, max_seq,
+                                          page_block=P8_BLK, pool_pages=P,
+                                          device=DEV)
+    caches["block_tbl"] = torch.tensor(tbl, device=DEV)
+    lg, _, caches = symbiosis.make_compact_prefill(cfg2, P8_ACFGS, scfg)(
+        base2, banks2, caches, t["toks"], t["lens"],
+        torch.zeros_like(t["lens"]), t["clients"], t["slots"], t["methods"],
+        t["locals_"], t["mask"])
+    nxt_tok = lg.argmax(-1).to(torch.int32)
+
+    def fresh():
+        return {"layers": {k: v.clone() for k, v in caches["layers"].items()},
+                "pos": caches["pos"].clone(), "block_tbl": caches["block_tbl"]}
+
+    reset_counts()
+    mixed, _, _ = symbiosis.make_compact_decode_step(cfg2, P8_ACFGS, scfg)(
+        base2, banks2, fresh(), nxt_tok, t["clients"], t["slots"],
+        t["methods"], t["locals_"], t["mask"])
+    mixed_launches = read_counts()
+    for m, acfg in enumerate(P8_ACFGS):
+        own = t["methods"] == m
+        # bank m over every GLOBAL client (the ids the caches are keyed
+        # by): its clients hold their adapters, the others its client 0
+        ids = torch.tensor([c % 2 if c // 2 == m else 0 for c in range(C)],
+                           device=DEV)
+        single_bank = tree_map(lambda x: x[ids], banks2[m])
+        single, _, _ = symbiosis.make_compact_decode_step(cfg2, acfg, scfg)(
+            base2, single_bank, fresh(), nxt_tok, t["clients"], t["slots"],
+            own)
+        if not torch.equal(single[own], mixed[own]):
+            d = (single[own].float() - mixed[own].float()).abs().max()
+            raise AssertionError(f"[phase 8] {acfg.method} rows of the mixed "
+                                 f"step differ from its single-method step "
+                                 f"(max abs {float(d):.3e})")
+    log(f"[phase 8] mixed rows: one 8-row decode step over LoRA r8 (q, v), "
+        f"IA3 and prefix banks at {cfg2.name} width, 2 layers, bf16: every "
+        f"bank's rows equal its single-method step's bit for bit (launches "
+        f"of the mixed step {mixed_launches})")
+
+
+def p8_suffix_prefill(dtype, tol):
+    """At granite's width, 2 layers, over LoRA, IA3 and prefix banks: client
+    0 of each bank publishes template + 40 tokens from slot 0; slot 1's
+    template + 24 then prefills only its 32-token suffix over the 14 shared
+    pages (``starts`` 224, ``ext_blocks`` 16), against the full prefill of
+    the same prompts into fresh caches. Logits and the K/V written at the
+    suffix positions agree at ``tol``; both paths run the kernels. Returns
+    the 2-layer config, base and banks."""
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    cfg2 = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
+                               dtype=name, param_dtype=name)
+    base2 = get_model(cfg2).init_params(gen(41), DEV)
+    banks2 = [p8_bank(cfg2, a, 2, 42 + m, dtype) for m, a in
+              enumerate(P8_ACFGS)]
+    C, max_b, max_seq = 6, 2, 512
+    scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=P8_BLK)
+    nb, P = max_seq // P8_BLK, max_b * (max_seq // P8_BLK)
+    work = phase8_work(cfg2.vocab, (0, 2, 4), (40, 24), 0, seed=5)
+    pub, con = work[0::2], work[1::2]
+    n_shared = P8_TEMPLATE // P8_BLK                 # 14 full pages
+    start = n_shared * P8_BLK
+    clients = torch.tensor([0, 2, 4, 0], dtype=torch.int32, device=DEV)
+    methods, locals_ = clients // 2, clients % 2
+    mask = torch.tensor([True, True, True, False], device=DEV)
+
+    def step(caches, prompts, slot, starts, ext):
+        S = max(p.shape[1] for p in prompts) - int(starts.max())
+        toks = np.zeros((4, S), np.int32)
+        lens = np.zeros(4, np.int32)
+        for r, (p, s0) in enumerate(zip(prompts, starts.tolist())):
+            toks[r, :p.shape[1] - s0] = p[0, s0:]
+            lens[r] = p.shape[1] - s0
+        slots = torch.full((4,), slot, dtype=torch.int32, device=DEV)
+        fn = symbiosis.make_compact_prefill(cfg2, P8_ACFGS, scfg,
+                                            ext_blocks=ext)
+        return fn(base2, banks2, caches, torch.tensor(toks, device=DEV),
+                  torch.tensor(lens, device=DEV), starts.to(DEV), clients,
+                  slots, methods, locals_, mask)
+
+    def fresh(tbl):
+        c = symbiosis.init_client_caches(cfg2, C, max_b, max_seq,
+                                         page_block=P8_BLK, pool_pages=P,
+                                         device=DEV)
+        c["block_tbl"] = torch.tensor(tbl, device=DEV)
+        return c
+
+    tbl = np.full((C, max_b, nb), SENTINEL, np.int32)
+    for c in (0, 2, 4):
+        tbl[c, 0, :18] = c * P + np.arange(18)               # publisher
+        tbl[c, 1, :n_shared] = tbl[c, 0, :n_shared]          # shared pages
+        tbl[c, 1, n_shared:16] = c * P + 18 + np.arange(16 - n_shared)
+    zeros = torch.zeros(4, dtype=torch.int32)
+    shared = fresh(tbl)
+    step(shared, [w["prompt"] for w in pub], 0, zeros, 0)
+    reset_counts()
+    lg_s, _, shared = step(shared, [w["prompt"] for w in con], 1,
+                           torch.tensor([start] * 3 + [0], dtype=torch.int32),
+                           16)
+    if not launch_count("sgmv"):
+        raise AssertionError("[phase 8] the suffix prefill launched no SGMV")
+    full = fresh(tbl)
+    lg_f, _, full = step(full, [w["prompt"] for w in con], 1, zeros, 0)
+    torch.cuda.synchronize()
+    e = compare(f"[phase 8] suffix prefill logits ({name})", lg_s[:3],
+                lg_f[:3], tol)
+    own = torch.tensor(tbl[[0, 2, 4], 1, n_shared:16].ravel(), device=DEV)
+    ekv = max(compare(f"[phase 8] suffix K/V ({name}, {n})", t[:, own],
+                      full["layers"][n][:, own], tol)
+              for n, t in shared["layers"].items())
+    log(f"[phase 8] suffix prefill over {n_shared} shared pages (start "
+        f"{start}, ext_blocks 16, 32 suffix tokens per row) against the "
+        f"full prefill, {cfg2.name} width, 2 layers, {name}, LoRA + IA3 + "
+        f"prefix rows: logits max_abs_err={e:.3e}, suffix K/V "
+        f"max_abs_err={ekv:.3e} ({tol})")
+    return cfg2, base2, banks2
+
+
+def first_diff(a, b):
+    """The first step at which two [1, n] streams differ, or None."""
+    d = np.nonzero(a[0] != b[0])[0]
+    return int(d[0]) if len(d) else None
+
+
+def phase8(cfg, base, times4):
+    """Mixed-method banks and shared-prefix pages at full size on phase 4's
+    base tensors, then the step-level checks at granite's width."""
+    L = cfg.n_layers
+    banks = [p8_bank(cfg, a, 2, 80 + m) for m, a in enumerate(P8_ACFGS)]
+    late_bank = p8_bank(cfg, P8_LATE_ACFG, 2, 84)
+    t0 = time.perf_counter()
+    run = p8_serve(cfg, base, banks, late_bank, label="phase 8", watch=True)
+    wall = time.perf_counter() - t0
+    eng, reqs = run["eng"], run["reqs"]
+    st = eng.stats
+    got = {k: st[k] for k in P8_PINNED}
+    if got != P8_PINNED or not all(st[k] for k in P8_PINNED):
+        raise AssertionError(f"[phase 8] prefix counts {got}, pinned "
+                             f"{P8_PINNED}")
+    log(f"[phase 8] {cfg.name}: {L} layers bf16, banks LoRA r8 (q, v), IA3 "
+        f"(k, v, down), prefix ({P8_ACFGS[2].n_prefix} tokens), 2 clients "
+        f"each, then LoRA r16 (q, k, v, o) admitted at tick {P8_ADMIT} and "
+        f"retired after the drain; {len(reqs)} requests served in "
+        f"{wall:.3f} s, {st['ticks']} decode ticks, "
+        f"{st['compact_prefill_batches']} prefill batches, peak in flight "
+        f"{st['peak_inflight']}; conservation audited every tick; refcounts "
+        "0, every page back with its owner and the router ledger empty "
+        "after the drain and the banks' release")
+    log(f"[phase 8] prefix hits {st['prefix_hits']}, pages shared "
+        f"{st['pages_shared']}, copies on write {st['cow_copies']}, prompt "
+        f"tokens {st['prefill_tokens']} of which computed "
+        f"{st['prefill_tokens_computed']} (as pinned from the JAX engine's "
+        f"run of the same schedule); {run['checked'][0]} published pages "
+        f"unchanged at their last deref, {run['checked'][1]} copied pages "
+        "equal their sources on the copied tokens")
+    for n, (sg_tick, at_tick) in sorted(run["per_tick"].items()):
+        log(f"[phase 8] with {n} banks: sgmv {sg_tick} per decode tick or "
+            f"prefill batch ({sgmv_per_layer(cfg, (P8_ACFGS + (P8_LATE_ACFG,))[:n])}"
+            f" per layer, from the registry; phase 4: {2 * L}), paged "
+            f"attention {at_tick} per decode tick (phase 4: {L}), int8 "
+            "attention 0 (checked tick by tick)")
+    pre = run["pre"]
+    log("[phase 8] prefill batches (ext_blocks, rows, computed tokens, ms): "
+        + ", ".join(f"({e}, {r}, {n}, {ms:.3f})" for e, r, n, ms in pre))
+    miss = [ms for e, _, _, ms in pre if e == 0]
+    hit = [ms for e, _, _, ms in pre if e > 0]
+    log(f"[phase 8] a miss batch's prefill {miss[0]:.3f} ms (6 rows of 272 "
+        f"tokens) against a hit batch's {hit[0]:.3f} ms (6 rows of 9 suffix"
+        f" tokens over 14 shared pages); decode-step ms median "
+        f"{statistics.median(run['dec_t']) * 1e3:.3f}")
+    P = eng._pool_pages
+    keep = [c for c in range(eng.n_clients) if eng._method_of[c] != 1]
+    pools = {n: torch.cat([t[:, c * P:(c + 1) * P] for c in keep], dim=1)
+             for n, t in eng.caches["layers"].items()}
+    streams = [r.generated.copy() for r in reqs]
+    del run, eng
+    # the same workload with the IA3 bank's scales x 1.5: every other
+    # bank's stream and page bit for bit as before
+    banks_b = list(banks)
+    banks_b[1] = tree_map(lambda x: x * 1.5, banks[1])
+    run2 = p8_serve(cfg, base, banks_b, late_bank, label="phase 8 isolation")
+    eng2 = run2["eng"]
+    ia3 = [i for i, r in enumerate(run2["reqs"]) if eng2._method_of[
+        r.client_id] == 1]
+    for i, r in enumerate(run2["reqs"]):
+        if i not in ia3 and not np.array_equal(r.generated, streams[i]):
+            raise AssertionError(f"[phase 8] request {i} (client "
+                                 f"{r.client_id}) changed with the IA3 "
+                                 "bank's scales")
+    for n, t in eng2.caches["layers"].items():
+        now = torch.cat([t[:, c * P:(c + 1) * P] for c in keep], dim=1)
+        if not torch.equal(now, pools[n]):
+            raise AssertionError(f"[phase 8] pool {n}: pages of the other "
+                                 "banks' clients changed with the IA3 "
+                                 "bank's scales")
+    moved = sum(not np.array_equal(run2["reqs"][i].generated, streams[i])
+                for i in ia3)
+    log(f"[phase 8] isolation: with the IA3 bank's scales x 1.5, all "
+        f"{len(streams) - len(ia3)} streams of the other banks' clients and "
+        f"their {len(keep) * P} pool pages equal the first run's bit for "
+        f"bit ({moved} of the {len(ia3)} IA3 streams moved)")
+    del run2, eng2, pools
+    run3 = p8_serve(cfg, base, banks, late_bank, prefix_cache=False,
+                    label="phase 8 unshared")
+    same = 0
+    for i, r in enumerate(run3["reqs"]):
+        d = first_diff(r.generated, streams[i])
+        if d is None:
+            same += 1
+        else:
+            log(f"[phase 8]   unshared request {i} (client {r.client_id}) "
+                f"first differs at step {d}, where its top-2 logit gap was "
+                f"{run3['gaps'][i][d]:.4f}")
+    log(f"[phase 8] prefix_cache=False: {same} of {len(streams)} streams "
+        f"equal the shared run's (printed, not gated: base products of other"
+        f" row counts round otherwise in bf16); its prefill batches "
+        f"(ext_blocks, rows, tokens, ms): " + ", ".join(
+            f"({e}, {r}, {n}, {ms:.3f})" for e, r, n, ms in run3["pre"]))
+    del run3
+    torch.cuda.empty_cache()
+    p8_suffix_prefill(torch.float32, F32_TOL)
+    cfg2, base2, banks2 = p8_suffix_prefill(torch.bfloat16, BF16_TOL)
+    p8_mixed_rows(cfg2, base2, banks2)
+    del base2, banks2
+    torch.cuda.empty_cache()
+    times = profile_tick(cfg, base, banks, p8_spec(cfg, P8_ACFGS),
+                         "phase 8")
+    log("[phase 8] mixed 8-row tick beside phase 4's: " + ", ".join(
+        f"{k} {times4[k]:.3f} -> {times[k]:.3f}" for k in times
+        if k in times4))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2067,7 +2608,11 @@ def main() -> int:
 
     t = time.perf_counter()
     phase7(cfg, base, bank, streams4, launches4, times4)
-    log(f"[phase 7] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 7] done ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    phase8(cfg, base, times4)
+    log(f"[phase 8] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel and phase

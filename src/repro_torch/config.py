@@ -2,7 +2,8 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-dense, paged LoRA serving path and its LoRA fine-tuning service read. The port keeps its own copy so that
+dense, paged serving path (LoRA, IA3 and prefix banks) and its LoRA
+fine-tuning service read. The port keeps its own copy so that
 it imports nothing of the JAX package; the fields it keeps have the same
 names and defaults, so a dense config describes the same model in both.
 """
@@ -68,11 +69,14 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class AdapterConfig:
-    """A client's PEFT selection. The port serves ``method="lora"``."""
+    """A client's PEFT selection. Serving takes all three methods;
+    fine-tuning takes ``method="lora"``. Frozen: the serving engine looks a
+    bank up by value (``ServingEngine.admit_bank``)."""
     method: str = "lora"              # lora | ia3 | prefix
-    rank: int = 8
-    alpha: float = 16.0
+    rank: int = 8                     # lora
+    alpha: float = 16.0               # lora
     targets: Sequence[str] = ("q", "v")   # subset of q,k,v,o,gate,up,down
+    n_prefix: int = 16                # prefix tuning: virtual tokens per layer
 
 
 @dataclass(frozen=True)

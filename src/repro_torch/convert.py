@@ -6,8 +6,10 @@ nothing here imports JAX. Layouts:
 * base params: the JAX tree stacks layers on a leading [L] axis
   (``layers.attn.wq`` [L, d, H*hd], ...); the port keeps a list with one
   dict per layer. Every other leaf keeps its shape ([din, dout] linears).
-* LoRA bank: ``{"layers": {path: {"A": [C, L, din, r], "B": [C, L, r,
-  dout]}}}`` in both packages.
+* adapter banks: ``{"layers": {path: {"A": [C, L, din, r], "B": [C, L, r,
+  dout]}}}`` (LoRA), ``{"layers": {path: {"scale": [C, L, n]}}}`` (IA3)
+  and ``{"layers": {"prefix_k", "prefix_v": [C, L, n_prefix, K, hd]}}``
+  (prefix) in both packages.
 * bank caches: ``{"layers": {"k", "v": [L, C*P, blk, K, hd]}, "pos":
   [C, B], "block_tbl": [C, B, n_blocks]}`` in both packages.
 
@@ -75,9 +77,10 @@ def params_to_numpy(params):
 
 
 def bank_from_numpy(acfg, tree, device):
-    """Client-stacked LoRA bank (numpy leaves) -> torch, same layout."""
-    if acfg.method != "lora":
-        raise ValueError(f"{acfg.method!r} banks are not ported yet")
+    """Client-stacked LoRA, IA3 or prefix bank (numpy leaves) -> torch,
+    same layout."""
+    if acfg.method not in ("lora", "ia3", "prefix"):
+        raise ValueError(f"unknown PEFT method {acfg.method!r}")
     return _map(lambda a: tensor_from_numpy(a, device), tree)
 
 

@@ -1,6 +1,7 @@
 """Symbiosis system composition — the serving half that the paged,
-single-bank LoRA path runs, and the fine-tuning half, of
-``repro.core.symbiosis``.
+compacted path runs (single or mixed banks of LoRA, IA3 and prefix
+clients, shared-prefix suffix prefills and the copy-on-write page copy),
+and the fine-tuning half, of ``repro.core.symbiosis``.
 
 One frozen base serves a BANK of clients. Bank caches keep per-slot leaves
 with a leading client axis (``pos`` [C, B], ``block_tbl`` [C, B, n_blocks])
@@ -32,7 +33,7 @@ from repro_torch.config import (AdapterConfig, DENSE, ModelConfig,
                                 ServeConfig, TrainConfig)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core.virtlayer import (make_bank_ctx, make_client_ctx,
-                                        make_compact_ctx)
+                                        make_compact_ctx, make_mixed_ctx)
 from repro_torch.models import get_model
 from repro_torch.models.losses import lm_loss
 from repro_torch.models.transformer import default_block_table, pool_leaves
@@ -110,12 +111,36 @@ def _scatter_pos(caches, rows, row_mask, new_pos):
     flat.index_put_((rows,), delta, accumulate=True)
 
 
-def make_compact_decode_step(cfg: ModelConfig, acfg: AdapterConfig,
-                             scfg: ServeConfig):
-    """Compute-proportional decode tick over ONLY the active slots:
+def _row_ctx(cfg, acfg, bank, clients, locals_=None, methods=None):
+    """(LinCtx, re-laid adapter tree) of one compacted batch: a single
+    bank's (``acfg`` one AdapterConfig, rows named by ``clients``) or, for
+    a tuple of AdapterConfigs, the mixed banks' (rows named by their bank
+    ``methods`` and their ``locals_`` index within it)."""
+    if isinstance(acfg, tuple):
+        return (make_mixed_ctx(cfg, acfg, locals_, methods),
+                adapters_lib.compact_mixed_bank(bank, locals_, methods))
+    return (make_compact_ctx(cfg, acfg, clients),
+            adapters_lib.compact_adapter_bank(bank, clients))
+
+
+def make_compact_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig):
+    """Compute-proportional decode tick over ONLY the active slots.
+
+    Single bank (``acfg`` an AdapterConfig):
 
       fn(base, bank, caches, tokens, clients, slots, row_mask)
         -> (logits [n_rows, V], finite [n_rows] bool, new caches)
+
+    MIXED banks (``acfg`` a tuple of AdapterConfigs, the engine's bank
+    registry):
+
+      fn(base, banks, caches, tokens, clients, slots, methods, locals_,
+         row_mask) -> (logits, finite, new caches)
+
+    with ``banks`` the matching tuple of client-stacked trees,
+    ``methods[i]`` row i's bank and ``locals_[i]`` its client index within
+    that bank (``clients[i]`` stays the GLOBAL cache client). Each row's
+    math is bitwise its single-bank run's (``virtlayer.make_mixed_ctx``).
 
     Row i is slot ``slots[i]`` of client ``clients[i]`` feeding
     ``tokens[i]``; ``row_mask`` False marks padding rows, whose logits are
@@ -125,46 +150,91 @@ def make_compact_decode_step(cfg: ModelConfig, acfg: AdapterConfig,
     returned; the step never waits on the host."""
     _check_paged(cfg, scfg, "compact decode")
     model = get_model(cfg)
+    acfg = tuple(acfg) if isinstance(acfg, (tuple, list)) else acfg
 
-    def compact(base, bank, caches, tokens, clients, slots, row_mask):
+    def run(base, bank, caches, tokens, clients, slots, row_mask,
+            locals_=None, methods=None):
         rows, cache = _gather_rows(caches, clients, slots)
-        ctx = make_compact_ctx(cfg, acfg, clients)
-        adapter = adapters_lib.compact_adapter_bank(bank)
+        ctx, adapter = _row_ctx(cfg, acfg, bank, clients, locals_, methods)
         logits, new = model.decode_step(base, cache, tokens, ctx, adapter,
                                         active=row_mask)
         _scatter_pos(caches, rows, row_mask, new["pos"])
         return logits, torch.isfinite(logits).all(dim=-1), caches
 
-    return compact
+    def compact_mixed(base, banks, caches, tokens, clients, slots, methods,
+                      locals_, row_mask):
+        return run(base, banks, caches, tokens, clients, slots, row_mask,
+                   locals_, methods)
+
+    return compact_mixed if isinstance(acfg, tuple) else run
 
 
-def make_compact_prefill(cfg: ModelConfig, acfg: AdapterConfig,
-                         scfg: ServeConfig):
-    """Cross-client compacted PREFILL: every same-tick admission rides ONE
-    ragged batch.
+def make_compact_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
+                         ext_blocks: int = 0):
+    """Cross-client compacted PREFILL: every same-tick admission, across
+    clients and banks, rides ONE ragged batch.
 
-      fn(base, bank, caches, tokens, lengths, clients, slots, row_mask)
-        -> (logits [n_rows, V], finite [n_rows] bool, new caches)
+    Single bank:
 
-    ``tokens`` [n_rows, S_pad] are right-padded prompts with true
-    ``lengths``; padding rows carry length 0 and write nothing. This is the
-    JAX step with ``starts`` all zero and ``ext_blocks=0`` (shared-prefix
-    pages are not ported yet). Per-row LoRA goes through SGMV with one
-    S_pad-token block per row. Caches are updated IN PLACE and returned."""
+      fn(base, bank, caches, tokens, lengths, starts, clients, slots,
+         row_mask) -> (logits [n_rows, V], finite [n_rows] bool, new caches)
+
+    MIXED banks (``acfg`` a tuple, as ``make_compact_decode_step``):
+
+      fn(base, banks, caches, tokens, lengths, starts, clients, slots,
+         methods, locals_, row_mask) -> (logits, finite, new caches)
+
+    ``tokens`` [n_rows, S_pad] are right-padded prompt SUFFIXES with true
+    ``lengths``; ``starts`` [n_rows] are the tokens already cached in the
+    row's mapped shared-prefix pages (0: the full prompt). Padding rows
+    carry length 0 and write nothing. ``ext_blocks`` is the number of
+    leading table entries each row reads as shared-prefix K/V lanes
+    (``transformer.prefill``); rows with fewer cached blocks mask the rest
+    by position, and 0 is the full prefill. Per-row LoRA goes through SGMV
+    with one S_pad-token block per row. Caches are updated IN PLACE and
+    returned."""
     _check_paged(cfg, scfg, "compact prefill")
+    if ext_blocks and scfg.kv_quant:
+        raise ValueError("shared-prefix prefill (ext_blocks > 0) requires "
+                         "an unquantized KV cache")
     model = get_model(cfg)
+    acfg = tuple(acfg) if isinstance(acfg, (tuple, list)) else acfg
 
-    def compact(base, bank, caches, tokens, lengths, clients, slots,
-                row_mask):
+    def run(base, bank, caches, tokens, lengths, starts, clients, slots,
+            row_mask, locals_=None, methods=None):
         rows, cache = _gather_rows(caches, clients, slots)
-        ctx = make_compact_ctx(cfg, acfg, clients)
-        adapter = adapters_lib.compact_adapter_bank(bank)
+        ctx, adapter = _row_ctx(cfg, acfg, bank, clients, locals_, methods)
         logits, new = model.prefill(base, {"tokens": tokens}, cache, ctx,
-                                    adapter, lengths=lengths)
+                                    adapter, lengths=lengths, starts=starts,
+                                    ext_blocks=ext_blocks)
         _scatter_pos(caches, rows, row_mask, new["pos"])
         return logits, torch.isfinite(logits).all(dim=-1), caches
 
-    return compact
+    def compact_mixed(base, banks, caches, tokens, lengths, starts, clients,
+                      slots, methods, locals_, row_mask):
+        return run(base, banks, caches, tokens, lengths, starts, clients,
+                   slots, row_mask, locals_, methods)
+
+    return compact_mixed if isinstance(acfg, tuple) else run
+
+
+def make_page_copy(cfg: ModelConfig, scfg: ServeConfig):
+    """Copy-on-write of a shared-prefix tail page:
+
+      fn(caches, src, dst) -> caches
+
+    page ``dst`` of every pool leaf becomes a bitwise copy of page ``src``
+    across every layer: one in-place ``copy_`` per leaf between two views
+    of the pool, so the pools keep their ``data_ptr`` and the host never
+    waits. ``src``/``dst`` are global page ids (host ints)."""
+    _check_paged(cfg, scfg, "page copy")
+
+    def copy_page(caches, src, dst):
+        for leaf in caches["layers"].values():
+            leaf[:, dst].copy_(leaf[:, src])
+        return caches
+
+    return copy_page
 
 
 # ---------------------------------------------------------------------------

@@ -130,13 +130,21 @@ def _pick_chunk(S: int, B: int, H: int, T: int, chunk_q: int,
     return max(c, 1)
 
 
-def mha_forward(params, cfg, x, positions, lin: LinearFns, *,
+def mha_forward(params, cfg, x, positions, lin: LinearFns, *, ext_kv=None,
                 path_prefix: str = "", chunk_q: int = 1024):
     """Causal self-attention over a sequence (prefill), the plain chunked
     branch of ``repro.models.blocks.mha_forward``. x [B,S,d]; positions
     [B,S]. Returns (out [B,S,d], k, v) with k/v [B,S,K,hd] post-RoPE — the
     values the cache stores, so the caller projects K/V once (the JAX
-    prefill projects them a second time to capture them)."""
+    prefill projects them a second time to capture them).
+
+    ``ext_kv`` — optional ``(k, v, positions)``: ALREADY-PROJECTED (post
+    qk-norm, post-RoPE) external K/V lanes [B,E,K,hd] with positions [B,E],
+    put in front of this call's own K/V before the GQA repeat: the suffix
+    prefill attends over a row's shared-prefix pages this way. A lane
+    whose position fails the causal mask (unused lanes carry a huge
+    position) gets an exact-zero softmax weight. The returned k/v are this
+    call's own."""
     B, S, _ = x.shape
     hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
     G = H // K
@@ -152,21 +160,28 @@ def mha_forward(params, cfg, x, positions, lin: LinearFns, *,
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    kr = k.repeat_interleave(G, dim=2) if G > 1 else k    # [B,T,H,hd]
-    vr = v.repeat_interleave(G, dim=2) if G > 1 else v
+    ka, va, kv_pos = k, v, positions
+    if ext_kv is not None:
+        ek, ev, epos = ext_kv
+        ka = torch.cat([ek.to(k.dtype), k], dim=1)
+        va = torch.cat([ev.to(v.dtype), v], dim=1)
+        kv_pos = torch.cat([epos.to(positions.dtype), positions], dim=1)
+    T = ka.shape[1]
+    kr = ka.repeat_interleave(G, dim=2) if G > 1 else ka    # [B,T,H,hd]
+    vr = va.repeat_interleave(G, dim=2) if G > 1 else va
     scale = 1.0 / math.sqrt(hd)
     window = cfg.sliding_window
 
     def attend(qc, pc):
         s = torch.einsum("bshd,bthd->bhst", qc, kr).float() * scale
-        m = pc[:, None, :, None] >= positions[:, None, None, :]
+        m = pc[:, None, :, None] >= kv_pos[:, None, None, :]
         if window:
-            m &= (pc[:, None, :, None] - positions[:, None, None, :]) < window
+            m &= (pc[:, None, :, None] - kv_pos[:, None, None, :]) < window
         s = s.masked_fill(~m, -1e30)
         p = torch.softmax(s, dim=-1).to(vr.dtype)
         return torch.einsum("bhst,bthd->bshd", p, vr)
 
-    chunk = _pick_chunk(S, B, H, S, chunk_q, budget_bytes=1e9)
+    chunk = _pick_chunk(S, B, H, T, chunk_q, budget_bytes=1e9)
     out = torch.cat([attend(q[:, i:i + chunk], positions[:, i:i + chunk])
                      for i in range(0, S, chunk)], dim=1)
     out = out.reshape(B, S, H * hd)
@@ -262,17 +277,27 @@ def token_write_index(tbl, pos, n_pages: int, blk: int, active=None):
     return _drop_index(keep, page, pos % blk, n_pages)
 
 
-def prefill_write_index(tbl, S: int, n_pages: int, blk: int, lengths=None):
+def prefill_write_index(tbl, S: int, n_pages: int, blk: int, lengths=None,
+                        start=None):
     """Where a prefill's tokens land (``_drop_index`` over the B*S
-    positions, row-major). A position is dropped when it is at or past the
-    row's length (right padding never touches the pool) or its table entry
-    names a page outside [0, n_pages)."""
+    positions, row-major). ``start`` [B] (optional) shifts row b's token t
+    to logical position start[b] + t — the suffix prefill, which writes
+    past a row's shared-prefix pages; a column past the table is clipped
+    to its last entry, as JAX's ``mode="clip"``. A position is dropped
+    when it is at or past the row's length (right padding never touches
+    the pool) or its table entry names a page outside [0, n_pages)."""
     t = torch.arange(S, device=tbl.device)
-    page = tbl[:, t // blk].long()                         # [B, S]
+    if start is None:
+        page = tbl[:, t // blk].long()                     # [B, S]
+        off = (t % blk).expand_as(page)
+    else:
+        logical = start.long()[:, None] + t[None, :]
+        col = (logical // blk).clamp_max(tbl.shape[1] - 1)
+        page = tbl.gather(1, col).long()
+        off = logical % blk
     keep = (page >= 0) & (page < n_pages)
     if lengths is not None:
         keep &= t[None, :] < lengths.long()[:, None]
-    off = (t % blk).expand_as(page)
     return _drop_index(keep.reshape(-1), page.reshape(-1), off.reshape(-1),
                        n_pages)
 

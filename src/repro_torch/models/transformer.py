@@ -6,7 +6,9 @@ Parameters are plain dicts of tensors: ``embed`` [V,d], ``final_norm``,
 package stacks layers on a leading [L] axis and scans; here ``lax.scan`` is
 a Python loop over that list). The ``LinCtx`` hook threads Symbiosis split
 execution through every frozen matmul; ``adapter`` is a PEFT tree whose
-``layers`` leaves carry a leading [L] axis and are sliced per layer.
+``layers`` leaves carry a leading [L] axis and are sliced per layer. A
+prefix-tuning adapter adds its own attention branch (``_prefix_attend``),
+gated per row in a mixed-method batch.
 
 Paged caches keep one tensor per pool leaf, [L, P, blk, K, hd]: ``k`` and
 ``v`` in the activation dtype or, for an int8 cache, ``k``/``v`` in int8
@@ -17,6 +19,7 @@ is never sliced or copied; decode and prefill write it IN PLACE.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -97,17 +100,77 @@ def _adapter_layer(adapter, i):
     return _tree_index(adapter["layers"], i)
 
 
-def _layer_forward(p, cfg: ModelConfig, x, positions, lin: LinearFns):
-    """One layer over a sequence; also returns its K/V [B,S,K,hd]."""
+def _prefix_entries(adapter_slice):
+    """[(prefix_k, prefix_v, rows_mask or None), ...] of a per-layer
+    adapter slice. A plain slice carries its prefix leaves at top level
+    (mask None: every row attends the prefix); a MIXED-method slice nests
+    one ``m<id>`` sub-dict per bank, and a prefix bank's carries per-row
+    leaves and the ``prefix_rows`` membership mask that gates its add."""
+    if not isinstance(adapter_slice, dict):
+        return []
+    out = []
+    if "prefix_k" in adapter_slice:
+        out.append((adapter_slice["prefix_k"], adapter_slice["prefix_v"],
+                    adapter_slice.get("prefix_rows")))
+    for name in sorted(adapter_slice):
+        sub = adapter_slice[name]
+        if isinstance(sub, dict) and "prefix_k" in sub:
+            out.append((sub["prefix_k"], sub["prefix_v"],
+                        sub.get("prefix_rows")))
+    return out
+
+
+def _prefix_attend(attn_p, cfg: ModelConfig, h, prefix_kv, lin: LinearFns):
+    """Prefix tuning: the queries also attend to learned virtual K/V, as a
+    separate softmax branch added to the attention output (the JAX
+    package's additive form). prefix_k/v are [n_prefix, K, hd] shared by
+    the batch, or per-row [B, n_prefix, K, hd] in a compacted batch. q and
+    o go through the layer's linear hooks (no bias); scores and softmax in
+    fp32, cast back to the activation dtype; the branch is scaled by
+    0.1."""
+    B, S, _ = h.shape
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.n_heads
+    G = H // K
+    pk, pv = prefix_kv
+    q = lin.dense(h, attn_p["wq"], None, "q").reshape(B, S, K, G, hd)
+    rows = "b" if pk.ndim == 4 else ""
+    s = torch.einsum(f"bskgh,{rows}pkh->bkgsp", q, pk.to(h.dtype)).float()
+    p = torch.softmax(s / math.sqrt(hd), dim=-1).to(h.dtype)
+    out = torch.einsum(f"bkgsp,{rows}pkh->bskgh", p, pv.to(h.dtype))
+    return lin.dense(out.reshape(B, S, H * hd), attn_p["wo"], None, "o") * 0.1
+
+
+def _apply_prefixes(attn, attn_p, cfg: ModelConfig, h, adapter_slice,
+                    lin: LinearFns):
+    """Fold every prefix adapter's branch into the attention output; in a
+    mixed batch only the bank's member rows take it (a select keeps the
+    other rows' bits: adding a zeroed branch would turn -0.0 into +0.0)."""
+    for pk, pv, rows in _prefix_entries(adapter_slice):
+        pfx = _prefix_attend(attn_p, cfg, h, (pk, pv), lin)
+        if rows is None:
+            attn = attn + pfx
+        else:
+            attn = torch.where(rows.reshape(rows.shape + (1,) * (attn.ndim - 1)),
+                               attn + pfx, attn)
+    return attn
+
+
+def _layer_forward(p, cfg: ModelConfig, x, positions, lin: LinearFns,
+                   adapter_slice=None, *, ext_kv=None):
+    """One layer over a sequence; also returns its own K/V [B,S,K,hd]
+    (``ext_kv`` lanes, see ``blocks.mha_forward``, are attended to but not
+    returned)."""
     h = blocks.rmsnorm(p["ln1"], x)
-    attn, k, v = blocks.mha_forward(p["attn"], cfg, h, positions, lin)
+    attn, k, v = blocks.mha_forward(p["attn"], cfg, h, positions, lin,
+                                    ext_kv=ext_kv)
+    attn = _apply_prefixes(attn, p["attn"], cfg, h, adapter_slice, lin)
     x = x + attn
     h = blocks.rmsnorm(p["ln2"], x)
     return x + blocks.mlp_forward(p["mlp"], h, lin), k, v
 
 
-def _layer_decode(p, cfg: ModelConfig, x, pools, pos, lin: LinearFns, *,
-                  tbl, write):
+def _layer_decode(p, cfg: ModelConfig, x, pools, pos, lin: LinearFns,
+                  adapter_slice=None, *, tbl, write):
     """One layer's single-token step against (layer-fused) page pools; an
     int8 cache is told by its ``k_s`` leaf, as in the JAX package."""
     h = blocks.rmsnorm(p["ln1"], x)
@@ -118,6 +181,7 @@ def _layer_decode(p, cfg: ModelConfig, x, pools, pos, lin: LinearFns, *,
     else:
         attn = blocks.mha_decode_paged(p["attn"], cfg, h, pools["k"],
                                        pools["v"], tbl, pos, lin, write=write)
+    attn = _apply_prefixes(attn, p["attn"], cfg, h, adapter_slice, lin)
     x = x + attn
     h = blocks.rmsnorm(p["ln2"], x)
     return x + blocks.mlp_forward(p["mlp"], h, lin)
@@ -152,10 +216,11 @@ def forward(cfg: ModelConfig, params, batch, ctx: LinCtx = DEFAULT_CTX,
     x = embed_tokens(cfg, params, tokens, ctx.top)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     for i, p in enumerate(params["layers"]):
-        lin = ctx.for_layer(_adapter_layer(adapter, i))
+        ad = _adapter_layer(adapter, i)
+        lin = ctx.for_layer(ad)
 
-        def body(x, p=p, lin=lin):
-            return _layer_forward(p, cfg, x, positions, lin)[0]
+        def body(x, p=p, lin=lin, ad=ad):
+            return _layer_forward(p, cfg, x, positions, lin, ad)[0]
 
         if remat:
             x = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
@@ -239,7 +304,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, ctx: LinCtx = DEFAULT_CT
                                                         active)
     for i, p in enumerate(params["layers"]):
         ad = _adapter_layer(adapter, i)
-        x = _layer_decode(p, cfg, x, fused, pos, ctx.for_layer(ad),
+        x = _layer_decode(p, cfg, x, fused, pos, ctx.for_layer(ad), ad,
                           tbl=tbl + i * Pl,
                           write=(src, page + i * Pl, off, any_kept))
     x = blocks.rmsnorm(params["final_norm"], x)
@@ -248,7 +313,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, ctx: LinCtx = DEFAULT_CT
 
 
 def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
-            adapter=None, *, lengths=None):
+            adapter=None, *, lengths=None, starts=None, ext_blocks: int = 0):
     """Prefill over right-padded prompts, filling the paged cache IN PLACE.
 
     ``lengths`` [B] (optional) are the true prompt lengths: logits are taken
@@ -257,17 +322,48 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
     nothing). K/V are projected once per layer and used for both the
     attention and the cache write; an int8 cache stores them quantized
     per head, while the attention uses them as computed, so prefill logits
-    do not depend on the cache's format."""
+    do not depend on the cache's format.
+
+    ``starts`` [B] (optional) makes this a SUFFIX prefill: row b already
+    holds ``starts[b]`` tokens of K/V in the pages its table names (shared
+    prefix pages mapped at admission), this call's tokens sit at logical
+    positions ``starts[b] + t``, decode resumes at ``starts + lengths``,
+    and the first ``ext_blocks`` table entries of every row are read as
+    external K/V lanes (``blocks.mha_forward``'s ``ext_kv``); a lane at or
+    past the row's start is masked by position. Table entries are clamped
+    into the pool before the gather (an unmapped entry holds the
+    out-of-range sentinel; torch does not clamp as JAX's gather does), and
+    each layer's lanes are gathered BEFORE that layer writes its suffix
+    (JAX gathers every layer's before its scan). ``ext_blocks > 0`` needs
+    ``starts`` and an unquantized cache: int8 K/V does not round-trip."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens, ctx.top)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    if starts is not None:
+        starts = starts.to(torch.int32)
+        positions = starts[:, None] + positions
     tbl = cache["block_tbl"]
     fused, _, Pl, blk = _fused(cache["layers"])
-    index = blocks.prefill_write_index(tbl, S, Pl, blk, lengths)
+    index = blocks.prefill_write_index(tbl, S, Pl, blk, lengths, start=starts)
+    if ext_blocks:
+        if starts is None:
+            raise ValueError("ext_blocks needs starts (suffix prefill)")
+        if "k_s" in fused:
+            raise ValueError("shared-prefix prefill needs an unquantized "
+                             "paged cache (int8 K/V doesn't round-trip)")
+        etbl = tbl[:, :ext_blocks].long().clamp(0, Pl - 1)       # [B, E]
+        lane = torch.arange(ext_blocks * blk, device=tbl.device)[None, :]
+        epos = torch.where(lane < starts[:, None], lane, 1 << 30)
     for i, p in enumerate(params["layers"]):
         ad = _adapter_layer(adapter, i)
-        x, k, v = _layer_forward(p, cfg, x, positions, ctx.for_layer(ad))
+        ext = None
+        if ext_blocks:
+            ext = tuple(fused[n][etbl + i * Pl].reshape(
+                (B, ext_blocks * blk) + fused[n].shape[2:])
+                for n in ("k", "v")) + (epos,)
+        x, k, v = _layer_forward(p, cfg, x, positions, ctx.for_layer(ad), ad,
+                                 ext_kv=ext)
         k, v = k.flatten(0, 1), v.flatten(0, 1)
         if "k_s" in fused:
             parts = zip(("k", "k_s", "v", "v_s"),
@@ -285,4 +381,6 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
         xg = x[torch.arange(B, device=x.device), last][:, None]
         logits = lm_head(cfg, params, xg, ctx.top)[:, 0]
         pos = lengths.to(torch.int32)
+    if starts is not None:            # decode resumes after prefix + suffix
+        pos = starts + pos
     return logits, {"layers": cache["layers"], "pos": pos, "block_tbl": tbl}

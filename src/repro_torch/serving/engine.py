@@ -1,8 +1,22 @@
-"""Continuous-batching multi-client serving engine — the paged, compacted,
-single-bank LoRA scope of ``repro.serving.engine.ServingEngine``.
+"""Continuous-batching multi-client serving engine — the paged, compacted
+scope of ``repro.serving.engine.ServingEngine``.
 
-One frozen base serves a bank of LoRA clients on one device:
+One frozen base serves one or more banks of adapter clients on one device:
 
+* **Bank registry.** Pass one ``BankSpec`` and adapter tree per bank:
+  LoRA banks of any rank, IA3 banks and prefix-tuning banks are served
+  together over the one base. Clients carry GLOBAL ids in bank order
+  (bank 0's clients first); caches, pages and slots are keyed by the
+  global id, while each row of a compacted step names its bank and its
+  index within it. With several banks, ONE compacted prefill and ONE
+  compacted decode step carry every bank's rows: LoRA rows of other banks
+  get dead SGMV ids, IA3 scales and prefix K/V are gathered per row, and
+  every application merges through a select on bank membership, so each
+  row is bitwise what its single-bank run computes. A ``PlacementRouter``
+  attached to a several-bank engine is charged each bank's resident
+  adapter bytes (``route_bank``), refunded by ``release_banks``.
+  ``admit_bank`` / ``retire_bank`` add and retire banks while requests
+  are in flight.
 * **Slots.** Each client owns ``max_batch_per_client`` sequence slots. A
   request holds one slot per prompt row for its lifetime; slots free the
   moment it finishes and are re-admitted from the queue on the next tick
@@ -17,16 +31,29 @@ One frozen base serves a bank of LoRA clients on one device:
   and returns them at retirement. The device sees
   the allocator through the ``block_tbl`` cache leaf, pushed when it
   changed; unmapped entries hold the out-of-range sentinel ``1 << 30``.
+* **Shared-prefix pages.** Prompt prefixes are hashed block by block into
+  a refcounted index (``serving.prefix_cache.PrefixIndex``), scoped by the
+  (bank, client-in-bank) adapter: an admission whose prompt prefix was
+  already prefilled under the same adapter maps the published read-only
+  pages into its table (refs + 1), copies a matched partial tail page on
+  write, and prefills only its suffix, which attends to the mapped pages
+  as external K/V lanes. Retirement drops references; a page recycles at
+  refcount zero. The router is charged only newly allocated pages. On by
+  default (``prefix_cache=None``) wherever it can work, i.e. on
+  unquantized pools: int8 K/V does not round-trip, so ``prefix_cache=True``
+  with ``kv_quant`` raises.
 * **Admission.** FIFO by arrival tick; a request is admitted when its
   client has free slots and unreserved pages and, with a
   ``PlacementRouter`` attached, when the router finds it a placement: the
-  router is charged the whole pages the request reserves (int8-priced
-  under ``kv_quant``) and refunded at retirement, so requests queue
-  until device memory frees (the router places caches on the card only,
-  as this engine serves them). All of a tick's admissions, across clients,
-  prefill together in ONE compacted ragged batch
-  (``symbiosis.make_compact_prefill``), bucketed to a few row counts and
-  prompt lengths.
+  router is charged the whole pages the request newly reserves
+  (int8-priced under ``kv_quant``) and refunded at retirement, so requests
+  queue until device memory frees (the router places caches on the card
+  only, as this engine serves them). Admission is transactional: a failure
+  midway restores pages, references and reservations in reverse order,
+  refunds the charge and re-raises. All of a tick's admissions, across
+  clients and banks, prefill together in ONE compacted ragged batch
+  (``symbiosis.make_compact_prefill``), bucketed to a few row counts,
+  suffix lengths and shared-prefix widths.
 * **Decode.** Every tick the ``TickPolicy`` (lockstep / nolockstep /
   opportunistic) picks the ready clients; their active (client, slot) rows
   are gathered into one bucketed batch and decoded by
@@ -39,12 +66,13 @@ One frozen base serves a bank of LoRA clients on one device:
 
 The policy only changes which ready clients run a tick, never the math of
 a sequence's own stream: outputs equal serving each request alone.
+``debug=True`` audits conservation (``faults.audit``) after every tick.
 
 Not ported yet, and refused with ``ValueError``: the dense KV layout,
-several banks or non-LoRA methods, ``prefix_cache=True``, a ``mesh`` and
-``obs`` telemetry. Fault handling is reduced to the finite probe: a
-request whose logits go non-finite is terminated (status ``quarantined``)
-and its slots and pages (and router charge) are freed.
+non-dense families, a ``mesh`` and ``obs`` telemetry. Fault handling is
+reduced to the finite probe: a request whose logits go non-finite is
+terminated (status ``quarantined``) and its slots and pages (and router
+charge) are freed.
 """
 from __future__ import annotations
 
@@ -56,10 +84,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.config import DENSE
+from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.core.scheduler import TickPolicy
+from repro_torch.faults.audit import serving_conservation
+from repro_torch.serving.prefix_cache import PrefixIndex
 from repro_torch.serving.router import AdmissionStall, NoCapacity
 
 
@@ -70,6 +102,16 @@ class SamplingParams:
     temperature: float = 1.0
     top_k: int = 0
     seed: int = 0
+
+
+@dataclasses.dataclass
+class BankAdmission:
+    """Handle of one ``admit_bank`` call: the bank joined (or created), the
+    new clients' global ids, and the router charge ``retire_bank``
+    releases."""
+    bank_id: int
+    client_ids: List[int]
+    placement: object = None
 
 
 @dataclasses.dataclass(eq=False)       # identity eq: queues hold np arrays
@@ -84,37 +126,42 @@ class Request:
     status: str = "ok"                      # ok | quarantined
 
 
-class ServingEngine:
-    """One base model continuously serving one bank of LoRA clients.
+def _clients_of(tree) -> int:
+    """Clients in a client-stacked adapter tree (its leading axis)."""
+    return tree_leaves(tree)[0].shape[0]
 
-        spec = EngineSpec(cfg=cfg, banks=(BankSpec("lora8", lora, 4),),
+
+class ServingEngine:
+    """One base model continuously serving one or more banks of clients.
+
+        spec = EngineSpec(cfg=cfg, banks=(BankSpec("lora8", lora, 4),
+                                          BankSpec("ia3", ia3, 2)),
                           serve=ServeConfig(max_seq=512, page_block=16),
                           max_batch_per_client=2)
-        engine = ServingEngine(spec, base_params, [bank])   # device="cuda"
+        engine = ServingEngine(spec, base_params, [lora_bank, ia3_bank])
 
-    ``base_params`` and the bank must already live on ``device``."""
+    ``base_params`` and the banks must already live on ``device`` (default
+    ``"cuda"``). The page pools keep their ``data_ptr`` across ticks (every
+    write is in place); only ``admit_bank``, which appends the new clients'
+    page ranges, allocates new pools."""
 
     def __init__(self, spec: EngineSpec, base_params, banks, *,
                  device="cuda", router=None,
-                 prefix_cache: Optional[bool] = None, mesh=None, obs=None):
+                 prefix_cache: Optional[bool] = None, debug: bool = False,
+                 mesh=None, obs=None):
         if spec.serve is None:
             raise ValueError("ServingEngine needs a spec with serve=")
         for name, val in (("mesh", mesh), ("obs", obs)):
             if val is not None:
                 raise ValueError(f"{name}= is not ported yet: the port serves "
-                                 "paged single-bank LoRA on one device")
-        if prefix_cache:
-            raise ValueError(
-                "prefix_cache=True (shared-prefix pages) is not ported yet"
-                + ("; nor can it serve int8 pools: int8 K/V doesn't "
-                   "round-trip" if spec.serve.kv_quant else ""))
+                                 "paged banks on one device")
+        if not spec.banks:
+            raise ValueError("ServingEngine needs at least one BankSpec")
         banks = list(banks) if isinstance(banks, (tuple, list)) else [banks]
-        if len(spec.banks) != 1 or len(banks) != 1:
-            raise ValueError("mixed banks are not ported yet: pass one "
-                             "BankSpec and one adapter tree")
-        bs, cfg, scfg = spec.banks[0], spec.cfg, spec.serve
-        if bs.acfg.method != "lora":
-            raise ValueError(f"{bs.acfg.method!r} banks are not ported yet")
+        if len(banks) != len(spec.banks):
+            raise ValueError(f"{len(banks)} adapter trees for "
+                             f"{len(spec.banks)} declared banks")
+        cfg, scfg = spec.cfg, spec.serve
         if cfg.arch != DENSE:
             raise ValueError(f"the port serves the dense family; {cfg.name} "
                              f"is {cfg.arch!r}")
@@ -122,24 +169,49 @@ class ServingEngine:
         if "page_block" not in cache_kw:
             raise ValueError("the dense KV layout is not ported: set "
                              "ServeConfig.page_block > 0")
-        bank = banks[0]
-        leaf = next(iter(bank["layers"].values()))["A"]
-        if leaf.shape[0] != bs.capacity:
-            raise ValueError(f"bank {bs.name!r}: adapter tree holds "
-                             f"{leaf.shape[0]} clients, spec capacity is "
-                             f"{bs.capacity}")
+        for bs, tree in zip(spec.banks, banks):
+            if _clients_of(tree) != bs.capacity:
+                raise ValueError(f"bank {bs.name!r}: adapter tree holds "
+                                 f"{_clients_of(tree)} clients, spec "
+                                 f"capacity is {bs.capacity}")
         self.device = resolve_device(device)
-        for name, t in (("base", base_params["embed"]), ("bank", leaf)):
-            if t.device.type != self.device.type:
-                raise ValueError(f"{name} lives on {t.device}, the engine on "
-                                 f"{self.device}")
-        self.cfg, self.acfg, self.scfg = cfg, bs.acfg, scfg
-        self.base, self.bank = base_params, bank
-        self.n_clients = bs.capacity
+        self._check_device("base", base_params)
+        for bs, tree in zip(spec.banks, banks):
+            self._check_device(f"bank {bs.name!r}", tree)
+        self.cfg, self.scfg = cfg, scfg
+        self.base = base_params
+        self.bank_cfgs = tuple(bs.acfg for bs in spec.banks)
+        self.banks = banks
+        sizes = [bs.capacity for bs in spec.banks]
+        self.n_clients = sum(sizes)
+        # global client id -> (bank id, index within the bank's tree)
+        self._method_of = np.repeat(np.arange(len(sizes)),
+                                    sizes).astype(np.int32)
+        self._local_of = np.concatenate(
+            [np.arange(s) for s in sizes]).astype(np.int32)
         self.max_b = spec.max_batch_per_client
         self.policy = TickPolicy(scfg.policy)
         self.router = router
+        self.debug = debug
         self._quant = bool(cache_kw.get("quant"))
+        if prefix_cache and self._quant:
+            raise ValueError("prefix_cache needs an unquantized pool: int8 "
+                             "K/V doesn't round-trip")
+        self._share_prefix = (not self._quant if prefix_cache is None
+                              else bool(prefix_cache))
+        # per-bank charges of a several-bank engine: the banks' resident
+        # adapter bytes (a single-bank engine charges its requests only)
+        self._bank_placements = []
+        if router is not None and len(self.banks) > 1:
+            try:
+                for acfg, k in zip(self.bank_cfgs, sizes):
+                    _, nbytes = adapters_lib.adapter_bytes(cfg, acfg)
+                    self._bank_placements.append(router.route_bank(nbytes * k))
+            except NoCapacity:
+                # a later bank did not fit: refund the earlier ones, or
+                # their charges leak (no engine will exist to release them)
+                self.release_banks()
+                raise
         self._placement: Dict[int, object] = {}
         # host-side page allocator: per-client free lists (global page ids),
         # reservations, per-slot pages and next write position, and the
@@ -147,7 +219,7 @@ class ServingEngine:
         self._blk = scfg.page_block
         self._n_blocks = -(-scfg.max_seq // self._blk)
         self._pool_pages = scfg.pool_pages or self.max_b * self._n_blocks
-        cache_kw["pool_pages"] = P = self._pool_pages
+        P = self._pool_pages
         self._free_pages = [list(range(c * P, (c + 1) * P))
                             for c in range(self.n_clients)]
         self._reserved = [0] * self.n_clients
@@ -158,22 +230,21 @@ class ServingEngine:
                             self._tbl_oob, np.int32)
         self._tbl_dirty = True
         self._resv_of: Dict[int, int] = {}
-        self.caches = symbiosis.init_client_caches(
-            cfg, self.n_clients, self.max_b, scfg.max_seq, device=self.device,
-            **cache_kw)
-        self._prefill_step = symbiosis.make_compact_prefill(cfg, bs.acfg,
-                                                             scfg)
-        self._decode_step = symbiosis.make_compact_decode_step(cfg, bs.acfg,
-                                                               scfg)
-        # row-batch buckets 4, 8, ... capped at the bank's rows: a closed
-        # set, so one CUDA graph per bucket can be captured
-        total_rows = self.n_clients * self.max_b
-        self._buckets = []
-        b = 4
-        while b < total_rows:
-            self._buckets.append(b)
-            b *= 2
-        self._buckets.append(total_rows)
+        # shared prefixes: the refcounted content index, each slot's
+        # REF-HELD pages (its table maps them first, then its exclusive
+        # _slot_pages), the suffix start recorded at admission for the
+        # tick's prefill, and the copy-on-write page copies queued for
+        # just before that prefill
+        self._prefix_index = PrefixIndex()
+        self._slot_shared: Dict[tuple, List[int]] = {}
+        self._prefill_start: Dict[tuple, int] = {}
+        self._pending_copies: List[tuple] = []
+        self._page_copy = (symbiosis.make_page_copy(cfg, scfg)
+                           if self._share_prefix else None)
+        self.caches = self._new_caches(self.n_clients)
+        self._build_steps()
+        self._set_buckets()
+        self._dead_clients: set = set()       # clients of retired banks
         self._queue: List[Request] = []
         self._waiting: deque = deque()
         self._inflight: List[Request] = []
@@ -186,17 +257,85 @@ class ServingEngine:
         self._left: Dict[int, int] = {}
         self._slots_of: Dict[int, List[int]] = {}
         self._rng: Dict[int, np.random.Generator] = {}
+        # prefill_tokens counts the prompt tokens admitted; the computed
+        # count only the suffixes the model ran, so the two differ by
+        # exactly the shared-prefix tokens
         self.stats = {"ticks": 0, "decode_tokens": 0, "prefill_tokens": 0,
                       "batched_clients": 0, "admitted": 0, "prefill_calls": 0,
                       "peak_inflight": 0, "compact_rows": 0,
                       "compact_padded": 0, "compact_prefill_batches": 0,
                       "compact_prefill_rows": 0, "compact_prefill_padded": 0,
-                      "quarantined_requests": 0}
+                      "quarantined_requests": 0,
+                      "prefill_tokens_computed": 0, "prefix_hits": 0,
+                      "pages_shared": 0, "cow_copies": 0}
+
+    def _check_device(self, name, tree):
+        for t in tree_leaves(tree):
+            if t.device.type != self.device.type:
+                raise ValueError(f"{name} lives on {t.device}, the engine on "
+                                 f"{self.device}")
+
+    @property
+    def _mixed(self) -> bool:
+        return len(self.banks) > 1
+
+    @property
+    def acfg(self):
+        """The single bank's AdapterConfig, or the tuple of every bank's."""
+        return self.bank_cfgs if self._mixed else self.bank_cfgs[0]
+
+    def _new_caches(self, n_clients: int):
+        kw = symbiosis.serve_cache_kwargs(self.cfg, self.scfg)
+        kw["pool_pages"] = self._pool_pages
+        return symbiosis.init_client_caches(
+            self.cfg, n_clients, self.max_b, self.scfg.max_seq,
+            device=self.device, **kw)
+
+    def _build_steps(self):
+        """The compacted decode step for the registry as it stands, and an
+        empty memo of prefill steps (one per shared-prefix width, built at
+        first use, as JAX compiles one per ``ext_blocks`` bucket)."""
+        self._decode_step = symbiosis.make_compact_decode_step(
+            self.cfg, self.acfg, self.scfg)
+        self._prefill_steps = {}
+
+    def _set_buckets(self):
+        """Row-batch buckets 4, 8, ... capped at the bank's rows: a closed
+        set, so one CUDA graph per bucket can be captured."""
+        total_rows = self.n_clients * self.max_b
+        self._buckets = []
+        b = 4
+        while b < total_rows:
+            self._buckets.append(b)
+            b *= 2
+        self._buckets.append(total_rows)
+
+    def _prefill_step(self, ext_blocks: int, *args):
+        """The compacted prefill with ``ext_blocks`` shared-prefix lanes
+        per row (``symbiosis.make_compact_prefill``) on ``args``."""
+        step = self._prefill_steps.get(ext_blocks)
+        if step is None:
+            step = self._prefill_steps[ext_blocks] = \
+                symbiosis.make_compact_prefill(self.cfg, self.acfg, self.scfg,
+                                               ext_blocks=ext_blocks)
+        return step(*args)
+
+    def _bank_arg(self):
+        return tuple(self.banks) if self._mixed else self.banks[0]
+
+    def _rows_arg(self, clients):
+        """The per-row bank ids and in-bank indices a mixed step takes."""
+        if not self._mixed:
+            return []
+        return [self._method_of[clients], self._local_of[clients]]
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
         if not 0 <= req.client_id < self.n_clients:
-            raise ValueError(f"client {req.client_id} outside the bank")
+            raise ValueError(f"client {req.client_id} outside the banks")
+        if req.client_id in self._dead_clients:
+            raise ValueError(f"client {req.client_id} belongs to a retired "
+                             "bank (see retire_bank)")
         B, S = req.prompt.shape
         if B > self.max_b:
             raise ValueError(f"request rows {B} > {self.max_b} slots")
@@ -267,6 +406,10 @@ class ServingEngine:
         if not inflight and waiting and all(r.arrive_tick > tick for r in waiting):
             tick = min(r.arrive_tick for r in waiting)           # idle skip
         self._tick = tick
+        if self.debug:
+            errs = serving_conservation(self)
+            if errs:
+                raise AssertionError("; ".join(errs))
         return bool(waiting or inflight)
 
     def run(self) -> List[Request]:
@@ -279,7 +422,8 @@ class ServingEngine:
     # admission + prefill
     # ------------------------------------------------------------------
     def _try_admit(self, req: Request) -> Optional[List[int]]:
-        """Claim slots and pages for a request; None leaves it queued."""
+        """Claim slots, pages (shared-prefix pages mapped, not popped) and a
+        router placement for a request; None leaves it queued."""
         c = req.client_id
         B, S = req.prompt.shape
         free = [s for s in range(self.max_b) if self._slot_owner[c][s] is None]
@@ -291,27 +435,98 @@ class ServingEngine:
         pages_per_row = -(-ctx_tokens // self._blk)
         prompt_pages = -(-S // self._blk)
         need = pages_per_row * B
+        hits = None
+        if self._share_prefix:
+            # read-only lookups; the refs are taken in the transactional
+            # block below. Matched pages are mapped, not popped, so the
+            # backpressure and the router charge count new pages only
+            scope = self._prefix_scope(c)
+            hits = [self._prefix_index.lookup(scope, req.prompt[i], self._blk)
+                    for i in range(B)]
+            need -= sum(h.matched_blocks for h in hits)
         if len(self._free_pages[c]) - self._reserved[c] < need:
             return None
+        placement = None
         if self.router is not None:
-            # charge what the paged layout pins: the request's whole pages
+            # charge what the paged layout pins: the newly allocated pages
+            # (shared pages are already charged to their publisher)
             try:
-                self._placement[id(req)] = self.router.route(
+                placement = self.router.route(
                     ctx_tokens, B, alloc_tokens=-(-need * self._blk // B),
                     quant=self._quant)
             except NoCapacity:
                 return None                  # stays queued until memory frees
         slots = free[:B]
+        # TRANSACTIONAL from here: the router charge is committed and the
+        # page pops and refs below take several steps, so a failure midway
+        # must restore every structure or the request leaks them
+        done_slots: List[int] = []
+        tbl_rows = self._tbl[c, slots].copy()
+        wpos_rows = self._wpos[c, slots].copy()
+        n_copies0 = len(self._pending_copies)
+        try:
+            for i, s in enumerate(slots):
+                hit = hits[i] if hits is not None else None
+                shared: List[int] = []
+                pages: List[int] = []
+                # registered BEFORE popping or reffing, so the rollback
+                # sees every page and reference taken so far
+                self._slot_shared[(c, s)] = shared
+                self._slot_pages[(c, s)] = pages
+                done_slots.append(s)
+                if hit is not None:
+                    for d in hit.full_digests:
+                        shared.append(self._prefix_index.ref(d))
+                for _ in range(prompt_pages - len(shared)):
+                    pages.append(self._free_pages[c].pop())
+                self._tbl[c, s, :] = self._tbl_oob
+                self._tbl[c, s, :len(shared)] = shared
+                self._tbl[c, s, len(shared):prompt_pages] = pages
+                self._wpos[c, s] = S
+                start = 0
+                if hit is not None:
+                    start = hit.start
+                    if hit.tail_page is not None:
+                        # copy-on-write: the matched partial tail copies into
+                        # the row's first exclusive page before its suffix
+                        # prefill reads it (flushed in _prefill_compact)
+                        self._pending_copies.append((hit.tail_page, pages[0]))
+                self._prefill_start[(c, s)] = start
+            self._resv_of[id(req)] = (pages_per_row - prompt_pages) * B
+            self._reserved[c] += self._resv_of[id(req)]
+            self._tbl_dirty = True
+        except BaseException:
+            # pop() draws from the END of a free list, so extending with
+            # each slot's pages reversed, newest slot first, restores the
+            # list's order; refs drop in the same reverse order (a ref taken
+            # here is never the last one: its publisher holds its own)
+            for s in reversed(done_slots):
+                self._free_pages[c].extend(
+                    reversed(self._slot_pages.pop((c, s))))
+                for p in reversed(self._slot_shared.pop((c, s), [])):
+                    if self._prefix_index.deref(p):
+                        self._free_pages[p // self._pool_pages].append(p)
+                self._prefill_start.pop((c, s), None)
+            del self._pending_copies[n_copies0:]
+            self._tbl[c, slots] = tbl_rows
+            self._wpos[c, slots] = wpos_rows
+            resv = self._resv_of.pop(id(req), None)
+            if resv is not None:
+                self._reserved[c] -= resv
+            if placement is not None:
+                self.router.release(placement)
+            raise
+        self._placement[id(req)] = placement
         for s in slots:
-            pages = [self._free_pages[c].pop() for _ in range(prompt_pages)]
-            self._slot_pages[(c, s)] = pages
-            self._tbl[c, s, :] = self._tbl_oob
-            self._tbl[c, s, :prompt_pages] = pages
-            self._wpos[c, s] = S
             self._slot_owner[c][s] = req
-        self._resv_of[id(req)] = (pages_per_row - prompt_pages) * B
-        self._reserved[c] += self._resv_of[id(req)]
-        self._tbl_dirty = True
+        if hits is not None:
+            n_hit = sum(1 for h in hits if h.start > 0)
+            if n_hit:
+                self.stats["prefix_hits"] += n_hit
+                self.stats["pages_shared"] += sum(h.matched_blocks
+                                                  for h in hits)
+                self.stats["cow_copies"] += sum(1 for h in hits
+                                                if h.tail_page is not None)
         return slots
 
     def _finish_admit(self, req: Request, slots: List[int],
@@ -339,28 +554,41 @@ class ServingEngine:
 
     def _prefill_compact(self, newly: List[tuple]):
         """ONE compacted prefill for the tick's admissions: every admitted
-        (client, slot) row in a bucketed ragged batch."""
+        (client, slot) row, across clients and banks, in a bucketed ragged
+        batch. Each row prefills from the suffix start recorded at
+        admission, reading its first ``ext`` table entries as shared-prefix
+        lanes; the queued copy-on-write copies run first, so every prefix
+        page a row reads holds its final bytes."""
         rows = [(req, s, i) for req, slots in newly for i, s in enumerate(slots)]
         n = len(rows)
         nb = self._row_bucket(n)
-        S_pad = self._bucket(max(req.prompt.shape[1] for req, _, _ in rows))
+        starts = np.zeros((nb,), np.int32)
+        for r, (req, s, i) in enumerate(rows):
+            starts[r] = self._prefill_start.pop((req.client_id, s), 0)
+        suffix = [req.prompt.shape[1] - int(starts[r])
+                  for r, (req, _, _) in enumerate(rows)]
+        S_pad = self._bucket(max(suffix))
+        ext = self._ext_bucket(max(-(-int(starts[r]) // self._blk)
+                                   for r in range(n)))
         toks = np.zeros((nb, S_pad), np.int32)
         lengths = np.zeros((nb,), np.int32)
         clients = np.zeros((nb,), np.int32)
         slot_ids = np.zeros((nb,), np.int32)
         rmask = np.zeros((nb,), bool)
         for r, (req, s, i) in enumerate(rows):
-            S = req.prompt.shape[1]
-            toks[r, :S] = req.prompt[i]
-            lengths[r] = S
+            toks[r, :suffix[r]] = req.prompt[i, starts[r]:]
+            lengths[r] = suffix[r]
             clients[r] = req.client_id
             slot_ids[r] = s
             rmask[r] = True
-            self.stats["prefill_tokens"] += S
+            self.stats["prefill_tokens"] += req.prompt.shape[1]
+            self.stats["prefill_tokens_computed"] += suffix[r]
+        self._flush_page_copies()
         self._sync_tbl()
         logits, _, self.caches = self._prefill_step(
-            self.base, self.bank, self.caches, *self._on_device(
-                toks, lengths, clients, slot_ids, rmask))
+            ext, self.base, self._bank_arg(), self.caches, *self._on_device(
+                toks, lengths, starts, clients, slot_ids,
+                *self._rows_arg(clients), rmask))
         logits = logits.float().cpu().numpy()
         self.stats["prefill_calls"] += 1
         self.stats["compact_prefill_batches"] += 1
@@ -371,6 +599,50 @@ class ServingEngine:
             rows_of.setdefault(id(req), []).append(r)
         for req, slots in newly:
             self._finish_admit(req, slots, logits[rows_of[id(req)]])
+            self._publish_prefix(req, slots)
+
+    def _publish_prefix(self, req: Request, slots: List[int]):
+        """Register a freshly prefilled request's prompt-prefix pages in the
+        index. Published full blocks move from the slot's exclusive list to
+        its ref-held list (refs 1: the publisher's own); a partial tail page
+        stays exclusive but is indexed for copy-on-write hits. Content
+        already published is skipped inside the index, so a hit row only
+        extends the chain with its new blocks."""
+        if not self._share_prefix or req.status != "ok":
+            return
+        c = req.client_id
+        scope = self._prefix_scope(c)
+        for i, s in enumerate(slots):
+            shared = self._slot_shared[(c, s)]
+            pages = self._slot_pages[(c, s)]
+            took = self._prefix_index.publish(
+                scope, req.prompt[i], self._blk, shared + pages, (c, s))
+            for p in took:      # block order is kept on both lists
+                pages.remove(p)
+                shared.append(p)
+
+    def _prefix_scope(self, c: int) -> bytes:
+        """Digest scope of client ``c``'s prefix pages: its adapter, the
+        (bank, index in bank) pair. An adapter on any layer changes the
+        K/V of the layers after it, so pages are shared only under the
+        same adapter."""
+        return b"%d:%d" % (int(self._method_of[c]), int(self._local_of[c]))
+
+    def _ext_bucket(self, e: int) -> int:
+        """Bucketed ext_blocks: 0 stays 0 (the full prefill), otherwise the
+        next power of two capped at the table's depth."""
+        if e <= 0:
+            return 0
+        b = 1
+        while b < e:
+            b *= 2
+        return min(b, self._n_blocks)
+
+    def _flush_page_copies(self):
+        """Run the admission-queued copy-on-write copies, in order."""
+        copies, self._pending_copies = self._pending_copies, []
+        for src, dst in copies:
+            self.caches = self._page_copy(self.caches, src, dst)
 
     def _on_device(self, *arrays):
         return [torch.tensor(a, device=self.device) for a in arrays]
@@ -402,11 +674,14 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _grow_slot_pages(self, req: Request, c: int, s: int):
         """Assign the next page when this tick's token write crosses a page
-        boundary (the reservation guarantees the pool can serve it)."""
+        boundary (the reservation guarantees the pool can serve it). A slot
+        covers its ref-held shared pages, then its exclusive ones; growth
+        pages are exclusive (a decode write never lands on a shared page:
+        its block is full)."""
         w = int(self._wpos[c, s])
         bi = w // self._blk
         pages = self._slot_pages[(c, s)]
-        if bi >= len(pages):
+        if bi >= len(self._slot_shared.get((c, s), ())) + len(pages):
             page = self._free_pages[c].pop()
             pages.append(page)
             self._tbl[c, s, bi] = page
@@ -432,8 +707,9 @@ class ServingEngine:
             clients[i], slots[i], mask[i] = c, s, True
         toks = self._last_tok[clients, slots]
         logits, finite, self.caches = self._decode_step(
-            self.base, self.bank, self.caches,
-            *self._on_device(toks, clients, slots, mask))
+            self.base, self._bank_arg(), self.caches,
+            *self._on_device(toks, clients, slots, *self._rows_arg(clients),
+                             mask))
         lg = logits.float().cpu().numpy()
         fin = finite.cpu().numpy()
         row_of = {cs: i for i, cs in enumerate(rows)}
@@ -483,9 +759,16 @@ class ServingEngine:
             if self._active_mask[c, s]:       # never set for max_new == 1
                 self._active_mask[c, s] = False
                 self._active_slots[c].remove(s)
-            # pages return to the pool; table rows are remapped at the next
-            # admission, so stale entries are never read through
+            # exclusive pages return to the pool (table rows are remapped at
+            # the next admission, so stale entries are never read through);
+            # the slot's tail entries die with it, and each shared page drops
+            # a reference, recycling into its owner's list at zero
             self._free_pages[c].extend(self._slot_pages.pop((c, s)))
+            self._prefix_index.drop_tail((c, s))
+            for p in self._slot_shared.pop((c, s), []):
+                if self._prefix_index.deref(p):
+                    self._free_pages[p // self._pool_pages].append(p)
+            self._prefill_start.pop((c, s), None)
             self._wpos[c, s] = 0
         self._reserved[c] -= self._resv_of.pop(id(req), 0)
         del self._left[id(req)]
@@ -493,3 +776,95 @@ class ServingEngine:
         placement = self._placement.pop(id(req), None)
         if placement is not None:
             self.router.release(placement)
+
+    def release_banks(self):
+        """Release the per-bank adapter charges taken at construction (a
+        several-bank engine with a router)."""
+        for p in self._bank_placements:
+            self.router.release(p)
+        self._bank_placements = []
+
+    # ------------------------------------------------------------------
+    # banks admitted and retired while the engine serves
+    # ------------------------------------------------------------------
+    def admit_bank(self, acfg, client_bank) -> BankAdmission:
+        """Admit a bank of clients while requests are in flight.
+
+        An ``acfg`` equal to a registered bank's GROWS that bank; a new one
+        registers a new bank (a single-bank engine becomes a mixed one).
+        The new clients take the global ids after the current ones, and the
+        pools grow by exactly their page ranges, so ``[c*P, (c+1)*P)`` stays
+        the ownership rule and no page id, table entry or in-flight request
+        moves. The pools are reallocated (their ``data_ptr`` changes here,
+        and only here: every other write is in place). An attached router
+        is charged the bank's resident adapter bytes first (``route_bank``,
+        which raises before anything grows); ``retire_bank`` releases
+        it."""
+        self._check_device("admitted bank", client_bank)
+        k = _clients_of(client_bank)
+        placement = None
+        if self.router is not None:
+            _, nbytes = adapters_lib.adapter_bytes(self.cfg, acfg)
+            placement = self.router.route_bank(nbytes * k)
+        old_C = self.n_clients
+        if acfg in self.bank_cfgs:
+            m = self.bank_cfgs.index(acfg)
+            old_local = _clients_of(self.banks[m])
+            self.banks[m] = tree_map(
+                lambda a, b: torch.cat([a, b.to(a.dtype)]), self.banks[m],
+                client_bank)
+            locs = np.arange(old_local, old_local + k, dtype=np.int32)
+        else:
+            m = len(self.banks)
+            self.bank_cfgs = self.bank_cfgs + (acfg,)
+            self.banks.append(client_bank)
+            locs = np.arange(k, dtype=np.int32)
+            self._build_steps()
+        self._method_of = np.concatenate(
+            [self._method_of, np.full((k,), m, np.int32)])
+        self._local_of = np.concatenate([self._local_of, locs])
+        self.n_clients = old_C + k
+        # per-slot leaves grow along the client axis, pools along the page
+        # axis: the appended pages ARE the new clients' ranges
+        fresh = self._new_caches(k)
+        self.caches = {
+            "layers": {n: torch.cat([t, fresh["layers"][n]], dim=1)
+                       for n, t in self.caches["layers"].items()},
+            "pos": torch.cat([self.caches["pos"], fresh["pos"]]),
+            "block_tbl": torch.cat([self.caches["block_tbl"],
+                                    fresh["block_tbl"]])}
+        P = self._pool_pages
+        self._free_pages.extend([list(range(c * P, (c + 1) * P))
+                                 for c in range(old_C, self.n_clients)])
+        self._reserved.extend([0] * k)
+        self._wpos = np.concatenate(
+            [self._wpos, np.zeros((k, self.max_b), np.int64)])
+        self._tbl = np.concatenate(
+            [self._tbl, np.full((k, self.max_b, self._n_blocks),
+                                self._tbl_oob, np.int32)])
+        self._tbl_dirty = True
+        self._slot_owner.extend([[None] * self.max_b for _ in range(k)])
+        self._last_tok = np.concatenate(
+            [self._last_tok, np.zeros((k, self.max_b), np.int32)])
+        self._active_mask = np.concatenate(
+            [self._active_mask, np.zeros((k, self.max_b), bool)])
+        self._active_slots.extend([[] for _ in range(k)])
+        self._set_buckets()
+        return BankAdmission(bank_id=m,
+                             client_ids=list(range(old_C, self.n_clients)),
+                             placement=placement)
+
+    def retire_bank(self, admission: BankAdmission):
+        """Retire an admitted bank: its clients take no more requests and
+        the ``route_bank`` charge is released. Its clients must be idle.
+        Their adapter rows, slots and pages stay as dead capacity (global
+        ids never move, so live clients are untouched)."""
+        busy = [c for c in admission.client_ids
+                if any(o is not None for o in self._slot_owner[c])]
+        if busy:
+            raise RuntimeError(
+                f"bank clients {busy} still have requests in flight")
+        self._dead_clients.update(admission.client_ids)
+        if admission.placement is not None:
+            self.router.release(admission.placement)
+            admission.placement = None

@@ -8,7 +8,9 @@ first slot it fits, priced with the analytic model of
 request is admitted only when ``route()`` finds (and commits) a
 placement, and its charge is released when its slots free, so queued
 requests take the capacity the moment it returns. ``route_train``
-charges a fine-tuning job's state the same way (``training.FinetuneEngine``).
+charges a fine-tuning job's state the same way (``training.FinetuneEngine``),
+and ``route_bank`` a serving bank's resident adapters. Every placement
+lives on a card slot, so ``release`` refunds each mode alike.
 
 The port's engine keeps every cache on the card, so the reference's
 off-card placements (``gpu_offload``, ``hetero``) are not offered: a
@@ -54,6 +56,7 @@ class Placement:
     slot_id: int
     est_s_per_token: float
     cache_bytes: int
+    mode: str = "gpu"        # gpu (a request's cache) | train | bank
 
 
 class PlacementRouter:
@@ -97,12 +100,29 @@ class PlacementRouter:
         when the job retires. Raises NoCapacity when no slot fits."""
         for s in self.slots.values():
             if s.fits(nbytes):
-                p = Placement(s.slot_id, 0.0, int(nbytes))
+                p = Placement(s.slot_id, 0.0, int(nbytes), "train")
                 self.commit(p)
                 return p
         raise NoCapacity(
             f"no accelerator slot fits {nbytes / 1e9:.2f} GB of training "
             f"state (adapter + optimizer + activations)")
+
+    def route_bank(self, nbytes: float) -> Placement:
+        """Commit one SERVING bank's resident adapter weights (the
+        client-stacked trees a mixed-bank engine keeps on the card for its
+        lifetime: ``adapter_bytes`` times the bank's clients) to the first
+        slot it fits. Adapters are read every decode tick, so they are
+        placed on the card only; the engine releases the charge through
+        ``ServingEngine.release_banks`` or ``retire_bank``. Raises
+        NoCapacity when no slot fits."""
+        for s in self.slots.values():
+            if s.fits(nbytes):
+                p = Placement(s.slot_id, 0.0, int(nbytes), "bank")
+                self.commit(p)
+                return p
+        raise NoCapacity(
+            f"no accelerator slot fits {nbytes / 1e9:.3f} GB of serving-bank "
+            f"adapter weights")
 
     def commit(self, p: Placement):
         self.slots[p.slot_id].free_hbm -= p.cache_bytes

@@ -1,8 +1,9 @@
 """PyTorch port vs the JAX reference: the serving engine.
 
 The port's ServingEngine (on the CPU, through the kernels' plain versions)
-and ``repro.serving.ServingEngine(spec, base, [bank], prefix_cache=False)``
-serve the same numpy-made weights, non-zero LoRA bank and staggered
+and ``repro.serving.ServingEngine(spec, base, [bank])``, both with
+``prefix_cache=False`` (``test_torch_prefix_cache.py`` compares them with
+sharing on, their default), serve the same numpy-made weights, non-zero LoRA bank and staggered
 requests, tick by tick, over unquantized and over int8 (``kv_quant``)
 pools. Under every tick policy the greedy token streams must be identical,
 and so must the host-side state after every tick: slot owners, page
@@ -75,7 +76,7 @@ def _port_engine(cfg, acfg, scfg, base, bank, policy, router=None):
                       max_batch_per_client=MAX_B)
     return ServingEngine(spec, convert.params_from_numpy(pc, base, "cpu"),
                          [convert.bank_from_numpy(pacfg, bank, "cpu")],
-                         device="cpu", router=router)
+                         device="cpu", router=router, prefix_cache=False)
 
 
 def _host_state(eng, index_of):
@@ -218,11 +219,15 @@ def test_engine_refuses_layouts_outside_the_slice(bad):
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
                                 dict(prefix_cache=True), dict(obs=object())])
 def test_engine_refuses_options_outside_the_slice(kw):
+    """``mesh`` and ``obs`` are not ported; ``prefix_cache=True`` is refused
+    over int8 pools (``kv_quant``), as in JAX: int8 K/V doesn't
+    round-trip."""
     cfg, acfg, scfg, base, bank = _system()
     pc = port_config(cfg)
     pacfg = pcfg.AdapterConfig(method="lora", rank=4, alpha=8.0)
     spec = EngineSpec(cfg=pc, banks=(BankSpec("lora", pacfg, N_CLIENTS),),
-                      serve=pcfg.ServeConfig(max_seq=48, page_block=8))
+                      serve=pcfg.ServeConfig(max_seq=48, page_block=8,
+                                             kv_quant="prefix_cache" in kw))
     with pytest.raises(ValueError):
         ServingEngine(spec, convert.params_from_numpy(pc, base, "cpu"),
                       [convert.bank_from_numpy(pacfg, bank, "cpu")],

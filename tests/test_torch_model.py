@@ -216,7 +216,8 @@ def _compact_prefill_and_decode(name, quant):
     ppre = port_sym.make_compact_prefill(pc, pacfg, pscfg)
     plg, _, pcaches = ppre(base_t, bank_t, pcaches,
                            *(torch.from_numpy(a) for a in
-                             (toks, lens, clients, slots, mask)))
+                             (toks, lens, np.zeros(n, np.int32), clients,
+                              slots, mask)))
     np.testing.assert_allclose(plg.numpy()[:3], np.asarray(jlg)[:3],
                                **logit_tol)
     n_diff = _assert_pools(pcaches, jcaches, pages)
@@ -266,6 +267,7 @@ def test_lora_delta_reaches_logits():
     P = B_SLOTS * (MAX_SEQ // BLK)
     toks = torch.from_numpy(np.arange(12, dtype=np.int32).reshape(2, 6) % 50)
     args = (toks, torch.tensor([6, 6], dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32),
             torch.tensor([0, 1], dtype=torch.int32),
             torch.tensor([0, 0], dtype=torch.int32), torch.tensor([True, True]))
     zero_b = {"layers": {t: {"A": leaf["A"],
@@ -308,7 +310,8 @@ def test_client_ctx_equals_compact_rows():
         _table(list(lengths), [(c, 0) for c in range(C)], P))
     compact, _, _ = port_sym.make_compact_prefill(pc, pacfg, pscfg)(
         base_t, bank_t, caches, torch.from_numpy(toks),
-        torch.from_numpy(lengths), torch.arange(C, dtype=torch.int32),
+        torch.from_numpy(lengths), torch.zeros(C, dtype=torch.int32),
+        torch.arange(C, dtype=torch.int32),
         torch.zeros(C, dtype=torch.int32), torch.ones(C, dtype=torch.bool))
     model = get_model(pc)
     ctx = make_client_ctx(pc, pacfg)

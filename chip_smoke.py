@@ -21,9 +21,10 @@ exits non-zero and prints no result. Phases, each raising on failure:
    default block_t of 128), a block_t-256 prefill with a short last block,
    and ranks 16 and 12, dead rows exact +0.0), fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
-   fp32 on the same bf16 inputs; and so the kernels no serving path
-   runs: dense decode attention (split-KV and a combine) at granite's
-   K=8, G=4, hd=128 over T=4096 (one row at pos -1, whose output must be
+   fp32 on the same bf16 inputs; dense decode attention (split-KV and a
+   combine) at granite's K=8, G=4, hd=128 over phase 9's layer slab
+   [8, 512, 8, 128] at its decode positions (15 past phase 4's prompts),
+   with and without a window, over T=4096 (one row at pos -1, whose output must be
    exact zeros; one case with a window), a prime T, T=32,768 in one row
    (128 splits) and a window whose edge cuts a split; flash attention at
    granite's H=32, K=8 (S=T=2048 causal, and non-causal cross
@@ -51,7 +52,11 @@ exits non-zero and prints no result. Phases, each raising on failure:
    under ``blocks.plain_kernels()``, logits compared at 2e-2; the kernel
    pass runs under ``torch.cuda.set_sync_debug_mode("error")``, so neither
    step may make the host wait for the device (as far as that mode, a
-   PyTorch prototype, detects syncs);
+   PyTorch prototype, detects syncs); then phase 9's dense layout (2
+   layers, 4 clients x 2 slots, max_seq 512): a per-client prefill into
+   each client's first slot and one masked decode tick over the 8 slot
+   rows, with the kernels (the dense kernel 2 launches per layer, SGMV 2
+   per layer per call) and under ``plain_kernels()``, logits at 2e-2;
 4. serving at full size: granite-3-8b, 40 layers, bf16 random weights, 4
    LoRA clients, 8 staggered requests, greedy, with the kernels' launch
    counts checked per tick; then an 8-row decode tick timed unprofiled
@@ -69,7 +74,9 @@ exits non-zero and prints no result. Phases, each raising on failure:
    and the device time with the host's enqueue hidden behind a spin
    kernel, beside its aim for the int8 attention kernel and SGMV at decode
    and prefill), plain version, a library
-   yardstick and the memory/compute bound; each granite-shape
+   yardstick and the memory/compute bound (the dense decode kernel first
+   held against its plain version on the timed inputs at 2e-2, its error
+   in the kernel line's maximum); each granite-shape
    ragged-linear and bf16 flash launch must take the tensor cores; flash's
    and SDPA's max errors against the plain version;
 6. the slice without a serving path: the port's public kernel ops and
@@ -131,7 +138,26 @@ exits non-zero and prints no result. Phases, each raising on failure:
    single-method step (its rows bit for bit). Printed: the workload with
    ``prefix_cache=False`` (streams equal to the shared run's, and where
    one differs, the step and its top-2 logit gap), hit and miss prefill
-   batch times, and an 8-row mixed decode tick profiled as phase 4's.
+   batch times, and an 8-row mixed decode tick profiled as phase 4's;
+9. the dense KV layout and the masked bank-wide step on phase 4's base
+   tensors and bank (4 LoRA clients x 2 slots, ``max_seq`` 512, phase 4's
+   8 requests), launch counts checked tick by tick: 9a ``page_block=0``
+   under each policy, the dense decode kernel 2 x 40 launches per decode
+   tick (split and combine), paged attention none, SGMV 80 per decode
+   tick and per per-client prefill; every request's stream equal bit for
+   bit to it served alone by a fresh dense engine (a request that a
+   ragged per-client prefill carried at a larger bucket than its own: to
+   that ragged batch served alone, its own solo run printed); the streams
+   printed against phase 4's; 9b ``compact_decode=False`` on phase 4's
+   pages, 40 paged launches per decode tick, streams printed against
+   phase 4's, and one all-active 8-row masked step against the compacted
+   step on copies of the same caches, logits and pools bit for bit; 9c
+   int8 dense caches, finite, no attention kernel (plain torch, as JAX);
+   9d an 8-row dense tick and a masked paged tick with 2 of 8 slots
+   active profiled as phase 4's, printed beside it. Phase 5 times the
+   dense kernel at phase 9's slab too ([8, 512, 8, 128], positions 15
+   past phase 4's prompts): the kernel line's timing, its launches phase
+   9a's.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -412,12 +438,22 @@ def plain_op(op, *args, **kw):
 
 
 DENSE_CASES = {   # (B, T, window, pos): granite K=8, G=4, hd=128
+    # phase 9's layer slab (4 clients x 2 slots, max_seq 512) at its decode
+    # positions (None: ``slab_positions``), and a window cutting the rows
+    "phase9_slab_T512": (8, 512, 0, None),
+    "phase9_slab_T512_window": (8, 512, 100, None),
     "granite_T4096": (4, 4096, 0, [-1, 0, 2047, 4095]),
     "granite_T4096_window": (4, 4096, 1000, [100, 1500, 4095, 999]),
     "granite_T4093_prime": (2, 4093, 0, [4092, 77]),
     "granite_B1_T32768_many_splits": (1, 32768, 0, [32767]),
     "granite_window_cuts_a_split": (2, 4096, 300, [700, 4095]),
 }
+
+
+def slab_positions():
+    """Phase 9's decode positions: 15 past each of phase 4's 8 prompts."""
+    return [r.prompt.shape[1] + 15
+            for r in make_requests(get_config("granite-3-8b"), 4)]
 
 
 def check_dense(errs):
@@ -427,7 +463,8 @@ def check_dense(errs):
         q = torch.randn((B, K, G, hd), generator=g, device=DEV)
         k = torch.randn((B, T, K, hd), generator=g, device=DEV)
         v = torch.randn((B, T, K, hd), generator=g, device=DEV)
-        p = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        p = torch.tensor(slab_positions() if pos is None else pos,
+                         dtype=torch.int32, device=DEV)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             qd, kd, vd = (t.to(dtype) for t in (q, k, v))
             got = da.decode_attn_cuda(qd, kd, vd, p, window=window)
@@ -639,6 +676,65 @@ def model_wiring(quant):
         "no host sync in the kernel pass")
 
 
+def dense_wiring():
+    """Full-width granite, 2 layers, phase 9's dense layout (4 clients x 2
+    slots, max_seq 512): a per-client prefill into each client's first
+    slot, then one masked decode tick over the 8 slot rows with the first
+    slots active, with the kernels and under plain_kernels(). Logits must
+    agree at bf16 tolerance; the kernel pass must launch the dense kernel
+    2 per layer in the tick and SGMV 2 per layer per call, the plain pass
+    nothing."""
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2)
+    C, max_b, max_seq, L = 4, 2, 512, cfg.n_layers
+    scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=0)
+    base, bank = make_system(cfg, C, seed=1)
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(64, 257, C).astype(np.int32)
+    toks = np.zeros((C, max_b, 256), np.int32)
+    for c, n in enumerate(lengths):
+        toks[c, 0, :n] = rng.integers(0, cfg.vocab, n)
+    slot_mask = torch.tensor([True, False], device=DEV)
+    active = torch.zeros((C, max_b), dtype=torch.bool, device=DEV)
+    active[:, 0] = True
+    prefill = symbiosis.make_client_prefill(cfg, LORA, scfg)
+    decode = symbiosis.make_masked_decode_step(cfg, LORA, scfg)
+    out, nxt = [], None
+    for plain in (False, True):
+        caches = symbiosis.init_client_caches(cfg, C, max_b, max_seq,
+                                              device=DEV)
+        torch.cuda.synchronize()
+        reset_counts()
+        with blocks.plain_kernels() if plain else contextlib.nullcontext():
+            lg1 = []
+            for c, n in enumerate(lengths):
+                lg, caches = prefill(
+                    base, bank, caches, c, c, torch.tensor(toks[c],
+                                                           device=DEV),
+                    torch.tensor([n, 0], dtype=torch.int32, device=DEV),
+                    slot_mask)
+                lg1.append(lg[0])
+            lg1 = torch.stack(lg1)
+            if nxt is None:
+                nxt = torch.zeros((C, max_b), dtype=torch.int32, device=DEV)
+                nxt[:, 0] = lg1.argmax(-1)
+            lg2, caches = decode(base, bank, caches, nxt, active)
+        torch.cuda.synchronize()
+        want = {n: 0 for n in KERNELS}
+        if not plain:
+            want.update(decode_attn=2 * L, sgmv=2 * L * (C + 1))
+        if read_counts() != want:
+            raise AssertionError(f"[phase 3] dense tick launches "
+                                 f"{read_counts()}, want {want}")
+        out.append((lg1, lg2[:, 0]))
+    e1 = compare("dense prefill logits", out[0][0], out[1][0], BF16_TOL)
+    e2 = compare("dense decode logits", out[0][1], out[1][1], BF16_TOL)
+    log(f"[phase 3] granite-3-8b width, 2 layers, dense caches [L, C, B, T, "
+        f"K, hd] = {list(caches['layers']['k'].shape)}: per-client prefill "
+        f"logits max_abs_err={e1:.3e}, masked decode logits (4 of 8 slots "
+        f"active) max_abs_err={e2:.3e} (kernels vs plain; decode_attn "
+        f"{2 * L}, sgmv {2 * L * (C + 1)} launches in the kernel pass)")
+
+
 def _timed(fn, bucket):
     def run(*args):
         torch.cuda.synchronize()
@@ -844,17 +940,18 @@ KERNELS_PER_TICK_BEFORE = {"phase 4": 3469, "phase 4b": 4589}
 TICK_AIMS_MS = {"sgmv": 1.0, "split_kernel": 1.0}
 
 
-def profile_tick(cfg, base, banks, spec, label):
-    """An 8-row decode tick over ``banks``' clients in turn: its median
-    over 5 unprofiled ticks on the host clock, then one tick traced by
+def profile_tick(cfg, base, banks, spec, label, n_req=8, **engine_kw):
+    """A decode tick of ``n_req`` one-row requests (8: every slot of phase
+    4's bank) over ``banks``' clients in turn: its median over 5
+    unprofiled ticks on the host clock, then one tick traced by
     torch.profiler with device activity only.
     The device's busy share is the union of the traced kernel intervals
     over the unprofiled median tick (and over the traced tick's own host
     time, which tracing lengthens). Also the kernel count and the kernels
-    that take the most device time."""
-    eng = ServingEngine(spec, base, banks, device=DEV)
+    that take the most device time. ``engine_kw`` goes to the engine."""
+    eng = ServingEngine(spec, base, banks, device=DEV, **engine_kw)
     rng = np.random.default_rng(5)
-    for i in range(8):
+    for i in range(n_req):
         eng.submit(Request(i % eng.n_clients, rng.integers(
             0, cfg.vocab, (1, 192)).astype(np.int32), 16))
     eng.service_tick()               # admission, prefill, first decode tick
@@ -876,8 +973,9 @@ def profile_tick(cfg, base, banks, spec, label):
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda e: e.time_range.start)
     out = {"tick8_ms": tick_us / 1e3}
+    what = f"decode tick ({n_req} of 8 slots active)"
     if not kern:
-        log(f"[{label}] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
+        log(f"[{label}] {what}: {tick_us / 1e3:.3f} ms median "
             "unprofiled; profiler saw no device events: device busy share "
             "not measured")
         return out
@@ -891,7 +989,7 @@ def profile_tick(cfg, base, banks, spec, label):
         n, d = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
     before = KERNELS_PER_TICK_BEFORE.get(label)
-    log(f"[{label}] decode tick (8 rows): {tick_us / 1e3:.3f} ms median "
+    log(f"[{label}] {what}: {tick_us / 1e3:.3f} ms median "
         f"unprofiled, {traced_us / 1e3:.3f} ms traced; device busy "
         f"{busy / 1e3:.3f} ms = {100 * busy / tick_us:.1f}% of the "
         f"unprofiled tick ({100 * busy / traced_us:.1f}% of the traced "
@@ -909,6 +1007,15 @@ def profile_tick(cfg, base, banks, spec, label):
         log(f"[{label}] {key}: {n} launches, {d:.3f} ms of device time per "
             f"tick, aim <= {aim} ms: {'met' if d <= aim else 'missed'}")
         out[f"{key}_tick_ms"] = d
+    n = sum(c for name, (c, _) in by_name.items() if "dense_combine" in name)
+    if n:    # the dense layout's attention: split_kernel + dense_combine
+        d = sum(t for name, (_, t) in by_name.items()
+                if "dense_combine" in name) / 1e3
+        log(f"[{label}] dense_combine: {n} launches, {d:.3f} ms; the dense "
+            f"decode kernel (split + combine) "
+            f"{out['split_kernel_tick_ms'] + d:.3f} ms of device time per "
+            "tick")
+        out["dense_attn_tick_ms"] = out["split_kernel_tick_ms"] + d
     out.update(busy_ms=busy / 1e3, busy_pct=100 * busy / tick_us,
                kernels_per_tick=float(len(kern)))
     return out
@@ -1246,9 +1353,10 @@ def sdpa_gqa(q, k, v, **kw):
 def timing_fields(label, kernel, plain, library, nbytes, flops, shape,
                   rows=None):
     """Kernel L2-cold and L2-warm, its device time with the host's enqueue
-    hidden (``device_ms``), plain version, one library call, and the
-    bound; the library call's difference from the kernel (over the first
-    ``rows`` rows, where given) is reported."""
+    hidden (``device_ms``), plain version, one library call (L2-cold, and
+    its device time the same way), and the bound; the library call's
+    difference from the kernel (over the first ``rows`` rows, where given)
+    is reported."""
     lib_err = float((kernel()[:rows].float() - library()[:rows].float())
                     .abs().max())
     ms = time_ms(kernel)
@@ -1256,21 +1364,46 @@ def timing_fields(label, kernel, plain, library, nbytes, flops, shape,
     dev_ms = device_ms(kernel, n=10)
     plain_ms = time_ms(plain, n=10, warmup=1)
     lib_ms = time_ms(library)
+    lib_dev_ms = device_ms(library, n=10)
     bound_ms, by = bound(nbytes, flops)
     log(f"[phase 5] {label} {shape}, L2-cold: kernel {ms:.4f} ms (L2-warm "
         f"{warm_ms:.4f}; device time, enqueue hidden, {dev_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (differs by "
-        f"{lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, {nbytes} B, "
-        f"{flops:.4g} flops)")
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (device {lib_dev_ms:.4f};"
+        f" differs by {lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, {nbytes}"
+        f" B, {flops:.4g} flops)")
     return dict(ms=ms, ms_l2_warm=warm_ms, device_ms=dev_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, library_device_ms=lib_dev_ms)
 
 
-def time_dense_decode():
-    """Phase 6's dense decode; library: SDPA with a position mask and GQA."""
-    q, k, v, pos = dense_inputs(10)
-    B, T, K, G, hd = DENSE_SHAPE
+def serving_dense_inputs(lengths, seed):
+    """bf16 q [8, K, G, hd] and a dense cache [8, 512, K, hd] at granite's
+    K=8, G=4, hd=128 (phase 9's layer slab: 4 clients x 2 slots, max_seq
+    512), positions 15 past each of phase 4's 8 prompts, as ``attn_rows``
+    places them."""
+    B, T, K, G, hd = 8, 512, 8, 4, 128
+    g = gen(seed)
+    q = torch.randn((B, K, G, hd), generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn((B, T, K, hd), generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn((B, T, K, hd), generator=g, device=DEV).to(torch.bfloat16)
+    pos = torch.tensor([n + 15 for n in lengths[:B]], dtype=torch.int32,
+                       device=DEV)
+    return q, k, v, pos
+
+
+def time_dense_decode(q, k, v, pos, label, errs):
+    """Dense decode over q [B, K, G, hd] and a cache [B, T, K, hd], first
+    held against its plain version on the same inputs (bf16 tolerance; the
+    error appended to ``errs``); library: SDPA with a position mask and
+    GQA."""
+    B, K, G, hd = q.shape
+    T = k.shape[1]
+    e = compare(f"[phase 5] {label} against plain",
+                da.decode_attn_cuda(q, k, v, pos),
+                plain_op(kernels.decode_attn, q, k, v, pos), BF16_TOL)
+    errs.append(e)
+    log(f"[phase 5] {label}: kernel against plain max_abs_err={e:.3e} "
+        f"({BF16_TOL})")
     mask = (torch.arange(T, device=DEV)[None, :] <= pos[:, None].long())
     mask = mask[:, None, None, :]
 
@@ -1281,7 +1414,7 @@ def time_dense_decode():
     tokens = int((pos.long() + 1).sum())
     nbytes = 2 * q.numel() * 2 + 2 * tokens * K * hd * 2 + pos.numel() * 4
     return timing_fields(
-        "decode_attn", lambda: da.decode_attn_cuda(q, k, v, pos),
+        label, lambda: da.decode_attn_cuda(q, k, v, pos),
         lambda: plain_call(kernels.decode_attn, q, k, v, pos), library,
         nbytes, 4 * tokens * K * G * hd,
         f"q {list(q.shape)} cache {list(k.shape)}, {tokens} live tokens")
@@ -1493,14 +1626,20 @@ def public_ops():
         "versions)")
 
 
-def time_unserved(base):
-    """Phase 5 for the kernels of phase 6: its shapes, a granite projection
-    of phase 4's own weights for the ragged linear; and two logged extras,
-    gemma2-27b's windowed prefill and the ragged linear's dead-tile skip."""
+def time_unserved(base, lengths, dense_errs):
+    """Phase 5 for the dense decode kernel at phase 9's serving shape (the
+    kernel line's timing) and at phase 6's, and for the kernels of phase 6
+    at its shapes, a granite projection of phase 4's own weights for the
+    ragged linear; and two logged extras, gemma2-27b's windowed prefill and
+    the ragged linear's dead-tile skip."""
     B, S, H, K, hd = FLASH_SHAPE
     up = base["layers"][0]["mlp"]["up"]
-    out = {"decode_attn": time_dense_decode(), "flash_attn": time_flash(),
-           "ragged_linear": time_ragged(up, sum(SEGMENTS[0]), 1024)}
+    out = {"decode_attn": time_dense_decode(
+        *serving_dense_inputs(lengths, 16), "decode_attn (phase 9 slab)",
+        dense_errs),
+        "flash_attn": time_flash(),
+        "ragged_linear": time_ragged(up, sum(SEGMENTS[0]), 1024)}
+    time_dense_decode(*dense_inputs(10), "decode_attn (phase 6)", dense_errs)
     time_flash(S=2 * S, K=2 * K, window=S)   # gemma2-27b: K=16, window 4096
     skip = time_ragged(up, sum(SEGMENTS[1]), 2048)["ms"]
     full = time_ragged(up, 2048, 2048)["ms"]
@@ -2533,6 +2672,256 @@ def phase8(cfg, base, times4):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the dense KV layout and the masked bank-wide step
+# ---------------------------------------------------------------------------
+
+P9_POLICIES = ("opportunistic", "nolockstep", "lockstep")
+# per layer and tick: the kernels each run must launch (decode tick) and
+# SGMV per decode tick or prefill call; every other counted kernel 0
+P9_ATTN = {"9a": {"decode_attn": 2}, "9b": {"paged_decode_attn": 1},
+           "9c": {}}
+
+
+def p9_spec(cfg, page_block, quant=False, policy="opportunistic"):
+    """Phase 4's spec on another layout or policy."""
+    spec = serve_spec(cfg, quant)
+    return dataclasses.replace(spec, serve=dataclasses.replace(
+        spec.serve, page_block=page_block, policy=policy))
+
+
+def p9_serve(cfg, base, bank, spec, label, attn, **engine_kw):
+    """Serve phase 4's requests on ``spec`` with the launch
+    counts checked tick by tick: per decode tick each ``attn`` kernel its
+    count per layer, SGMV twice per layer per decode tick or prefill call,
+    every other counted kernel 0. Records each request's top-2
+    logit gap per step and the requests each ragged per-client prefill
+    carried. Returns (requests, engine, gaps, ragged groups, launches,
+    decode-step ms)."""
+    L = cfg.n_layers
+    eng = ServingEngine(spec, base, [bank], device=DEV, **engine_kw)
+    reqs = make_requests(cfg, 4)
+    for r in reqs:
+        eng.submit(r)
+    gaps, groups, dec_t = {}, [], []
+    sample, ragged = eng._sample, eng._prefill_ragged
+
+    def record_gap(logits, req):
+        top = np.sort(logits, axis=-1)[:, -2:]
+        gaps.setdefault(id(req), []).append(float((top[:, 1]
+                                                   - top[:, 0]).min()))
+        return sample(logits, req)
+
+    def record_group(c, items):
+        groups.append([id(r) for r, _ in items])
+        return ragged(c, items)
+    eng._sample, eng._prefill_ragged = record_gap, record_group
+    eng._decode_step = _timed(eng._decode_step, dec_t)
+    torch.cuda.synchronize()
+    reset_counts()
+    more = True
+    while more:
+        before = (read_counts(), eng.stats["ticks"], eng.stats["prefill_calls"])
+        more = eng.service_tick()
+        now = read_counts()
+        d = {n: now[n] - before[0][n] for n in now}
+        d_tick = eng.stats["ticks"] - before[1]
+        d_pre = eng.stats["prefill_calls"] - before[2]
+        want = {n: attn.get(n, 0) * L * d_tick for n in d}
+        want["sgmv"] = 2 * L * (d_tick + d_pre)
+        if d != want:
+            raise AssertionError(
+                f"[{label}] tick {eng._tick}: launches {d} for {d_tick} "
+                f"decode ticks and {d_pre} prefill calls; want {want}")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    done = eng.drain_done()
+    if len(done) != len(reqs) or eng.stats["quarantined_requests"] \
+            or not all(r.status == "ok" and np.isfinite(gaps[id(r)]).all()
+                       for r in reqs):
+        raise AssertionError(f"[{label}] {len(done)} of {len(reqs)} requests "
+                             f"finished, {eng.stats['quarantined_requests']} "
+                             "quarantined or with non-finite logits")
+    for r in reqs:
+        g = r.generated
+        if g.min() < 0 or g.max() >= cfg.vocab:
+            raise AssertionError(f"[{label}] tokens out of range: {g}")
+    return reqs, eng, gaps, groups, launches, dec_t
+
+
+def p9_vs(label, reqs, gaps, streams, what):
+    """Print each stream against ``streams`` (first differing step and the
+    top-2 logit gap there in this run); returns how many are equal."""
+    same = 0
+    for i, r in enumerate(reqs):
+        d = first_diff(r.generated, streams[i])
+        if d is None:
+            same += 1
+        else:
+            log(f"[{label}]   request {i} (client {r.client_id}) first "
+                f"differs from {what} at step {d}, where its top-2 logit gap "
+                f"was {gaps[id(r)][d]:.4f}")
+    log(f"[{label}] {same} of {len(reqs)} streams equal {what}")
+    return same
+
+
+def p9_alone(cfg, base, bank, spec, reqs):
+    """The streams of ``reqs`` served together (all arriving at tick 0) by a
+    fresh engine of ``spec``: one request alone, or the requests of one
+    ragged per-client prefill, at that prefill's shapes."""
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    mine = [Request(client_id=r.client_id, prompt=r.prompt.copy(),
+                    max_new_tokens=r.max_new_tokens) for r in reqs]
+    for r in mine:
+        eng.submit(r)
+    eng.run()
+    return [r.generated for r in mine]
+
+
+def p9_dense(cfg, base, bank, streams4):
+    """9a: the dense layout under every policy, tick-checked; each request's
+    stream bit for bit equal to it served alone by a fresh dense engine
+    (a request that a ragged per-client prefill carried at another bucket
+    than its own: to its ragged batch served alone, the same shapes, and
+    printed against its own solo run). Returns the first run's launches
+    and its decode-step ms."""
+    solo = {}
+    first = None
+    for policy in P9_POLICIES:
+        spec = p9_spec(cfg, 0, policy=policy)
+        t0 = time.perf_counter()
+        reqs, eng, gaps, groups, launches, dec_t = p9_serve(
+            cfg, base, bank, spec, f"phase 9a {policy}", P9_ATTN["9a"])
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        log(f"[phase 9a] {policy}: kv=dense [L, C, B, T, K, hd] = "
+            f"{list(eng.caches['layers']['k'].shape)}; {len(reqs)} requests "
+            f"in {wall:.3f} s, {st['ticks']} decode ticks (masked, 8 rows), "
+            f"{st['prefill_calls']} per-client prefills of which "
+            f"{st['ragged_prefill_batches']} ragged, launches {launches} "
+            f"(checked tick by tick: decode_attn 2 x {cfg.n_layers} per "
+            f"decode tick, paged 0, sgmv {2 * cfg.n_layers} per decode tick "
+            "and per prefill call); decode-step ms "
+            f"{statistics.median(dec_t) * 1e3:.3f} (median)")
+        spec0 = p9_spec(cfg, 0)
+        by_id = {id(r): r for r in reqs}
+        in_group = {}
+        for g in groups:
+            rs = [by_id[i] for i in g]
+            pad = eng._bucket(max(r.prompt.shape[1] for r in rs))
+            if any(eng._bucket(r.prompt.shape[1]) != pad for r in rs):
+                for r, got in zip(rs, p9_alone(cfg, base, bank, spec0, rs)):
+                    in_group[id(r)] = got
+        for i, r in enumerate(reqs):
+            if i not in solo:
+                solo[i] = p9_alone(cfg, base, bank, spec0, [r])[0]
+            want = in_group.get(id(r), solo[i])
+            if not np.array_equal(r.generated, want):
+                raise AssertionError(
+                    f"[phase 9a] {policy}: request {i}'s stream differs from "
+                    f"it served alone ({'its ragged batch' if id(r) in in_group else 'solo'}) "
+                    f"at step {first_diff(r.generated, want)}")
+        log(f"[phase 9a] {policy}: every stream equals its run alone on a "
+            f"fresh dense engine, bit for bit ({len(in_group)} of them, "
+            "carried by a ragged prefill at a larger bucket, against that "
+            "ragged batch alone)")
+        if in_group:
+            p9_vs(f"phase 9a {policy}", [r for r in reqs if id(r) in in_group],
+                  gaps, [solo[i] for i, r in enumerate(reqs)
+                         if id(r) in in_group], "its own solo run")
+        if first is None:
+            first = (launches, dec_t)
+            p9_vs("phase 9a", reqs, gaps, streams4, "phase 4's (paged) stream")
+        del eng
+    return first
+
+
+def p9_steps_equal(cfg, base, bank):
+    """9b's step check: every slot of phase 4's bank active, the masked step
+    and the compacted step over the 8 rows in (client, slot) order, on
+    copies of the same caches: logits and pools bit for bit."""
+    spec = p9_spec(cfg, 16)
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    rng = np.random.default_rng(6)
+    for i in range(8):
+        eng.submit(Request(i % 4, rng.integers(0, cfg.vocab, (1, 160))
+                           .astype(np.int32), 16))
+    eng.service_tick()
+    eng._sync_tbl()
+    if not eng._active_mask.all():
+        raise AssertionError("[phase 9b] not every slot is active")
+    other = tree_map(torch.clone, eng.caches)
+    masked = symbiosis.make_masked_decode_step(cfg, LORA, spec.serve)
+    C, B = eng._active_mask.shape
+    tok = torch.tensor(eng._last_tok, device=DEV)
+    lm, caches = masked(base, bank, eng.caches, tok,
+                        torch.ones((C, B), dtype=torch.bool, device=DEV))
+    before = launch_count("paged_decode_attn")
+    rows = (torch.arange(C, device=DEV).repeat_interleave(B).to(torch.int32),
+            torch.arange(B, device=DEV).repeat(C).to(torch.int32))
+    lc, _, other = eng._decode_step(base, bank, other, tok.reshape(-1),
+                                    *rows, torch.ones(C * B, dtype=torch.bool,
+                                                      device=DEV))
+    torch.cuda.synchronize()
+    if launch_count("paged_decode_attn") != before + cfg.n_layers:
+        raise AssertionError("[phase 9b] the compacted step did not launch "
+                             "the paged kernel once per layer")
+    if not torch.equal(lm.reshape(C * B, -1), lc):
+        raise AssertionError("[phase 9b] masked and compacted logits differ")
+    for n in caches["layers"]:
+        if not torch.equal(caches["layers"][n], other["layers"][n]):
+            raise AssertionError(f"[phase 9b] pool {n} differs")
+    if not torch.equal(caches["pos"], other["pos"]):
+        raise AssertionError("[phase 9b] positions differ")
+    log(f"[phase 9b] all-active 8-row step: masked and compacted, on copies "
+        f"of the same caches, equal bit for bit (logits {list(lc.shape)}, "
+        f"every pool leaf and pos)")
+
+
+def phase9(cfg, base, bank, streams4, times4):
+    """The dense layout, the masked paged ablation and int8 dense caches on
+    phase 4's base tensors and bank; then the profiled ticks. Returns the
+    dense kernel's launches on its main-path run (9a, opportunistic)."""
+    L = cfg.n_layers
+    warm_up(p9_spec(cfg, 0), base, bank)
+    launches, dec_t = p9_dense(cfg, base, bank, streams4)
+    torch.cuda.empty_cache()
+
+    spec = p9_spec(cfg, 16)
+    reqs, eng, gaps, _, l9b, dec_b = p9_serve(
+        cfg, base, bank, spec, "phase 9b", P9_ATTN["9b"],
+        compact_decode=False)
+    log(f"[phase 9b] compact_decode=False on phase 4's pages: "
+        f"{eng.stats['ticks']} masked decode ticks, launches {l9b} "
+        f"(paged {L} per decode tick, checked tick by tick); decode-step ms "
+        f"{statistics.median(dec_b) * 1e3:.3f} (median; 9a dense "
+        f"{statistics.median(dec_t) * 1e3:.3f})")
+    p9_vs("phase 9b", reqs, gaps, streams4, "phase 4's stream")
+    del eng
+    p9_steps_equal(cfg, base, bank)
+    torch.cuda.empty_cache()
+
+    spec = p9_spec(cfg, 0, quant=True)
+    warm_up(spec, base, bank)
+    reqs, eng, gaps, _, l9c, _ = p9_serve(cfg, base, bank, spec, "phase 9c",
+                                          P9_ATTN["9c"])
+    log(f"[phase 9c] kv=dense+int8: finite, launches {l9c} (no attention "
+        f"kernel: plain torch, as JAX; checked tick by tick)")
+    p9_vs("phase 9c", reqs, gaps, streams4, "phase 4's stream")
+    del eng
+    torch.cuda.empty_cache()
+
+    t9 = profile_tick(cfg, base, [bank], p9_spec(cfg, 0), "phase 9d dense")
+    log("[phase 9d] dense 8-row tick beside phase 4's: " + ", ".join(
+        f"{k} {times4[k]:.3f} -> {t9[k]:.3f}" for k in t9 if k in times4))
+    t9 = profile_tick(cfg, base, [bank], p9_spec(cfg, 16),
+                      "phase 9d masked", n_req=2, compact_decode=False)
+    log("[phase 9d] masked paged tick (2 of 8 slots) beside phase 4's "
+        "(8 of 8, compacted): " + ", ".join(
+            f"{k} {times4[k]:.3f} -> {t9[k]:.3f}" for k in t9 if k in times4))
+    return launches["decode_attn"]
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2578,6 +2967,7 @@ def main() -> int:
     t = time.perf_counter()
     model_wiring(quant=False)
     model_wiring(quant=True)
+    dense_wiring()
     torch.cuda.empty_cache()
     log(f"[phase 3] done ({time.perf_counter() - t:.1f} s)")
 
@@ -2599,7 +2989,7 @@ def main() -> int:
                "sgmv": time_sgmv(bank)}
     del caches, caches_q
     torch.cuda.empty_cache()
-    timings.update(time_unserved(base))
+    timings.update(time_unserved(base, lengths, errs["decode_attn"]))
     log(f"[phase 5] done ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
@@ -2612,12 +3002,17 @@ def main() -> int:
 
     t = time.perf_counter()
     phase8(cfg, base, times4)
-    log(f"[phase 8] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 8] done ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    launches["decode_attn"] = phase9(cfg, base, bank, streams4, times4)
+    log(f"[phase 9] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    # launches: phase 4's counts, phase 4b's for the int8 kernel and phase
-    # 6's for the kernels no serving path runs (each the path that runs the
-    # kernel, counted from 0 over that path alone)
+    # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's
+    # for the dense decode kernel (its serving path) and phase 6's for the
+    # kernels no serving path runs (each the path that runs the kernel,
+    # counted from 0 over that path alone)
     summary = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches[name], max_abs_err=max(errs[name]),
                     **timings[name])

@@ -111,8 +111,8 @@ class FinetuneConfig:
 class ServeConfig:
     """Serving-engine configuration (see ``repro.config.ServeConfig``).
 
-    * ``page_block`` — tokens per KV page; the port serves the paged layout
-      only, so it must be > 0 for ``ServingEngine``.
+    * ``page_block`` — tokens per KV page; 0 (the default, as in JAX) keeps
+      the dense layout: one ``max_seq``-deep cache row per slot.
     * ``pool_pages`` — pages per client pool; 0 sizes the pool for full
       provisioning (``max_batch_per_client * ceil(max_seq/page_block)``).
     * ``kv_quant`` — int8 KV entries with per-head f32 scales.

@@ -10,8 +10,14 @@ nothing here imports JAX. Layouts:
   dout]}}}`` (LoRA), ``{"layers": {path: {"scale": [C, L, n]}}}`` (IA3)
   and ``{"layers": {"prefix_k", "prefix_v": [C, L, n_prefix, K, hd]}}``
   (prefix) in both packages.
-* bank caches: ``{"layers": {"k", "v": [L, C*P, blk, K, hd]}, "pos":
-  [C, B], "block_tbl": [C, B, n_blocks]}`` in both packages.
+* paged bank caches: ``{"layers": {"k", "v": [L, C*P, blk, K, hd]},
+  "pos": [C, B], "block_tbl": [C, B, n_blocks]}`` in both packages.
+* dense bank caches (no ``block_tbl``, ``pos`` [C, B]): JAX stacks them
+  client-major, ``{"layers": {"k", "v": [C, L, B, T, K, hd]}}``; the port
+  keeps them layer-major, [L, C, B, T, K, hd], so that one layer's C*B
+  slot rows are one contiguous slab for the dense decode-attention
+  kernel. A model-level dense cache (``pos`` [B]) is [L, B, T, K, hd] in
+  both. int8 caches carry their ``k_s`` / ``v_s`` scales the same way.
 
 bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) cross as their 16-bit
 patterns, so no value is rounded on the way.
@@ -84,11 +90,27 @@ def bank_from_numpy(acfg, tree, device):
     return _map(lambda a: tensor_from_numpy(a, device), tree)
 
 
+def _dense_bank(tree) -> bool:
+    return (isinstance(tree, dict) and "pos" in tree
+            and "block_tbl" not in tree and tree["pos"].ndim == 2)
+
+
 def caches_from_numpy(tree, device):
-    """Paged bank caches (numpy leaves) -> torch, same layout."""
-    return _map(lambda a: tensor_from_numpy(a, device), tree)
+    """JAX caches (numpy leaves) -> torch: a dense bank's KV leaves from
+    [C, L, ...] to layer-major [L, C, ...] (contiguous), anything else in
+    the same layout."""
+    out = _map(lambda a: tensor_from_numpy(a, device), tree)
+    if _dense_bank(tree):
+        out["layers"] = {n: t.transpose(0, 1).contiguous()
+                         for n, t in out["layers"].items()}
+    return out
 
 
 def caches_to_numpy(caches):
-    """Paged bank caches -> numpy leaves, for comparison with JAX."""
-    return _map(tensor_to_numpy, caches)
+    """The port's caches -> numpy leaves in JAX's layout, for comparison
+    with JAX (the inverse of ``caches_from_numpy``)."""
+    out = _map(tensor_to_numpy, caches)
+    if _dense_bank(caches):
+        out["layers"] = {n: np.ascontiguousarray(np.swapaxes(a, 0, 1))
+                         for n, a in out["layers"].items()}
+    return out

@@ -1,16 +1,24 @@
-"""Symbiosis system composition — the serving half that the paged,
-compacted path runs (single or mixed banks of LoRA, IA3 and prefix
-clients, shared-prefix suffix prefills and the copy-on-write page copy),
-and the fine-tuning half, of ``repro.core.symbiosis``.
+"""Symbiosis system composition — the serving half (the paged, compacted
+path over single or mixed banks of LoRA, IA3 and prefix clients with
+shared-prefix suffix prefills and the copy-on-write page copy; the masked
+bank-wide decode and per-client prefill over paged or dense caches; the
+multi-client prefill and decode), and the fine-tuning half, of
+``repro.core.symbiosis``.
 
 One frozen base serves a BANK of clients. Bank caches keep per-slot leaves
-with a leading client axis (``pos`` [C, B], ``block_tbl`` [C, B, n_blocks])
-and ONE global page pool per KV leaf, [L, C*P, blk, K, hd]: client c owns
-the page range [c*P, (c+1)*P) by allocator convention, and block tables
-carry global page ids. The compacted steps gather the active (client, slot)
-rows across clients into one batch, run the model once, and scatter the
-per-slot results back under the row mask; the pools are written in place
-through the gathered tables (the JAX steps donated the cache buffers).
+with a leading client axis (``pos`` [C, B], ``block_tbl`` [C, B, n_blocks]).
+A paged bank keeps ONE global page pool per KV leaf, [L, C*P, blk, K, hd]:
+client c owns the page range [c*P, (c+1)*P) by allocator convention, and
+block tables carry global page ids. A dense bank keeps its KV leaves
+layer-major, [L, C, B, T, K, hd] (JAX: client-major [C, L, B, T, K, hd];
+``convert`` carries them across), so one layer's C*B slot rows are one
+contiguous [C*B, T, K, hd] slab for the dense decode-attention kernel.
+The compacted steps gather the active (client, slot) rows across clients
+into one batch, run the model once, and scatter the per-slot results back
+under the row mask; the masked steps run every slot of the bank as one
+batch of C*B rows in (client, slot) order, each row's adapter its
+client's. Every cache write is in place (the JAX steps donated the cache
+buffers).
 
 Fine-tuning: ``make_row_grad_fn`` is one job's loss and adapter grads,
 ``make_baseline_train_step`` the dedicated single-job trainer (and, by
@@ -53,7 +61,8 @@ def init_system(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
 
 def serve_cache_kwargs(cfg: ModelConfig, scfg: ServeConfig):
     """Cache-construction kwargs implied by a ServeConfig: the paged layout
-    and, with ``kv_quant``, int8 entries with per-head scales."""
+    (``page_block > 0``) and, with ``kv_quant``, int8 entries with
+    per-head scales. No ``page_block`` means the dense layout."""
     kw = {}
     if scfg.page_block and cfg.arch == DENSE:
         kw["page_block"] = scfg.page_block
@@ -65,24 +74,89 @@ def serve_cache_kwargs(cfg: ModelConfig, scfg: ServeConfig):
 
 
 def init_client_caches(cfg: ModelConfig, n_clients: int, batch: int,
-                       max_seq: int, dtype=None, *, page_block: int,
-                       pool_pages: int = 0, quant: bool = False,
-                       device="cuda"):
-    """Bank caches: ``pos`` [C, B] and ``block_tbl`` [C, B, n_blocks] per
-    slot, and the GLOBAL FLAT page pools {"k","v"} [L, C*P, blk, K, hd]
-    (with ``quant``: int8 {"k","v"} and f32 {"k_s","v_s"} [L, C*P, blk, K,
-    1])."""
-    if not page_block:
-        raise ValueError("the port serves the paged KV layout only")
+                       max_seq: int, dtype=None, *, window: int = 0,
+                       quant: bool = False, page_block: int = 0,
+                       pool_pages: int = 0, device="cuda"):
+    """Bank caches: ``pos`` [C, B] per slot and either, paged, ``block_tbl``
+    [C, B, n_blocks] and the GLOBAL FLAT page pools {"k","v"} [L, C*P, blk,
+    K, hd], or, dense, the layer-major slot rows {"k","v"} [L, C, B, T, K,
+    hd] (T = max_seq, or a ring of ``min(window, max_seq)``). With
+    ``quant``: int8 {"k","v"} and f32 {"k_s","v_s"} scales [..., K, 1]."""
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
+    K, hd = cfg.n_kv_heads, cfg.hd
+    pos = torch.zeros((n_clients, batch), dtype=torch.int32, device=dev)
+    if not page_block:
+        T = min(window, max_seq) if window else max_seq
+        shape = (cfg.n_layers, n_clients, batch, T, K, hd)
+        return {"layers": pool_leaves(shape, dtype, quant, dev), "pos": pos}
+    if window:
+        raise ValueError("the paged cache subsumes the ring-buffer variant "
+                         "(window=)")
     _, P, tbl = default_block_table(batch, max_seq, page_block, pool_pages,
                                     dev)
-    shape = (cfg.n_layers, n_clients * P, page_block, cfg.n_kv_heads, cfg.hd)
-    return {"layers": pool_leaves(shape, dtype, quant, dev),
-            "pos": torch.zeros((n_clients, batch), dtype=torch.int32,
-                               device=dev),
+    shape = (cfg.n_layers, n_clients * P, page_block, K, hd)
+    return {"layers": pool_leaves(shape, dtype, quant, dev), "pos": pos,
             "block_tbl": tbl[None].repeat(n_clients, 1, 1)}
+
+
+def _kv_names(cache_kw):
+    return ("k", "k_s", "v", "v_s") if cache_kw.get("quant") else ("k", "v")
+
+
+def cache_slot_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
+    """Per-leaf slot axis of ONE client's cache (``init_cache``'s tree):
+    ``pos`` 0; dense KV leaves [L, B, T, ...] 1; paged pools (no slot axis:
+    their writes are gated inside the model) and ``block_tbl``
+    (engine-managed) None. The JAX function derives this map by building
+    the cache at two batch sizes; the port knows its trees and writes it
+    down, the same map on every leaf."""
+    paged = bool(cache_kw.get("page_block"))
+    axes = {"layers": {n: None if paged else 1
+                       for n in _kv_names(cache_kw)}, "pos": 0}
+    if paged:
+        axes["block_tbl"] = None
+    return axes
+
+
+def cache_page_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
+    """Per-leaf page axis of ONE client's PAGED cache: pools [L, P, ...] 1,
+    ``pos`` and ``block_tbl`` None (the twin of ``cache_slot_axes``)."""
+    if not cache_kw.get("page_block"):
+        raise ValueError("page axes exist only for paged caches")
+    return {"layers": {n: 1 for n in _kv_names(cache_kw)}, "pos": None,
+            "block_tbl": None}
+
+
+def _slot_mask(mask, ax, ndim):
+    """Reshape a [n_slots] mask to broadcast along axis ``ax`` of an
+    ``ndim``-rank leaf."""
+    shape = [1] * ndim
+    shape[ax] = mask.shape[-1]
+    return mask.reshape(shape)
+
+
+def stack_client_caches(cfg: ModelConfig, max_seq: int, per_client,
+                        **cache_kw):
+    """Stack per-client model caches (``init_cache`` trees, e.g. after
+    standalone prefills on identity tables) into the BANK layout: ``pos``
+    gains a leading client axis; dense KV leaves stack layer-major, [L, C,
+    B, T, ...]; paged pools fold into the one global flat pool (client c's
+    pages land in [c*P, (c+1)*P)) and block tables are offset to global
+    page ids. The inverse convention of ``init_client_caches``."""
+    C = len(per_client)
+    pos = torch.stack([pc["pos"] for pc in per_client])
+    names = per_client[0]["layers"].keys()
+    if not cache_kw.get("page_block"):
+        return {"layers": {n: torch.stack([pc["layers"][n]
+                                           for pc in per_client], dim=1)
+                           for n in names}, "pos": pos}
+    P = per_client[0]["layers"]["k"].shape[1]
+    tbl = torch.stack([pc["block_tbl"] for pc in per_client])
+    off = torch.arange(C, dtype=tbl.dtype, device=tbl.device) * P
+    return {"layers": {n: torch.cat([pc["layers"][n] for pc in per_client],
+                                    dim=1) for n in names},
+            "pos": pos, "block_tbl": tbl + off[:, None, None]}
 
 
 def _check_paged(cfg, scfg, what):
@@ -115,7 +189,10 @@ def _row_ctx(cfg, acfg, bank, clients, locals_=None, methods=None):
     """(LinCtx, re-laid adapter tree) of one compacted batch: a single
     bank's (``acfg`` one AdapterConfig, rows named by ``clients``) or, for
     a tuple of AdapterConfigs, the mixed banks' (rows named by their bank
-    ``methods`` and their ``locals_`` index within it)."""
+    ``methods`` and their ``locals_`` index within it); ``acfg`` None runs
+    the bare base."""
+    if acfg is None:
+        return make_client_ctx(cfg, None), None
     if isinstance(acfg, tuple):
         return (make_mixed_ctx(cfg, acfg, locals_, methods),
                 adapters_lib.compact_mixed_bank(bank, locals_, methods))
@@ -216,6 +293,172 @@ def make_compact_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
                    slots, row_mask, locals_, methods)
 
     return compact_mixed if isinstance(acfg, tuple) else run
+
+
+def _bank_rows(caches):
+    """A dense bank cache as one batch of its C*B slot rows in (client,
+    slot) order: [L, C, B, ...] leaves as [L, C*B, ...] views and ``pos``
+    [C*B] (views: writes land in the bank cache)."""
+    return {"layers": {n: t.view((t.shape[0], -1) + t.shape[3:])
+                       for n, t in caches["layers"].items()},
+            "pos": caches["pos"].view(-1)}
+
+
+def _row_clients(C: int, B: int, device):
+    """Each of C*B slot rows' client, in (client, slot) order."""
+    return torch.arange(C, dtype=torch.int32, device=device) \
+        .repeat_interleave(B)
+
+
+def _check_dense(scfg, what):
+    if scfg.page_block:
+        raise ValueError(f"{what} runs on the dense KV layout: its bank "
+                         "caches carry a client axis that page pools fold "
+                         "away (ServeConfig.page_block = 0)")
+
+
+def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
+    """Masked single-client prefill — the engine's per-request admission:
+    the model runs ONCE over one client's ``max_b`` slot rows and only the
+    admitted slots take the result.
+
+      fn(base, bank, caches, c, a, tokens, lengths, slot_mask)
+        -> (logits [max_b, V], caches)
+
+    ``c`` is the client's index into the CACHES, ``a`` its adapter's index
+    into ``bank`` (a single-bank engine passes ``a == c``), both host ints;
+    ``tokens`` [max_b, S_pad] right-padded prompts on the admitted rows,
+    dummies elsewhere; ``lengths`` [max_b] their true lengths (the engine
+    gives other rows 0); ``slot_mask`` [max_b] bool the admitted slots.
+    Dense caches: the admitted slots' rows are zeroed over all T lanes,
+    as JAX's ``zero_slots`` leaves them, then the prefill writes lanes [0,
+    S_pad) of those rows only. Paged caches: the pools are written only
+    where lengths > 0. Other slots and clients keep their bits; ``pos``
+    takes the new value on the admitted slots. LoRA goes through SGMV (one
+    S_pad-token block per row), IA3 and prefix through the row hooks, every
+    row the client's adapter. Caches are written IN PLACE and returned."""
+    model = get_model(cfg)
+    paged = "page_block" in serve_cache_kwargs(cfg, scfg)
+
+    def prefill_one(base, bank, caches, c, a, tokens, lengths, slot_mask):
+        c, a = int(c), int(a)
+        rows = torch.full((tokens.shape[0],), a, dtype=torch.int32,
+                          device=tokens.device)
+        ctx, adapter = _row_ctx(cfg, acfg, bank, rows)
+        if paged:
+            cache = {"layers": caches["layers"], "pos": caches["pos"][c],
+                     "block_tbl": caches["block_tbl"][c]}
+            kw = {}
+        else:
+            cache = {"layers": {n: t[:, c] for n, t in
+                                caches["layers"].items()},
+                     "pos": caches["pos"][c]}
+            for leaf in cache["layers"].values():       # zero_slots
+                leaf.masked_fill_(_slot_mask(slot_mask, 1, leaf.ndim), 0)
+            kw = {"write_rows": slot_mask}
+        logits, new = model.prefill(base, {"tokens": tokens}, cache, ctx,
+                                    adapter, lengths=lengths, **kw)
+        caches["pos"][c] = torch.where(slot_mask, new["pos"],
+                                       caches["pos"][c])
+        return logits, caches
+
+    return prefill_one
+
+
+def make_masked_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
+                            ring: bool = False):
+    """Bank-wide decode tick with per-slot advance control.
+
+      fn(base, bank, caches, tokens [C, B], active [C, B])
+        -> (logits [C, B, V], caches)
+
+    Every slot of the bank runs, as ONE batch of C*B rows in (client,
+    slot) order, each row's adapter its client's (LoRA through SGMV with
+    ``block_t`` 1, IA3 and prefix through the row hooks); only the
+    ``active`` slots write their token and advance ``pos``, every other
+    slot keeps its bits. Logits of inactive slots are garbage.
+
+    Paged caches: this is ``make_compact_decode_step`` run over all C*B
+    rows with ``active`` as the row mask — the same program, so when every
+    slot is active the two agree bit for bit (the JAX step reaches the
+    same computation through the kernels' ``custom_vmap`` rules, which
+    fold the client axis into rows against the shared pool). ``ring`` is
+    ignored there, as in JAX. Dense caches: one layer's C*B rows are one
+    contiguous slab for the dense decode-attention kernel (``ring``: plain
+    attention over a ring of depth T). Caches are written IN PLACE and
+    returned."""
+    model = get_model(cfg)
+    paged = "page_block" in serve_cache_kwargs(cfg, scfg)
+    compact = make_compact_decode_step(cfg, acfg, scfg) if paged else None
+
+    def decode(base, bank, caches, tokens, active):
+        C, B = caches["pos"].shape
+        clients = _row_clients(C, B, tokens.device)
+        act = active.reshape(C * B)
+        if paged:
+            slots = torch.arange(B, dtype=torch.int32,
+                                 device=tokens.device).repeat(C)
+            logits, _, caches = compact(base, bank, caches,
+                                        tokens.reshape(C * B), clients,
+                                        slots, act)
+            return logits.reshape(C, B, -1), caches
+        ctx, adapter = _row_ctx(cfg, acfg, bank, clients)
+        rows = _bank_rows(caches)
+        logits, new = model.decode_step(base, rows, tokens.reshape(C * B),
+                                        ctx, adapter, ring=ring, active=act)
+        rows["pos"].copy_(torch.where(act, new["pos"], rows["pos"]))
+        return logits.reshape(C, B, -1), caches
+
+    return decode
+
+
+def make_multi_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
+    """Bank-wide prefill over a dense bank (the seed engine's admission):
+
+      fn(base, bank, caches, batch, write_clients=None)
+        -> (logits [C, B, V], caches)
+
+    ``batch["tokens"]`` [C, B, S]: every client's B rows run as ONE batch
+    of C*B rows, each with its client's adapter, writing lanes [0, S) of
+    every row and ``pos`` = S. ``write_clients`` [C] bool (the port's
+    in-place form of the JAX engine's merge) limits the writes to those
+    clients' rows. Caches are written IN PLACE and returned."""
+    _check_dense(scfg, "the multi-client prefill")
+    model = get_model(cfg)
+
+    def prefill(base, bank, caches, batch, write_clients=None):
+        tokens = batch["tokens"]
+        C, B, S = tokens.shape
+        ctx, adapter = _row_ctx(cfg, acfg, bank,
+                                _row_clients(C, B, tokens.device))
+        rows = _bank_rows(caches)
+        write_rows = (None if write_clients is None
+                      else write_clients.repeat_interleave(B))
+        logits, new = model.prefill(base, {"tokens": tokens.reshape(C * B, S)},
+                                    rows, ctx, adapter, write_rows=write_rows)
+        rows["pos"].copy_(new["pos"] if write_rows is None else
+                          torch.where(write_rows, new["pos"], rows["pos"]))
+        return logits.reshape(C, B, -1), caches
+
+    return prefill
+
+
+def make_multi_client_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig,
+                                  *, ring: bool = False):
+    """Every slot of a dense bank decodes one token:
+
+      fn(base, bank, caches, tokens [C, B]) -> (logits [C, B, V], caches)
+
+    the masked step with every slot active (``ring``: a ring cache)."""
+    _check_dense(scfg, "the multi-client decode step")
+    masked = make_masked_decode_step(cfg, acfg, scfg, ring=ring)
+
+    def decode(base, bank, caches, tokens):
+        active = torch.ones(tokens.shape, dtype=torch.bool,
+                            device=tokens.device)
+        return masked(base, bank, caches, tokens, active)
+
+    return decode
 
 
 def make_page_copy(cfg: ModelConfig, scfg: ServeConfig):

@@ -18,12 +18,9 @@ from __future__ import annotations
 from typing import List
 
 
-def serving_conservation(eng) -> List[str]:
-    """ServingEngine: page-pool partition (shared pages counted once, in
-    the range of the client that popped them), reservation accounting,
-    prefix refcounts against the slots that hold them, slot ownership and
-    activity state, one placement entry per in-flight request, and the
-    router's ledger."""
+def _page_conservation(eng) -> List[str]:
+    """The page-pool, reservation and refcount identities of a paged
+    engine."""
     errs: List[str] = []
     P = eng._pool_pages
     page_refs = eng._prefix_index.page_refs()
@@ -59,6 +56,18 @@ def serving_conservation(eng) -> List[str]:
         if p not in page_refs:
             errs.append(f"slot_shared holds page {p} that the prefix index "
                         "no longer publishes (use-after-free)")
+    return errs
+
+
+def serving_conservation(eng) -> List[str]:
+    """ServingEngine: on paged engines the page-pool partition (shared pages
+    counted once, in the range of the client that popped them),
+    reservation accounting and prefix refcounts against the slots that
+    hold them; on every engine slot ownership and activity state, one
+    placement entry per in-flight request, and the router's ledger."""
+    errs: List[str] = []
+    if eng._paged:
+        errs.extend(_page_conservation(eng))
     # slot ownership <-> per-request slot lists are inverse maps
     owned = {}
     for c in range(eng.n_clients):

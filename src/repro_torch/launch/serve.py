@@ -1,9 +1,13 @@
-"""Multi-tenant serving CLI of the port (``repro.launch.serve``'s, paged
-only).
+"""Multi-tenant serving CLI of the port (``repro.launch.serve``'s, for the
+dense family).
 
 Serves a bank of LoRA clients against one shared base with the port's
-ServingEngine, on the card by default:
+ServingEngine, on the card by default. With no ``--page-block`` (0, as in
+JAX) the KV cache is the dense layout, one ``max_seq``-deep row per slot,
+decoded by the masked bank-wide step; ``--page-block N`` serves N-token
+pages through the compacted step:
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-size
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16 --kv-quant
 
@@ -39,12 +43,12 @@ def main(argv=None):
     ap.add_argument("--stagger", type=int, default=0,
                     help="ticks between request arrivals (mid-stream joins)")
     ap.add_argument("--full-size", action="store_true")
-    ap.add_argument("--page-block", type=int, default=16,
-                    help="tokens per KV page (the port serves paged KV only)")
+    ap.add_argument("--page-block", type=int, default=0,
+                    help="tokens per KV page (0 = dense KV cache)")
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="pages per client pool (0 = full provisioning)")
     ap.add_argument("--kv-quant", action="store_true",
-                    help="int8 KV pages with per-head f32 scales")
+                    help="int8 KV entries with per-head f32 scales")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -74,10 +78,11 @@ def main(argv=None):
             prompt=rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
             .astype(np.int32),
             max_new_tokens=args.max_new, arrive_tick=i * args.stagger))
+    kv = (f"paged(block={scfg.page_block}, pool={eng._pool_pages})"
+          if eng._paged else "dense")
     print(f"[serve] {cfg.name} on {dev} | {args.clients} clients | "
           f"{args.requests} requests | policy={args.policy} | "
-          f"kv=paged(block={scfg.page_block}, pool={eng._pool_pages})"
-          f"{'+int8' if eng._quant else ''}")
+          f"kv={kv}{'+int8' if eng._quant else ''}")
     t0 = time.perf_counter()
     done = eng.run()
     if dev.type == "cuda":

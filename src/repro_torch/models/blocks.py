@@ -1,5 +1,5 @@
-"""Shared neural building blocks (PyTorch, functional) — the dense paged path
-of ``repro.models.blocks``.
+"""Shared neural building blocks (PyTorch, functional) — the dense family's
+paged and dense decode paths of ``repro.models.blocks``.
 
 Every frozen-base matmul goes through a ``LinearFns`` hook, the port's form
 of the paper's VirtLayer splice: the default hook runs the matmul inline;
@@ -18,6 +18,11 @@ out-of-range scatter writes (``mode="drop"``); torch has no such mode and
 an out-of-range page on the card is an illegal address, so the write
 helpers point each dropped write at a kept one (``_drop_index``): every
 scatter keeps a fixed shape and never waits on the host.
+
+Dense KV caches hold one [T, K, hd] row per slot (T = max_seq, or a ring of
+depth T). A decode step writes its token's lane IN PLACE (JAX selects over
+the whole T axis); the unquantized, non-ring case attends through the dense
+decode-attention kernel, the ring and int8 cases in plain torch, as JAX.
 """
 from __future__ import annotations
 
@@ -347,6 +352,146 @@ def mha_decode_quant_paged(params, cfg, x, pool_k, pool_ks, pool_v, pool_vs,
         paged_write(pool, write, val)
     return _paged_attend(params, cfg, q, (pool_k, pool_ks, pool_v, pool_vs),
                          tbl, pos, lin, path_prefix)
+
+
+# ---------------------------------------------------------------------------
+# Dense KV caches: one [B, T, K, hd] row per slot (T = max_seq, or a ring of
+# depth T under a sliding window)
+# ---------------------------------------------------------------------------
+
+def ring_valid_mask(pos, window: int):
+    """Live lanes of a ring and their absolute positions: lane s holds the
+    position p with p % window == s, p <= pos and p > pos - window.
+    Returns (mask [B, window] bool, abs_pos [B, window] int32)."""
+    s = torch.arange(window, device=pos.device)[None, :]
+    p = pos.long()[:, None]
+    abs_pos = torch.div(p - s, window, rounding_mode="floor") * window + s
+    mask = (abs_pos >= 0) & (abs_pos <= p)
+    return mask, abs_pos.to(torch.int32)
+
+
+def _decode_valid(cfg, pos, T: int, ring: bool):
+    """[B, T] validity of cache lanes for a query at position pos (on a
+    ring, ``ring_valid_mask``'s lanes)."""
+    if ring:
+        valid, lane_pos = ring_valid_mask(pos, T)
+    else:
+        valid = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
+        lane_pos = torch.arange(T, device=pos.device)[None, :]
+    if cfg.sliding_window:
+        valid &= (pos.long()[:, None] - lane_pos) < cfg.sliding_window
+    return valid
+
+
+def _decode_attend(params, cfg, q, cache_k, cache_v, valid, lin: LinearFns,
+                   path_prefix: str):
+    """Attention of one query token against a dense [B, T, K, hd] cache view
+    as plain torch ops (the ring cache's path): grouped GQA scores in fp32,
+    masked by ``valid`` [B, T], softmax cast to the cache dtype, as JAX."""
+    B = q.shape[0]
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
+    qg = q.reshape(B, 1, K, H // K, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, cache_k).float() \
+        * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(~valid[:, None, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1).to(cache_v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", p, cache_v).reshape(B, 1, H * hd)
+    return lin.dense(out, params["wo"], params.get("bo"), path_prefix + "o")
+
+
+def _decode_attend_quant(params, cfg, q, cache_k, cache_ks, cache_v, cache_vs,
+                         valid, lin: LinearFns, path_prefix: str, out_dtype):
+    """Attention of one query token against an int8 [B, T, K, hd] cache view
+    with per-entry f32 scales [B, T, K, 1], in JAX's order of scaling: the
+    k-scale on the fp32 scores, the v-scale on the probabilities, an fp32
+    PV product cast to ``out_dtype``."""
+    B = q.shape[0]
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
+    qg = q.reshape(B, 1, K, H // K, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg.float(), cache_k.float())
+    s = s * cache_ks[..., 0].permute(0, 2, 1)[:, :, None, None, :] \
+        * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(~valid[:, None, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    pv = p * cache_vs[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+    out = torch.einsum("bkgst,btkh->bskgh", pv, cache_v.float()).to(out_dtype)
+    return lin.dense(out.reshape(B, 1, H * hd), params["wo"],
+                     params.get("bo"), path_prefix + "o")
+
+
+def dense_write_index(pos, T: int, ring: bool, active=None):
+    """Where one token per row lands in a dense cache: lane ``pos`` (``pos %
+    T`` on a ring), kept where the row is active and, off a ring, where the
+    lane exists. Returns (rows [B], lane [B], keep [B]): fixed shapes, no
+    host sync."""
+    pos = pos.long()
+    lane = pos % T if ring else pos.clamp(0, T - 1)
+    keep = torch.ones_like(pos, dtype=torch.bool) if ring else pos < T
+    if active is not None:
+        keep = keep & active
+    return torch.arange(pos.shape[0], device=pos.device), lane, keep
+
+
+def dense_write(cache, index, x):
+    """Write x [B, ...] (one token per row) into cache [B, T, ...] IN PLACE
+    at ``index`` (``dense_write_index``): a row that is not kept writes
+    back what its lane holds, so its bits stay."""
+    rows, lane, keep = index
+    old = cache[rows, lane]
+    keep = keep.reshape(keep.shape + (1,) * (old.ndim - 1))
+    cache[rows, lane] = torch.where(keep, x.to(cache.dtype), old)
+
+
+def mha_decode(params, cfg, x, cache_k, cache_v, pos, lin: LinearFns, *,
+               write, path_prefix: str = "", ring: bool = False):
+    """Single-token decode against a dense cache. x [B,1,d]; cache_k/v
+    [B,T,K,hd], one layer's slab, written IN PLACE; pos [B]; ``write`` the
+    step's ``dense_write_index`` (an inactive row keeps its lanes: JAX
+    writes every row with a select over T and its caller's merge restores
+    the inactive ones). Returns out [B,1,d].
+
+    ``ring`` treats the cache as a ring of depth T (slot pos % T, validity
+    from absolute positions; ``cfg.sliding_window`` <= T) and attends in
+    plain torch, as JAX does. Off a ring the attention is the dense
+    decode-attention kernel (``kernels.decode_attn``: the CUDA kernel on a
+    CUDA tensor, its plain version on a CPU one), lanes t <= pos inside the
+    window. Two departures from JAX, whose dense path is a plain einsum
+    (``_decode_attend``, plain there so that GSPMD can shard the cache on
+    T) and never reaches its dense kernel: the kernel keeps the
+    probabilities in fp32 through PV, where the einsum casts them to the
+    cache dtype; and it sums the softmax in splits."""
+    q, k, v = _decode_qkv(params, cfg, x, pos, lin, path_prefix)
+    dense_write(cache_k, write, k[:, 0])
+    dense_write(cache_v, write, v[:, 0])
+    if ring:
+        valid = _decode_valid(cfg, pos, cache_k.shape[1], ring=True)
+        return _decode_attend(params, cfg, q, cache_k, cache_v, valid, lin,
+                              path_prefix)
+    B = q.shape[0]
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
+    out = decode_attn(q.reshape(B, K, H // K, hd).contiguous(), cache_k,
+                      cache_v, pos, window=cfg.sliding_window)
+    return lin.dense(out.reshape(B, 1, H * hd), params["wo"],
+                     params.get("bo"), path_prefix + "o")
+
+
+def mha_decode_quant(params, cfg, x, cache_k, cache_ks, cache_v, cache_vs,
+                     pos, lin: LinearFns, *, write, path_prefix: str = "",
+                     ring: bool = False):
+    """Single-token decode against an int8 dense cache: entries [B,T,K,hd]
+    and f32 per-head scales [B,T,K,1], the token's four leaves quantized
+    and written IN PLACE through ``write``, then plain-torch attention
+    (``_decode_attend_quant``), ring or not, as in JAX, where no kernel
+    serves this layout. Returns out [B,1,d]."""
+    q, k, v = _decode_qkv(params, cfg, x, pos, lin, path_prefix)
+    kq, ks = quantize_head(k[:, 0])
+    vq, vs = quantize_head(v[:, 0])
+    for cache, val in ((cache_k, kq), (cache_ks, ks), (cache_v, vq),
+                       (cache_vs, vs)):
+        dense_write(cache, write, val)
+    valid = _decode_valid(cfg, pos, cache_k.shape[1], ring)
+    return _decode_attend_quant(params, cfg, q, cache_k, cache_ks, cache_v,
+                                cache_vs, valid, lin, path_prefix, x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,12 @@ and their per-head f32 scales ``k_s``/``v_s`` [L, P, blk, K, 1]. The layer
 axis is fused into the page axis ([L*P, ...], a view) and layer i
 addresses its pages through ``tbl + i*P``, as in the JAX package — the pool
 is never sliced or copied; decode and prefill write it IN PLACE.
+
+Dense caches (no ``block_tbl``) keep the same leaves as [L, B, T, K, hd]
+(``_s`` scales [L, B, T, K, 1]): layer i's slab ``leaf[i]`` is a contiguous
+[B, T, K, hd] view that the dense decode-attention kernel reads as it is.
+``window`` makes T a ring of depth ``min(window, max_seq)`` (decode with
+``ring=True``).
 """
 from __future__ import annotations
 
@@ -170,11 +176,21 @@ def _layer_forward(p, cfg: ModelConfig, x, positions, lin: LinearFns,
 
 
 def _layer_decode(p, cfg: ModelConfig, x, pools, pos, lin: LinearFns,
-                  adapter_slice=None, *, tbl, write):
-    """One layer's single-token step against (layer-fused) page pools; an
-    int8 cache is told by its ``k_s`` leaf, as in the JAX package."""
+                  adapter_slice=None, *, tbl, write, ring: bool = False):
+    """One layer's single-token step against (layer-fused) page pools, or,
+    with ``tbl`` None, against this layer's dense slabs; an int8 cache is
+    told by its ``k_s`` leaf, as in the JAX package."""
     h = blocks.rmsnorm(p["ln1"], x)
-    if "k_s" in pools:
+    if tbl is None:
+        if "k_s" in pools:
+            attn = blocks.mha_decode_quant(
+                p["attn"], cfg, h, pools["k"], pools["k_s"], pools["v"],
+                pools["v_s"], pos, lin, write=write, ring=ring)
+        else:
+            attn = blocks.mha_decode(p["attn"], cfg, h, pools["k"],
+                                     pools["v"], pos, lin, write=write,
+                                     ring=ring)
+    elif "k_s" in pools:
         attn = blocks.mha_decode_quant_paged(
             p["attn"], cfg, h, pools["k"], pools["k_s"], pools["v"],
             pools["v_s"], tbl, pos, lin, write=write)
@@ -231,7 +247,7 @@ def forward(cfg: ModelConfig, params, batch, ctx: LinCtx = DEFAULT_CTX,
 
 
 # ---------------------------------------------------------------------------
-# Paged cache, decode and prefill
+# KV caches (paged or dense), decode and prefill
 # ---------------------------------------------------------------------------
 
 def default_block_table(batch_size: int, max_seq: int, page_block: int,
@@ -248,9 +264,9 @@ def default_block_table(batch_size: int, max_seq: int, page_block: int,
 
 
 def pool_leaves(shape, dtype, quant: bool, device):
-    """Zeroed pool leaves of one paged cache. shape = (..., K, hd): {"k",
-    "v"} in ``dtype``, or with ``quant`` int8 {"k", "v"} and f32 per-head
-    scales {"k_s", "v_s"} of shape (..., K, 1)."""
+    """Zeroed KV leaves of one cache. shape = (..., K, hd): {"k", "v"} in
+    ``dtype``, or with ``quant`` int8 {"k", "v"} and f32 per-head scales
+    {"k_s", "v_s"} of shape (..., K, 1)."""
     if not quant:
         return {n: torch.zeros(shape, dtype=dtype, device=device)
                 for n in ("k", "v")}
@@ -262,23 +278,31 @@ def pool_leaves(shape, dtype, quant: bool, device):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
-               *, page_block: int, pool_pages: int = 0, quant: bool = False,
-               device="cuda"):
-    """Paged cache: pools {"k","v"} [L, P, page_block, K, hd] (with
-    ``quant``, int8 plus f32 scales {"k_s","v_s"} [L, P, page_block, K,
-    1]), ``pos`` [B] and ``block_tbl`` [B, n_blocks]. pool_pages=0 fully
-    provisions."""
+               *, window: int = 0, quant: bool = False, page_block: int = 0,
+               pool_pages: int = 0, device="cuda"):
+    """KV cache of ``batch_size`` slots, ``pos`` [B] and the leaves of
+    ``pool_leaves`` (with ``quant``, int8 entries and f32 scales).
+
+    ``page_block > 0``: paged, pools [L, P, page_block, K, hd] and
+    ``block_tbl`` [B, n_blocks]; pool_pages=0 fully provisions. Otherwise
+    dense, [L, B, T, K, hd] with T = max_seq, or with ``window > 0`` a ring
+    of depth ``min(window, max_seq)`` (decode it with ``ring=True``)."""
     _check_dense(cfg)
-    if not page_block:
-        raise ValueError("the port serves the paged KV layout only "
-                         "(page_block > 0)")
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg.dtype)
+    K, hd = cfg.n_kv_heads, cfg.hd
+    pos = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
+    if not page_block:
+        T = min(window, max_seq) if window else max_seq
+        return {"layers": pool_leaves((cfg.n_layers, batch_size, T, K, hd),
+                                      dtype, quant, dev), "pos": pos}
+    if window:
+        raise ValueError("the paged cache subsumes the ring-buffer variant "
+                         "(window=)")
     _, P, tbl = default_block_table(batch_size, max_seq, page_block,
                                     pool_pages, dev)
-    shape = (cfg.n_layers, P, page_block, cfg.n_kv_heads, cfg.hd)
-    return {"layers": pool_leaves(shape, dtype, quant, dev),
-            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+    shape = (cfg.n_layers, P, page_block, K, hd)
+    return {"layers": pool_leaves(shape, dtype, quant, dev), "pos": pos,
             "block_tbl": tbl}
 
 
@@ -290,66 +314,107 @@ def _fused(layers):
 
 
 def decode_step(cfg: ModelConfig, params, cache, token, ctx: LinCtx = DEFAULT_CTX,
-                adapter=None, *, active=None):
+                adapter=None, *, ring: bool = False, active=None):
     """One decode step. token [B] int. Returns (logits [B,V], new cache).
 
-    The pools are written IN PLACE (the new cache holds the same pool
-    tensors); ``active`` [B] bool drops the pool writes of inactive rows
-    (their pos/logits are discarded by the caller's merge)."""
+    The KV leaves are written IN PLACE (the new cache holds the same
+    tensors); ``active`` [B] bool drops the writes of inactive rows (their
+    pos/logits are discarded by the caller's merge). A paged cache is
+    written through its block table; a dense one at lane ``pos``, or
+    ``pos % T`` with ``ring`` (ignored on a paged cache, as in JAX)."""
     pos = cache["pos"]
-    tbl = cache["block_tbl"]
+    tbl = cache.get("block_tbl")
     x = embed_tokens(cfg, params, token[:, None], ctx.top)
-    fused, _, Pl, blk = _fused(cache["layers"])
-    src, page, off, any_kept = blocks.token_write_index(tbl, pos, Pl, blk,
-                                                        active)
-    for i, p in enumerate(params["layers"]):
-        ad = _adapter_layer(adapter, i)
-        x = _layer_decode(p, cfg, x, fused, pos, ctx.for_layer(ad), ad,
-                          tbl=tbl + i * Pl,
-                          write=(src, page + i * Pl, off, any_kept))
+    if tbl is None:
+        T = cache["layers"]["k"].shape[2]
+        write = blocks.dense_write_index(pos, T, ring, active)
+        for i, p in enumerate(params["layers"]):
+            ad = _adapter_layer(adapter, i)
+            slabs = {n: t[i] for n, t in cache["layers"].items()}
+            x = _layer_decode(p, cfg, x, slabs, pos, ctx.for_layer(ad), ad,
+                              tbl=None, write=write, ring=ring)
+    else:
+        fused, _, Pl, blk = _fused(cache["layers"])
+        src, page, off, any_kept = blocks.token_write_index(tbl, pos, Pl,
+                                                            blk, active)
+        for i, p in enumerate(params["layers"]):
+            ad = _adapter_layer(adapter, i)
+            x = _layer_decode(p, cfg, x, fused, pos, ctx.for_layer(ad), ad,
+                              tbl=tbl + i * Pl,
+                              write=(src, page + i * Pl, off, any_kept))
     x = blocks.rmsnorm(params["final_norm"], x)
     logits = lm_head(cfg, params, x, ctx.top)[:, 0]
-    return logits, {"layers": cache["layers"], "pos": pos + 1, "block_tbl": tbl}
+    return logits, dict(cache, pos=pos + 1)
+
+
+def _dense_prefill_write(leaf, val, write_rows):
+    """Write a prefill's K/V (or scales) val [B, S, ...] into one layer's
+    dense slab [B, T, ...] at lanes [0, S) IN PLACE, every position of the
+    row (pads included, as JAX's ``dynamic_update_slice``); rows where
+    ``write_rows`` [B] is False keep their bits."""
+    S = val.shape[1]
+    val = val.to(leaf.dtype)
+    if write_rows is not None:
+        keep = write_rows.reshape((-1,) + (1,) * (val.ndim - 1))
+        val = torch.where(keep, val, leaf[:, :S])
+    leaf[:, :S] = val
 
 
 def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
-            adapter=None, *, lengths=None, starts=None, ext_blocks: int = 0):
-    """Prefill over right-padded prompts, filling the paged cache IN PLACE.
+            adapter=None, *, lengths=None, starts=None, ext_blocks: int = 0,
+            write_rows=None):
+    """Prefill over right-padded prompts, filling the cache IN PLACE.
 
     ``lengths`` [B] (optional) are the true prompt lengths: logits are taken
-    at each row's last real position, decode resumes at ``pos = lengths``,
-    and only positions < lengths are written (a row of length 0 writes
-    nothing). K/V are projected once per layer and used for both the
+    at each row's last real position and decode resumes at ``pos =
+    lengths``. K/V are projected once per layer and used for both the
     attention and the cache write; an int8 cache stores them quantized
     per head, while the attention uses them as computed, so prefill logits
     do not depend on the cache's format.
 
-    ``starts`` [B] (optional) makes this a SUFFIX prefill: row b already
-    holds ``starts[b]`` tokens of K/V in the pages its table names (shared
-    prefix pages mapped at admission), this call's tokens sit at logical
-    positions ``starts[b] + t``, decode resumes at ``starts + lengths``,
-    and the first ``ext_blocks`` table entries of every row are read as
-    external K/V lanes (``blocks.mha_forward``'s ``ext_kv``); a lane at or
-    past the row's start is masked by position. Table entries are clamped
-    into the pool before the gather (an unmapped entry holds the
-    out-of-range sentinel; torch does not clamp as JAX's gather does), and
-    each layer's lanes are gathered BEFORE that layer writes its suffix
-    (JAX gathers every layer's before its scan). ``ext_blocks > 0`` needs
-    ``starts`` and an unquantized cache: int8 K/V does not round-trip."""
+    A paged cache is written only at positions < lengths (a row of length 0
+    writes nothing). A dense cache takes every one of the S positions at
+    lanes [0, S) — pads past a row's length are harmless, as in JAX: decode
+    writes lane ``pos`` before it reads it — and ``write_rows`` [B] bool
+    (dense only; the port's in-place form of its JAX callers' merge) keeps
+    the bits of the rows where it is False.
+
+    ``starts`` [B] (optional, paged only) makes this a SUFFIX prefill: row
+    b already holds ``starts[b]`` tokens of K/V in the pages its table
+    names (shared prefix pages mapped at admission), this call's tokens sit
+    at logical positions ``starts[b] + t``, decode resumes at ``starts +
+    lengths``, and the first ``ext_blocks`` table entries of every row are
+    read as external K/V lanes (``blocks.mha_forward``'s ``ext_kv``); a
+    lane at or past the row's start is masked by position. Table entries
+    are clamped into the pool before the gather (an unmapped entry holds
+    the out-of-range sentinel; torch does not clamp as JAX's gather does),
+    and each layer's lanes are gathered BEFORE that layer writes its
+    suffix (JAX gathers every layer's before its scan). ``ext_blocks > 0``
+    needs ``starts`` and an unquantized cache: int8 K/V does not
+    round-trip."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens, ctx.top)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    if starts is not None:
-        starts = starts.to(torch.int32)
-        positions = starts[:, None] + positions
-    tbl = cache["block_tbl"]
-    fused, _, Pl, blk = _fused(cache["layers"])
-    index = blocks.prefill_write_index(tbl, S, Pl, blk, lengths, start=starts)
+    tbl = cache.get("block_tbl")
+    if tbl is None:
+        if starts is not None:
+            raise ValueError("suffix prefill (starts=) needs a paged cache")
+        layers = cache["layers"]
+    else:
+        if write_rows is not None:
+            raise ValueError("write_rows is for dense caches: a paged row "
+                             "of length 0 writes nothing")
+        if starts is not None:
+            starts = starts.to(torch.int32)
+            positions = starts[:, None] + positions
+        layers, _, Pl, blk = _fused(cache["layers"])
+        index = blocks.prefill_write_index(tbl, S, Pl, blk, lengths,
+                                           start=starts)
     if ext_blocks:
         if starts is None:
             raise ValueError("ext_blocks needs starts (suffix prefill)")
-        if "k_s" in fused:
+        if "k_s" in layers:
             raise ValueError("shared-prefix prefill needs an unquantized "
                              "paged cache (int8 K/V doesn't round-trip)")
         etbl = tbl[:, :ext_blocks].long().clamp(0, Pl - 1)       # [B, E]
@@ -359,19 +424,22 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
         ad = _adapter_layer(adapter, i)
         ext = None
         if ext_blocks:
-            ext = tuple(fused[n][etbl + i * Pl].reshape(
-                (B, ext_blocks * blk) + fused[n].shape[2:])
+            ext = tuple(layers[n][etbl + i * Pl].reshape(
+                (B, ext_blocks * blk) + layers[n].shape[2:])
                 for n in ("k", "v")) + (epos,)
         x, k, v = _layer_forward(p, cfg, x, positions, ctx.for_layer(ad), ad,
                                  ext_kv=ext)
-        k, v = k.flatten(0, 1), v.flatten(0, 1)
-        if "k_s" in fused:
+        if "k_s" in layers:
             parts = zip(("k", "k_s", "v", "v_s"),
                         blocks.quantize_head(k) + blocks.quantize_head(v))
         else:
             parts = (("k", k), ("v", v))
         for name, val in parts:
-            blocks.paged_write(fused[name], index, val, page_offset=i * Pl)
+            if tbl is None:
+                _dense_prefill_write(layers[name][i], val, write_rows)
+            else:
+                blocks.paged_write(layers[name], index, val.flatten(0, 1),
+                                   page_offset=i * Pl)
     x = blocks.rmsnorm(params["final_norm"], x)
     if lengths is None:
         logits = lm_head(cfg, params, x[:, -1:], ctx.top)[:, 0]
@@ -383,4 +451,4 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
         pos = lengths.to(torch.int32)
     if starts is not None:            # decode resumes after prefix + suffix
         pos = starts + pos
-    return logits, {"layers": cache["layers"], "pos": pos, "block_tbl": tbl}
+    return logits, dict(cache, pos=pos)

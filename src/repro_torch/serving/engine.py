@@ -1,5 +1,6 @@
-"""Continuous-batching multi-client serving engine — the paged, compacted
-scope of ``repro.serving.engine.ServingEngine``.
+"""Continuous-batching multi-client serving engine — the dense family's
+scope of ``repro.serving.engine.ServingEngine``: paged or dense KV, the
+compacted or the masked bank-wide decode, and every prefill path.
 
 One frozen base serves one or more banks of adapter clients on one device:
 
@@ -21,7 +22,13 @@ One frozen base serves one or more banks of adapter clients on one device:
   request holds one slot per prompt row for its lifetime; slots free the
   moment it finishes and are re-admitted from the queue on the next tick
   (mid-stream join/leave).
-* **Paged KV.** One global flat page pool per KV leaf; client c owns pages
+* **KV layout.** ``ServeConfig.page_block = 0`` (the default, as in JAX)
+  keeps dense ``max_seq``-deep cache rows per slot, layer-major [L, C,
+  max_b, max_seq, K, hd], whose C*max_b rows per layer the dense
+  decode-attention kernel reads as one slab; a request holds its rows for
+  its lifetime and the router is charged a full ``max_seq`` row per slot.
+* **Paged KV.** With ``page_block > 0``, one global flat page pool per KV
+  leaf; client c owns pages
   [c*P, (c+1)*P). With ``ServeConfig.kv_quant`` the pools hold int8
   entries and f32 per-head scales (four leaves), about half the bytes per
   token of bf16, and decode attention runs the int8 kernel. A host-side
@@ -43,23 +50,34 @@ One frozen base serves one or more banks of adapter clients on one device:
   unquantized pools: int8 K/V does not round-trip, so ``prefix_cache=True``
   with ``kv_quant`` raises.
 * **Admission.** FIFO by arrival tick; a request is admitted when its
-  client has free slots and unreserved pages and, with a
+  client has free slots (and, with ``max_inflight_per_client``, fewer
+  requests in flight), unreserved pages (paged) and, with a
   ``PlacementRouter`` attached, when the router finds it a placement: the
   router is charged the whole pages the request newly reserves
   (int8-priced under ``kv_quant``) and refunded at retirement, so requests
   queue until device memory frees (the router places caches on the card
   only, as this engine serves them). Admission is transactional: a failure
   midway restores pages, references and reservations in reverse order,
-  refunds the charge and re-raises. All of a tick's admissions, across
-  clients and banks, prefill together in ONE compacted ragged batch
-  (``symbiosis.make_compact_prefill``), bucketed to a few row counts,
-  suffix lengths and shared-prefix widths.
+  refunds the charge and re-raises. Prefill takes one of JAX's three
+  paths (``_prefill_admitted``): on paged engines all of a tick's
+  admissions, across clients and banks, prefill together in ONE compacted
+  ragged batch (``symbiosis.make_compact_prefill``), bucketed to a few
+  row counts, suffix lengths and shared-prefix widths; on the dense layout
+  a client's same-tick admissions share one masked per-client prefill
+  (``symbiosis.make_client_prefill``, ``ragged_prefill``); with
+  ``ragged_prefill=False`` or the ``bank_prefill`` ablation, one call per
+  request (``bank_prefill=True``, dense only and with
+  ``max_inflight_per_client=1``, runs the whole bank for each admission:
+  the seed engine's rule).
 * **Decode.** Every tick the ``TickPolicy`` (lockstep / nolockstep /
-  opportunistic) picks the ready clients; their active (client, slot) rows
-  are gathered into one bucketed batch and decoded by
-  ``symbiosis.make_compact_decode_step`` — per-row LoRA through the SGMV
-  kernel, attention through the paged decode kernel, pools written in
-  place.
+  opportunistic) picks the ready clients. ``compact_decode`` (default: on
+  paged pools) gathers their active (client, slot) rows into one bucketed
+  batch for ``symbiosis.make_compact_decode_step``; otherwise
+  (the dense layout, or ``compact_decode=False``) the masked bank-wide
+  step ``symbiosis.make_masked_decode_step`` runs every slot with the
+  tick's active mask. Per-row LoRA goes through the SGMV kernel, attention
+  through the paged or the dense decode kernel (int8 dense caches: plain
+  torch, as JAX), caches written in place.
 * **Sampling.** Greedy, temperature and top-k on the host with numpy,
   seeded per request (``np.random.default_rng([seed, client])``), so draws
   depend only on the request's own stream.
@@ -68,8 +86,13 @@ The policy only changes which ready clients run a tick, never the math of
 a sequence's own stream: outputs equal serving each request alone.
 ``debug=True`` audits conservation (``faults.audit``) after every tick.
 
-Not ported yet, and refused with ``ValueError``: the dense KV layout,
-non-dense families, a ``mesh`` and ``obs`` telemetry. Fault handling is
+Not ported yet, and refused with ``ValueError``: non-dense families, a
+``mesh`` and ``obs`` telemetry. Refused as in JAX: mixed banks on the
+dense layout or with ``compact_decode=False``, ``compact_decode=True``
+without pages, ``bank_prefill`` on pages or with
+``max_inflight_per_client`` other than 1, ``prefix_cache=True`` without
+the compacted prefill or over int8 pools, and ``admit_bank`` unless the
+engine is paged and compacted. Fault handling is
 reduced to the finite probe: a request whose logits go non-finite is
 terminated (status ``quarantined``) and its slots and pages (and router
 charge) are freed.
@@ -141,12 +164,16 @@ class ServingEngine:
         engine = ServingEngine(spec, base_params, [lora_bank, ia3_bank])
 
     ``base_params`` and the banks must already live on ``device`` (default
-    ``"cuda"``). The page pools keep their ``data_ptr`` across ticks (every
-    write is in place); only ``admit_bank``, which appends the new clients'
-    page ranges, allocates new pools."""
+    ``"cuda"``). The cache tensors keep their ``data_ptr`` across ticks
+    (every write is in place); only ``admit_bank``, which appends the new
+    clients' page ranges, allocates new pools."""
 
     def __init__(self, spec: EngineSpec, base_params, banks, *,
                  device="cuda", router=None,
+                 bank_prefill: bool = False,
+                 max_inflight_per_client: Optional[int] = None,
+                 compact_decode: Optional[bool] = None,
+                 ragged_prefill: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None, debug: bool = False,
                  mesh=None, obs=None):
         if spec.serve is None:
@@ -166,9 +193,29 @@ class ServingEngine:
             raise ValueError(f"the port serves the dense family; {cfg.name} "
                              f"is {cfg.arch!r}")
         cache_kw = symbiosis.serve_cache_kwargs(cfg, scfg)
-        if "page_block" not in cache_kw:
-            raise ValueError("the dense KV layout is not ported: set "
-                             "ServeConfig.page_block > 0")
+        self._paged = "page_block" in cache_kw
+        mixed = len(banks) > 1
+        if bank_prefill and max_inflight_per_client not in (None, 1):
+            raise ValueError("bank_prefill replaces the whole client cache "
+                             "slice; it requires max_inflight_per_client=1")
+        if mixed and not self._paged:
+            raise ValueError(
+                "mixed-method serving banks require the paged KV layout "
+                "(ServeConfig.page_block > 0): only the compacted decode "
+                "tick can carry per-row methods")
+        if mixed and compact_decode is False:
+            raise ValueError("mixed-method serving banks decode through the "
+                             "compacted per-row-method step; the masked "
+                             "bank-wide ablation is single-method only")
+        if self._paged and bank_prefill:
+            raise ValueError("bank_prefill replaces whole cache slices; it "
+                             "is a dense-layout-only ablation")
+        if compact_decode and not self._paged:
+            raise ValueError("compact_decode requires the paged KV layout "
+                             "(ServeConfig.page_block > 0)")
+        if ragged_prefill and bank_prefill:
+            raise ValueError("ragged_prefill right-pads rows to a shared "
+                             "bucket; not the bank_prefill ablation")
         for bs, tree in zip(spec.banks, banks):
             if _clients_of(tree) != bs.capacity:
                 raise ValueError(f"bank {bs.name!r}: adapter tree holds "
@@ -193,11 +240,21 @@ class ServingEngine:
         self.policy = TickPolicy(scfg.policy)
         self.router = router
         self.debug = debug
+        self.bank_prefill = bank_prefill
+        self.max_inflight = 1 if bank_prefill else max_inflight_per_client
+        self._compact = (self._paged if compact_decode is None
+                         else compact_decode)
+        self._ragged = (not bank_prefill if ragged_prefill is None
+                        else ragged_prefill)
+        self._compact_prefill = self._ragged and self._paged
         self._quant = bool(cache_kw.get("quant"))
-        if prefix_cache and self._quant:
-            raise ValueError("prefix_cache needs an unquantized pool: int8 "
-                             "K/V doesn't round-trip")
-        self._share_prefix = (not self._quant if prefix_cache is None
+        can_share = self._compact_prefill and not self._quant
+        if prefix_cache and not can_share:
+            raise ValueError("prefix_cache needs the compacted prefill path "
+                             "(paged pools, ragged_prefill not disabled) and "
+                             "an unquantized pool: int8 K/V doesn't "
+                             "round-trip")
+        self._share_prefix = (can_share if prefix_cache is None
                               else bool(prefix_cache))
         # per-bank charges of a several-bank engine: the banks' resident
         # adapter bytes (a single-bank engine charges its requests only)
@@ -213,32 +270,8 @@ class ServingEngine:
                 self.release_banks()
                 raise
         self._placement: Dict[int, object] = {}
-        # host-side page allocator: per-client free lists (global page ids),
-        # reservations, per-slot pages and next write position, and the
-        # block-table mirror pushed to the device when dirty
-        self._blk = scfg.page_block
-        self._n_blocks = -(-scfg.max_seq // self._blk)
-        self._pool_pages = scfg.pool_pages or self.max_b * self._n_blocks
-        P = self._pool_pages
-        self._free_pages = [list(range(c * P, (c + 1) * P))
-                            for c in range(self.n_clients)]
-        self._reserved = [0] * self.n_clients
-        self._slot_pages: Dict[tuple, List[int]] = {}
-        self._wpos = np.zeros((self.n_clients, self.max_b), np.int64)
-        self._tbl_oob = np.int32(1 << 30)
-        self._tbl = np.full((self.n_clients, self.max_b, self._n_blocks),
-                            self._tbl_oob, np.int32)
-        self._tbl_dirty = True
-        self._resv_of: Dict[int, int] = {}
-        # shared prefixes: the refcounted content index, each slot's
-        # REF-HELD pages (its table maps them first, then its exclusive
-        # _slot_pages), the suffix start recorded at admission for the
-        # tick's prefill, and the copy-on-write page copies queued for
-        # just before that prefill
-        self._prefix_index = PrefixIndex()
-        self._slot_shared: Dict[tuple, List[int]] = {}
-        self._prefill_start: Dict[tuple, int] = {}
-        self._pending_copies: List[tuple] = []
+        if self._paged:
+            self._init_pages()
         self._page_copy = (symbiosis.make_page_copy(cfg, scfg)
                            if self._share_prefix else None)
         self.caches = self._new_caches(self.n_clients)
@@ -263,11 +296,41 @@ class ServingEngine:
         self.stats = {"ticks": 0, "decode_tokens": 0, "prefill_tokens": 0,
                       "batched_clients": 0, "admitted": 0, "prefill_calls": 0,
                       "peak_inflight": 0, "compact_rows": 0,
-                      "compact_padded": 0, "compact_prefill_batches": 0,
+                      "compact_padded": 0, "ragged_prefill_batches": 0,
+                      "compact_prefill_batches": 0,
                       "compact_prefill_rows": 0, "compact_prefill_padded": 0,
                       "quarantined_requests": 0,
                       "prefill_tokens_computed": 0, "prefix_hits": 0,
                       "pages_shared": 0, "cow_copies": 0}
+
+    def _init_pages(self):
+        """The host-side page allocator of a paged engine: per-client free
+        lists (global page ids), reservations, per-slot pages and next
+        write position, the block-table mirror pushed to the device when
+        dirty, and the shared-prefix state: the refcounted content index,
+        each slot's REF-HELD pages (its table maps them first, then its
+        exclusive ``_slot_pages``), the suffix start recorded at admission
+        for the tick's prefill, and the copy-on-write page copies queued for
+        just before that prefill."""
+        self._blk = self.scfg.page_block
+        self._n_blocks = -(-self.scfg.max_seq // self._blk)
+        self._pool_pages = (self.scfg.pool_pages
+                            or self.max_b * self._n_blocks)
+        P = self._pool_pages
+        self._free_pages = [list(range(c * P, (c + 1) * P))
+                            for c in range(self.n_clients)]
+        self._reserved = [0] * self.n_clients
+        self._slot_pages: Dict[tuple, List[int]] = {}
+        self._wpos = np.zeros((self.n_clients, self.max_b), np.int64)
+        self._tbl_oob = np.int32(1 << 30)
+        self._tbl = np.full((self.n_clients, self.max_b, self._n_blocks),
+                            self._tbl_oob, np.int32)
+        self._tbl_dirty = True
+        self._resv_of: Dict[int, int] = {}
+        self._prefix_index = PrefixIndex()
+        self._slot_shared: Dict[tuple, List[int]] = {}
+        self._prefill_start: Dict[tuple, int] = {}
+        self._pending_copies: List[tuple] = []
 
     def _check_device(self, name, tree):
         for t in tree_leaves(tree):
@@ -286,18 +349,28 @@ class ServingEngine:
 
     def _new_caches(self, n_clients: int):
         kw = symbiosis.serve_cache_kwargs(self.cfg, self.scfg)
-        kw["pool_pages"] = self._pool_pages
+        if self._paged:
+            kw["pool_pages"] = self._pool_pages
         return symbiosis.init_client_caches(
             self.cfg, n_clients, self.max_b, self.scfg.max_seq,
             device=self.device, **kw)
 
     def _build_steps(self):
-        """The compacted decode step for the registry as it stands, and an
-        empty memo of prefill steps (one per shared-prefix width, built at
-        first use, as JAX compiles one per ``ext_blocks`` bucket)."""
-        self._decode_step = symbiosis.make_compact_decode_step(
-            self.cfg, self.acfg, self.scfg)
+        """The decode step for the registry as it stands (compacted, or the
+        masked bank-wide step), the bank-wide prefill of the
+        ``bank_prefill`` ablation, and empty memos of the compacted
+        prefills (one per shared-prefix width, built at first use, as JAX
+        compiles one per ``ext_blocks`` bucket) and of the per-client
+        prefills (one per bank)."""
+        self._decode_step = (
+            symbiosis.make_compact_decode_step(self.cfg, self.acfg, self.scfg)
+            if self._compact else
+            symbiosis.make_masked_decode_step(self.cfg, self.acfg, self.scfg))
+        self._bank_prefill = (
+            symbiosis.make_multi_client_prefill(self.cfg, self.acfg, self.scfg)
+            if self.bank_prefill else None)
         self._prefill_steps = {}
+        self._client_prefills = {}
 
     def _set_buckets(self):
         """Row-batch buckets 4, 8, ... capped at the bank's rows: a closed
@@ -318,6 +391,15 @@ class ServingEngine:
             step = self._prefill_steps[ext_blocks] = \
                 symbiosis.make_compact_prefill(self.cfg, self.acfg, self.scfg,
                                                ext_blocks=ext_blocks)
+        return step(*args)
+
+    def _client_prefill(self, m: int, *args):
+        """Bank ``m``'s masked per-client prefill
+        (``symbiosis.make_client_prefill``) on ``args``."""
+        step = self._client_prefills.get(m)
+        if step is None:
+            step = self._client_prefills[m] = symbiosis.make_client_prefill(
+                self.cfg, self.bank_cfgs[m], self.scfg)
         return step(*args)
 
     def _bank_arg(self):
@@ -386,7 +468,7 @@ class ServingEngine:
                     inflight.append(req)
                     newly.append((req, slots))
         if newly:
-            self._prefill_compact(newly)
+            self._prefill_admitted(newly)
         self.stats["peak_inflight"] = max(self.stats["peak_inflight"],
                                           len(inflight))
         ready = sorted({r.client_id for r in inflight if self._left[id(r)] > 0})
@@ -422,41 +504,75 @@ class ServingEngine:
     # admission + prefill
     # ------------------------------------------------------------------
     def _try_admit(self, req: Request) -> Optional[List[int]]:
-        """Claim slots, pages (shared-prefix pages mapped, not popped) and a
-        router placement for a request; None leaves it queued."""
+        """Claim slots, pages (paged; shared-prefix pages mapped, not
+        popped) and a router placement for a request; None leaves it
+        queued."""
         c = req.client_id
         B, S = req.prompt.shape
+        if self.max_inflight is not None:
+            owners = {id(o) for o in self._slot_owner[c] if o is not None}
+            if len(owners) >= self.max_inflight:
+                return None
         free = [s for s in range(self.max_b) if self._slot_owner[c][s] is None]
         if len(free) < B:
             return None
-        # reserve pages for the FULL context up front, assign prompt pages
-        # now and decode pages lazily
         ctx_tokens = S + req.max_new_tokens
-        pages_per_row = -(-ctx_tokens // self._blk)
-        prompt_pages = -(-S // self._blk)
-        need = pages_per_row * B
         hits = None
-        if self._share_prefix:
-            # read-only lookups; the refs are taken in the transactional
-            # block below. Matched pages are mapped, not popped, so the
-            # backpressure and the router charge count new pages only
-            scope = self._prefix_scope(c)
-            hits = [self._prefix_index.lookup(scope, req.prompt[i], self._blk)
-                    for i in range(B)]
-            need -= sum(h.matched_blocks for h in hits)
-        if len(self._free_pages[c]) - self._reserved[c] < need:
-            return None
+        if self._paged:
+            # reserve pages for the FULL context up front, assign prompt
+            # pages now and decode pages lazily
+            pages_per_row = -(-ctx_tokens // self._blk)
+            prompt_pages = -(-S // self._blk)
+            need = pages_per_row * B
+            if self._share_prefix:
+                # read-only lookups; the refs are taken in the transactional
+                # block below. Matched pages are mapped, not popped, so the
+                # backpressure and the router charge count new pages only
+                scope = self._prefix_scope(c)
+                hits = [self._prefix_index.lookup(scope, req.prompt[i],
+                                                  self._blk)
+                        for i in range(B)]
+                need -= sum(h.matched_blocks for h in hits)
+            if len(self._free_pages[c]) - self._reserved[c] < need:
+                return None
         placement = None
         if self.router is not None:
-            # charge what the paged layout pins: the newly allocated pages
-            # (shared pages are already charged to their publisher)
+            # charge what the layout pins: the newly allocated pages (shared
+            # pages are already charged to their publisher), or a full
+            # max_seq-deep dense slot row
+            alloc_tokens = (-(-need * self._blk // B) if self._paged
+                            else self.scfg.max_seq)
             try:
                 placement = self.router.route(
-                    ctx_tokens, B, alloc_tokens=-(-need * self._blk // B),
+                    ctx_tokens, B, alloc_tokens=alloc_tokens,
                     quant=self._quant)
             except NoCapacity:
                 return None                  # stays queued until memory frees
         slots = free[:B]
+        if self._paged:
+            self._claim_pages(req, slots, hits, pages_per_row, prompt_pages,
+                              placement)
+        self._placement[id(req)] = placement
+        for s in slots:
+            self._slot_owner[c][s] = req
+        if hits is not None:
+            n_hit = sum(1 for h in hits if h.start > 0)
+            if n_hit:
+                self.stats["prefix_hits"] += n_hit
+                self.stats["pages_shared"] += sum(h.matched_blocks
+                                                  for h in hits)
+                self.stats["cow_copies"] += sum(1 for h in hits
+                                                if h.tail_page is not None)
+        return slots
+
+    def _claim_pages(self, req: Request, slots: List[int], hits,
+                     pages_per_row: int, prompt_pages: int, placement):
+        """Map a paged admission's pages: shared-prefix refs, the prompt's
+        exclusive pages, the table rows and the reservation for its decode
+        pages. On failure every structure is restored and the router charge
+        refunded before the error propagates."""
+        c = req.client_id
+        B, S = req.prompt.shape
         # TRANSACTIONAL from here: the router charge is committed and the
         # page pops and refs below take several steps, so a failure midway
         # must restore every structure or the request leaks them
@@ -516,18 +632,6 @@ class ServingEngine:
             if placement is not None:
                 self.router.release(placement)
             raise
-        self._placement[id(req)] = placement
-        for s in slots:
-            self._slot_owner[c][s] = req
-        if hits is not None:
-            n_hit = sum(1 for h in hits if h.start > 0)
-            if n_hit:
-                self.stats["prefix_hits"] += n_hit
-                self.stats["pages_shared"] += sum(h.matched_blocks
-                                                  for h in hits)
-                self.stats["cow_copies"] += sum(1 for h in hits
-                                                if h.tail_page is not None)
-        return slots
 
     def _finish_admit(self, req: Request, slots: List[int],
                       first_logits: np.ndarray):
@@ -551,6 +655,110 @@ class ServingEngine:
             self._active_mask[c, slots] = True
             self._active_slots[c] = sorted(self._active_slots[c] + slots)
         self.stats["admitted"] += 1
+
+    def _prefill_admitted(self, newly: List[tuple]):
+        """Prefill this tick's admissions through one of JAX's three paths:
+
+        * paged engines (the default ``ragged_prefill``): the cross-client
+          compacted prefill, every admitted row in one batch
+          (``_prefill_compact``);
+        * the dense layout with ``ragged_prefill``: one masked per-client
+          prefill per client, its same-tick admissions as rows of one
+          ragged batch (``_prefill_ragged``; a lone request takes
+          ``_prefill_request``);
+        * ``ragged_prefill=False`` and the ``bank_prefill`` ablation: one
+          call per request.
+
+        Rows are independent (per-row positions, causal mask, last-token
+        gather, writes bounded by rows or lengths), so every path gives
+        each row the same result."""
+        if not self._ragged:
+            for req, slots in newly:
+                logits = (self._prefill_request_bankwide(req, slots)
+                          if self.bank_prefill
+                          else self._prefill_request(req, slots))
+                self._finish_admit(req, slots, logits)
+            return
+        if self._compact_prefill:
+            self._prefill_compact(newly)
+            return
+        by_client: Dict[int, List[tuple]] = {}
+        for req, slots in newly:
+            by_client.setdefault(req.client_id, []).append((req, slots))
+        for c, items in by_client.items():
+            if len(items) == 1:
+                req, slots = items[0]
+                self._finish_admit(req, slots,
+                                   self._prefill_request(req, slots))
+                continue
+            logits = self._prefill_ragged(c, items)
+            for req, slots in items:
+                self._finish_admit(req, slots, logits[slots])
+
+    def _client_prefill_call(self, c: int, toks, lengths, mask) -> np.ndarray:
+        """One masked per-client prefill of client ``c``'s slot rows;
+        returns the [max_b, V] logits on the host."""
+        self._sync_tbl()
+        m = int(self._method_of[c])
+        logits, self.caches = self._client_prefill(
+            m, self.base, self.banks[m], self.caches, c,
+            int(self._local_of[c]), *self._on_device(toks, lengths, mask))
+        self.stats["prefill_calls"] += 1
+        return logits.float().cpu().numpy()
+
+    def _prefill_request(self, req: Request, slots: List[int]) -> np.ndarray:
+        """Masked single-client prefill into the request's slots. Rows that
+        are not admitted get length 0 (under paging, what keeps the write
+        off other slots' pages). Returns the [B, V] logits of each row's
+        last prompt position."""
+        B, S = req.prompt.shape
+        S_pad = self._bucket(S)
+        toks = np.zeros((self.max_b, S_pad), np.int32)
+        toks[slots, :S] = req.prompt
+        mask = np.zeros((self.max_b,), bool)
+        mask[slots] = True
+        lengths = np.where(mask, S, 0).astype(np.int32)
+        logits = self._client_prefill_call(req.client_id, toks, lengths, mask)
+        self.stats["prefill_tokens"] += B * S
+        return logits[slots]
+
+    def _prefill_ragged(self, c: int, items: List[tuple]) -> np.ndarray:
+        """One masked prefill for several same-client admissions: rows
+        right-padded to the longest prompt's bucket, each with its true
+        length. Returns the full [max_b, V] logits block."""
+        S_pad = self._bucket(max(req.prompt.shape[1] for req, _ in items))
+        toks = np.zeros((self.max_b, S_pad), np.int32)
+        lengths = np.zeros((self.max_b,), np.int32)
+        mask = np.zeros((self.max_b,), bool)
+        for req, slots in items:
+            B, S = req.prompt.shape
+            toks[slots, :S] = req.prompt
+            lengths[slots] = S
+            mask[slots] = True
+            self.stats["prefill_tokens"] += B * S
+        logits = self._client_prefill_call(c, toks, lengths, mask)
+        self.stats["ragged_prefill_batches"] += 1
+        return logits
+
+    def _prefill_request_bankwide(self, req: Request,
+                                  slots: List[int]) -> np.ndarray:
+        """Seed-engine ablation: the request padded into a bank-wide [C,
+        max_b, S] prefill (C x the base compute of the masked path) that
+        rewrites the client's whole cache slice (the other clients' rows
+        keep their bits)."""
+        c = req.client_id
+        B, S = req.prompt.shape
+        toks = np.zeros((self.n_clients, self.max_b, S), np.int32)
+        toks[c, slots] = req.prompt
+        sel = np.zeros((self.n_clients,), bool)
+        sel[c] = True
+        tok_t, sel_t = self._on_device(toks, sel)
+        logits, self.caches = self._bank_prefill(
+            self.base, self.banks[0], self.caches, {"tokens": tok_t},
+            write_clients=sel_t)
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_tokens"] += B * S
+        return logits[c].float().cpu().numpy()[slots]
 
     def _prefill_compact(self, newly: List[tuple]):
         """ONE compacted prefill for the tick's admissions: every admitted
@@ -664,7 +872,7 @@ class ServingEngine:
     def _sync_tbl(self):
         """Push the block-table mirror to the device if the allocator
         changed it since the last step (a copy: the mirror keeps mutating)."""
-        if self._tbl_dirty:
+        if self._paged and self._tbl_dirty:
             self.caches = dict(self.caches, block_tbl=torch.tensor(
                 self._tbl, device=self.device))
             self._tbl_dirty = False
@@ -693,10 +901,43 @@ class ServingEngine:
     def _decode_tick(self, serve: set, inflight: List[Request]):
         stepping = [r for r in inflight
                     if r.client_id in serve and self._left[id(r)] > 0]
-        for req in stepping:
-            for s in self._slots_of[id(req)]:
-                self._grow_slot_pages(req, req.client_id, s)
+        if self._paged:
+            for req in stepping:
+                for s in self._slots_of[id(req)]:
+                    self._grow_slot_pages(req, req.client_id, s)
         self._sync_tbl()
+        if self._compact:
+            lookup, finite_of = self._decode_tick_compact(serve)
+        else:
+            # the masked bank-wide step: this tick's mask is the activity
+            # mask (kept by admission and retirement) of the serving clients
+            serve_sel = np.zeros((self.n_clients, 1), bool)
+            serve_sel[sorted(serve)] = True
+            active = self._active_mask & serve_sel
+            logits, self.caches = self._decode_step(
+                self.base, self._bank_arg(), self.caches,
+                *self._on_device(self._last_tok, active))
+            lg = logits.float().cpu().numpy()
+            lookup = lambda c, slots: lg[c, slots]   # noqa: E731
+            finite_of = lambda c, slots: np.isfinite(   # noqa: E731
+                lg[c, slots]).all()
+        for req in stepping:
+            c, slots_r = req.client_id, self._slots_of[id(req)]
+            if not finite_of(c, slots_r):
+                self._quarantine_request(req)
+                continue
+            nxt = self._sample(lookup(c, slots_r), req)
+            req.generated[:, req.max_new_tokens - self._left[id(req)]] = nxt
+            self._last_tok[c, slots_r] = nxt
+            self._left[id(req)] -= 1
+            self.stats["decode_tokens"] += len(slots_r)
+        self.stats["ticks"] += 1
+        self.stats["batched_clients"] += len(serve)
+
+    def _decode_tick_compact(self, serve: set):
+        """The serving clients' active (client, slot) rows in one bucketed
+        batch through the compacted step; returns (logits lookup, finite
+        lookup) for the sampler."""
         rows = [(c, s) for c in sorted(serve) for s in self._active_slots[c]]
         n = len(rows)
         nb = self._row_bucket(n)
@@ -715,19 +956,8 @@ class ServingEngine:
         row_of = {cs: i for i, cs in enumerate(rows)}
         self.stats["compact_rows"] += n
         self.stats["compact_padded"] += nb - n
-        for req in stepping:
-            c, slots_r = req.client_id, self._slots_of[id(req)]
-            idx = [row_of[(c, s)] for s in slots_r]
-            if not fin[idx].all():
-                self._quarantine_request(req)
-                continue
-            nxt = self._sample(lg[idx], req)
-            req.generated[:, req.max_new_tokens - self._left[id(req)]] = nxt
-            self._last_tok[c, slots_r] = nxt
-            self._left[id(req)] -= 1
-            self.stats["decode_tokens"] += len(slots_r)
-        self.stats["ticks"] += 1
-        self.stats["batched_clients"] += len(serve)
+        return (lambda c, ss: lg[[row_of[(c, s)] for s in ss]],
+                lambda c, ss: fin[[row_of[(c, s)] for s in ss]].all())
 
     def _sample(self, logits: np.ndarray, req: Request) -> np.ndarray:
         """logits [rows, V] -> next token per row, via the request's RNG."""
@@ -759,6 +989,8 @@ class ServingEngine:
             if self._active_mask[c, s]:       # never set for max_new == 1
                 self._active_mask[c, s] = False
                 self._active_slots[c].remove(s)
+            if not self._paged:
+                continue
             # exclusive pages return to the pool (table rows are remapped at
             # the next admission, so stale entries are never read through);
             # the slot's tail entries die with it, and each shared page drops
@@ -770,7 +1002,8 @@ class ServingEngine:
                     self._free_pages[p // self._pool_pages].append(p)
             self._prefill_start.pop((c, s), None)
             self._wpos[c, s] = 0
-        self._reserved[c] -= self._resv_of.pop(id(req), 0)
+        if self._paged:
+            self._reserved[c] -= self._resv_of.pop(id(req), 0)
         del self._left[id(req)]
         self._rng.pop(id(req), None)
         placement = self._placement.pop(id(req), None)
@@ -799,7 +1032,10 @@ class ServingEngine:
         and only here: every other write is in place). An attached router
         is charged the bank's resident adapter bytes first (``route_bank``,
         which raises before anything grows); ``retire_bank`` releases
-        it."""
+        it. Needs the paged layout and the compacted decode, as in JAX."""
+        if not (self._paged and self._compact):
+            raise ValueError("dynamic bank admission requires the paged KV "
+                             "layout and compacted decode")
         self._check_device("admitted bank", client_bank)
         k = _clients_of(client_bank)
         placement = None

@@ -7,7 +7,10 @@ plus one f32 scale per head per token for K and V each, and
 ``page_block > 0`` rounds the context up to whole pages (what the paged
 allocator pins). ``decode_token_cost`` is the router's per-token latency
 model of the on-card placement. Only the dense family is ported; the
-recurrent, hybrid and encoder-decoder kinds raise.
+recurrent, hybrid and encoder-decoder kinds raise. The ring-buffer helpers
+(``ring_cache_init``, ``ring_write``, and ``ring_valid_mask`` from
+``models.blocks``, which decodes over rings with it) are the
+sliding-window cache of depth ``window``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.common.hardware import H100, Chip
 from repro_torch.config import DENSE, ModelConfig
+from repro_torch.models.blocks import dense_write, dense_write_index
+from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,3 +82,29 @@ def cache_bytes(cfg: ModelConfig, seq_len: int, batch: int = 1, *,
     if page_block:
         seq_len = -(-seq_len // page_block) * page_block
     return make_cache_spec(cfg, quant=quant).total_bytes(seq_len, batch)
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window ring-buffer cache
+# ---------------------------------------------------------------------------
+
+def ring_cache_init(cfg: ModelConfig, batch: int, window: int, dtype=None,
+                    device="cuda"):
+    """Zeroed ring of ``window`` lanes per slot: k/v [L, B, window, K, hd]
+    and ``pos`` [B]."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    shape = (cfg.n_layers, batch, window, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def ring_write(cache_k, cache_v, k, v, pos, window: int):
+    """Write one token's K/V at lane pos % window of each row, IN PLACE
+    (JAX selects over the window; ``blocks.dense_write`` on a ring).
+    cache_k/v [B, window, K, hd]; k/v [B, 1, K, hd]; pos [B]. Returns
+    (cache_k, cache_v)."""
+    index = dense_write_index(pos, window, ring=True)
+    dense_write(cache_k, index, k[:, 0])
+    dense_write(cache_v, index, v[:, 0])
+    return cache_k, cache_v

@@ -65,7 +65,7 @@ def _jax_engine(cfg, acfg, scfg, base, bank, policy, router=None):
                             policy=policy, prefix_cache=False, router=router)
 
 
-def _port_engine(cfg, acfg, scfg, base, bank, policy, router=None):
+def _port_engine(cfg, acfg, scfg, base, bank, policy, router=None, **kw):
     pc = port_config(cfg)
     pacfg = pcfg.AdapterConfig(method="lora", rank=acfg.rank,
                                alpha=acfg.alpha, targets=tuple(acfg.targets))
@@ -76,7 +76,8 @@ def _port_engine(cfg, acfg, scfg, base, bank, policy, router=None):
                       max_batch_per_client=MAX_B)
     return ServingEngine(spec, convert.params_from_numpy(pc, base, "cpu"),
                          [convert.bank_from_numpy(pacfg, bank, "cpu")],
-                         device="cpu", router=router, prefix_cache=False)
+                         device="cpu", router=router,
+                         **dict(dict(prefix_cache=False), **kw))
 
 
 def _host_state(eng, index_of):
@@ -208,12 +209,21 @@ def test_pool_data_ptr_unchanged_across_admission_and_decode():
         assert all(t.abs().sum() > 0 for t in peng.caches["layers"].values())
 
 
-@pytest.mark.parametrize("bad", [dict(page_block=0)])
-def test_engine_refuses_layouts_outside_the_slice(bad):
+@pytest.mark.parametrize("bad,kw", [
+    (dict(page_block=0), dict(compact_decode=True)),
+    (dict(), dict(bank_prefill=True)),
+    (dict(page_block=0), dict(bank_prefill=True, max_inflight_per_client=2)),
+    (dict(), dict(ragged_prefill=False, prefix_cache=True)),
+    (dict(page_block=0), dict(prefix_cache=True))])
+def test_engine_refuses_layouts_outside_the_slice(bad, kw):
+    """The layout and path combinations JAX refuses: the compacted decode
+    without pages, the ``bank_prefill`` ablation on pages or with more than
+    one request in flight per client, shared prefixes without the
+    compacted prefill."""
     cfg, acfg, scfg, base, bank = _system()
     with pytest.raises(ValueError):
         _port_engine(cfg, acfg, dataclasses.replace(scfg, **bad), base, bank,
-                     "opportunistic")
+                     "opportunistic", **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),

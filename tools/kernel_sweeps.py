@@ -15,9 +15,11 @@ sweeps, printed one line per shape after the card's name and power limit:
    with two extra C entry points, one that takes BN from its caller and one
    that returns ``tile_width``'s choice, so the sweep times the kernel the
    port launches; each width is first held against the plain version;
-2. dense decode attention at ``chip_smoke.py``'s phase-6 shape with splits
-   of 64 to 512 tokens: the call's time, and the split and combine kernels'
-   device times by ``torch.profiler``, beside SDPA with a mask and GQA;
+2. dense decode attention at ``chip_smoke.py``'s phase-6 shape and at
+   phase 9's layer slab with splits of 32 to 512 tokens: the call's time,
+   its device time with the enqueue hidden (``chip_smoke.device_ms``), and
+   the split and combine kernels' device times by ``torch.profiler``,
+   beside SDPA with a mask and GQA;
 3. flash attention's tensor-core entry point at kv tiles of 64 and 128 rows
    and rings of 2 and 3 stages, at ``chip_smoke.py``'s phase-5 shape
    (granite's [1, 4096, 32, 128], causal) and gemma2-27b's windowed
@@ -193,40 +195,54 @@ def ragged_sweep():
 
 
 def dense_sweep():
-    B, T, K, G, hd = 8, 4096, 8, 4, 128
+    """Phase 6's cache [8, 4096, 8, 128] (positions spread over it) and
+    phase 9's layer slab [8, 512, 8, 128] (positions 15 past phase 4's
+    prompts), each split size held against the plain version first."""
+    B, K, G, hd = 8, 8, 4, 128
+    lengths = [r.prompt.shape[1] for r in chip_smoke.make_requests(
+        get_config("granite-3-8b"), 4)]
     g = torch.Generator(device=DEV).manual_seed(10)
-    q = torch.randn((B, K, G, hd), generator=g, device=DEV).to(torch.bfloat16)
-    k, v = (torch.randn((B, T, K, hd), generator=g, device=DEV)
-            .to(torch.bfloat16) for _ in range(2))
-    pos = torch.linspace(0, T - 1, B, device=DEV).round().to(torch.int32)
-    mask = (torch.arange(T, device=DEV)[None, :]
-            <= pos[:, None].long())[:, None, None, :]
-    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-        q.reshape(B, K * G, 1, hd), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True))
-    want = da.decode_attn_plain(q.float(), k.float(), v.float(), pos,
-                                block_kv=512)
     chosen = da.DENSE_SPLIT
-    try:
-        for split in (64, 128, 256, 512):
-            da.DENSE_SPLIT = split
-            err = float((da.decode_attn_cuda(q, k, v, pos).float() - want)
-                        .abs().max())
-            ms = time_ms(lambda: da.decode_attn_cuda(q, k, v, pos))
-            with chip_smoke.traced() as prof:
-                for _ in range(5):
-                    _FLUSH[0].zero_()
-                    da.decode_attn_cuda(q, k, v, pos)
-            dev = {name: sum(e.device_time_total for e in prof.key_averages()
-                             if name in e.key) / 5
-                   for name in ("split_kernel", "dense_combine_kernel")}
-            print(f"decode_attn dense {[B, T, K, hd]} bf16, split {split}: "
-                  f"{ms:.4f} ms (split kernel {dev['split_kernel']:.1f} "
-                  f"us, combine {dev['dense_combine_kernel']:.1f} us), max "
-                  f"abs err {err:.2e}; SDPA with a mask {sdpa:.4f} ms",
-                  flush=True)
-    finally:
-        da.DENSE_SPLIT = chosen
+    for T, pos in ((4096, torch.linspace(0, 4095, B, device=DEV).round()),
+                   (512, torch.tensor([n + 15 for n in lengths],
+                                      device=DEV))):
+        pos = pos.to(torch.int32)
+        q = torch.randn((B, K, G, hd), generator=g, device=DEV) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((B, T, K, hd), generator=g, device=DEV)
+                .to(torch.bfloat16) for _ in range(2))
+        mask = (torch.arange(T, device=DEV)[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+        sdpa = chip_smoke.device_ms(lambda: F.scaled_dot_product_attention(
+            q.reshape(B, K * G, 1, hd), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True))
+        want = da.decode_attn_plain(q.float(), k.float(), v.float(), pos,
+                                    block_kv=512)
+        try:
+            for split in (32, 64, 128, 256, 512):
+                da.DENSE_SPLIT = split
+                err = float((da.decode_attn_cuda(q, k, v, pos).float()
+                             - want).abs().max())
+                ms = time_ms(lambda: da.decode_attn_cuda(q, k, v, pos))
+                dev = chip_smoke.device_ms(
+                    lambda: da.decode_attn_cuda(q, k, v, pos))
+                with chip_smoke.traced() as prof:
+                    for _ in range(5):
+                        _FLUSH[0].zero_()
+                        da.decode_attn_cuda(q, k, v, pos)
+                kern = {name: sum(e.device_time_total
+                                  for e in prof.key_averages()
+                                  if name in e.key) / 5
+                        for name in ("split_kernel", "dense_combine_kernel")}
+                print(f"decode_attn dense {[B, T, K, hd]} bf16, "
+                      f"{int((pos.long() + 1).sum())} live tokens, split "
+                      f"{split}: {ms:.4f} ms, device {dev:.4f} ms (split "
+                      f"kernel {kern['split_kernel']:.1f} us, combine "
+                      f"{kern['dense_combine_kernel']:.1f} us), max abs err "
+                      f"{err:.2e}; SDPA with a mask, device {sdpa:.4f} ms"
+                      f" (the port splits by {chosen})", flush=True)
+        finally:
+            da.DENSE_SPLIT = chosen
 
 
 def flash_sweep():

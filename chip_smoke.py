@@ -157,7 +157,34 @@ exits non-zero and prints no result. Phases, each raising on failure:
    active profiled as phase 4's, printed beside it. Phase 5 times the
    dense kernel at phase 9's slab too ([8, 512, 8, 128], positions 15
    past phase 4's prompts): the kernel line's timing, its launches phase
-   9a's.
+   9a's;
+10. every PEFT method fine-tunes on phase 4's base tensors, and tenants'
+   state survives a crash. 10a at granite's width, 2 layers, fp32: the
+   compact step over an IA3 bank (k, v, down) and a prefix bank (16
+   tokens, q, v), 4 rows each, every row against its solo step (7a's
+   tolerance), a padding and a NaN row committing nothing, bit for bit;
+   per method ``make_multi_client_train_step`` against the compact step at
+   the same hyperparameters (7a's tolerance; bit for bit printed) and
+   ``make_mixed_step`` against its train and decode halves run apart, bit
+   for bit, every launch count set to 0 just before it and read just
+   after (the dense decode kernel 2 per layer, SGMV 2 per layer for LoRA,
+   nothing else), and its decode half's logits and caches against the
+   decode step under ``plain_kernels()`` at 1e-5 (8 rows, T 64, fp32: the
+   kernels at the shape this path gives them; no launch in that pass);
+   10b a ``FinetuneEngine(debug=True)`` at full size with 2 LoRA r8, 2 IA3
+   and 2 prefix jobs of 2 x 256 tokens, 3 steps each: every job's losses
+   and adapter update against its solo run (7b's tolerances), tick times, one
+   tick per bank timed and traced, and the peak memory beyond the base of
+   one step at 1 job per method beside ``job_hbm_bytes``' charge
+   (printed); 10c the engine killed after 2 ticks and resumed by a fresh
+   engine from ``engine_state()`` through a CRC-framed blob (a newer copy
+   with a flipped byte skipped): every job's losses, adapter and AdamW
+   state bit for bit the uninterrupted run's; an IA3 job poisoned to NaN
+   at its third batch quarantined with its last clean state in
+   ``quarantine_dir``, restored bit for bit; 10d a ``SymbiosisEngine``
+   serving phase 4's 8 requests beside the six jobs: every stream and
+   launch count phase 4's, every job's losses, adapter and AdamW state
+   10b's bit for bit.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -168,10 +195,13 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -181,6 +211,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import (load_engine_state,  # noqa: E402
+                                    restore_job_state, save_engine_state)
 from repro_torch.common.hardware import H100  # noqa: E402
 from repro_torch.common.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.config import (AdapterConfig, FinetuneConfig,  # noqa: E402
@@ -940,6 +972,21 @@ KERNELS_PER_TICK_BEFORE = {"phase 4": 3469, "phase 4b": 4589}
 TICK_AIMS_MS = {"sgmv": 1.0, "split_kernel": 1.0}
 
 
+def device_profile(prof):
+    """(busy ms, kernels, {name: (count, us)}) of a trace's device events."""
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in kern:
+        s, t = e.time_range.start, e.time_range.end
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+        n, d = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
+    return busy / 1e3, len(kern), by_name
+
+
 def profile_tick(cfg, base, banks, spec, label, n_req=8, **engine_kw):
     """A decode tick of ``n_req`` one-row requests (8: every slot of phase
     4's bank) over ``banks``' clients in turn: its median over 5
@@ -969,35 +1016,25 @@ def profile_tick(cfg, base, banks, spec, label, n_req=8, **engine_kw):
         eng.service_tick()
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    busy_ms, n_kern, by_name = device_profile(prof)
+    busy = busy_ms * 1e3
     out = {"tick8_ms": tick_us / 1e3}
     what = f"decode tick ({n_req} of 8 slots active)"
-    if not kern:
+    if not n_kern:
         log(f"[{label}] {what}: {tick_us / 1e3:.3f} ms median "
             "unprofiled; profiler saw no device events: device busy share "
             "not measured")
         return out
-    busy, end = 0.0, float("-inf")
-    for e in kern:
-        s, t = e.time_range.start, e.time_range.end
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    by_name = {}
-    for e in kern:
-        n, d = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
     before = KERNELS_PER_TICK_BEFORE.get(label)
     log(f"[{label}] {what}: {tick_us / 1e3:.3f} ms median "
         f"unprofiled, {traced_us / 1e3:.3f} ms traced; device busy "
         f"{busy / 1e3:.3f} ms = {100 * busy / tick_us:.1f}% of the "
         f"unprofiled tick ({100 * busy / traced_us:.1f}% of the traced "
-        f"one); {len(kern)} kernels" + (
+        f"one); {n_kern} kernels" + (
             "" if before is None else f" (at most {before}: every kernel one "
             "launch per call)"))
-    if before is not None and len(kern) > before:
-        raise AssertionError(f"[{label}] {len(kern)} kernels per decode tick,"
+    if before is not None and n_kern > before:
+        raise AssertionError(f"[{label}] {n_kern} kernels per decode tick,"
                              f" more than {before}")
     for name, (n, d) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"[{label}]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
@@ -1017,7 +1054,7 @@ def profile_tick(cfg, base, banks, spec, label, n_req=8, **engine_kw):
             "tick")
         out["dense_attn_tick_ms"] = out["split_kernel_tick_ms"] + d
     out.update(busy_ms=busy / 1e3, busy_pct=100 * busy / tick_us,
-               kernels_per_tick=float(len(kern)))
+               kernels_per_tick=float(n_kern))
     return out
 
 
@@ -1738,24 +1775,18 @@ def step7a_hyper(R):
                                   device=DEV)}
 
 
-def check_step_on_card():
-    """7a: granite-3-8b's width, 2 layers, fp32 (TF32 off): the compact
-    step for 4 rows against each row's ``make_baseline_train_step``; then a
-    call with a padding row and a NaN-poisoned row, against the same call
-    unpoisoned; then ``frozen_dense``'s dx and residuals."""
-    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
-                              dtype="float32", param_dtype="float32")
-    base = get_model(cfg).init_params(gen(70), DEV)
+def compact_rows_check(cfg, base, acfg, bank, batch_seed, label):
+    """The compact step for 4 rows of ``bank`` (8 slots, fp32) against
+    each row's ``make_baseline_train_step``; then a call with a padding row
+    and a NaN-poisoned row, against the same call unpoisoned."""
     R, cap = 4, 8
     slots = torch.tensor([5, 2, 7, 0], dtype=torch.int32, device=DEV)
-    bank = tree_map(lambda x: x.repeat((2,) + (1,) * (x.ndim - 1)),
-                    random_lora(cfg, cap // 2, 71))
     opt = AdamWState(step=torch.arange(cap, dtype=torch.int32, device=DEV),
                      m=tree_map(lambda x: torch.randn_like(x) * 1e-3, bank),
                      v=tree_map(lambda x: torch.rand_like(x) * 1e-6, bank))
-    batch = train_batches(cfg, R, 72)
+    batch = train_batches(cfg, R, batch_seed)
     hyper = step7a_hyper(R)
-    step = symbiosis.make_compact_train_step(cfg, LORA, remat=False)
+    step = symbiosis.make_compact_train_step(cfg, acfg, remat=False)
     start = (tree_clone(bank), tree_clone(opt))
     t0 = time.perf_counter()
     new_bank, new_opt, m = step(base, tree_clone(bank), tree_clone(opt),
@@ -1764,7 +1795,7 @@ def check_step_on_card():
     torch.cuda.synchronize()
     t_step = time.perf_counter() - t0
     if not m["finite"].all():
-        raise AssertionError(f"[phase 7a] non-finite rows {m['finite']}")
+        raise AssertionError(f"{label} non-finite rows {m['finite']}")
     worst = 0.0
     for i in range(R):
         s = int(slots[i])
@@ -1775,21 +1806,22 @@ def check_step_on_card():
                            max_grad_norm=(0.0 if torch.isinf(hyper["gnorm"][i])
                                           else float(hyper["gnorm"][i])),
                            remat=False)
-        solo = symbiosis.make_baseline_train_step(cfg, LORA, tcfg)
+        solo = symbiosis.make_baseline_train_step(cfg, acfg, tcfg)
         a, o, sm = solo(base, tree_map(lambda x: x[s].clone(), start[0]),
                         tree_map(lambda x: x[s].clone(), start[1]),
                         {k: v[i] for k, v in batch.items()},
                         int(hyper["step"][i]))
-        worst = max(worst, compare(f"[phase 7a] row {i} loss", m["loss"][i],
+        worst = max(worst, compare(f"{label} row {i} loss", m["loss"][i],
                                    sm["loss"], F32_STEP_TOL))
         for name, x, y in (("adapter", new_bank, a), ("m", new_opt.m, o.m),
                            ("v", new_opt.v, o.v)):
             for xl, yl in zip(tree_leaves(x), tree_leaves(y)):
-                worst = max(worst, compare(f"[phase 7a] row {i} {name}",
+                worst = max(worst, compare(f"{label} row {i} {name}",
                                            xl[s], yl, state_tol(yl)))
-    log(f"[phase 7a] {cfg.name} width, 2 layers, fp32: compact step over "
-        f"{R} rows x {TRAIN_B} x {TRAIN_S} tokens ({t_step * 1e3:.1f} ms, "
-        f"first call) against each row's make_baseline_train_step: losses "
+    log(f"{label} {cfg.name} width, 2 layers, fp32, {acfg.method} "
+        f"{acfg.targets}: compact step over {R} rows x {TRAIN_B} x "
+        f"{TRAIN_S} tokens ({t_step * 1e3:.1f} ms, first call) against each "
+        f"row's make_baseline_train_step: losses "
         f"{[round(float(x), 4) for x in m['loss']]}, max abs err {worst:.3e}"
         f" (losses {F32_STEP_TOL}; states rtol 1e-4, atol 1e-3 x max|leaf| "
         f"up to 1e-4)")
@@ -1805,21 +1837,37 @@ def check_step_on_card():
         outs.append(st)
     if not outs[0][2]["finite"].all() or bool(outs[1][2]["finite"][1]) \
             or not outs[1][2]["finite"][[0, 2]].all():
-        raise AssertionError(f"[phase 7a] probes {outs[0][2]['finite']} / "
+        raise AssertionError(f"{label} probes {outs[0][2]['finite']} / "
                              f"{outs[1][2]['finite']}")
     for full, ref, before in zip(tree_leaves(outs[1][:2]),
                                  tree_leaves(outs[0][:2]),
                                  tree_leaves(start)):
         for s in (2, 0, 1, 3, 4, 6):       # poisoned, padding, outside
             if not torch.equal(full[s], before[s]):
-                raise AssertionError(f"[phase 7a] slot {s} changed")
+                raise AssertionError(f"{label} slot {s} changed")
         for s in (5, 7):                   # survivors
             if not torch.equal(full[s], ref[s]):
-                raise AssertionError(f"[phase 7a] survivor slot {s} differs "
+                raise AssertionError(f"{label} survivor slot {s} differs "
                                      "from the unpoisoned run")
-    log("[phase 7a] a padding row and a NaN-poisoned row committed nothing "
-        "(their slots and the slots outside the call bit for bit); the "
-        "other rows equal the unpoisoned call bit for bit")
+    log(f"{label} {acfg.method}: a padding row and a NaN-poisoned row "
+        "committed nothing (their slots and the slots outside the call bit "
+        "for bit); the other rows equal the unpoisoned call bit for bit")
+
+
+def f32_granite(n_layers=2):
+    return dataclasses.replace(get_config("granite-3-8b"), n_layers=n_layers,
+                               dtype="float32", param_dtype="float32")
+
+
+def check_step_on_card():
+    """7a: granite-3-8b's width, 2 layers, fp32 (TF32 off): the compact
+    step's rows against their solo steps, a padding and a NaN row
+    (``compact_rows_check``); then ``frozen_dense``'s dx and residuals."""
+    cfg = f32_granite()
+    base = get_model(cfg).init_params(gen(70), DEV)
+    bank = tree_map(lambda x: x.repeat((2,) + (1,) * (x.ndim - 1)),
+                    random_lora(cfg, 4, 71))
+    compact_rows_check(cfg, base, LORA, bank, 72, "[phase 7a]")
 
     g = gen(73)
     x = torch.randn((TRAIN_B * TRAIN_S, cfg.d_model), generator=g,
@@ -1844,7 +1892,7 @@ def check_step_on_card():
         f"{list(w.shape)}: dx max abs err {e:.3e} against autograd through "
         f"x @ w ({F32_TOL}); saved for the backward: {saved} (the weight "
         "only)")
-    del base, bank, opt, new_bank, new_opt, outs, start
+    del base, bank
     torch.cuda.empty_cache()
 
 
@@ -1858,16 +1906,16 @@ def train_jobs(cfg, n, steps=TRAIN_STEPS, first_seed=0):
 
 
 def solo_run(cfg, base, job):
-    """The job alone through ``make_baseline_train_step`` from the adapter
-    the engine initialises for its seed: its losses, the initial adapter
-    and the final one."""
+    """The job alone through ``make_baseline_train_step`` (its method, the
+    torch-like baseline) from the adapter the engine initialises for its
+    seed: its losses, the initial adapter and the final one."""
     tcfg = TrainConfig(lr=job.lr, weight_decay=job.weight_decay,
                        warmup_steps=job.warmup_steps,
                        total_steps=job.schedule_total,
                        max_grad_norm=job.max_grad_norm, remat=False)
-    step = symbiosis.make_baseline_train_step(cfg, LORA, tcfg)
+    step = symbiosis.make_baseline_train_step(cfg, job.acfg, tcfg)
     gen_ = torch.Generator(device=DEV).manual_seed(job.seed)
-    a = adapters.init_adapter(cfg, LORA, gen_, device=DEV)
+    a = adapters.init_adapter(cfg, job.acfg, gen_, device=DEV)
     first = tree_clone(a)
     o = adamw_init(a)
     stream = make_job_stream(cfg, TRAIN_B, TRAIN_S, seed=job.seed, device=DEV)
@@ -1991,30 +2039,19 @@ def profile_train_tick(cfg, base):
         eng.train_tick()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
-    if not kern:
+    busy_ms, n_kern, by_name = device_profile(prof)
+    if not n_kern:
         log(f"[phase 7b] train tick (4 rows): {tick_ms:.3f} ms median "
             "unprofiled; the profiler saw no device events: device busy "
             "not measured")
         return
-    busy, end = 0.0, float("-inf")
-    by_name = {}
-    for e in kern:
-        s, t = e.time_range.start, e.time_range.end
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-        n, d = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, d + e.time_range.elapsed_us())
-    busy_ms = busy / 1e3
     gemm = [(n, d) for name, (n, d) in by_name.items()
             if any(k in name for k in GEMM_NAMES)]
     gemm_ms = sum(d for _, d in gemm) / 1e3
     log(f"[phase 7b] train tick (4 rows x {TRAIN_B * TRAIN_S} tokens): "
         f"{tick_ms:.3f} ms median of 3 unprofiled, {traced_ms:.3f} ms traced;"
         f" device busy {busy_ms:.3f} ms = {100 * busy_ms / tick_ms:.1f}% of "
-        f"the unprofiled tick; {len(kern)} kernels per tick, "
+        f"the unprofiled tick; {n_kern} kernels per tick, "
         f"{sum(n for n, _ in gemm)} of them matrix products taking "
         f"{gemm_ms:.3f} ms ({100 * gemm_ms / busy_ms:.1f}% of the busy time); "
         "top kernels:")
@@ -2922,6 +2959,479 @@ def phase9(cfg, base, bank, streams4, times4):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: every PEFT method fine-tunes on the shared base; crash recovery
+# ---------------------------------------------------------------------------
+
+P10_ACFGS = {"lora": LORA,
+             "ia3": AdapterConfig(method="ia3", targets=("k", "v", "down")),
+             "prefix": AdapterConfig(method="prefix", targets=("q", "v"),
+                                     n_prefix=16)}
+P10_METHODS = ("lora", "lora", "ia3", "ia3", "prefix", "prefix")
+# the multi-client and mixed steps' one schedule, at a step past warmup
+P10_TCFG = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=10,
+                       max_grad_norm=1.0, weight_decay=0.01, remat=False)
+P10_STEP = 3
+
+
+def random_bank(cfg, acfg, n, seed):
+    """``n`` fp32 adapters of ``acfg`` stacked: LoRA B drawn, IA3 scales
+    around 1, prefix K/V as initialised (drawn)."""
+    if acfg.method == "lora":
+        return random_lora(cfg, n, seed)
+    g = gen(seed)
+    bank = adapters.init_client_bank(cfg, acfg, n, g, device=DEV)
+    for leaf in bank["layers"].values():
+        if isinstance(leaf, dict):
+            leaf["scale"].add_(torch.randn(leaf["scale"].shape, generator=g,
+                                           device=DEV) * 0.1)
+    return bank
+
+
+def p10_opt(bank, step):
+    n = tree_leaves(bank)[0].shape[0]
+    return AdamWState(step=torch.full((n,), step, dtype=torch.int32,
+                                      device=DEV),
+                      m=tree_map(lambda x: torch.randn_like(x) * 1e-3, bank),
+                      v=tree_map(lambda x: torch.rand_like(x) * 1e-6, bank))
+
+
+def max_diff(a, b):
+    """Largest |a - b| over matching leaves (0.0: bit for bit, when every
+    leaf is also ``torch.equal``)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def trees_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def p10_multi_vs_compact(cfg, base, acfg, bank):
+    """``make_multi_client_train_step`` over 4 clients against the compact
+    step over the same 4 rows with every row at the same hyperparameters:
+    losses at 7a's tolerance, states at ``state_tol``; bit for bit
+    printed."""
+    opt = p10_opt(bank, P10_STEP)
+    batch = train_batches(cfg, 4, 102)
+    multi = symbiosis.make_multi_client_train_step(cfg, acfg, P10_TCFG)
+    b1, o1, m1 = multi(base, tree_clone(bank), tree_clone(opt), batch,
+                       P10_STEP)
+    every = lambda v: torch.full((4,), v, dtype=torch.float32, device=DEV)
+    hyper = {"step": torch.full((4,), P10_STEP, dtype=torch.int32,
+                                device=DEV),
+             "lr": every(P10_TCFG.lr), "warmup": every(P10_TCFG.warmup_steps),
+             "total": every(P10_TCFG.total_steps),
+             "wd": every(P10_TCFG.weight_decay),
+             "gnorm": every(P10_TCFG.max_grad_norm)}
+    compact = symbiosis.make_compact_train_step(cfg, acfg, remat=False)
+    b2, o2, m2 = compact(base, tree_clone(bank), tree_clone(opt), batch,
+                         torch.arange(4, dtype=torch.int32, device=DEV),
+                         torch.ones(4, dtype=torch.bool, device=DEV), hyper)
+    worst = compare(f"[phase 10a] {acfg.method} multi-client losses",
+                    m1["loss"], m2["loss"], F32_STEP_TOL)
+    for x, y in zip(tree_leaves((b1, o1.m, o1.v)),
+                    tree_leaves((b2, o2.m, o2.v))):
+        worst = max(worst, compare(f"[phase 10a] {acfg.method} multi-client "
+                                   "state", x, y, state_tol(y)))
+    log(f"[phase 10a] {acfg.method}: make_multi_client_train_step (4 clients,"
+        f" step {P10_STEP}, lr {P10_TCFG.lr}, clip {P10_TCFG.max_grad_norm}, "
+        f"wd {P10_TCFG.weight_decay}) against the compact step at the same "
+        f"hyperparameters: max abs err {worst:.3e}; bit for bit: "
+        f"{trees_equal((b1, o1, m1['loss']), (b2, o2, m2['loss']))}")
+
+
+def p10_mixed(cfg, base, acfg, bank):
+    """``make_mixed_step`` (4 clients train, then a dense 4-client x 2-slot
+    bank decodes one token after a 16-token prefill) against its two
+    halves run apart, bit for bit; every launch count set to 0 just before
+    the mixed step and read just after: the dense decode kernel 2 per
+    layer, SGMV 2 per layer for LoRA on q and v, nothing else. The decode
+    half's kernels are held against their plain versions at this shape
+    (8 rows, T 64, a row's whole cache one partial split, fp32): the
+    decode step under ``plain_kernels()`` on copies of the same caches and
+    tokens, logits and caches at ``F32_TOL``, no launch in that pass."""
+    L = cfg.n_layers
+    scfg = ServeConfig(n_clients=4, max_seq=64)
+    inf = random_bank(cfg, acfg, 4, 103)
+    caches = symbiosis.init_client_caches(cfg, 4, 2, 64, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (4, 2, 16), generator=gen(104),
+                         device=DEV, dtype=torch.int32)
+    logits, caches = symbiosis.make_multi_client_prefill(cfg, acfg, scfg)(
+        base, inf, caches, {"tokens": toks})
+    tok = logits.argmax(-1).to(torch.int32)
+    opt = p10_opt(bank, P10_STEP)
+    batch = train_batches(cfg, 4, 105)
+    apart_caches, plain_caches = tree_clone(caches), tree_clone(caches)
+    mixed = symbiosis.make_mixed_step(cfg, acfg, P10_TCFG, scfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = mixed(base, tree_clone(bank), tree_clone(opt), batch, inf, caches,
+                tok, P10_STEP)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {name: 0 for name in KERNELS}
+    want["decode_attn"] = 2 * L
+    want["sgmv"] = 2 * L if acfg.method == "lora" else 0
+    if counts != want:
+        raise AssertionError(f"[phase 10a] {acfg.method} mixed step launched "
+                             f"{counts}, expected {want}")
+    b, o, m = symbiosis.make_multi_client_train_step(cfg, acfg, P10_TCFG)(
+        base, tree_clone(bank), tree_clone(opt), batch, P10_STEP)
+    lg, c = symbiosis.make_multi_client_decode_step(cfg, acfg, scfg)(
+        base, inf, apart_caches, tok)
+    if not trees_equal((out[0], out[1], out[2], out[3], out[4]["loss"],
+                        out[4]["gnorm"]),
+                       (b, o, c, lg, m["loss"], m["gnorm"])):
+        raise AssertionError(f"[phase 10a] {acfg.method} mixed step differs "
+                             "from its halves run apart (max abs "
+                             f"{max_diff(out[:4], (b, o, c, lg)):.3e})")
+    if not torch.isfinite(out[3]).all():
+        raise AssertionError(f"[phase 10a] {acfg.method} mixed logits")
+    torch.cuda.synchronize()
+    reset_counts()
+    with blocks.plain_kernels():
+        plg, pc = symbiosis.make_multi_client_decode_step(cfg, acfg, scfg)(
+            base, inf, plain_caches, tok)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError(f"[phase 10a] {acfg.method} plain decode pass "
+                             f"launched {read_counts()}")
+    err = compare(f"[phase 10a] {acfg.method} mixed decode logits against "
+                  "plain", out[3], plg, F32_TOL)
+    for x, y in zip(tree_leaves(out[2]), tree_leaves(pc)):
+        err = max(err, compare(f"[phase 10a] {acfg.method} mixed decode "
+                               "caches against plain", x, y, F32_TOL))
+    log(f"[phase 10a] {acfg.method}: make_mixed_step (4 clients train, 4 x 2 "
+        f"slots decode, dense, max_seq 64) equals its halves run apart bit "
+        f"for bit (bank, AdamW state, caches, logits, losses, gnorms); "
+        f"launches {counts}; its decode logits and caches against the decode "
+        f"step under plain_kernels() (no launch): max abs err {err:.3e} "
+        f"({F32_TOL})")
+
+
+def phase10a():
+    """10a: granite's width, 2 layers, fp32: the compact step over an IA3
+    and a prefix bank against solo steps, padding and NaN rows; the
+    multi-client step against the compact step; the mixed step against
+    its halves, per method."""
+    cfg = f32_granite()
+    base = get_model(cfg).init_params(gen(100), DEV)
+    for m in ("ia3", "prefix"):
+        acfg = P10_ACFGS[m]
+        bank = tree_map(lambda x: x.repeat((2,) + (1,) * (x.ndim - 1)),
+                        random_bank(cfg, acfg, 4, 101))
+        compact_rows_check(cfg, base, acfg, bank, 106, "[phase 10a]")
+    for m in ("lora", "ia3", "prefix"):
+        bank = random_bank(cfg, P10_ACFGS[m], 4, 107)
+        p10_multi_vs_compact(cfg, base, P10_ACFGS[m], bank)
+        p10_mixed(cfg, base, P10_ACFGS[m], bank)
+    del base
+    torch.cuda.empty_cache()
+
+
+def p10_jobs(cfg, steps=TRAIN_STEPS, first_seed=0, data=None):
+    """Two LoRA r8 (q, v), two IA3 (k, v, down) and two prefix (16 tokens)
+    jobs of 2 x 256 tokens; ``data(job_index, stream)`` may wrap a
+    stream."""
+    jobs = []
+    for i, m in enumerate(P10_METHODS):
+        seed = first_seed + i
+        stream = make_job_stream(cfg, TRAIN_B, TRAIN_S, seed=seed, device=DEV)
+        jobs.append(FinetuneJob(
+            acfg=P10_ACFGS[m], batch_size=TRAIN_B, seq_len=TRAIN_S,
+            steps=steps, lr=1e-3, warmup_steps=1, seed=seed,
+            name=f"{m}-{seed}",
+            data=stream if data is None else data(i, stream)))
+    return jobs
+
+
+def p10_engine(cfg, base, **kw):
+    return FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()),
+                          base, device=DEV, debug=True, **kw)
+
+
+def p10_bank_ticks(cfg, base):
+    """One tick per bank (2 rows each): the host-clock ms of two
+    synchronised calls and one traced call's device busy time and
+    kernels."""
+    eng = p10_engine(cfg, base)
+    for j in p10_jobs(cfg, steps=4, first_seed=20):
+        eng.submit(j)
+    eng.train_tick()                              # admits, first use
+    for key, bank in eng._banks.items():
+        host = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._bank_tick(bank)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with traced() as prof:
+            eng._bank_tick(bank)
+        busy, n, by_name = device_profile(prof)
+        gemm = sum(c for name, (c, _) in by_name.items()
+                   if any(k in name for k in GEMM_NAMES))
+        busy_txt = (f"device busy {busy:.3f} ms "
+                    f"({100 * busy / statistics.median(host):.1f}% of the "
+                    f"host-clock tick), {n} kernels ({gemm} matrix products)"
+                    if n else "device busy not measured (no device events "
+                    "traced)")
+        log(f"[phase 10b] {key.acfg.method} bank tick (2 rows x {TRAIN_B} x "
+            f"{TRAIN_S} tokens): host ms {[round(x, 3) for x in host]}; "
+            f"{busy_txt}")
+
+
+def p10_memory(cfg, base):
+    """Peak device memory beyond the resident base and bank of one bank
+    step at 1 job per method (§3.6 path, FinetuneConfig's remat), beside
+    the job's ``job_hbm_bytes`` charge."""
+    remat = FinetuneConfig().remat
+    out = []
+    for i, m in enumerate(("lora", "ia3", "prefix")):
+        acfg = P10_ACFGS[m]
+        step = symbiosis.make_compact_train_step(cfg, acfg, remat=remat)
+        bank = random_bank(cfg, acfg, 1, 110 + i)
+        opt = p10_opt(bank, 0)
+        batch = train_batches(cfg, 1, 111)
+        args = (torch.zeros(1, dtype=torch.int32, device=DEV),
+                torch.ones(1, dtype=torch.bool, device=DEV))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(base, bank, opt, batch, *args, step7a_hyper(1))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        charge = job_hbm_bytes(cfg, p10_jobs(cfg)[2 * i], remat=remat)
+        out.append(f"{m} {peak:.3f} GiB (charge {charge / 2**30:.3f} GiB, "
+                   f"{peak * 2**30 / charge:.1f}x)")
+        del bank, opt, batch
+    torch.cuda.empty_cache()
+    log(f"[phase 10b] peak device memory beyond the resident base and bank, "
+        f"one bank step at 1 job ({cfg.n_layers} layers bf16, {TRAIN_B} x "
+        f"{TRAIN_S} tokens, remat={remat}), beside job_hbm_bytes: "
+        + "; ".join(out))
+
+
+def p10_results(jobs):
+    return {j.name: (j.losses, j.result.adapter, j.result.opt) for j in jobs}
+
+
+def phase10b(cfg, base):
+    """10b: a FinetuneEngine(debug=True) over phase 4's base with the six
+    jobs: every job's losses against its solo run; returns the results
+    (the uninterrupted run of 10c) and the tick times."""
+    jobs = p10_jobs(cfg)
+    eng = p10_engine(cfg, base)
+    for j in jobs:
+        eng.submit(j)
+    ticks = timed_ticks(eng)
+    if any(j.status != "finished" or len(j.losses) != TRAIN_STEPS
+           or not np.isfinite(j.losses).all() for j in jobs):
+        raise AssertionError(f"[phase 10b] {[(j.status, j.losses) for j in jobs]}")
+    if len(eng._banks) != 3 or eng.stats["peak_jobs"] != 6:
+        raise AssertionError(f"[phase 10b] banks {len(eng._banks)}, stats "
+                             f"{eng.stats}")
+    worst, upd = 0.0, []
+    for j in jobs:
+        solo, first, solo_adapter = solo_run(cfg, base, j)
+        worst = max(worst, compare(f"[phase 10b] {j.name} losses against its "
+                                   "solo run", torch.tensor(j.losses),
+                                   torch.tensor(solo), LOSS_7B_TOL))
+        upd.append(round(update_rel_diff(j.result.adapter, solo_adapter,
+                                         first), 4))
+        if not upd[-1] <= UPDATE_7B_REL:
+            raise AssertionError(f"[phase 10b] {j.name}'s adapter update is "
+                                 f"{upd[-1]:.3e} (relative norm) from its "
+                                 f"solo run's, limit {UPDATE_7B_REL}")
+    tokens = 6 * TRAIN_B * TRAIN_S
+    log(f"[phase 10b] {cfg.name}: {cfg.n_layers} layers bf16, FinetuneEngine"
+        f"(debug=True) with 2 LoRA r8 (q, v), 2 IA3 (k, v, down) and 2 "
+        f"prefix (16 tokens) jobs of {TRAIN_B} x {TRAIN_S} tokens, "
+        f"{TRAIN_STEPS} steps each, 3 banks; stats {eng.stats}")
+    log(f"[phase 10b] losses {[[round(x, 4) for x in j.losses] for j in jobs]}"
+        f"; against each job's solo make_baseline_train_step: max abs err "
+        f"{worst:.3e} ({LOSS_7B_TOL}); adapter updates against the solo "
+        f"runs' (relative norm): {upd} (limit {UPDATE_7B_REL})")
+    log(f"[phase 10b] tick ms (host clock, synchronised; 3 banks of 2 rows "
+        f"each, {tokens} tokens per tick): "
+        f"{[round(t * 1e3, 3) for t in ticks]}; after the first "
+        f"{statistics.median(ticks[1:]) * 1e3:.3f} ms median, "
+        f"{tokens / statistics.median(ticks[1:]):.0f} tokens/s")
+    p10_bank_ticks(cfg, base)
+    p10_memory(cfg, base)
+    return p10_results(jobs), ticks
+
+
+class NanAt:
+    """A job stream whose batch at step ``at`` carries a NaN loss mask
+    (every other batch a mask of ones)."""
+
+    def __init__(self, inner, at):
+        self.inner, self.at = inner, at
+
+    def batch(self, step):
+        b = dict(self.inner.batch(step))
+        b["mask"] = torch.full(b["labels"].shape,
+                               float("nan") if step == self.at else 1.0,
+                               device=b["labels"].device)
+        return b
+
+
+def flip_payload_byte(path):
+    """XOR the last byte of an engine blob (inside its pickle payload)."""
+    with open(path, "r+b") as f:
+        f.seek(-1, 2)
+        b = f.read(1)
+        f.seek(-1, 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase10c(cfg, base, ref):
+    """10c: the engine killed after 2 ticks and resumed by a fresh engine
+    from the newest valid blob (a corrupted newer copy skipped) ends every
+    job bit for bit as the uninterrupted run ``ref``; a NaN-poisoned job's
+    quarantine checkpoint restores its last clean state bit for bit."""
+    with tempfile.TemporaryDirectory() as d:
+        eng = p10_engine(cfg, base)
+        for j in p10_jobs(cfg):
+            eng.submit(j)
+        eng.train_tick()
+        save_engine_state(d, eng.engine_state())
+        eng.train_tick()
+        t0 = time.perf_counter()
+        path = save_engine_state(d, eng.engine_state())
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        newest = os.path.join(d, "engine_00000002.ckpt")
+        shutil.copy(path, newest)
+        flip_payload_byte(newest)
+        del eng                                          # the crash
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        seq, state = load_engine_state(d)
+        fresh = p10_engine(cfg, base)
+        fresh.load_engine_state(state)
+        t_load = time.perf_counter() - t0
+        if seq != 1:
+            raise AssertionError(f"[phase 10c] restored blob {seq}, wanted 1 "
+                                 "(the corrupted blob 2 must be skipped)")
+        got = p10_results(fresh.run())
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"[phase 10c] jobs {sorted(got)} against "
+                             f"{sorted(ref)}")
+    diffs = {name: max_diff((got[name][1], got[name][2]),
+                            (ref[name][1], ref[name][2]))
+             for name in ref}
+    same = {name: got[name][0] == ref[name][0]
+            and trees_equal((got[name][1], got[name][2]),
+                            (ref[name][1], ref[name][2])) for name in ref}
+    if not all(same.values()):
+        worst = max(diffs, key=diffs.get)
+        raise AssertionError(f"[phase 10c] resumed jobs differ from the "
+                             f"uninterrupted run: {same}; largest state "
+                             f"difference {diffs[worst]:.3e} ({worst}); "
+                             f"losses {[(got[n][0], ref[n][0]) for n in ref]}")
+    log(f"[phase 10c] engine_state after 2 of {TRAIN_STEPS} ticks: blob of "
+        f"{size} B written in {t_save * 1e3:.1f} ms; a copy with one payload "
+        f"byte flipped as the newest blob was skipped (restored seq {seq}); "
+        f"a fresh engine loaded it in {t_load * 1e3:.1f} ms and ran to the "
+        f"end: all 6 jobs' losses, adapters and AdamW states equal the "
+        f"uninterrupted run's (10b) bit for bit")
+
+    with tempfile.TemporaryDirectory() as d:
+        jobs = p10_jobs(cfg, steps=3, first_seed=30,
+                        data=lambda i, s: NanAt(s, 2 if i == 2 else -1))
+        jobs = [jobs[2], jobs[4]]                    # an IA3 and a prefix job
+        eng = p10_engine(cfg, base, quarantine_dir=d)
+        for j in jobs:
+            eng.submit(j)
+        eng.run()
+        bad, ok = jobs
+        if (bad.status, ok.status) != ("quarantined", "finished") \
+                or bad.result.step != 2:
+            raise AssertionError(f"[phase 10c] statuses {bad.status} / "
+                                 f"{ok.status}, step {bad.result.step}")
+        like = tree_map(torch.zeros_like, bad.result.adapter)
+        ad, opt = restore_job_state(d, 2, like, adamw_init(like),
+                                    name=bad.name, device=DEV)
+        if not trees_equal((ad, opt), (bad.result.adapter, bad.result.opt)):
+            raise AssertionError("[phase 10c] the quarantine checkpoint "
+                                 "differs from the job's last clean state")
+    log(f"[phase 10c] {bad.name}, its third batch poisoned to NaN: "
+        f"quarantined after 2 clean steps, its checkpoint in quarantine_dir "
+        f"restores that state bit for bit (restore_job_state); {ok.name} "
+        f"beside it finished")
+
+
+def phase10d(cfg, base, bank, streams4, launches4, ref):
+    """10d: a SymbiosisEngine serving phase 4's 8 requests beside 10b's six
+    jobs on the same base object: every greedy stream equal to phase 4's,
+    the launch counts phase 4's, each job's losses, final adapter and
+    AdamW state 10b's bit for bit (interleaving changes when a bank tick
+    runs, not its program or its inputs)."""
+    spec = dataclasses.replace(serve_spec(cfg, quant=False),
+                               finetune=FinetuneConfig())
+    sym = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                    device=DEV)
+    sym.finetune.debug = True
+    reqs = make_requests(cfg, 4)
+    jobs = p10_jobs(cfg)
+    for item in reqs + jobs:
+        sym.submit(item)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    while sym.tick():
+        pass
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != launches4:
+        raise AssertionError(f"[phase 10d] launches {counts}, phase 4's "
+                             f"serving path launched {launches4}")
+    for i, r in enumerate(reqs):
+        if not np.array_equal(r.generated, streams4[i]):
+            raise AssertionError(f"[phase 10d] request {i}'s greedy stream "
+                                 "differs from phase 4's")
+    for j in jobs:
+        want = ref[j.name]
+        if j.status != "finished" or j.losses != want[0] \
+                or not trees_equal((j.result.adapter, j.result.opt), want[1:]):
+            raise AssertionError(
+                f"[phase 10d] {j.name} {j.status} losses {j.losses} against "
+                f"10b's {want[0]}; largest state difference "
+                f"{max_diff((j.result.adapter, j.result.opt), want[1:]):.3e}")
+    st = sym.stats
+    log(f"[phase 10d] SymbiosisEngine over phase 4's base object: 8 requests "
+        f"beside 6 LoRA / IA3 / prefix jobs in {st['ticks']} ticks "
+        f"({st['decode_ticks']} serving, {st['train_ticks']} train, "
+        f"{t_all:.2f} s): every greedy stream equals phase 4's exactly; "
+        f"launches {counts}, phase 4's; every job's losses, final adapter and "
+        f"AdamW state equal 10b's bit for bit")
+
+
+def phase10(cfg, base, bank, streams4, launches4):
+    """Every PEFT method fine-tunes on the shared base, and tenants' state
+    survives a crash: 10a the steps at full width, 10b the engine at full
+    size, 10c recovery, 10d beside serving."""
+    t = time.perf_counter()
+    phase10a()
+    log(f"[phase 10a] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    ref, _ = phase10b(cfg, base)
+    log(f"[phase 10b] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase10c(cfg, base, ref)
+    log(f"[phase 10c] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase10d(cfg, base, bank, streams4, launches4, ref)
+    log(f"[phase 10d] done ({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3006,7 +3516,11 @@ def main() -> int:
 
     t = time.perf_counter()
     launches["decode_attn"] = phase9(cfg, base, bank, streams4, times4)
-    log(f"[phase 9] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 9] done ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    phase10(cfg, base, bank, streams4, launches4)
+    log(f"[phase 10] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's

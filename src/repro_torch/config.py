@@ -2,8 +2,8 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-dense, paged serving path (LoRA, IA3 and prefix banks) and its LoRA
-fine-tuning service read. The port keeps its own copy so that
+dense serving paths (LoRA, IA3 and prefix banks) and its fine-tuning
+service (the same three methods) read. The port keeps its own copy so that
 it imports nothing of the JAX package; the fields it keeps have the same
 names and defaults, so a dense config describes the same model in both.
 """
@@ -69,9 +69,9 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class AdapterConfig:
-    """A client's PEFT selection. Serving takes all three methods;
-    fine-tuning takes ``method="lora"``. Frozen: the serving engine looks a
-    bank up by value (``ServingEngine.admit_bank``)."""
+    """A client's PEFT selection; serving and fine-tuning take all three
+    methods. Frozen: the engines look a bank up by value
+    (``ServingEngine.admit_bank``, ``FinetuneEngine``'s bank keys)."""
     method: str = "lora"              # lora | ia3 | prefix
     rank: int = 8                     # lora
     alpha: float = 16.0               # lora
@@ -81,7 +81,9 @@ class AdapterConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """One trainer's knobs (``core.symbiosis.make_baseline_train_step``)."""
+    """One trainer's knobs (``core.symbiosis.make_baseline_train_step``,
+    ``make_multi_client_train_step``). JAX's ``n_clients`` and ``seed`` are
+    left out: no step reads them (the client count is the batch's)."""
     microbatch: int = 0               # 0 -> no gradient accumulation
     lr: float = 1e-4
     weight_decay: float = 0.0
@@ -89,6 +91,7 @@ class TrainConfig:
     total_steps: int = 100
     max_grad_norm: float = 1.0
     remat: bool = True                # activation checkpointing of the layer body
+    memory_optimized_backward: bool = True   # §3.6; False = torch-like baseline
 
 
 @dataclass(frozen=True)

@@ -14,9 +14,12 @@ Ways to apply an adapter: one client's tree (``apply_adapter`` /
 (``apply_adapter_rows`` / ``pre_scale_rows``: LoRA through the SGMV kernel,
 IA3 by per-row gathers), several banks of different methods in one
 compacted batch (``compact_mixed_bank``, every application gated per row),
-and a merged LoRA training batch of bank rows (``apply_adapter_bank``, a
-``bmm`` pair outside any kernel, as the JAX training step computes it).
-Prefix adapters act inside the model (``transformer._prefix_attend``).
+and a merged training batch of bank rows, each row B sequences
+(``apply_adapter_bank`` / ``pre_scale_bank``: a LoRA ``bmm`` pair outside
+any kernel, as the JAX training step computes it, or each row's IA3 scale
+over its own B*S tokens; ``compact_adapter_bank`` with ``per_row=B``
+hands each sequence its row's prefix). Prefix adapters act inside the
+model (``transformer._prefix_attend``).
 """
 from __future__ import annotations
 
@@ -41,6 +44,17 @@ def _dense_target_dims(cfg: ModelConfig) -> Dict[str, tuple]:
         "up": (d, cfg.d_ff),
         "down": (cfg.d_ff, d),
     }
+
+
+# Default target sets per PEFT method (what the CLI hands to jobs that do
+# not pick their own): LoRA on the attention block, IA3 on k/v and the FFN
+# intermediate, prefix on q/v (its K/V act in the model; the targets only
+# name the method's placement).
+DEFAULT_TARGETS = {
+    "lora": ("q", "k", "v", "o"),
+    "ia3": ("k", "v", "down"),
+    "prefix": ("q", "v"),
+}
 
 
 def resolve_targets(cfg: ModelConfig, acfg: AdapterConfig):
@@ -213,34 +227,66 @@ def apply_adapter_bank(y, x, path, ad_slice, acfg: AdapterConfig,
                        cfg: ModelConfig, n_rows: int):
     """Post-hook for a merged multi-job training batch: x [n_rows * B, S,
     din] holds the bank rows' batches back to back and ``ad_slice`` leaves
-    are row-stacked ([n_rows, din, r] / [n_rows, r, dout]). The LoRA delta
-    of every row is one ``bmm`` pair over [n_rows, B*S, din] (what the JAX
-    step's ``vmap`` of ``apply_adapter`` computes), A/B cast to the
-    activation dtype first."""
+    are row-stacked ([n_rows, din, r] / [n_rows, r, dout], IA3 [n_rows,
+    n]). The LoRA delta of every row is one ``bmm`` pair over [n_rows,
+    B*S, din] (what the JAX step's ``vmap`` of ``apply_adapter``
+    computes), A/B cast to the activation dtype first; an IA3 row scales
+    its own B*S tokens' outputs (``down`` is scaled on its input, by
+    ``pre_scale_bank``)."""
     leaf = ad_slice.get(path) if isinstance(ad_slice, dict) else None
     if leaf is None:
         return y
-    xr = x.reshape(n_rows, -1, x.shape[-1])
-    delta = torch.bmm(torch.bmm(xr, leaf["A"].to(x.dtype)),
-                      leaf["B"].to(x.dtype))
-    return y + (acfg.alpha / acfg.rank) * delta.reshape(y.shape)
+    if acfg.method == "lora":
+        xr = x.reshape(n_rows, -1, x.shape[-1])
+        delta = torch.bmm(torch.bmm(xr, leaf["A"].to(x.dtype)),
+                          leaf["B"].to(x.dtype))
+        return y + (acfg.alpha / acfg.rank) * delta.reshape(y.shape)
+    if acfg.method == "ia3" and path != "down":
+        return _bank_scaled(y, leaf, n_rows)
+    return y
+
+
+def _bank_scaled(t, leaf, n_rows):
+    """``t`` [n_rows * B, ..., n] times each row's IA3 scale [n_rows, n]."""
+    s = leaf["scale"].to(t.dtype)
+    tr = t.reshape((n_rows, -1) + t.shape[1:])
+    return (tr * s.reshape((n_rows,) + (1,) * (tr.ndim - 2) + (-1,))) \
+        .reshape(t.shape)
+
+
+def pre_scale_bank(x, path, ad_slice, acfg: AdapterConfig, cfg: ModelConfig,
+                   n_rows: int):
+    """Merged-batch pre-hook: each row's IA3 scale on the input of its own
+    sequences' ``down`` projection."""
+    if acfg.method != "ia3" or path != "down":
+        return x
+    leaf = ad_slice.get(path) if isinstance(ad_slice, dict) else None
+    return x if leaf is None else _bank_scaled(x, leaf, n_rows)
 
 
 _PREFIX_LEAVES = ("prefix_k", "prefix_v")
 
 
-def _relay(container, rows):
+def _relay(container, rows, per_row: int = 1):
     """One bank's layer container for a compacted row batch: parameter
     leaves [C, L, ...] become layer-major [L, C, ...] views (no copy), so
     the model's per-layer slice is a client-stacked [C, ...] leaf applied
     per row (SGMV takes the strided client axis as is). Prefix leaves flow
     through the model (``transformer._prefix_attend``), not the linear
-    hook, so they are gathered per ROW instead, [L, n, n_prefix, K, hd],
-    with the ids clamped into the bank (in a mixed batch a row of another
-    bank carries that bank's local id)."""
+    hook, so they are laid out per ROW instead, [L, n, n_prefix, K, hd]:
+    gathered by ``rows`` with the ids clamped into the bank (in a mixed
+    batch a row of another bank carries that bank's local id), or, with
+    ``rows`` None, each bank row repeated for its ``per_row`` sequences (an
+    expand, whose backward sums the copies' grads by a plain reduction:
+    run to run the same bits on the card, where the gather's accumulating
+    backward need not be)."""
     res = {}
     for path, leaf in container.items():
-        if path in _PREFIX_LEAVES:
+        if path in _PREFIX_LEAVES and rows is None:
+            n = leaf.shape[0]
+            res[path] = leaf.unsqueeze(1).expand(
+                (n, per_row) + leaf.shape[1:]).flatten(0, 1).transpose(0, 1)
+        elif path in _PREFIX_LEAVES:
             ids = rows.long().clamp(0, leaf.shape[0] - 1)
             res[path] = leaf[ids].transpose(0, 1)
         else:
@@ -248,11 +294,13 @@ def _relay(container, rows):
     return res
 
 
-def compact_adapter_bank(bank, rows_client=None):
+def compact_adapter_bank(bank, rows_client=None, *, per_row: int = 1):
     """Re-lay a client-stacked bank for a compacted row batch whose rows
     name their client in ``rows_client`` [n] (needed only by prefix
-    leaves, see ``_relay``)."""
-    return {"layers": _relay(bank["layers"], rows_client)}
+    leaves, see ``_relay``). A merged training batch passes no ids and
+    ``per_row=B``: bank row i owns sequences [i*B, (i+1)*B), and each of
+    them takes row i's prefix."""
+    return {"layers": _relay(bank["layers"], rows_client, per_row)}
 
 
 def compact_mixed_bank(banks, rows_local, rows_method):

@@ -20,16 +20,20 @@ batch of C*B rows in (client, slot) order, each row's adapter its
 client's. Every cache write is in place (the JAX steps donated the cache
 buffers).
 
-Fine-tuning: ``make_row_grad_fn`` is one job's loss and adapter grads,
-``make_baseline_train_step`` the dedicated single-job trainer (and, by
-default, the torch-like memory baseline), and ``make_compact_train_step``
-the multi-job tick of ``training.FinetuneEngine`` over one bank of jobs,
-each with its own AdamW state, schedule position and data. The JAX step
-``vmap``s the row program over the bank rows with the base unbatched; here
+Fine-tuning (LoRA, IA3 and prefix): ``make_row_grad_fn`` is one job's
+loss and adapter grads, ``make_baseline_train_step`` the dedicated
+single-job trainer (and, by default, the torch-like memory baseline),
+``make_compact_train_step`` the multi-job tick of
+``training.FinetuneEngine`` over one bank of jobs, each with its own AdamW
+state, schedule position and data, ``make_multi_client_train_step`` C
+clients on one schedule, and ``make_mixed_step`` a train step and a
+bank-wide decode against the same base (paper §4.4). The JAX steps
+``vmap`` the row program over the bank rows with the base unbatched; here
 the rows' batches run as ONE forward whose base linears see every row's
-tokens (§3.7 batching) while each row's LoRA delta is its own ``bmm``, and
-``torch.autograd.grad`` of the sum of the per-row losses yields each row's
-own grads.
+tokens (§3.7 batching) while each row's adapter acts on its own sequences
+only (a LoRA ``bmm`` per row, a per-row IA3 scale, each sequence given
+its row's prefix), and ``torch.autograd.grad`` of the sum of the per-row
+losses yields each row's own grads.
 """
 from __future__ import annotations
 
@@ -568,7 +572,8 @@ def _make_rows_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
         ctx = make_bank_ctx(cfg, acfg, R, memory_optimized=memory_optimized)
         logits = model.forward(
             base, {"tokens": batch["tokens"].flatten(0, 1)}, ctx,
-            adapters_lib.compact_adapter_bank(params), remat=remat)
+            adapters_lib.compact_adapter_bank(params, per_row=B),
+            remat=remat)
         logits = logits.reshape((R, B) + logits.shape[1:])
         mask = batch.get("mask")
         return torch.stack([lm_loss(logits[i], batch["labels"][i],
@@ -577,6 +582,68 @@ def _make_rows_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
 
     return _accumulate(_value_and_grad(rows_loss, not memory_optimized),
                        microbatch, axis=1)
+
+
+def make_multi_client_train_step(cfg: ModelConfig, acfg: AdapterConfig,
+                                 tcfg: TrainConfig):
+    """C clients fine-tune their own adapters against the shared base, on
+    one schedule (``tcfg``):
+
+      fn(base, bank, opt, batch, step) -> (bank, opt, metrics)
+
+    ``bank`` / ``opt`` carry a leading client axis [C] (``opt.step`` [C]),
+    ``batch`` leaves are [C, B, ...] and ``step`` is the schedule position
+    (an int or a scalar tensor). One merged forward and backward over the
+    C*B sequences (the base products see every client's tokens), with
+    ``tcfg.microbatch`` accumulation over the per-client batch axis (the
+    whole batch when the factor does not strictly divide B), then each
+    client's AdamW update at ``tcfg``'s values: ``adamw_update_hyper``
+    with every row alike, which equals JAX's ``vmap(adamw_update)`` row by
+    row. New trees are returned; the inputs are left as they were.
+    ``metrics``: ``loss`` [C], ``gnorm`` [C], ``lr``."""
+    rows = _make_rows_grad_fn(cfg, acfg, remat=tcfg.remat,
+                              memory_optimized=tcfg.memory_optimized_backward,
+                              microbatch=tcfg.microbatch)
+    clip = tcfg.max_grad_norm if tcfg.max_grad_norm else float("inf")
+
+    def train_step(base, bank, opt, batch, step):
+        C = batch["tokens"].shape[0]
+        dev = opt.step.device
+        lr = warmup_cosine(torch.as_tensor(step, device=dev), tcfg.lr,
+                           tcfg.warmup_steps, tcfg.total_steps)
+        every = lambda v: torch.full((C,), v, dtype=torch.float32, device=dev)
+        losses, grads = rows(bank, base, batch)
+        bank, opt, gnorms = adamw_update_hyper(
+            bank, grads, opt, lr.expand(C), every(tcfg.weight_decay),
+            every(clip))
+        return bank, opt, {"loss": losses, "gnorm": gnorms, "lr": lr}
+
+    return train_step
+
+
+def make_mixed_step(cfg: ModelConfig, acfg: AdapterConfig, tcfg: TrainConfig,
+                    scfg: ServeConfig):
+    """Fine-tuning clients take a train step while inference clients
+    decode, all against the same resident base (paper §4.4):
+
+      fn(base, ft_bank, ft_opt, ft_batch, inf_bank, inf_caches, inf_tokens,
+         step) -> (ft_bank, ft_opt, inf_caches, logits, metrics)
+
+    ``make_multi_client_train_step`` then ``make_multi_client_decode_step``
+    (a dense bank: every slot decodes one token, caches written in
+    place). The live-service form is ``training.SymbiosisEngine``."""
+    train_step = make_multi_client_train_step(cfg, acfg, tcfg)
+    decode_step = make_multi_client_decode_step(cfg, acfg, scfg)
+
+    def mixed(base, ft_bank, ft_opt, ft_batch, inf_bank, inf_caches,
+              inf_tokens, step):
+        ft_bank, ft_opt, metrics = train_step(base, ft_bank, ft_opt, ft_batch,
+                                              step)
+        logits, inf_caches = decode_step(base, inf_bank, inf_caches,
+                                         inf_tokens)
+        return ft_bank, ft_opt, inf_caches, logits, metrics
+
+    return mixed
 
 
 def make_baseline_train_step(cfg: ModelConfig, acfg: AdapterConfig,

@@ -108,8 +108,11 @@ def make_bank_ctx(cfg: ModelConfig, acfg: AdapterConfig, n_rows: int, *,
     """Context for a merged multi-job training batch: ``n_rows`` bank rows'
     batches back to back on the batch axis, per-layer adapter slices
     row-stacked ([n_rows, ...]). The base linears see every row's tokens in
-    one product (§3.7 batching); each row's LoRA delta is applied by
-    ``adapters.apply_adapter_bank``."""
+    one product (§3.7 batching); each row's LoRA delta or IA3 scale is
+    applied by ``adapters.apply_adapter_bank``, the IA3 ``down`` input
+    scale by ``adapters.pre_scale_bank``."""
     return _ctx(_base(memory_optimized),
                 lambda y, x, path, ad: adapters_lib.apply_adapter_bank(
-                    y, x, path, ad, acfg, cfg, n_rows))
+                    y, x, path, ad, acfg, cfg, n_rows),
+                lambda x, path, ad: adapters_lib.pre_scale_bank(
+                    x, path, ad, acfg, cfg, n_rows))

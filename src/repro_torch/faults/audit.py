@@ -1,4 +1,4 @@
-"""Post-tick conservation audit of the serving engine — the serving half of
+"""Post-tick conservation audits of the serving and fine-tuning engines —
 ``repro.faults.audit`` (pure Python; the port keeps its own copy).
 
 Every resource the serving engine hands out — pool pages (exclusive, and
@@ -9,9 +9,9 @@ minus its outstanding placements. The audit recomputes those identities
 from scratch (no trust in the incremental counters) and returns
 human-readable error strings; an empty list means conserved.
 
-``ServingEngine(debug=True)`` runs it after every tick and raises on the
-first error; ``check_conservation(engine)`` runs it any time. (The
-fine-tuning engine's audit, ``finetune_conservation``, is not ported yet.)
+``ServingEngine(debug=True)`` and ``FinetuneEngine(debug=True)`` run their
+audit after every tick and raise on the first error;
+``check_conservation(engine)`` runs the right one any time.
 """
 from __future__ import annotations
 
@@ -97,10 +97,51 @@ def serving_conservation(eng) -> List[str]:
     return errs
 
 
+def finetune_conservation(eng) -> List[str]:
+    """FinetuneEngine: bank-slot <-> job map inversion, step bookkeeping,
+    per-job placement entries, router ledger."""
+    errs: List[str] = []
+    seen = {}
+    for key, bank in eng._banks.items():
+        for s, job in enumerate(bank.slots):
+            if job is None:
+                continue
+            seen[id(job)] = (key, s)
+            if eng._slot_of.get(id(job)) != (key, s):
+                errs.append(f"job {job.name or id(job)}: bank slot ({key}, "
+                            f"{s}) != _slot_of {eng._slot_of.get(id(job))}")
+            if id(job) not in eng._step_of:
+                errs.append(f"job {job.name or id(job)}: active without a "
+                            "step counter")
+    for jid, where in eng._slot_of.items():
+        if seen.get(jid) != where:
+            errs.append(f"_slot_of entry {where} has no backing bank slot")
+        if jid not in eng._placement:
+            errs.append(f"active job {jid} has no placement entry")
+    for jid in eng._placement:
+        if jid not in eng._slot_of:
+            errs.append(f"placement held for a job that is not active "
+                        f"(leaked charge): {jid}")
+    if eng.router is not None:
+        errs.extend(eng.router.conservation_errors())
+    return errs
+
+
 def check_conservation(engine) -> List[str]:
-    """The serving engine's audit, or, for a ``SymbiosisEngine``, its
-    serving half's (prefixed ``serving:``)."""
-    serving = getattr(engine, "serving", None)
-    if serving is None:
+    """Dispatch on the engine's type; a ``SymbiosisEngine`` has both halves
+    audited (prefixed ``serving:`` / ``finetune:``)."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training.engine import FinetuneEngine
+
+    if isinstance(engine, ServingEngine):
         return serving_conservation(engine)
-    return [f"serving: {e}" for e in serving_conservation(serving)]
+    if isinstance(engine, FinetuneEngine):
+        return finetune_conservation(engine)
+    errs = []
+    serving = getattr(engine, "serving", None)
+    finetune = getattr(engine, "finetune", None)
+    if serving is not None:
+        errs.extend(f"serving: {e}" for e in serving_conservation(serving))
+    if finetune is not None:
+        errs.extend(f"finetune: {e}" for e in finetune_conservation(finetune))
+    return errs

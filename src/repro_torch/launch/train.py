@@ -1,15 +1,20 @@
 """Multi-job fine-tuning CLI of the port (``repro.launch.train``): a thin
-front end of the FinetuneEngine (fine-tuning as a service), LoRA jobs on
-one device, on the card by default:
+front end of the FinetuneEngine (fine-tuning as a service) on one device,
+the card by default. ``--peft mixed`` cycles LoRA / IA3 / prefix across
+jobs (each with the method's ``DEFAULT_TARGETS``): heterogeneous banks
+sharing one engine and one base. ``--ckpt-dir`` writes every finished
+job's adapter and optimizer state (``checkpoint.save_job_state``, the JAX
+package's format):
 
-  PYTHONPATH=src python -m repro_torch.launch.train --full-size --clients 4 \\
-      --steps 20 --seq 256 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.train --full-size --clients 4 \
+      --steps 20 --seq 256 --batch 2 [--peft lora|ia3|prefix|mixed] \
+      [--ckpt-dir DIR]
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
 
 Without ``--full-size`` the model is a reduced config (``--layers``,
-``--d-model``). ``--peft`` other than lora, ``--ckpt-dir``, ``--mesh`` and
-``--obs`` are not ported yet and raise. Weights are random, drawn from
-``--seed``; each job's data is the synthetic Markov stream of its index.
+``--d-model``). ``--mesh`` and ``--obs`` are not ported yet and raise.
+Weights are random, drawn from ``--seed``; each job's data is the
+synthetic Markov stream of its index.
 """
 from __future__ import annotations
 
@@ -20,8 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import save_job_state
 from repro_torch.config import AdapterConfig, FinetuneConfig
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.adapters import DEFAULT_TARGETS
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.models import get_model
 from repro_torch.training import FinetuneEngine, FinetuneJob, make_job_stream
@@ -53,12 +60,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, val in (("--peft " + args.peft, args.peft != "lora"),
-                      ("--ckpt-dir", args.ckpt_dir), ("--mesh", args.mesh),
-                      ("--obs", args.obs is not None)):
+    for flag, val in (("--mesh", args.mesh), ("--obs", args.obs is not None)):
         if val:
             raise SystemExit(f"{flag} is not ported yet: the port trains "
-                             "LoRA jobs on one device")
+                             "on one device")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -70,18 +75,22 @@ def main(argv=None):
                           memory_optimized=not args.no_memory_optimized)
     engine = FinetuneEngine(EngineSpec(cfg=cfg, finetune=fcfg), base,
                             device=dev)
-    acfg = AdapterConfig(method="lora", rank=args.rank, targets=("q", "v"))
+    methods = (("lora", "ia3", "prefix") if args.peft == "mixed"
+               else (args.peft,))
     jobs = []
     for c in range(args.clients):
+        method = methods[c % len(methods)]
+        acfg = AdapterConfig(method=method, rank=args.rank,
+                             targets=DEFAULT_TARGETS[method])
         jobs.append(FinetuneJob(
             acfg=acfg, data=make_job_stream(cfg, args.batch, args.seq, seed=c,
                                             device=dev),
             batch_size=args.batch, seq_len=args.seq, steps=args.steps,
             lr=args.lr, warmup_steps=max(1, args.steps // 10),
-            microbatch=args.microbatch, seed=c, name=f"lora-{c}"))
+            microbatch=args.microbatch, seed=c, name=f"{method}-{c}"))
         engine.submit(jobs[-1])
 
-    print(f"[train] {cfg.name} on {dev} | {args.clients} jobs x lora "
+    print(f"[train] {cfg.name} on {dev} | {args.clients} jobs x {args.peft} "
           f"(rank {args.rank}) | seq {args.seq} batch {args.batch}")
     t0 = time.perf_counter()
     tick = 0
@@ -98,6 +107,12 @@ def main(argv=None):
           f"({100 * (first - last) / first:.0f}% drop) in "
           f"{time.perf_counter() - t0:.1f}s | banks={len(engine._banks)} "
           f"steps={engine.stats['train_steps']}")
+    if args.ckpt_dir:
+        for j in jobs:
+            save_job_state(args.ckpt_dir, j.result.step, j.result.adapter,
+                           j.result.opt, name=j.name)
+        print(f"[train] per-job checkpoints -> "
+              f"{args.ckpt_dir}/step_{jobs[0].result.step:08d}")
     return first, last
 
 

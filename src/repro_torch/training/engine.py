@@ -1,15 +1,17 @@
 """FinetuneEngine: fine-tuning as a service over one shared frozen base —
-the LoRA, single-device scope of ``repro.training.engine``.
+the single-device scope of ``repro.training.engine``.
 
-Tenants ``submit()`` ``FinetuneJob``s — each with its own LoRA rank and
-targets, AdamW hyperparameters and warmup-cosine schedule, data stream and
-grad-accum microbatching — and the engine time-shares ONE resident copy of
-the frozen base across all of them, admitting and retiring jobs mid-run.
+Tenants ``submit()`` ``FinetuneJob``s — each with its own PEFT method (LoRA
+of any rank, IA3, prefix) and targets, AdamW hyperparameters and
+warmup-cosine schedule, data stream and grad-accum microbatching — and the
+engine time-shares ONE resident copy of the frozen base across all of
+them, admitting and retiring jobs mid-run.
 
 * **Banks.** Jobs that can share one step program — same
   ``AdapterConfig``, per-step batch shape and microbatch factor — form a
   bank: adapter params and AdamW state stacked on a leading slot axis.
-  Different ranks or shapes form separate banks over the same base.
+  Other methods, ranks or shapes form separate banks over the same base
+  (LoRA + IA3 + prefix in one engine, without replicating the base).
 * **Bucketed membership.** A bank's capacity grows by doubling, and each
   tick gathers its active slots into a power-of-two row bucket
   (``core.symbiosis.make_compact_train_step``): one merged forward and
@@ -27,12 +29,24 @@ the frozen base across all of them, admitting and retiring jobs mid-run.
 * **Faults.** A job whose data stream raises is backed off (transient) or
   quarantined (fatal); a stream that runs dry finishes the job early; a
   non-finite step is dropped in the step and the job quarantined from its
-  last clean state.
+  last clean state. With ``quarantine_dir`` a quarantined or early-finished
+  job's last clean state is checkpointed there first (best effort: a
+  failing write is recorded on the job's health history and never blocks
+  retirement). ``debug=True`` runs the conservation audit after every
+  tick.
+* **Crash recovery.** ``engine_state()`` is a picklable snapshot of every
+  tenant (``checkpoint.save_engine_state`` frames it); a fresh engine over
+  the same spec and base resumes it with ``load_engine_state``: the active
+  jobs re-enter in their admission order and take back the bank slots
+  they held, so each resumed step runs the rows in the original order and
+  continues the uninterrupted trajectory bit for bit. (The JAX engine
+  re-allocates slots in admission order and relies on its step being
+  slot-invariant. Here no other job can take a restored job's slot first:
+  restored jobs lead the queue, and a job of the same bank behind one
+  carries the same admission charge.)
 
 Not ported yet, and refused with ``ValueError``: a ``mesh``, ``obs``
-telemetry, ``quarantine_dir`` and ``checkpoint_job`` (they wait for
-``checkpoint/ckpt.py``), ``engine_state`` / ``load_engine_state``,
-non-LoRA methods and non-dense families.
+telemetry and non-dense families.
 """
 from __future__ import annotations
 
@@ -43,11 +57,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import save_job_state
 from repro_torch.common.tree import tree_map
 from repro_torch.config import AdapterConfig, DENSE, FinetuneConfig, ModelConfig
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
+from repro_torch.faults.audit import finetune_conservation
 from repro_torch.faults.health import HealthPolicy, HealthRecord, classify
 from repro_torch.faults.plan import NonFiniteFault, StreamExhausted
 from repro_torch.optim import adamw_init
@@ -82,10 +98,13 @@ class _Bank:
     def cap(self) -> int:
         return len(self.slots)
 
-    def alloc(self, adapter, opt_state) -> int:
-        """Place one job's state into a free slot, growing cap 1 -> 2 -> 4
-        ... by zero-padding the stacked leaves when the bank is full."""
-        if None not in self.slots:
+    def alloc(self, adapter, opt_state, slot: Optional[int] = None) -> int:
+        """Place one job's state into a free slot (the first, or ``slot``
+        when a restored job takes back the slot it held), growing cap 1 ->
+        2 -> 4 ... by zero-padding the stacked leaves when the bank is full
+        (or too small for ``slot``)."""
+        while (None not in self.slots if slot is None
+               else slot >= self.cap):
             if self.params is None:
                 cap0 = 1
                 while cap0 < self.reserve:
@@ -103,7 +122,11 @@ class _Bank:
                 self.params = tree_map(pad, self.params)
                 self.opt = tree_map(pad, self.opt)
                 self.slots.extend([None] * grow)
-        return self._write(self.slots.index(None), adapter, opt_state)
+        if slot is None:
+            slot = self.slots.index(None)
+        elif self.slots[slot] is not None:
+            raise ValueError(f"bank slot {slot} is taken")
+        return self._write(slot, adapter, opt_state)
 
     def _write(self, slot, adapter, opt_state) -> int:
         def wr(full, one):
@@ -139,7 +162,20 @@ def job_hbm_bytes(cfg: ModelConfig, job: FinetuneJob, *,
 
 def _not_ported(what: str):
     return ValueError(f"{what}: not ported yet; the port's FinetuneEngine "
-                      "trains LoRA jobs of the dense family on one device")
+                      "trains jobs of the dense family on one device")
+
+
+def _to_host(tree):
+    """A tree's tensors as numpy (bf16, which numpy lacks, as CPU
+    tensors): what ``engine_state`` pickles."""
+    return None if tree is None else tree_map(
+        lambda t: t.cpu() if t.dtype == torch.bfloat16 else t.cpu().numpy(),
+        tree)
+
+
+def _check_method(acfg: AdapterConfig):
+    if acfg.method not in ("lora", "ia3", "prefix"):
+        raise ValueError(f"unknown PEFT method {acfg.method!r}")
 
 
 class FinetuneEngine:
@@ -155,9 +191,8 @@ class FinetuneEngine:
 
     def __init__(self, spec: EngineSpec, base_params, *, device="cuda",
                  router=None, quarantine_dir: Optional[str] = None,
-                 mesh=None, obs=None):
-        for name, val in (("mesh", mesh), ("obs", obs),
-                          ("quarantine_dir", quarantine_dir)):
+                 debug: bool = False, mesh=None, obs=None):
+        for name, val in (("mesh", mesh), ("obs", obs)):
             if val is not None:
                 raise _not_ported(f"{name}=")
         if not isinstance(spec, EngineSpec):
@@ -165,8 +200,7 @@ class FinetuneEngine:
         if spec.cfg.arch != DENSE:
             raise _not_ported(f"the {spec.cfg.arch!r} family")
         for b in spec.banks:
-            if b.acfg.method != "lora":
-                raise _not_ported(f"{b.acfg.method!r} banks")
+            _check_method(b.acfg)
         self.device = resolve_device(device)
         if base_params["embed"].device.type != self.device.type:
             raise ValueError(f"base lives on {base_params['embed'].device}, "
@@ -184,6 +218,9 @@ class FinetuneEngine:
         self._steps: Dict[BankKey, object] = {}
         self.finished: List[FinetuneJob] = []
         self.health_policy = HealthPolicy()
+        self.quarantine_dir = quarantine_dir
+        self.debug = debug
+        self._restore_slot: Dict[int, int] = {}   # id(job) -> slot it held
         self.stats = {"train_ticks": 0, "train_steps": 0, "admitted": 0,
                       "retired": 0, "peak_jobs": 0, "compact_rows": 0,
                       "compact_padded": 0, "train_tokens": 0,
@@ -192,8 +229,7 @@ class FinetuneEngine:
 
     # ------------------------------------------------------------------
     def submit(self, job: FinetuneJob):
-        if job.acfg.method != "lora":
-            raise _not_ported(f"{job.acfg.method!r} jobs")
+        _check_method(job.acfg)
         if (job.init_adapter is None) != (job.init_opt is None):
             raise ValueError("resume needs both init_adapter and init_opt")
         if job.start_step >= job.steps:
@@ -245,7 +281,7 @@ class FinetuneEngine:
             key = self._bank_key(job)
             bank = self._banks.setdefault(
                 key, _Bank(key, reserve=self._reserve.get(job.acfg, 0)))
-            slot = bank.alloc(adapter, opt)
+            slot = bank.alloc(adapter, opt, self._restore_slot.get(id(job)))
         except BaseException:
             if placement is not None:
                 self.router.release(placement)
@@ -255,7 +291,8 @@ class FinetuneEngine:
         self._step_of[id(job)] = job.start_step
         self._placement[id(job)] = placement
         job.status = "active"
-        self.stats["admitted"] += 1
+        if self._restore_slot.pop(id(job), None) is None:
+            self.stats["admitted"] += 1     # a resumed job was counted once
         self.stats["peak_jobs"] = max(self.stats["peak_jobs"], self.n_active)
         return True
 
@@ -362,15 +399,32 @@ class FinetuneEngine:
             rec.quarantine(tick, reason)
         self._quarantine_job(job)
 
+    def _checkpoint_best_effort(self, job: FinetuneJob):
+        """With a ``quarantine_dir``, write the job's last clean state there;
+        a failing write goes on the job's health history and never blocks
+        its retirement."""
+        if self.quarantine_dir is None:
+            return
+        try:
+            self.checkpoint_job(job, self.quarantine_dir)
+        except Exception as e:                 # noqa: BLE001 — best effort
+            job.health = job.health or HealthRecord()
+            job.health.history.append(
+                (self.stats["train_ticks"], job.health.state.value,
+                 f"checkpoint to {self.quarantine_dir} failed: {e}"))
+
     def _quarantine_job(self, job: FinetuneJob):
-        """Fatal path: retire the job from its last CLEAN state, releasing
-        its bank slot and router charge."""
+        """Fatal path: checkpoint the job's last CLEAN state (best effort),
+        then retire it, releasing its bank slot and router charge."""
+        self._checkpoint_best_effort(job)
         self.stats["quarantined"] += 1
         self.retire(job, status="quarantined")
 
     def _finish_early(self, job: FinetuneJob, reason: str):
         """Stream ran dry inside the step budget: complete the job as
-        ``finished_early`` (charges released, result handed back)."""
+        ``finished_early`` — checkpointed (best effort) with a
+        ``quarantine_dir``, charges released, result handed back."""
+        self._checkpoint_best_effort(job)
         if job.health is not None:
             job.health.retire(self.stats["train_ticks"], reason)
         self.stats["finished_early"] += 1
@@ -396,6 +450,12 @@ class FinetuneEngine:
                     for j in [self._banks[key].slots[s]]
                     if self._step_of[id(j)] >= j.steps]:
             self.retire(job)
+        if self.debug:
+            errs = finetune_conservation(self)
+            if errs:
+                raise AssertionError("conservation audit failed after train "
+                                     f"tick {self.stats['train_ticks'] - 1}:"
+                                     "\n  " + "\n  ".join(errs))
         return self.pending()
 
     def run(self) -> List[FinetuneJob]:
@@ -437,10 +497,90 @@ class FinetuneEngine:
         return job.result
 
     def checkpoint_job(self, job: FinetuneJob, directory: str) -> str:
-        raise _not_ported("checkpoint_job (checkpoint/ckpt.py)")
+        """Write an ACTIVE job's adapter + optimizer state (resume with
+        ``checkpoint.restore_job_state`` + ``FinetuneJob(init_adapter=...,
+        init_opt=..., start_step=...)``)."""
+        adapter, opt, step = self.job_state(job)
+        return save_job_state(directory, step, adapter, opt,
+                              name=job.name or "job")
+
+    # ------------------------------------------------------------------
+    # whole-engine crash recovery
+    # ------------------------------------------------------------------
+    _JOB_FIELDS = ("acfg", "data", "batch_size", "seq_len", "steps", "lr",
+                   "weight_decay", "warmup_steps", "total_steps",
+                   "max_grad_norm", "microbatch", "name", "seed")
+
+    def _record(self, job: FinetuneJob, **state) -> dict:
+        rec = {k: getattr(job, k) for k in self._JOB_FIELDS}
+        rec.update(losses=list(job.losses), status=job.status,
+                   health=job.health, **state)
+        return rec
 
     def engine_state(self) -> dict:
-        raise _not_ported("engine_state (checkpoint/ckpt.py)")
+        """A picklable snapshot of every tenant: active jobs carry their
+        adapter and optimizer state (as numpy), their global step, the
+        bank slot they hold, loss history, health record and data-stream
+        object (a stream pickles with its cursor); queued and finished
+        jobs ride along. Feed it to ``checkpoint.save_engine_state``;
+        restore into a FRESH engine (same spec and base) with
+        ``load_engine_state``."""
+        active = []
+        for key, slot in self._slot_of.values():
+            job = self._banks[key].slots[slot]
+            adapter, opt, step = self.job_state(job)
+            active.append(self._record(
+                job, init_adapter=_to_host(adapter), init_opt=_to_host(opt),
+                start_step=step, slot=slot))
+
+        def rec(job):
+            res = job.result
+            return self._record(
+                job, init_adapter=_to_host(job.init_adapter),
+                init_opt=_to_host(job.init_opt), start_step=job.start_step,
+                result=None if res is None else dict(
+                    adapter=_to_host(res.adapter), opt=_to_host(res.opt),
+                    step=res.step, losses=list(res.losses)))
+
+        return {"active": active, "queued": [rec(j) for j in self._queue],
+                "finished": [rec(j) for j in self.finished],
+                "stats": dict(self.stats)}
 
     def load_engine_state(self, state: dict):
-        raise _not_ported("load_engine_state (checkpoint/ckpt.py)")
+        """Restore an ``engine_state()`` snapshot into this freshly
+        constructed engine. Active jobs re-enter the queue first, in their
+        original admission order, as resume jobs: the next ``train_tick``
+        re-routes their charges and puts each back in the bank slot it
+        held (not counted as a new admission); queued and finished jobs
+        follow as they were."""
+        if self._slot_of or self._queue or self.finished:
+            raise RuntimeError("load_engine_state needs a freshly "
+                               "constructed engine (no jobs)")
+        dev = self.device
+        on_dev = lambda t: None if t is None else tree_map(
+            lambda x: torch.as_tensor(x, device=dev), t)
+
+        def job_of(rec):
+            r = dict(rec)
+            result, slot = r.pop("result", None), r.pop("slot", None)
+            losses, status = r.pop("losses"), r.pop("status")
+            health = r.pop("health")
+            r["init_adapter"] = on_dev(r["init_adapter"])
+            r["init_opt"] = on_dev(r["init_opt"])
+            job = FinetuneJob(**r)
+            job.losses = list(losses)
+            job.status = "queued" if status == "active" else status
+            job.health = health
+            if result is not None:
+                job.result = JobResult(adapter=on_dev(result["adapter"]),
+                                       opt=on_dev(result["opt"]),
+                                       step=result["step"],
+                                       losses=list(result["losses"]))
+            if slot is not None:
+                self._restore_slot[id(job)] = slot
+            return job
+
+        self._queue.extend(job_of(r) for r in state["active"])
+        self._queue.extend(job_of(r) for r in state["queued"])
+        self.finished.extend(job_of(r) for r in state["finished"])
+        self.stats.update(state["stats"])

@@ -2,17 +2,20 @@
 (``repro.training.job``).
 
 A ``FinetuneJob`` is one tenant's fine-tuning request: its own PEFT
-selection (``AdapterConfig``; the port trains LoRA), its own optimizer
-hyperparameters and warmup-cosine schedule, its own data stream and
-grad-accum microbatching, and a step budget after which the engine retires
-it and hands back its final state. Jobs join and leave the service
+selection (``AdapterConfig``: LoRA of any rank, IA3 or prefix), its own
+optimizer hyperparameters and warmup-cosine schedule, its own data stream
+and grad-accum microbatching, and a step budget after which the engine
+retires it and hands back its final state. Jobs join and leave the service
 independently (paper §3, §5: many adapters fine-tuned at once against one
 shared frozen base).
 
 Resumption: a retired job's ``JobResult`` can seed a NEW job via
 ``init_adapter`` / ``init_opt`` / ``start_step``; the re-admitted job
 continues the same optimizer trajectory (its schedule position and data
-stream both key off the global step count).
+stream both key off the global step count). ``FinetuneEngine.engine_state``
+pickles each job with its stream: ``make_job_stream``'s holds numpy state
+and a ``torch.device`` only, and its batches depend on the step asked for
+alone, so it pickles whole and resumes where the job stood.
 """
 from __future__ import annotations
 

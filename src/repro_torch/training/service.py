@@ -2,8 +2,9 @@
 (``repro.training.service``).
 
 A provider keeps a single resident copy of the base and multiplexes it
-between a ``ServingEngine`` (continuous-batching decode over LoRA clients)
-and a ``FinetuneEngine`` (fine-tuning as a service over LoRA jobs) instead
+between a ``ServingEngine`` (continuous-batching decode over LoRA, IA3 and
+prefix clients) and a ``FinetuneEngine`` (fine-tuning as a service over
+jobs of the same three methods) instead
 of deploying one model replica per workload (paper §4.4). This wrapper
 interleaves the two engines' ticks on one device and one stream, one after
 the other: training never calls the paged decode kernels, so their
@@ -11,7 +12,9 @@ per-device workspace is never shared across streams. Because the base is
 frozen and each engine owns its client-side state, interleaving changes
 WHEN work runs, never its math: every request's stream and every job's
 trajectory equal each engine's alone. ``checkpoint`` / ``restore`` wait
-for ``checkpoint/ckpt.py``.
+for the serving engine's half of crash recovery (its health records and
+quarantines are not ported yet); the fine-tuning half's is
+``FinetuneEngine.engine_state``.
 """
 from __future__ import annotations
 

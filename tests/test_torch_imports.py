@@ -15,7 +15,8 @@ import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-assert {"repro_torch.serving.prefix_cache", "repro_torch.faults.audit"} \
+assert {"repro_torch.serving.prefix_cache", "repro_torch.faults.audit",
+        "repro_torch.checkpoint.ckpt"} \
     <= set(names), names       # the port's own copies of pure-Python modules
 for name in names:
     importlib.import_module(name)

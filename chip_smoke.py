@@ -184,7 +184,30 @@ exits non-zero and prints no result. Phases, each raising on failure:
    ``quarantine_dir``, restored bit for bit; 10d a ``SymbiosisEngine``
    serving phase 4's 8 requests beside the six jobs: every stream and
    launch count phase 4's, every job's losses, adapter and AdamW state
-   10b's bit for bit.
+   10b's bit for bit;
+11. tenants' faults stay contained and crashes lose nothing, on phase 4's
+   base and bank (``debug=True`` audits every tick). 11a serves phase 4's
+   8 requests and one late request per client, first over the clean bank,
+   then with client 3's LoRA B rows on one layer NaN (a copy), admission
+   attempts 1 and 4 failing (``AllocHook``), client 0's first prompt
+   delivered by a stream that errors once and client 3's last by one
+   that runs dry: the hook fires twice, the stream is fetched twice,
+   client 3 ends quarantined holding no slot and its later submit is
+   refused, the pools and prefix refs are whole after the drain, the
+   launch counts are checked tick by tick in each run, and every
+   survivor's stream equals the clean run's bit for bit where both runs
+   carried it at the same shapes and, always, a fault-free replay at the
+   faulted run's shapes (each differing stream printed with its first
+   step, top-2 logit gap and shapes); 11b phase 4's engine killed after 3
+   ticks and resumed from an ``engine_state`` blob by a fresh engine: the
+   streams bit for bit phase 4's and the launches before plus after the
+   kill phase 4's, then the same over int8 pages behind phase 4b's router
+   (a fresh router re-charged, empty after the drain); blob bytes, save
+   and load seconds printed; 11c a ``SymbiosisEngine`` of the 8 requests
+   and 2 LoRA jobs checkpointed after 4 ticks, a newer corrupt copy
+   skipped by ``restore``: streams, losses, adapters and AdamW states bit
+   for bit the uninterrupted service's; 11d the fine-tuning charge
+   (``job_charge_bytes``) beside the peaks of 7c and 10b, none below.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -230,9 +253,11 @@ from repro_torch.optim import AdamWState, adamw_init  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.router import PlacementRouter, Slot  # noqa: E402
+from repro_torch.faults.plan import (AllocHook,  # noqa: E402
+                                     FaultyRequestStream, corrupt_flip)
 from repro_torch.training import (FinetuneEngine, FinetuneJob,  # noqa: E402
-                                  SymbiosisEngine, job_hbm_bytes,
-                                  make_job_stream)
+                                  SymbiosisEngine, job_charge_bytes,
+                                  job_hbm_bytes, make_job_stream)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -959,7 +984,8 @@ def serve_quant(cfg, base, bank, first, times4):
     log("[phase 4b] beside phase 4 (bf16 -> int8): " + ", ".join(
         f"{k} {times4[k]:.3f} -> {times[k]:.3f}" for k in times
         if k in times4))
-    return launches, eng.caches, [r.prompt.shape[1] for r in reqs]
+    return (launches, eng.caches, [r.prompt.shape[1] for r in reqs],
+            [r.generated.copy() for r in reqs])
 
 
 # Kernels per traced 8-row decode tick before the attention kernels were
@@ -1956,7 +1982,7 @@ def serve_train(cfg, base):
     """7b: the service at full size behind a router whose slot holds 4
     jobs' charges, not 5; returns the 4 jobs' losses and tick times."""
     jobs = train_jobs(cfg, 5)
-    charge = job_hbm_bytes(cfg, jobs[0])
+    charge = job_charge_bytes(cfg, jobs[0])
     router = PlacementRouter(cfg, [Slot(0, free_hbm=4.5 * charge)])
     eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()), base,
                          device=DEV, router=router)
@@ -2098,6 +2124,7 @@ def train_memory(cfg, base):
     log(f"[phase 7c] from 1 to 4 jobs: §3.6 grows "
         f"{out[(True, 4)] / out[(True, 1)]:.2f}x, the baseline "
         f"{out[(False, 4)] / out[(False, 1)]:.2f}x")
+    return out
 
 
 def serve_and_train(cfg, base, bank, streams4, launches4, times4, losses7b,
@@ -2191,9 +2218,10 @@ def phase7(cfg, base, bank, streams4, launches4, times4):
     check_step_on_card()
     losses7b, ticks7b = serve_train(cfg, base)
     profile_train_tick(cfg, base)
-    train_memory(cfg, base)
+    peaks = train_memory(cfg, base)
     serve_and_train(cfg, base, bank, streams4, launches4, times4, losses7b,
                     ticks7b)
+    return peaks
 
 
 # ---------------------------------------------------------------------------
@@ -3185,9 +3213,10 @@ def p10_bank_ticks(cfg, base):
 def p10_memory(cfg, base):
     """Peak device memory beyond the resident base and bank of one bank
     step at 1 job per method (§3.6 path, FinetuneConfig's remat), beside
-    the job's ``job_hbm_bytes`` charge."""
+    the job's ``job_hbm_bytes`` charge; returns the peaks (GiB) by
+    method."""
     remat = FinetuneConfig().remat
-    out = []
+    out, peaks = [], {}
     for i, m in enumerate(("lora", "ia3", "prefix")):
         acfg = P10_ACFGS[m]
         step = symbiosis.make_compact_train_step(cfg, acfg, remat=remat)
@@ -3203,6 +3232,7 @@ def p10_memory(cfg, base):
         step(base, bank, opt, batch, *args, step7a_hyper(1))
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        peaks[m] = peak
         charge = job_hbm_bytes(cfg, p10_jobs(cfg)[2 * i], remat=remat)
         out.append(f"{m} {peak:.3f} GiB (charge {charge / 2**30:.3f} GiB, "
                    f"{peak * 2**30 / charge:.1f}x)")
@@ -3212,6 +3242,7 @@ def p10_memory(cfg, base):
         f"one bank step at 1 job ({cfg.n_layers} layers bf16, {TRAIN_B} x "
         f"{TRAIN_S} tokens, remat={remat}), beside job_hbm_bytes: "
         + "; ".join(out))
+    return peaks
 
 
 def p10_results(jobs):
@@ -3260,8 +3291,8 @@ def phase10b(cfg, base):
         f"{statistics.median(ticks[1:]) * 1e3:.3f} ms median, "
         f"{tokens / statistics.median(ticks[1:]):.0f} tokens/s")
     p10_bank_ticks(cfg, base)
-    p10_memory(cfg, base)
-    return p10_results(jobs), ticks
+    peaks = p10_memory(cfg, base)
+    return p10_results(jobs), ticks, peaks
 
 
 class NanAt:
@@ -3420,7 +3451,7 @@ def phase10(cfg, base, bank, streams4, launches4):
     phase10a()
     log(f"[phase 10a] done ({time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
-    ref, _ = phase10b(cfg, base)
+    ref, _, peaks = phase10b(cfg, base)
     log(f"[phase 10b] done ({time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
     phase10c(cfg, base, ref)
@@ -3428,6 +3459,439 @@ def phase10(cfg, base, bank, streams4, launches4):
     t = time.perf_counter()
     phase10d(cfg, base, bank, streams4, launches4, ref)
     log(f"[phase 10d] done ({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
+    return peaks
+
+
+# ---------------------------------------------------------------------------
+# phase 11: tenants' faults stay contained; the serving engine and the
+# service survive a crash
+# ---------------------------------------------------------------------------
+
+P11_LATE = 6            # the late requests arrive 6 ticks after phase 4's last
+P11_NAN_LAYER = 5       # client 3's LoRA B rows on this layer are NaN
+P11_HOOK = (1, 4)       # the admission attempts AllocHook fails
+
+
+def p11_requests(cfg):
+    """Phase 4's 8 requests, then one more per client P11_LATE ticks after
+    the last of them (64-256 prompt tokens, 16 new, greedy)."""
+    reqs = make_requests(cfg, 4)
+    rng = np.random.default_rng(11)
+    t = reqs[-1].arrive_tick + P11_LATE
+    return reqs + [Request(client_id=c, max_new_tokens=16, arrive_tick=t,
+                           prompt=rng.integers(
+                               0, cfg.vocab, (1, int(rng.integers(64, 257))))
+                           .astype(np.int32)) for c in range(4)]
+
+
+def p11_serve(eng, reqs, label):
+    """Serve ``reqs`` with every launch count set to 0 just before and
+    checked tick by tick: per decode tick the paged attention kernel once
+    per layer, SGMV twice per layer per decode tick or prefill batch, no
+    other kernel. Records for each request the shape of every step that
+    produced one of its tokens (``("prefill", rows bucket, padded length,
+    shared-prefix width)`` or ``("decode", rows bucket)``), the top-2 logit
+    gap there, and the tick each request was admitted. Returns (launches,
+    shapes, gaps, admitted)."""
+    L = eng.cfg.n_layers
+    shapes, gaps, admitted, cur = {}, {}, {}, {}
+    prefill, decode, sample = eng._prefill_step, eng._decode_step, eng._sample
+    try_admit = eng._try_admit
+
+    def prefill_step(ext, *args):
+        cur["shape"] = ("prefill", int(args[3].shape[0]),
+                        int(args[3].shape[1]), ext)
+        return prefill(ext, *args)
+
+    def decode_step(*args):
+        cur["shape"] = ("decode", int(args[3].shape[0]))
+        return decode(*args)
+
+    def record(logits, req):
+        top = np.sort(logits, axis=-1)[:, -2:]
+        gaps.setdefault(id(req), []).append(float((top[:, 1]
+                                                   - top[:, 0]).min()))
+        shapes.setdefault(id(req), []).append(cur["shape"])
+        return sample(logits, req)
+
+    def admit(req):
+        slots = try_admit(req)
+        if slots is not None:
+            admitted[id(req)] = eng._tick
+        return slots
+    eng._prefill_step, eng._decode_step = prefill_step, decode_step
+    eng._sample, eng._try_admit = record, admit
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    more = True
+    while more:
+        before = (read_counts(), eng.stats["ticks"],
+                  eng.stats["compact_prefill_batches"])
+        more = eng.service_tick()
+        now = read_counts()
+        d = {n: now[n] - before[0][n] for n in now}
+        d_tick = eng.stats["ticks"] - before[1]
+        d_pre = eng.stats["compact_prefill_batches"] - before[2]
+        want = {n: 0 for n in now}
+        want["paged_decode_attn"] = L * d_tick
+        want["sgmv"] = 2 * L * (d_tick + d_pre)
+        if d != want:
+            raise AssertionError(
+                f"[{label}] tick {eng._tick}: launches {d} for {d_tick} "
+                f"decode ticks and {d_pre} prefill batches; want {want}")
+    torch.cuda.synchronize()
+    if len(eng.drain_done()) != len(reqs):
+        raise AssertionError(f"[{label}] not every request came back")
+    return read_counts(), shapes, gaps, admitted
+
+
+def p11_pools_whole(eng, label):
+    """After the drain every page is free again, nothing is reserved or
+    held, and the prefix index holds no reference."""
+    P = eng._pool_pages
+    bad = [c for c in range(eng.n_clients)
+           if sorted(eng._free_pages[c]) != list(range(c * P, (c + 1) * P))]
+    if bad or any(eng._reserved) or eng._slot_pages or eng._slot_shared \
+            or eng._prefix_index.page_refs() or eng._resv_of:
+        raise AssertionError(f"[{label}] after the drain: clients {bad} "
+                             f"miss pages, reserved {eng._reserved}, "
+                             f"refs {eng._prefix_index.page_refs()}")
+
+
+def p11_containment(cfg, base, bank, spec):
+    """11a: phase 4's requests and one late request per client, served
+    over the clean bank, then with client 3's LoRA B rows on one layer NaN
+    (a copy), admission attempts 1 and 4 failing (``AllocHook``), client
+    0's first prompt delivered by a stream that errors once and client 3's
+    last by one that runs dry. Client 3 must end quarantined with nothing
+    held; every survivor's stream must equal the clean run's bit for bit
+    where both runs carried it at the same shapes, and in every case equal
+    a fault-free replay at the faulted run's shapes (the survivors
+    admitted at the ticks the faults moved them to, client 3's two
+    prefilled requests as one-token requests over the clean bank)."""
+    clean = ServingEngine(spec, base, [bank], device=DEV, debug=True)
+    creqs = p11_requests(cfg)
+    l_clean, s_clean, g_clean, _ = p11_serve(clean, creqs,
+                                             "phase 11a clean")
+    bad = tree_map(torch.clone, bank)
+    bad["layers"]["q"]["B"][3, min(P11_NAN_LAYER, cfg.n_layers - 1)] = \
+        float("nan")
+    hook = AllocHook(P11_HOOK)
+    eng = ServingEngine(spec, base, [bad], device=DEV, debug=True,
+                        fault_hook=hook)
+    reqs = p11_requests(cfg)
+    for i, sched in ((0, {0: "stream_error"}), (11, {0: "stream_end"})):
+        reqs[i].prompt_stream = FaultyRequestStream(reqs[i].prompt, sched)
+        reqs[i].prompt = None
+    t0 = time.perf_counter()
+    l_fault, s_fault, g_fault, admitted = p11_serve(eng, reqs,
+                                                    "phase 11a faulted")
+    wall = time.perf_counter() - t0
+    if hook.fired != 2 or reqs[0].prompt_stream.calls != 2:
+        raise AssertionError(f"[phase 11a] the hook fired {hook.fired} "
+                             f"times, the stream was fetched "
+                             f"{reqs[0].prompt_stream.calls} times")
+    mine = [r for r in reqs if r.client_id == 3]
+    if 3 not in eng._quarantined_clients or any(
+            r.status not in ("quarantined", "rejected") for r in mine):
+        raise AssertionError(f"[phase 11a] client 3: "
+                             f"{[r.status for r in mine]}, quarantined "
+                             f"{sorted(eng._quarantined_clients)}")
+    try:
+        eng.submit(Request(client_id=3, prompt=creqs[3].prompt.copy()))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("[phase 11a] a quarantined client's submit "
+                             "was accepted")
+    if any(o is not None for o in eng._slot_owner[3]):
+        raise AssertionError("[phase 11a] client 3 still holds slots")
+    p11_pools_whole(clean, "phase 11a clean")
+    p11_pools_whole(eng, "phase 11a faulted")
+    for i, r in enumerate(reqs):
+        log(f"[phase 11a]   request {i} (client {r.client_id}): "
+            f"{r.status}, admitted at tick {admitted.get(id(r))}, faults "
+            f"{r.fault_history}")
+    log("[phase 11a] health records: " + "; ".join(
+        f"client {c}: {rec.state.value}, {rec.total_faults} fault(s), "
+        f"history {rec.history}"
+        for c, rec in sorted(eng._client_health.items())))
+    # the fault-free replay at the faulted run's shapes
+    order = sorted((admitted[id(r)], i) for i, r in enumerate(reqs)
+                   if id(r) in admitted)
+    replay = ServingEngine(spec, base, [bank], device=DEV, debug=True)
+    rreqs = {}
+    for t, i in order:
+        r = reqs[i]
+        rreqs[i] = Request(client_id=r.client_id, prompt=r.prompt.copy(),
+                           arrive_tick=t, max_new_tokens=(
+                               1 if r.client_id == 3 else r.max_new_tokens))
+    l_rep, s_rep, _, a_rep = p11_serve(replay, [rreqs[i] for _, i in order],
+                                       "phase 11a replay")
+    same_clean = 0
+    for i, r in enumerate(reqs):
+        if r.client_id == 3:
+            continue
+        if r.status != "ok":
+            raise AssertionError(f"[phase 11a] survivor {i}: {r.status}")
+        shape_f, shape_c = s_fault[id(r)], s_clean[id(creqs[i])]
+        if s_rep[id(rreqs[i])] != shape_f or a_rep[id(rreqs[i])] != \
+                admitted[id(r)]:
+            raise AssertionError(f"[phase 11a] the replay carried request {i}"
+                                 " at other shapes or ticks than the "
+                                 "faulted run")
+        d = first_diff(r.generated, creqs[i].generated)
+        if d is None:
+            same_clean += 1
+        else:
+            log(f"[phase 11a]   request {i} (client {r.client_id}) first "
+                f"differs from the clean run at step {d}: top-2 gap "
+                f"{g_fault[id(r)][d]:.4f} (clean {g_clean[id(creqs[i])][d]:.4f}"
+                f"), shapes faulted {shape_f[:d + 1][-2:]} clean "
+                f"{shape_c[:d + 1][-2:]}")
+            if shape_f[:d + 1] == shape_c[:d + 1]:
+                raise AssertionError(
+                    f"[phase 11a] request {i}'s stream differs from the "
+                    f"clean run's at step {d} at the same shapes: a fault "
+                    "reached a survivor")
+        if not np.array_equal(r.generated, rreqs[i].generated):
+            raise AssertionError(
+                f"[phase 11a] request {i}'s stream differs from the "
+                f"fault-free replay at step "
+                f"{first_diff(r.generated, rreqs[i].generated)}")
+    st = eng.stats
+    log(f"[phase 11a] faulted run ({wall:.2f} s): {st['faults']} faults, "
+        f"{st['quarantined_requests']} requests quarantined, "
+        f"{st['rejected_requests']} rejected, clients quarantined "
+        f"{sorted(eng._quarantined_clients)}; hook fired {hook.fired}x, the "
+        f"erroring stream fetched {reqs[0].prompt_stream.calls}x; launches "
+        f"{l_fault} over {st['ticks']} decode ticks and "
+        f"{st['compact_prefill_batches']} prefill batches (clean "
+        f"{l_clean}, replay {l_rep}), checked tick by tick: "
+        f"{l_fault['paged_decode_attn'] / st['ticks']:g} paged attention "
+        "launches per decode tick")
+    log(f"[phase 11a] survivors: {same_clean} of 9 streams equal the clean "
+        f"run's bit for bit, 9 of 9 the fault-free replay's at the faulted "
+        "run's shapes; pools and prefix refs whole after the drain in both "
+        "runs; a submit for client 3 refused")
+
+
+def p11_kill(cfg, base, bank, spec, want_streams, want_launches, label,
+             router_bytes=None):
+    """11b: serve phase 4's requests for 3 ticks, snapshot the engine
+    (``engine_state``) into a blob, drop it, and resume the blob in a
+    fresh engine (and a fresh router, which the restore re-charges): the
+    streams must equal ``want_streams`` and the launches before the kill
+    plus those after it ``want_launches``, bit for bit and exactly.
+    Returns the blob's bytes and the save and load seconds."""
+    def engine():
+        router = (PlacementRouter(cfg, [Slot(0, free_hbm=router_bytes)])
+                  if router_bytes else None)
+        return ServingEngine(spec, base, [bank], device=DEV, router=router)
+    eng = engine()
+    reqs = make_requests(cfg, 4)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(3):
+        eng.service_tick()
+    torch.cuda.synchronize()
+    before = read_counts()
+    if not (eng.n_inflight and eng._waiting):
+        raise AssertionError(f"[{label}] nothing in flight at the kill")
+    if eng._share_prefix and not any(eng._slot_shared.values()):
+        raise AssertionError(f"[{label}] no published page held at the kill")
+    held = sum(len(v) for v in eng._slot_shared.values())
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = save_engine_state(d, eng.engine_state())
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del eng                                          # the crash
+        torch.cuda.empty_cache()
+        fresh = engine()
+        ptr = fresh.caches["layers"]["k"].data_ptr()
+        t0 = time.perf_counter()
+        _, state = load_engine_state(d)
+        fresh.load_engine_state(state)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    if fresh.caches["layers"]["k"].data_ptr() != ptr:
+        raise AssertionError(f"[{label}] the restore moved the pool")
+    reset_counts()
+    done = fresh.run()
+    torch.cuda.synchronize()
+    after = read_counts()
+    total = {n: before[n] + after[n] for n in before}
+    if total != want_launches:
+        raise AssertionError(f"[{label}] launches {before} before the kill "
+                             f"and {after} after it; the uninterrupted run "
+                             f"launched {want_launches}")
+    by_prompt = {r.prompt.tobytes(): r for r in done}
+    if len(done) != len(reqs):
+        raise AssertionError(f"[{label}] {len(done)} requests came back")
+    for i, r in enumerate(reqs):
+        got = by_prompt[r.prompt.tobytes()]
+        if got.status != "ok" or not np.array_equal(got.generated,
+                                                    want_streams[i]):
+            raise AssertionError(
+                f"[{label}] request {i} after the restore: {got.status}, "
+                f"first differs at step "
+                f"{first_diff(got.generated, want_streams[i])}")
+    if fresh.router is not None and (fresh.router._committed
+                                     or fresh.router.conservation_errors()):
+        raise AssertionError(f"[{label}] the fresh router after the drain: "
+                             f"{fresh.router.utilization()}")
+    p11_pools_whole(fresh, label)
+    log(f"[{label}] killed after 3 ticks ({len(state['inflight'])} in "
+        f"flight, {len(state['waiting'])} waiting, {held} published pages "
+        f"held): blob of {size} B saved in {t_save:.3f} s, loaded into a "
+        f"fresh engine in {t_load:.3f} s; every stream equals the "
+        f"uninterrupted run's bit for bit, launches {before} + {after} = "
+        f"its {want_launches}"
+        + ("; the fresh router re-charged and empty after the drain"
+           if fresh.router is not None else ""))
+    return size, t_save, t_load
+
+
+def p11_service(cfg, base, bank, streams4, launches4):
+    """11c: a SymbiosisEngine of phase 4's requests and 2 LoRA jobs (2 x
+    256 tokens, 3 steps), checkpointed after 4 ticks; a newer copy of the
+    blob with one byte flipped; ``restore`` into fresh engines must skip
+    it and end bit for bit as the uninterrupted service: every stream,
+    every job's losses, adapter and AdamW state; the launches of the
+    uninterrupted service, and those before plus after the kill, phase
+    4's."""
+    spec = dataclasses.replace(serve_spec(cfg, quant=False),
+                               finetune=FinetuneConfig())
+
+    def build():
+        sym = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                        device=DEV)
+        reqs, jobs = make_requests(cfg, 4), train_jobs(cfg, 2,
+                                                       first_seed=40)
+        for item in reqs + jobs:
+            sym.submit(item)
+        return sym, reqs, jobs
+    ref, ref_reqs, ref_jobs = build()
+    torch.cuda.synchronize()
+    reset_counts()
+    ref.run()
+    torch.cuda.synchronize()
+    if read_counts() != launches4:
+        raise AssertionError(f"[phase 11c] the uninterrupted service "
+                             f"launched {read_counts()}, phase 4 "
+                             f"{launches4}")
+    for i, r in enumerate(ref_reqs):
+        if not np.array_equal(r.generated, streams4[i]):
+            raise AssertionError(f"[phase 11c] uninterrupted request {i} "
+                                 "differs from phase 4's")
+    sym, _, _ = build()
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(4):
+        sym.tick()
+    torch.cuda.synchronize()
+    before = read_counts()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        seq = sym.checkpoint(d)
+        t_save = time.perf_counter() - t0
+        path = os.path.join(d, f"engine_{seq:08d}.ckpt")
+        size = os.path.getsize(path)
+        newer = os.path.join(d, f"engine_{seq + 1:08d}.ckpt")
+        shutil.copy(path, newer)
+        corrupt_flip(newer, seed=11)
+        del sym                                          # the crash
+        torch.cuda.empty_cache()
+        fresh = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                          device=DEV)
+        t0 = time.perf_counter()
+        got_seq = fresh.restore(d)
+        t_load = time.perf_counter() - t0
+    if got_seq != seq:
+        raise AssertionError(f"[phase 11c] restored blob {got_seq}, wanted "
+                             f"{seq} (the corrupt blob {seq + 1} is newer)")
+    reset_counts()
+    reqs, jobs = fresh.run()
+    torch.cuda.synchronize()
+    after = read_counts()
+    if {n: before[n] + after[n] for n in before} != launches4:
+        raise AssertionError(f"[phase 11c] launches {before} before the kill"
+                             f" and {after} after it; phase 4 {launches4}")
+    want = {r.prompt.tobytes(): r.generated for r in ref_reqs}
+    if len(reqs) != len(ref_reqs) or any(
+            not np.array_equal(r.generated, want[r.prompt.tobytes()])
+            for r in reqs):
+        raise AssertionError("[phase 11c] a stream differs from the "
+                             "uninterrupted service's")
+    by_name = {j.name: j for j in jobs}
+    for rj in ref_jobs:
+        j = by_name[rj.name]
+        if j.losses != rj.losses or not trees_equal(
+                (j.result.adapter, j.result.opt),
+                (rj.result.adapter, rj.result.opt)):
+            raise AssertionError(
+                f"[phase 11c] {j.name}: losses {j.losses} against "
+                f"{rj.losses}; largest state difference "
+                f"{max_diff((j.result.adapter, j.result.opt), (rj.result.adapter, rj.result.opt)):.3e}")
+    log(f"[phase 11c] SymbiosisEngine (8 requests, 2 LoRA jobs) "
+        f"checkpointed after 4 ticks: blob of {size} B in {t_save:.3f} s; "
+        f"the newer copy with a flipped byte skipped, blob {seq} restored "
+        f"into fresh engines in {t_load:.3f} s; every stream, and both "
+        f"jobs' losses, adapters and AdamW states equal the uninterrupted "
+        f"service's bit for bit; launches {before} + {after}, phase 4's")
+
+
+def p11_charge(cfg, peaks7, peaks10):
+    """11d: the fine-tuning charge (JAX's ``job_hbm_bytes`` plus the port's
+    ``job_activation_bytes``) beside the peaks measured in 7c (1 and 4
+    LoRA jobs, §3.6 and the torch-like baseline) and 10b (1 job per
+    method): no charge may fall below its peak."""
+    jobs = {m: p10_jobs(cfg)[2 * i] for i, m in
+            enumerate(("lora", "ia3", "prefix"))}
+    rows = []
+    for (mo, R), peak in peaks7.items():
+        rows.append((f"7c {'§3.6' if mo else 'baseline'} LoRA x{R}", peak,
+                     R * job_charge_bytes(cfg, train_jobs(cfg, 1)[0],
+                                          memory_optimized=mo) / 2**30))
+    for m, peak in peaks10.items():
+        rows.append((f"10b {m} x1", peak,
+                     job_charge_bytes(cfg, jobs[m]) / 2**30))
+    log("[phase 11d] charge against peak beyond the base (GiB): " + "; ".join(
+        f"{name} {charge:.3f} / {peak:.3f} ({charge / peak:.2f}x)"
+        for name, peak, charge in rows))
+    low = [name for name, peak, charge in rows if charge < peak]
+    if low:
+        raise AssertionError(f"[phase 11d] charges below their peak: {low}")
+
+
+def phase11(cfg, base, bank, streams4, launches4, streams4b, launches4b,
+            peaks7, peaks10):
+    """Faults stay contained and crashes lose nothing: 11a containment,
+    11b the serving engine killed and restored (bf16 pages, then int8
+    behind a router), 11c the service, 11d the fine-tuning charge."""
+    spec = serve_spec(cfg, quant=False)
+    t = time.perf_counter()
+    p11_containment(cfg, base, bank, spec)
+    log(f"[phase 11a] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    p11_kill(cfg, base, bank, spec, streams4, launches4, "phase 11b")
+    qspec = serve_spec(cfg, quant=True)
+    charges = sorted(kvcache.cache_bytes(
+        cfg, r.prompt.shape[1] + r.max_new_tokens, 1, quant=True,
+        page_block=qspec.serve.page_block) for r in make_requests(cfg, 4))
+    p11_kill(cfg, base, bank, qspec, streams4b, launches4b,
+             "phase 11b int8", router_bytes=sum(charges[-4:]))
+    log(f"[phase 11b] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    p11_service(cfg, base, bank, streams4, launches4)
+    log(f"[phase 11c] done ({time.perf_counter() - t:.1f} s)")
+    p11_charge(cfg, peaks7, peaks10)
     torch.cuda.empty_cache()
 
 
@@ -3487,8 +3951,8 @@ def main() -> int:
     log(f"[phase 4] done ({time.perf_counter() - t:.1f} s)")
     launches4 = dict(launches)
     t = time.perf_counter()
-    launches_q, caches_q, lengths_q = serve_quant(cfg, base, bank, first,
-                                                  times4)
+    launches_q, caches_q, lengths_q, streams4b = serve_quant(
+        cfg, base, bank, first, times4)
     launches["paged_decode_attn_quant"] = launches_q["paged_decode_attn_quant"]
     log(f"[phase 4b] done ({time.perf_counter() - t:.1f} s)")
 
@@ -3507,7 +3971,7 @@ def main() -> int:
     log(f"[phase 6] done ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    phase7(cfg, base, bank, streams4, launches4, times4)
+    peaks7 = phase7(cfg, base, bank, streams4, launches4, times4)
     log(f"[phase 7] done ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
@@ -3519,8 +3983,13 @@ def main() -> int:
     log(f"[phase 9] done ({time.perf_counter() - t:.1f} s)")
 
     t = time.perf_counter()
-    phase10(cfg, base, bank, streams4, launches4)
-    log(f"[phase 10] done ({time.perf_counter() - t:.1f} s); total "
+    peaks10 = phase10(cfg, base, bank, streams4, launches4)
+    log(f"[phase 10] done ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    phase11(cfg, base, bank, streams4, launches4, streams4b, launches_q,
+            peaks7, peaks10)
+    log(f"[phase 11] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's

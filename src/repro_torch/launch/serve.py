@@ -12,7 +12,9 @@ pages through the compacted step:
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16 --kv-quant
 
 ``--device cpu`` runs the reduced config on the CPU through the kernels'
-plain versions. Weights are random, drawn from ``--seed``.
+plain versions. Weights are random, drawn from ``--seed``. ``--privacy``,
+``--mesh`` and ``--obs`` are declared as in JAX and exit "not ported
+yet".
 """
 from __future__ import annotations
 
@@ -49,9 +51,18 @@ def main(argv=None):
                     help="pages per client pool (0 = full provisioning)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV entries with per-head f32 scales")
+    ap.add_argument("--privacy", action="store_true")
+    ap.add_argument("--mesh", nargs=2, type=int, default=None,
+                    metavar=("DATA", "MODEL"))
+    ap.add_argument("--obs", default=None, metavar="DIR")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    for flag, val in (("--privacy", args.privacy), ("--mesh", args.mesh),
+                      ("--obs", args.obs is not None)):
+        if val:
+            raise SystemExit(f"{flag} is not ported yet: the port serves "
+                             "on one device")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)

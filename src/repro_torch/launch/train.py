@@ -36,7 +36,7 @@ from repro_torch.training import FinetuneEngine, FinetuneJob, make_job_stream
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=sorted(ARCHS), default="granite-3-8b")
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen3-4b")
     ap.add_argument("--clients", type=int, default=4,
                     help="concurrent fine-tuning jobs")
     ap.add_argument("--steps", type=int, default=50)

@@ -69,6 +69,25 @@ One frozen base serves one or more banks of adapter clients on one device:
   request (``bank_prefill=True``, dense only and with
   ``max_inflight_per_client=1``, runs the whole bank for each admission:
   the seed engine's rule).
+* **Faults.** A tenant's faults stay contained (``HealthPolicy``). An
+  admission that fails with a ``TransientFault`` (an injected
+  ``fault_hook`` failure, a prompt stream's hiccup) rolls back, and its
+  client backs off for a few ticks (``HealthRecord``) while the request
+  stays queued: the retry draws the same pages and the same prompt, so
+  its stream is bitwise an unfaulted run's. Past the retry budget the
+  client is quarantined. A request whose prefill or decode logits go
+  non-finite is quarantined (status ``quarantined``, slots, pages and
+  router charge freed through the one retire path), and after
+  ``client_quarantine_after`` such faults its client is: ``submit``
+  refuses it, its queued requests are ``rejected`` and its in-flight ones
+  end. A prompt stream that runs dry rejects its request only. Every
+  request carries its ``fault_history``. A fault that is not transient
+  propagates after the rollback.
+* **Crash recovery.** ``engine_state()`` is a picklable snapshot of every
+  request (its RNG cursor, slots, reservation and router placement), the
+  allocator, caches and banks (as numpy), health records and stats;
+  ``load_engine_state`` resumes it, bit for bit, in a freshly built engine
+  over the same spec (``checkpoint.save_engine_state`` frames it on disk).
 * **Decode.** Every tick the ``TickPolicy`` (lockstep / nolockstep /
   opportunistic) picks the ready clients. ``compact_decode`` (default: on
   paged pools) gathers their active (client, slot) rows into one bucketed
@@ -87,15 +106,15 @@ a sequence's own stream: outputs equal serving each request alone.
 ``debug=True`` audits conservation (``faults.audit``) after every tick.
 
 Not ported yet, and refused with ``ValueError``: non-dense families, a
-``mesh`` and ``obs`` telemetry. Refused as in JAX: mixed banks on the
+``mesh`` and ``obs`` telemetry (with it the requests' timings and the
+fault paths' events). Refused as in JAX: mixed banks on the
 dense layout or with ``compact_decode=False``, ``compact_decode=True``
 without pages, ``bank_prefill`` on pages or with
 ``max_inflight_per_client`` other than 1, ``prefix_cache=True`` without
 the compacted prefill or over int8 pools, and ``admit_bank`` unless the
-engine is paged and compacted. Fault handling is
-reduced to the finite probe: a request whose logits go non-finite is
-terminated (status ``quarantined``) and its slots and pages (and router
-charge) are freed.
+engine is paged and compacted. ``engine_state`` does not capture banks
+admitted by ``admit_bank``, and ``load_engine_state`` refuses a snapshot
+whose bank count differs, as in JAX.
 """
 from __future__ import annotations
 
@@ -114,6 +133,8 @@ from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.core.scheduler import TickPolicy
 from repro_torch.faults.audit import serving_conservation
+from repro_torch.faults.health import (HealthPolicy, HealthRecord,
+                                       HealthState, TransientFault, classify)
 from repro_torch.serving.prefix_cache import PrefixIndex
 from repro_torch.serving.router import AdmissionStall, NoCapacity
 
@@ -140,18 +161,35 @@ class BankAdmission:
 @dataclasses.dataclass(eq=False)       # identity eq: queues hold np arrays
 class Request:
     client_id: int
-    prompt: np.ndarray                      # [B, S] int32 (B sequence slots)
+    prompt: Optional[np.ndarray]            # [B, S] int32 (B sequence slots)
     max_new_tokens: int = 16
     sampling: Optional[SamplingParams] = None   # None -> greedy
     arrive_tick: int = 0                    # earliest tick admission may see it
+    # a prompt delivered by a stream: submit with prompt=None and an object
+    # with fetch(); the engine resolves it at admission, where a delivery
+    # fault backs the client off (transient) or rejects the request
+    prompt_stream: Optional[object] = None
     # filled by the engine:
     generated: Optional[np.ndarray] = None  # [B, max_new_tokens]
-    status: str = "ok"                      # ok | quarantined
+    # ok | quarantined (non-finite logits, or its client was quarantined
+    # while it ran: terminated, its slots, pages and charge freed) |
+    # rejected (its client was quarantined before it ran, or its prompt
+    # stream ran dry)
+    status: str = "ok"
+    # (tick, kind, reason) tuples, kind in backoff | quarantine | rejected
+    fault_history: List[tuple] = dataclasses.field(default_factory=list)
 
 
 def _clients_of(tree) -> int:
     """Clients in a client-stacked adapter tree (its leading axis)."""
     return tree_leaves(tree)[0].shape[0]
+
+
+def _to_host(t: torch.Tensor):
+    """A tensor for a snapshot: numpy, or a CPU tensor for bf16 (which
+    numpy lacks)."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
 class ServingEngine:
@@ -169,13 +207,14 @@ class ServingEngine:
     clients' page ranges, allocates new pools."""
 
     def __init__(self, spec: EngineSpec, base_params, banks, *,
-                 device="cuda", router=None,
+                 device="cuda", router=None, policy: Optional[str] = None,
                  bank_prefill: bool = False,
                  max_inflight_per_client: Optional[int] = None,
                  compact_decode: Optional[bool] = None,
                  ragged_prefill: Optional[bool] = None,
-                 prefix_cache: Optional[bool] = None, debug: bool = False,
-                 mesh=None, obs=None):
+                 prefix_cache: Optional[bool] = None,
+                 health_policy: Optional[HealthPolicy] = None,
+                 debug: bool = False, fault_hook=None, mesh=None, obs=None):
         if spec.serve is None:
             raise ValueError("ServingEngine needs a spec with serve=")
         for name, val in (("mesh", mesh), ("obs", obs)):
@@ -226,6 +265,7 @@ class ServingEngine:
         for bs, tree in zip(spec.banks, banks):
             self._check_device(f"bank {bs.name!r}", tree)
         self.cfg, self.scfg = cfg, scfg
+        self.spec = spec
         self.base = base_params
         self.bank_cfgs = tuple(bs.acfg for bs in spec.banks)
         self.banks = banks
@@ -237,7 +277,7 @@ class ServingEngine:
         self._local_of = np.concatenate(
             [np.arange(s) for s in sizes]).astype(np.int32)
         self.max_b = spec.max_batch_per_client
-        self.policy = TickPolicy(scfg.policy)
+        self.policy = TickPolicy(policy or scfg.policy)
         self.router = router
         self.debug = debug
         self.bank_prefill = bank_prefill
@@ -278,6 +318,15 @@ class ServingEngine:
         self._build_steps()
         self._set_buckets()
         self._dead_clients: set = set()       # clients of retired banks
+        # fault containment: per-client health records, the quarantined
+        # clients (submit refuses them), the optional injection hook, and
+        # the per-tick flag that keeps an injected admission fault from
+        # tripping the "can never be admitted" stall detector
+        self.health_policy = health_policy or HealthPolicy()
+        self.fault_hook = fault_hook
+        self._client_health: Dict[int, HealthRecord] = {}
+        self._quarantined_clients: set = set()
+        self._admission_faulted = False
         self._queue: List[Request] = []
         self._waiting: deque = deque()
         self._inflight: List[Request] = []
@@ -299,7 +348,8 @@ class ServingEngine:
                       "compact_padded": 0, "ragged_prefill_batches": 0,
                       "compact_prefill_batches": 0,
                       "compact_prefill_rows": 0, "compact_prefill_padded": 0,
-                      "quarantined_requests": 0,
+                      "faults": 0, "quarantined_requests": 0,
+                      "rejected_requests": 0, "quarantined_clients": 0,
                       "prefill_tokens_computed": 0, "prefix_hits": 0,
                       "pages_shared": 0, "cow_copies": 0}
 
@@ -418,18 +468,28 @@ class ServingEngine:
         if req.client_id in self._dead_clients:
             raise ValueError(f"client {req.client_id} belongs to a retired "
                              "bank (see retire_bank)")
-        B, S = req.prompt.shape
-        if B > self.max_b:
-            raise ValueError(f"request rows {B} > {self.max_b} slots")
+        if req.client_id in self._quarantined_clients:
+            raise ValueError(f"client {req.client_id} is quarantined")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if S + req.max_new_tokens > self.scfg.max_seq:
-            raise ValueError(f"context {S}+{req.max_new_tokens} exceeds cache "
-                             f"depth {self.scfg.max_seq}")
+        if req.prompt is None:
+            # a streamed prompt is checked when the fetch resolves it
+            if req.prompt_stream is None:
+                raise ValueError("Request needs a prompt or a prompt_stream")
+        else:
+            self._check_prompt(req.prompt.shape, req.max_new_tokens)
         if req.sampling is not None and req.sampling.method not in (
                 "greedy", "temperature", "top_k"):
             raise ValueError(f"unknown sampling method {req.sampling.method!r}")
         self._queue.append(req)
+
+    def _check_prompt(self, shape, max_new_tokens: int):
+        B, S = shape
+        if B > self.max_b:
+            raise ValueError(f"request rows {B} > {self.max_b} slots")
+        if S + max_new_tokens > self.scfg.max_seq:
+            raise ValueError(f"context {S}+{max_new_tokens} exceeds cache "
+                             f"depth {self.scfg.max_seq}")
 
     def pending(self) -> bool:
         """True while any request is queued, waiting, or in flight."""
@@ -442,7 +502,9 @@ class ServingEngine:
         return len(self._inflight)
 
     def drain_done(self) -> List[Request]:
-        """Hand over (and forget) the finished-request list."""
+        """Hand over (and forget) the finished-request list: served,
+        quarantined and rejected requests, each with its
+        ``fault_history``."""
         done, self._done = self._done, []
         return done
 
@@ -458,10 +520,25 @@ class ServingEngine:
         if not waiting and not inflight:
             return False
         tick = self._tick
+        self._admission_faulted = False
         newly = []
-        attempted = [r for r in waiting if r.arrive_tick <= tick]
+        # the backoff gate: a SUSPECT client's requests skip admission
+        # until its backoff expires (bounded by HealthPolicy.max_backoff),
+        # and do not count as attempted for the stall detector
+        attempted = []
+        for r in waiting:
+            if r.arrive_tick > tick:
+                continue
+            rec = self._client_health.get(r.client_id)
+            if rec is not None and not rec.eligible(tick):
+                continue
+            attempted.append(r)
         if self.policy.admit_now(len(inflight)):
             for req in attempted:
+                if req.client_id in self._quarantined_clients:
+                    continue      # swept to rejected by _quarantine_client
+                if req.status == "rejected":
+                    continue      # its stream ran dry inside _try_admit
                 slots = self._try_admit(req)
                 if slots is not None:
                     waiting.remove(req)
@@ -480,7 +557,10 @@ class ServingEngine:
                 self._retire(req)
                 inflight.remove(req)
                 self._done.append(req)
-        if not inflight and attempted and not newly and not serve:
+        if (not inflight and attempted and not newly and not serve
+                and not self._admission_faulted):
+            # nothing in flight will ever free capacity (an injected
+            # transient admission fault is not stuck: the retry may pass)
             raise AdmissionStall(f"{len(attempted)} request(s) can never "
                                  "be admitted (no free capacity and "
                                  "nothing in flight)")
@@ -508,6 +588,8 @@ class ServingEngine:
         popped) and a router placement for a request; None leaves it
         queued."""
         c = req.client_id
+        if req.prompt is None and not self._fetch_prompt(req):
+            return None
         B, S = req.prompt.shape
         if self.max_inflight is not None:
             owners = {id(o) for o in self._slot_owner[c] if o is not None}
@@ -549,9 +631,22 @@ class ServingEngine:
             except NoCapacity:
                 return None                  # stays queued until memory frees
         slots = free[:B]
-        if self._paged:
-            self._claim_pages(req, slots, hits, pages_per_row, prompt_pages,
-                              placement)
+        try:
+            if self.fault_hook is not None:
+                self.fault_hook("serve_admit", c)
+            if self._paged:
+                self._claim_pages(req, slots, hits, pages_per_row,
+                                  prompt_pages)
+        except BaseException as e:
+            # every structure is restored by now: refund the charge; a
+            # transient fault backs the client off and leaves the request
+            # queued for a bitwise retry, anything else propagates
+            if placement is not None:
+                self.router.release(placement)
+            if isinstance(e, TransientFault):
+                self._fault_backoff(req, f"admission: {e}")
+                return None
+            raise
         self._placement[id(req)] = placement
         for s in slots:
             self._slot_owner[c][s] = req
@@ -566,11 +661,12 @@ class ServingEngine:
         return slots
 
     def _claim_pages(self, req: Request, slots: List[int], hits,
-                     pages_per_row: int, prompt_pages: int, placement):
+                     pages_per_row: int, prompt_pages: int):
         """Map a paged admission's pages: shared-prefix refs, the prompt's
         exclusive pages, the table rows and the reservation for its decode
-        pages. On failure every structure is restored and the router charge
-        refunded before the error propagates."""
+        pages. On failure every structure is restored, the free lists in
+        their exact order (a retried admission draws the same pages),
+        before the error propagates."""
         c = req.client_id
         B, S = req.prompt.shape
         # TRANSACTIONAL from here: the router charge is committed and the
@@ -629,21 +725,72 @@ class ServingEngine:
             resv = self._resv_of.pop(id(req), None)
             if resv is not None:
                 self._reserved[c] -= resv
-            if placement is not None:
-                self.router.release(placement)
             raise
+
+    def _fault_backoff(self, req: Request, reason: str):
+        """A transient admission fault, already rolled back: the client's
+        health record trips to SUSPECT with its backoff, or past the retry
+        budget the client is quarantined. The request stays queued."""
+        c = req.client_id
+        self._admission_faulted = True
+        self.stats["faults"] += 1
+        rec = self._client_health.setdefault(c, HealthRecord())
+        verdict = rec.trip(self._tick, reason, self.health_policy)
+        req.fault_history.append((self._tick, "backoff", reason))
+        if verdict == "quarantine":
+            self._quarantine_client(c)
+
+    def _fetch_prompt(self, req: Request) -> bool:
+        """Resolve a streamed request's prompt at admission, before any
+        admission state is taken (so a delivery fault needs no rollback):
+        a transient error backs the client off (the retried fetch draws the
+        same prompt); a stream that ran dry, or a prompt that does not fit,
+        rejects this request only. True when ``req.prompt`` is set."""
+        try:
+            prompt = np.asarray(req.prompt_stream.fetch(), np.int32)
+            if prompt.ndim != 2:
+                raise ValueError(f"stream prompt must be [B, S], got "
+                                 f"shape {prompt.shape}")
+            self._check_prompt(prompt.shape, req.max_new_tokens)
+        except Exception as e:                   # noqa: BLE001 — classified
+            if classify(e) == "transient":
+                self._fault_backoff(req, f"request stream: {e}")
+            else:
+                # the removal must not trip this tick's stall detector
+                self._admission_faulted = True
+                req.status = "rejected"
+                req.fault_history.append(
+                    (self._tick, "rejected", f"request stream: {e}"))
+                self._waiting.remove(req)
+                self._done.append(req)
+                self.stats["rejected_requests"] += 1
+            return False
+        req.prompt = prompt
+        return True
 
     def _finish_admit(self, req: Request, slots: List[int],
                       first_logits: np.ndarray):
-        """Sample the first token and activate the request's slots."""
+        """Sample the first token and activate the request's slots; a
+        client quarantined earlier in this tick, or non-finite logits,
+        quarantine the request instead (its budget stays 0, so this tick's
+        retire loop frees what it holds)."""
         c = req.client_id
         B = req.prompt.shape[0]
         sp = req.sampling or SamplingParams()
         self._rng[id(req)] = np.random.default_rng([sp.seed, c])
         req.generated = np.zeros((B, req.max_new_tokens), np.int32)
         self._slots_of[id(req)] = slots
-        if not np.isfinite(first_logits).all():
-            self._quarantine_request(req)
+        bad = ("client quarantined mid-tick"
+               if c in self._quarantined_clients else
+               "non-finite prefill logits"
+               if not np.isfinite(first_logits).all() else None)
+        if bad is not None:
+            req.status = "quarantined"
+            req.fault_history.append((self._tick, "quarantine", bad))
+            self._left[id(req)] = 0
+            self.stats["quarantined_requests"] += 1
+            if bad == "non-finite prefill logits":
+                self._fault_client(c, bad)
             return
         first = self._sample(first_logits, req)
         req.generated[:, 0] = first
@@ -922,9 +1069,11 @@ class ServingEngine:
             finite_of = lambda c, slots: np.isfinite(   # noqa: E731
                 lg[c, slots]).all()
         for req in stepping:
+            if self._left[id(req)] <= 0:
+                continue          # its client was quarantined mid-tick
             c, slots_r = req.client_id, self._slots_of[id(req)]
             if not finite_of(c, slots_r):
-                self._quarantine_request(req)
+                self._quarantine_request(req, "non-finite decode logits")
                 continue
             nxt = self._sample(lookup(c, slots_r), req)
             req.generated[:, req.max_new_tokens - self._left[id(req)]] = nxt
@@ -975,12 +1124,62 @@ class ServingEngine:
         rng = self._rng[id(req)]
         return np.array([rng.choice(p.shape[-1], p=row) for row in p], np.int32)
 
-    def _quarantine_request(self, req: Request):
-        """Terminate a request whose logits went non-finite: its budget drops
-        to 0, so this tick's retire loop frees its slots and pages."""
+    # ------------------------------------------------------------------
+    # fault containment
+    # ------------------------------------------------------------------
+    def _quarantine_request(self, req: Request, reason: str):
+        """Terminate a faulty in-flight request: its budget drops to 0, so
+        this tick's retire loop frees its slots, pages and router charge
+        through the one normal path. The fault counts against its
+        client."""
         req.status = "quarantined"
+        req.fault_history.append((self._tick, "quarantine", reason))
         self._left[id(req)] = 0
         self.stats["quarantined_requests"] += 1
+        self._fault_client(req.client_id, reason)
+
+    def _fault_client(self, c: int, reason: str):
+        """Record a fault against a client; quarantine the whole client once
+        ``HealthPolicy.client_quarantine_after`` faults accumulate."""
+        self.stats["faults"] += 1
+        rec = self._client_health.setdefault(c, HealthRecord())
+        rec.total_faults += 1
+        if rec.state is not HealthState.QUARANTINED:
+            rec.state = HealthState.SUSPECT
+            rec.history.append((self._tick, "suspect", reason))
+        if (c not in self._quarantined_clients and rec.total_faults
+                >= self.health_policy.client_quarantine_after):
+            self._quarantine_client(c)
+
+    def _quarantine_client(self, c: int):
+        """Fence a client off: refuse its submits, reject its queued
+        requests, and end its in-flight ones (what they hold frees through
+        the normal retire path). Other clients' state is untouched: their
+        streams stay bitwise a run without the faulty tenant."""
+        if c in self._quarantined_clients:
+            return
+        self._quarantined_clients.add(c)
+        self.stats["quarantined_clients"] += 1
+        rec = self._client_health.setdefault(c, HealthRecord())
+        if rec.state is not HealthState.QUARANTINED:
+            rec.state = HealthState.QUARANTINED
+            rec.history.append((self._tick, "quarantined",
+                                f"{rec.total_faults} fault(s)"))
+        for pool in (self._queue, self._waiting):
+            for r in [r for r in pool if r.client_id == c]:
+                pool.remove(r)
+                r.status = "rejected"
+                r.fault_history.append(
+                    (self._tick, "rejected", "client quarantined"))
+                self._done.append(r)
+                self.stats["rejected_requests"] += 1
+        for r in self._inflight:
+            if r.client_id == c and self._left.get(id(r), 0) > 0:
+                r.status = "quarantined"
+                r.fault_history.append(
+                    (self._tick, "quarantine", "client quarantined"))
+                self._left[id(r)] = 0
+                self.stats["quarantined_requests"] += 1
 
     def _retire(self, req: Request):
         c = req.client_id
@@ -1016,6 +1215,149 @@ class ServingEngine:
         for p in self._bank_placements:
             self.router.release(p)
         self._bank_placements = []
+
+    # ------------------------------------------------------------------
+    # crash recovery
+    # ------------------------------------------------------------------
+    def _req_record(self, req: Request) -> dict:
+        sp = req.sampling
+        return {"client_id": req.client_id,
+                "prompt": (None if req.prompt is None
+                           else np.asarray(req.prompt)),
+                "prompt_stream": req.prompt_stream,   # picklable by contract
+                "max_new_tokens": req.max_new_tokens,
+                "sampling": None if sp is None else dataclasses.asdict(sp),
+                "arrive_tick": req.arrive_tick,
+                "generated": (None if req.generated is None
+                              else req.generated.copy()),
+                "status": req.status,
+                "fault_history": list(req.fault_history),
+                "left": self._left.get(id(req)),
+                "slots": self._slots_of.get(id(req)),
+                "resv": self._resv_of.get(id(req)) if self._paged else None,
+                "rng": (self._rng[id(req)].bit_generator.state
+                        if id(req) in self._rng else None),
+                "placed": id(req) in self._placement,
+                "placement": self._placement.get(id(req))}
+
+    def engine_state(self) -> dict:
+        """A picklable snapshot of the whole engine between ticks: every
+        request (its RNG cursor, slots, reservation and router placement),
+        the page allocator (free lists, reservations, write positions,
+        block table, slot pages, shared pages and the prefix index),
+        caches and banks on the host, ``last_tok``, the tick, stats, health
+        records and the quarantined and retired clients. A freshly built
+        engine over the same spec resumes it bit for bit
+        (``load_engine_state``). Banks admitted by ``admit_bank`` are not
+        captured."""
+        state = {
+            "inflight": [self._req_record(r) for r in self._inflight],
+            "waiting": [self._req_record(r) for r in self._waiting],
+            "queue": [self._req_record(r) for r in self._queue],
+            "done": [self._req_record(r) for r in self._done],
+            "caches": tree_map(_to_host, self.caches),
+            "banks": [tree_map(_to_host, b) for b in self.banks],
+            "last_tok": self._last_tok.copy(),
+            "tick": self._tick,
+            "stats": dict(self.stats),
+            "client_health": dict(self._client_health),
+            "quarantined_clients": set(self._quarantined_clients),
+            "dead_clients": set(self._dead_clients),
+        }
+        if self._paged:
+            state["alloc"] = {
+                "free_pages": [list(x) for x in self._free_pages],
+                "reserved": list(self._reserved),
+                "wpos": self._wpos.copy(),
+                "tbl": self._tbl.copy(),
+                "slot_pages": {k: list(v)
+                               for k, v in self._slot_pages.items()},
+                "slot_shared": {k: list(v)
+                                for k, v in self._slot_shared.items()},
+                "prefix_index": self._prefix_index.state(),
+            }
+        return state
+
+    def load_engine_state(self, state: dict):
+        """Resume an ``engine_state`` snapshot in this freshly built engine
+        (same spec, base, banks and router capacities). The caches are
+        written into the engine's own buffers on its device (their
+        ``data_ptr`` is kept), the banks go back to the device, router
+        placements are re-committed (pass a fresh router, not the crashed
+        engine's) and the block table is pushed at the next step."""
+        if self._inflight or self._waiting or self._queue or self._done:
+            raise RuntimeError("load_engine_state needs a freshly built "
+                               "engine")
+        if len(state["banks"]) != len(self.banks):
+            raise RuntimeError(f"the snapshot holds {len(state['banks'])} "
+                               f"banks, the engine {len(self.banks)} "
+                               "(admit_bank growth is not captured)")
+
+        def mk(rec: dict) -> Request:
+            sp = rec["sampling"]
+            req = Request(client_id=rec["client_id"], prompt=rec["prompt"],
+                          max_new_tokens=rec["max_new_tokens"],
+                          sampling=(None if sp is None
+                                    else SamplingParams(**sp)),
+                          arrive_tick=rec["arrive_tick"],
+                          prompt_stream=rec["prompt_stream"])
+            req.generated = rec["generated"]
+            req.status = rec["status"]
+            req.fault_history = list(rec["fault_history"])
+            if rec["left"] is not None:
+                self._left[id(req)] = rec["left"]
+            if rec["slots"] is not None:
+                slots = list(rec["slots"])
+                c = req.client_id
+                self._slots_of[id(req)] = slots
+                for s in slots:
+                    self._slot_owner[c][s] = req
+                if rec["left"]:
+                    self._active_mask[c, slots] = True
+                    self._active_slots[c] = sorted(self._active_slots[c]
+                                                   + slots)
+            if rec["rng"] is not None:
+                rng = np.random.default_rng()
+                rng.bit_generator.state = rec["rng"]
+                self._rng[id(req)] = rng
+            if self._paged and rec["resv"] is not None:
+                self._resv_of[id(req)] = rec["resv"]
+            if rec["placed"]:
+                p = rec["placement"]
+                self._placement[id(req)] = p
+                if p is not None and self.router is not None:
+                    self.router.commit(p)
+            return req
+
+        self._inflight = [mk(r) for r in state["inflight"]]
+        self._waiting = deque(mk(r) for r in state["waiting"])
+        self._queue = [mk(r) for r in state["queue"]]
+        self._done = [mk(r) for r in state["done"]]
+
+        def restore(buf, saved):
+            buf.copy_(torch.as_tensor(saved))
+            return buf
+        self.caches = tree_map(restore, self.caches, state["caches"])
+        self.banks = [tree_map(lambda x: torch.as_tensor(x).to(self.device),
+                               b) for b in state["banks"]]
+        self._last_tok = state["last_tok"].copy()
+        self._tick = state["tick"]
+        self.stats.update(state["stats"])
+        self._client_health = dict(state["client_health"])
+        self._quarantined_clients = set(state["quarantined_clients"])
+        self._dead_clients = set(state["dead_clients"])
+        if self._paged:
+            a = state["alloc"]
+            self._free_pages = [list(x) for x in a["free_pages"]]
+            self._reserved = list(a["reserved"])
+            self._wpos = a["wpos"].copy()
+            self._tbl = a["tbl"].copy()
+            self._slot_pages = {tuple(k): list(v)
+                                for k, v in a["slot_pages"].items()}
+            self._slot_shared = {tuple(k): list(v)
+                                 for k, v in a["slot_shared"].items()}
+            self._prefix_index = PrefixIndex.from_state(a["prefix_index"])
+            self._tbl_dirty = True      # push the restored table mirror
 
     # ------------------------------------------------------------------
     # banks admitted and retired while the engine serves

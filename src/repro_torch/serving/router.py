@@ -94,7 +94,7 @@ class PlacementRouter:
 
     def route_train(self, nbytes: float) -> Placement:
         """Commit one FINE-TUNING job's client-side state (adapter + AdamW
-        moments + activation working set, ``training.job_hbm_bytes``) to
+        moments + activations, ``training.job_charge_bytes``) to
         the first slot it fits. Training state is touched every step, so it
         is placed on the card only; the FinetuneEngine releases the charge
         when the job retires. Raises NoCapacity when no slot fits."""

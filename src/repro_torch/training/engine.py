@@ -23,9 +23,13 @@ them, admitting and retiring jobs mid-run.
   products, and churn never touches a resident job's slot.
 * **Admission.** Each tick scans the queue in submit order, gated by
   ``FinetuneConfig.max_jobs`` and, with a ``PlacementRouter`` attached, by
-  a device-memory charge for what a job pins (``job_hbm_bytes``). A job
-  that does not fit stays queued without blocking later jobs; capacity
-  releases at retire.
+  a device-memory charge for what a job pins (``job_charge_bytes``: JAX's
+  ``job_hbm_bytes`` plus the activations the port's step saves for its
+  backward, ``job_activation_bytes``). A job that does not fit stays
+  queued without blocking later jobs; capacity releases at retire.
+  Admission is transactional: a failure releases the charge, and a
+  ``TransientFault`` (an injected ``fault_hook`` failure at the
+  ``"train_admit"`` point) backs the job off and leaves it queued.
 * **Faults.** A job whose data stream raises is backed off (transient) or
   quarantined (fatal); a stream that runs dry finishes the job early; a
   non-finite step is dropped in the step and the job quarantined from its
@@ -64,8 +68,10 @@ from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.faults.audit import finetune_conservation
-from repro_torch.faults.health import HealthPolicy, HealthRecord, classify
+from repro_torch.faults.health import (HealthPolicy, HealthRecord,
+                                       TransientFault, classify)
 from repro_torch.faults.plan import NonFiniteFault, StreamExhausted
+from repro_torch.models.blocks import _pick_chunk
 from repro_torch.optim import adamw_init
 from repro_torch.serving.router import AdmissionStall, NoCapacity
 from repro_torch.training.job import FinetuneJob, JobResult
@@ -160,6 +166,114 @@ def job_hbm_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     return adapter_b + opt_b + act_b
 
 
+_LORA_INPUTS = {"q": "ln1", "k": "ln1", "v": "ln1", "o": "attn",
+                "gate": "ln2", "up": "ln2", "down": "mlp"}
+
+
+def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
+                       S: int, memory_optimized: bool) -> int:
+    """Bytes one layer of one job's §3.6 step saves for its backward, when
+    its input requires grad, over ``seqs`` sequences of ``S`` tokens.
+    Frozen linears save only their (resident) weight
+    (``core.frozen_linear``); what is left, op by op in
+    ``transformer._layer_forward``:
+
+    * each RMSNorm its fp32 input and rsqrt (and an fp32 copy of a
+      non-fp32 scale); with ``qk_norm`` the same per head of q and k;
+    * RoPE's fp32 cos and sin tables, for q and for k;
+    * the attention's q, its GQA-repeated K and V per query chunk, the
+      fp32 softmax and its copy in the activation dtype, and the mask;
+    * the SwiGLU's gate, silu(gate) and up;
+    * the adapter: LoRA's inputs (one per distinct input) and ``x @ A``
+      per target, IA3's scaled tensors, the prefix branch's q and softmax;
+      adapter leaves cast to a narrower activation dtype;
+    * without ``memory_optimized`` (the torch-like baseline) also every
+      base linear's input and each norm's normalized product, which the
+      base's weight gradients would read."""
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    narrow = a != 4                         # adapters are fp32
+    p_cast = cfg.param_dtype != "float32"   # norm scales cast to fp32
+    T = seqs * S
+    d, H, K, hd, F = cfg.d_model, cfg.hp, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    n_chunks = S // _pick_chunk(S, seqs, H, S, 1024, budget_bytes=1e9)
+    b = 2 * (T * d * 4 + T * 4) + (2 * d * 4 if p_cast else 0)
+    if cfg.qk_norm:
+        b += (H + K) * (T * hd * 4 + T * 4) + (2 * hd * 4 if p_cast else 0)
+    if cfg.rope_theta > 0:
+        b += 4 * T * (hd // 2) * 4
+    b += T * H * hd * a                                  # q
+    b += 2 * n_chunks * seqs * H * S * hd * a            # repeated K, V
+    b += seqs * H * S * S * (4 + (a if narrow else 0))   # softmax (+ cast)
+    b += seqs * S * S                                    # causal mask
+    b += 3 * T * F * a                                   # SwiGLU
+    targets = adapters_lib.resolve_targets(cfg, acfg)
+    widths = {"ln1": d, "attn": H * hd, "ln2": d, "mlp": F}
+    inputs = set() if memory_optimized else set(widths)
+    if not memory_optimized:
+        b += 2 * T * d * 4 + (T * (H + K) * hd * 4 if cfg.qk_norm else 0)
+        if acfg.method == "prefix":
+            b += T * H * hd * a          # the prefix branch's own o input
+    if acfg.method == "lora":
+        inputs |= {_LORA_INPUTS[p] for p, _ in targets}
+        r = acfg.rank
+        for p, (din, dout) in targets:
+            b += T * r * a + (r * (din + dout) * a if narrow else 0)
+    elif acfg.method == "ia3":
+        for p, (din, dout) in targets:
+            n = din if p == "down" else dout
+            b += T * n * a + (n * a if narrow else 0)
+    elif acfg.method == "prefix":
+        P = acfg.n_prefix
+        # q, the fp32 softmax and the probabilities as the einsum lays
+        # them out (a cast, or a permuted copy), and K/V cast
+        b += T * H * hd * a + T * H * P * (4 + a)
+        if narrow:
+            b += 2 * K * P * hd * a
+    return b + sum(T * widths[g] * a for g in inputs)
+
+
+def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
+                         remat: bool = False,
+                         memory_optimized: bool = True) -> int:
+    """What the port's §3.6 step holds for its backward, counted from the
+    shapes (the port's own term beside ``job_hbm_bytes``, whose JAX
+    estimate counts one fp32 residual stream per layer): every layer's
+    saved tensors (``_layer_saved_bytes``) for one microbatch, or with
+    ``remat`` each layer's input plus ONE layer's tensors (recomputed in
+    its backward), then the final norm and the loss's fp32 log-probs,
+    label ids and mask (without ``memory_optimized``, also the lm_head's
+    input, the final norm's product and the embedding's ids). Jobs merged
+    in one bank step hold the sum of their terms, up to their adapters'
+    casts and per-sequence prefix copies."""
+    nmb = max(1, job.microbatch)
+    if job.batch_size % nmb or job.batch_size == nmb:
+        nmb = 1
+    seqs = job.batch_size // nmb
+    S = job.seq_len
+    T = seqs * S
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    layer = _layer_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized)
+    body = (cfg.n_layers * T * cfg.d_model * a + layer if remat
+            else cfg.n_layers * layer)
+    head = (T * cfg.d_model * 4 + T * 4
+            + (cfg.d_model * 4 if cfg.param_dtype != "float32" else 0)
+            + T * cfg.vocab * 4 + T * 8 + T * 4)
+    if not memory_optimized:
+        head += T * cfg.d_model * (a + 4) + T * 8
+    return body + head
+
+
+def job_charge_bytes(cfg: ModelConfig, job: FinetuneJob, *,
+                     remat: bool = False,
+                     memory_optimized: bool = True) -> int:
+    """The router charge ``FinetuneEngine`` takes for a job: JAX's
+    ``job_hbm_bytes`` plus the port's ``job_activation_bytes`` (a stated
+    departure: JAX's activation estimate under-charges the port's step)."""
+    return (job_hbm_bytes(cfg, job, remat=remat)
+            + job_activation_bytes(cfg, job, remat=remat,
+                                   memory_optimized=memory_optimized))
+
+
 def _not_ported(what: str):
     return ValueError(f"{what}: not ported yet; the port's FinetuneEngine "
                       "trains jobs of the dense family on one device")
@@ -190,8 +304,9 @@ class FinetuneEngine:
     job's data stream must hand out batches on it."""
 
     def __init__(self, spec: EngineSpec, base_params, *, device="cuda",
-                 router=None, quarantine_dir: Optional[str] = None,
-                 debug: bool = False, mesh=None, obs=None):
+                 router=None, health_policy: Optional[HealthPolicy] = None,
+                 quarantine_dir: Optional[str] = None, debug: bool = False,
+                 fault_hook=None, mesh=None, obs=None):
         for name, val in (("mesh", mesh), ("obs", obs)):
             if val is not None:
                 raise _not_ported(f"{name}=")
@@ -217,9 +332,11 @@ class FinetuneEngine:
         self._placement: Dict[int, object] = {}
         self._steps: Dict[BankKey, object] = {}
         self.finished: List[FinetuneJob] = []
-        self.health_policy = HealthPolicy()
+        self.health_policy = health_policy or HealthPolicy()
         self.quarantine_dir = quarantine_dir
         self.debug = debug
+        self.fault_hook = fault_hook
+        self._admission_faulted = False
         self._restore_slot: Dict[int, int] = {}   # id(job) -> slot it held
         self.stats = {"train_ticks": 0, "train_steps": 0, "admitted": 0,
                       "retired": 0, "peak_jobs": 0, "compact_rows": 0,
@@ -265,12 +382,15 @@ class FinetuneEngine:
         placement = None
         if self.router is not None:
             try:
-                placement = self.router.route_train(
-                    job_hbm_bytes(self.cfg, job, remat=self.fcfg.remat))
+                placement = self.router.route_train(job_charge_bytes(
+                    self.cfg, job, remat=self.fcfg.remat,
+                    memory_optimized=self.fcfg.memory_optimized))
             except NoCapacity:
                 return False                      # queued until capacity frees
         # transactional from here: any failure releases the router charge
         try:
+            if self.fault_hook is not None:
+                self.fault_hook("train_admit", id(job))
             if job.init_adapter is not None:
                 adapter, opt = job.init_adapter, job.init_opt
             else:
@@ -282,9 +402,19 @@ class FinetuneEngine:
             bank = self._banks.setdefault(
                 key, _Bank(key, reserve=self._reserve.get(job.acfg, 0)))
             slot = bank.alloc(adapter, opt, self._restore_slot.get(id(job)))
-        except BaseException:
+        except BaseException as e:
             if placement is not None:
                 self.router.release(placement)
+            if isinstance(e, TransientFault):
+                # rolled back: the job stays queued and retries after its
+                # backoff
+                self._admission_faulted = True
+                self.stats["faults"] += 1
+                rec = job.health or HealthRecord()
+                job.health = rec
+                rec.trip(self.stats["train_ticks"], f"admission: {e}",
+                         self.health_policy)
+                return False
             raise                                 # rolled back, not swallowed
         bank.slots[slot] = job
         self._slot_of[id(job)] = (key, slot)
@@ -434,12 +564,26 @@ class FinetuneEngine:
         """Admit due jobs, run one optimizer step for every active job (one
         compact call per non-empty bank), retire exhausted jobs. Returns
         True while jobs remain active or queued."""
+        tick = self.stats["train_ticks"]
+        self._admission_faulted = False
         admitted_any = False
+        backing_off = 0
         for job in list(self._queue):
+            if job.health is not None and not job.health.active:
+                # admission retries exhausted: out of the queue, not a crash
+                self._queue.remove(job)
+                job.status = "quarantined"
+                self.stats["quarantined"] += 1
+                self.finished.append(job)
+                continue
+            if job.health is not None and not job.health.eligible(tick):
+                backing_off += 1
+                continue                           # SUSPECT: retry later
             if self._try_admit(job):
                 self._queue.remove(job)
                 admitted_any = True
-        if self._queue and not self._slot_of and not admitted_any:
+        if self._queue and not self._slot_of and not admitted_any \
+                and not self._admission_faulted and not backing_off:
             raise AdmissionStall(
                 f"{len(self._queue)} job(s) can never be admitted "
                 f"(no free capacity and nothing running)")

@@ -11,15 +11,17 @@ the other: training never calls the paged decode kernels, so their
 per-device workspace is never shared across streams. Because the base is
 frozen and each engine owns its client-side state, interleaving changes
 WHEN work runs, never its math: every request's stream and every job's
-trajectory equal each engine's alone. ``checkpoint`` / ``restore`` wait
-for the serving engine's half of crash recovery (its health records and
-quarantines are not ported yet); the fine-tuning half's is
-``FinetuneEngine.engine_state``.
+trajectory equal each engine's alone. ``checkpoint`` writes both engines'
+snapshots (``engine_state``) as one CRC-framed blob; ``restore`` loads the
+newest valid one into freshly built engines, which resume every tenant bit
+for bit (a corrupt newer blob is skipped: last good wins).
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
 
+from repro_torch.checkpoint import load_engine_state, save_engine_state
 from repro_torch.common.tree import tree_leaves
 from repro_torch.core.engine_spec import EngineSpec
 from repro_torch.serving.engine import Request, ServingEngine
@@ -52,24 +54,31 @@ class SymbiosisEngine:
 
     @classmethod
     def from_spec(cls, spec: EngineSpec, base_params, *, serving_banks=None,
-                  router=None, device="cuda",
-                  **serving_kw):
+                  router=None, device="cuda", policy: Optional[str] = None,
+                  health_policy=None, fault_hook=None, **serving_kw):
         """Build the service from ONE ``EngineSpec``: a ``ServingEngine``
         when ``spec.serve`` is set (over ``serving_banks``, one
         client-stacked adapter tree per spec bank), a ``FinetuneEngine``
         when ``spec.finetune`` is set, both over the same base tensors and,
-        when given, one shared ``router``."""
+        when given, one shared ``router``. ``health_policy`` and
+        ``fault_hook`` go to both engines (the hook tells them apart by its
+        point, ``"serve_admit"`` or ``"train_admit"``)."""
         serving = None
         if spec.serve is not None:
             if serving_banks is None:
                 raise ValueError("spec.serve is set: pass serving_banks= "
                                  "(one adapter tree per spec bank)")
             serving = ServingEngine(spec, base_params, serving_banks,
-                                    router=router, device=device, **serving_kw)
+                                    router=router, device=device,
+                                    policy=policy,
+                                    health_policy=health_policy,
+                                    fault_hook=fault_hook, **serving_kw)
         finetune = None
         if spec.finetune is not None:
             finetune = FinetuneEngine(spec, base_params, router=router,
-                                      device=device)
+                                      device=device,
+                                      health_policy=health_policy,
+                                      fault_hook=fault_hook)
         return cls(serving=serving, finetune=finetune)
 
     # ------------------------------------------------------------------
@@ -137,3 +146,39 @@ class SymbiosisEngine:
         if self.finetune is not None:
             done_jobs, self.finetune.finished = self.finetune.finished, []
         return done_reqs, done_jobs
+
+    # ------------------------------------------------------------------
+    # crash recovery
+    # ------------------------------------------------------------------
+    def checkpoint(self, directory) -> int:
+        """Write both engines' snapshots and the wrapper's stats as one
+        CRC-framed blob (``checkpoint.save_engine_state``, atomic); returns
+        its sequence number. ``restore`` into freshly built engines resumes
+        every tenant bit for bit."""
+        state = {
+            "serving": (None if self.serving is None
+                        else self.serving.engine_state()),
+            "finetune": (None if self.finetune is None
+                         else self.finetune.engine_state()),
+            "stats": dict(self.stats),
+        }
+        path = save_engine_state(directory, state)
+        return int(re.search(r"engine_(\d+)\.ckpt$", path).group(1))
+
+    def restore(self, directory) -> int:
+        """Load the newest VALID snapshot in ``directory`` (corrupt blobs
+        are skipped: last good wins) into this freshly built service;
+        returns the sequence number restored."""
+        seq, state = load_engine_state(directory)
+        if state["serving"] is not None:
+            if self.serving is None:
+                raise RuntimeError("the snapshot holds serving state but no "
+                                   "serving engine is attached")
+            self.serving.load_engine_state(state["serving"])
+        if state["finetune"] is not None:
+            if self.finetune is None:
+                raise RuntimeError("the snapshot holds fine-tuning state but "
+                                   "no finetune engine is attached")
+            self.finetune.load_engine_state(state["finetune"])
+        self.stats.update(state["stats"])
+        return seq

@@ -31,8 +31,6 @@ import pytest
 import torch
 
 from repro import checkpoint as jax_ckpt
-from repro.faults.plan import (CkptWriteFault, CkptWriteHook, corrupt_flip,
-                               corrupt_truncate)
 from repro.optim import adamw_init as jax_adamw_init
 from repro.optim.adamw import AdamWState as JaxAdamWState
 from repro_torch import config as pcfg
@@ -44,9 +42,11 @@ from repro_torch.checkpoint import (CheckpointCorruptError, latest_step,
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.core import adapters
 from repro_torch.core.engine_spec import EngineSpec
+from repro_torch.faults.plan import (CkptWriteFault, CkptWriteHook,
+                                     FaultyStream, corrupt_flip,
+                                     corrupt_truncate)
 from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.training import FinetuneEngine, FinetuneJob, make_job_stream
-from test_torch_finetune_engine import _PortFaultyStream
 from test_torch_mixed_serving import numpy_adapter_bank
 from test_torch_peft_train import ACFGS, acfgs
 from test_torch_train import port_base, system
@@ -325,9 +325,9 @@ def test_quarantine_and_early_finish_checkpoint_last_clean_state(tmp_path):
     poisoned, ending, clean = _jobs(pc, (("nan", "ia3", 5, 7),
                                          ("end", "prefix", 5, 8),
                                          ("ok", "lora", 3, 9)))
-    poisoned.data = _PortFaultyStream(poisoned.data, {2: "nan_batch"})
-    ending.data = _PortFaultyStream(ending.data, {1: "stream_end"})
-    clean.data = _PortFaultyStream(clean.data, {})
+    poisoned.data = FaultyStream(poisoned.data, {2: "nan_batch"})
+    ending.data = FaultyStream(ending.data, {1: "stream_end"})
+    clean.data = FaultyStream(clean.data, {})
     for j in (poisoned, ending, clean):
         eng.submit(j)
     eng.run()
@@ -347,7 +347,7 @@ def test_failing_checkpoint_write_still_retires(tmp_path):
     _, pc, base = system()
     eng = _engine(pc, port_base(pc, base), quarantine_dir=str(tmp_path))
     (job,) = _jobs(pc, (("nan", "prefix", 4, 10),))
-    job.data = _PortFaultyStream(job.data, {1: "nan_batch"})
+    job.data = FaultyStream(job.data, {1: "nan_batch"})
     eng.submit(job)
     prev = set_write_fault_hook(CkptWriteHook(at={0}))
     try:

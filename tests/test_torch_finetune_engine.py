@@ -7,9 +7,10 @@ seeded with the same numpy-made adapter, A and B non-zero, through the
 resume fields ``init_adapter`` / ``init_opt``) and the same synthetic data
 streams. After every tick the host-side state must be EXACTLY equal:
 admissions, each job's bank and slot, per-job step counts, statuses, the
-``stats`` dict and the router's charges; losses agree at atol = rtol =
-1e-5 and the final adapters and AdamW moments at rtol 1e-4 with an atol
-scaled to each leaf (fp32, the two frameworks sum in different orders; see
+``stats`` dict, and the router's charges, which differ by exactly the
+port's ``job_activation_bytes`` per job (a stated departure); losses agree
+at atol = rtol = 1e-5 and the final adapters and AdamW moments at rtol 1e-4
+with an atol scaled to each leaf (fp32, the two frameworks sum in different orders; see
 ``test_torch_train.py::assert_state_close``).
 
 The port's ``SymbiosisEngine`` is held against the port's engines alone:
@@ -26,6 +27,7 @@ import torch
 
 from repro.config import AdapterConfig as JaxAdapterConfig
 from repro.config import FinetuneConfig as JaxFinetuneConfig
+from repro.core.engine_spec import BankSpec as JaxBankSpec
 from repro.core.engine_spec import EngineSpec as JaxEngineSpec
 from repro.faults.plan import FaultyStream
 from repro.optim import adamw_init as jax_adamw_init
@@ -44,9 +46,10 @@ from repro_torch.serving import kvcache
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.router import (AdmissionStall, PlacementRouter,
                                        Slot)
-from repro_torch.faults import StreamExhausted
+from repro_torch.faults.plan import FaultyStream as PortFaultyStream
 from repro_torch.training import (FinetuneEngine, FinetuneJob,
-                                  SymbiosisEngine, job_hbm_bytes,
+                                  SymbiosisEngine, job_activation_bytes,
+                                  job_charge_bytes, job_hbm_bytes,
                                   make_job_stream)
 from test_torch_model import numpy_bank
 from test_torch_train import (TOL, assert_state_close, numpy_adapter, port_base,
@@ -56,45 +59,42 @@ LORA4 = dict(method="lora", rank=4, alpha=8.0, targets=("q", "v"))
 LORA8 = dict(method="lora", rank=8, alpha=16.0, targets=("q", "k", "v", "o"))
 
 
-class _PortFaultyStream:
-    """The JAX ``FaultyStream`` for a port stream: a schedule by call
-    count of ``nan_batch`` (a NaN loss mask; every other batch carries a
-    mask of ones), ``stream_error`` (an IO-shaped, transient error) and
-    ``stream_end`` (the stream runs dry)."""
-
-    def __init__(self, inner, schedule):
-        self.inner, self.schedule, self.calls = inner, dict(schedule), 0
-
-    def batch(self, step):
-        kind = self.schedule.get(self.calls)
-        self.calls += 1
-        if kind == "stream_error":
-            raise OSError("injected stream error")
-        if kind == "stream_end":
-            raise StreamExhausted("injected stream end")
-        b = dict(self.inner.batch(step))
-        fill = float("nan") if kind == "nan_batch" else 1.0
-        b["mask"] = torch.full(b["labels"].shape, fill)
-        return b
-
-
 class Pair:
-    """The JAX engine and the port's, driven with the same operations."""
+    """The JAX engine and the port's, driven with the same operations.
 
-    def __init__(self, fcfg=None, slot_bytes=None):
+    The port charges a job JAX's ``job_hbm_bytes`` plus its own
+    ``job_activation_bytes`` (a stated departure), so its router slot is
+    ``port_slot_bytes`` (default: ``slot_bytes``) and every check holds the
+    difference of the two ledgers to the port's terms exactly."""
+
+    def __init__(self, fcfg=None, slot_bytes=None, port_slot_bytes=None,
+                 reserve=None):
         self.cfg, self.pc, base = system()
         fcfg = fcfg or {}
+        self.fcfg = pcfg.FinetuneConfig(**fcfg)
         jrouter = prouter = None
         if slot_bytes is not None:
+            port_slot_bytes = port_slot_bytes or slot_bytes
             jrouter = JaxRouter(self.cfg, [JaxSlot(0, free_hbm=slot_bytes)],
                                 host_free_bytes=0)
-            prouter = PlacementRouter(self.pc, [Slot(0, free_hbm=slot_bytes)])
+            prouter = PlacementRouter(self.pc,
+                                      [Slot(0, free_hbm=port_slot_bytes)])
+        self.slots = (slot_bytes, port_slot_bytes)
         self.routers = (jrouter, prouter)
+        # ``reserve``: (LoRA fields, capacity) of a bank both engines size
+        # up front, so a late admission does not grow it mid-run
+        jbanks = pbanks = ()
+        if reserve is not None:
+            acfg, cap = reserve
+            jbanks = (JaxBankSpec("jobs", JaxAdapterConfig(**acfg), cap),)
+            pbanks = (BankSpec("jobs", pcfg.AdapterConfig(**acfg), cap),)
         self.jax = JaxFinetuneEngine(
-            JaxEngineSpec(cfg=self.cfg, finetune=JaxFinetuneConfig(**fcfg)),
+            JaxEngineSpec(cfg=self.cfg, banks=jbanks,
+                          finetune=JaxFinetuneConfig(**fcfg)),
             jax.tree.map(jnp.asarray, base), router=jrouter)
         self.port = FinetuneEngine(
-            EngineSpec(cfg=self.pc, finetune=pcfg.FinetuneConfig(**fcfg)),
+            EngineSpec(cfg=self.pc, banks=pbanks,
+                       finetune=pcfg.FinetuneConfig(**fcfg)),
             port_base(self.pc, base), device="cpu", router=prouter)
         self.jobs = []          # (jax job, port job)
 
@@ -111,7 +111,7 @@ class Pair:
         pdata = make_job_stream(self.pc, batch, seq, seed=seed, device="cpu")
         if faults is not None:        # every batch then carries a mask
             jdata = FaultyStream(jdata, faults)
-            pdata = _PortFaultyStream(pdata, faults)
+            pdata = PortFaultyStream(pdata, faults)
         common = dict(batch_size=batch, seq_len=seq, steps=steps, seed=seed,
                       name=f"job-{seed}", **defaults)
         return (JaxJob(acfg=ja, data=jdata, init_adapter=jad,
@@ -148,13 +148,28 @@ class Pair:
                                 k.microbatch, b.cap)
                                for k, b in eng._banks.items())}
 
+    def term(self, pj):
+        """The port's activation term of job ``pj`` under this engine."""
+        return job_activation_bytes(
+            self.pc, pj, remat=self.fcfg.remat,
+            memory_optimized=self.fcfg.memory_optimized)
+
     def check(self):
         assert self._snapshot(self.port, 1) == self._snapshot(self.jax, 0)
         jr, pr = self.routers
         if pr is not None:
-            assert pr.slots[0].free_hbm == jr.slots[0].free_hbm
-            assert [p.cache_bytes for p in pr._committed] == \
-                [p.cache_bytes for p in jr._committed]
+            # the ledgers differ by exactly the port's terms
+            terms = 0
+            for jj, pj in self.jobs:
+                jp = self.jax._placement.get(id(jj))
+                pp = self.port._placement.get(id(pj))
+                assert (jp is None) == (pp is None)
+                if pp is not None:
+                    assert pp.cache_bytes - jp.cache_bytes == self.term(pj)
+                    terms += self.term(pj)
+            assert len(pr._committed) == len(jr._committed)
+            assert (self.slots[1] - pr.slots[0].free_hbm) - \
+                (self.slots[0] - jr.slots[0].free_hbm) == terms
         for jj, pj in self.jobs:
             np.testing.assert_allclose(pj.losses, jj.losses, **TOL)
 
@@ -236,7 +251,9 @@ def test_router_backpressure_serializes_jobs():
     probe = Pair().make(0, steps=2)
     nbytes = job_hbm_bytes(pc, probe[1])
     assert nbytes == jax_job_hbm_bytes(cfg, probe[0])
-    p = Pair(slot_bytes=nbytes * 1.5)
+    charge = job_charge_bytes(pc, probe[1])
+    assert charge - nbytes == job_activation_bytes(pc, probe[1])
+    p = Pair(slot_bytes=nbytes * 1.5, port_slot_bytes=charge * 1.5)
     p.submit(0, steps=2)
     p.submit(1, steps=2)
     p.run()
@@ -365,6 +382,18 @@ def test_train_cli_on_the_cpu(capsys):
             train.main(["--device", "cpu"] + flag)
 
 
+def test_train_cli_defaults_to_the_reference_model(monkeypatch):
+    """Without ``--arch`` the port's train CLI trains qwen3-4b, the JAX
+    CLI's default (``repro/launch/train.py``)."""
+    from repro_torch.launch import train
+    seen, real = [], train.get_config
+    monkeypatch.setattr(train, "get_config",
+                        lambda name: seen.append(name) or real(name))
+    train.main(["--device", "cpu", "--clients", "1", "--steps", "1",
+                "--seq", "16", "--layers", "1", "--d-model", "64"])
+    assert seen == ["qwen3-4b"]
+
+
 # ---------------------------------------------------------------------------
 # SymbiosisEngine (port against port)
 
@@ -442,7 +471,7 @@ def test_shared_router_stall_is_not_fatal():
     pc, pb, bank, spec = _service_parts(max_b=1)
     job = _jobs(pc)[0]
     req_need = kvcache.cache_bytes(pc, 6 + 7, 1, page_block=8)
-    job_need = job_hbm_bytes(pc, job)
+    job_need = job_charge_bytes(pc, job)
     router = PlacementRouter(pc, [Slot(0, free_hbm=job_need + req_need / 2)])
     sym = SymbiosisEngine.from_spec(spec, pb, serving_banks=[bank],
                                     router=router, device="cpu")

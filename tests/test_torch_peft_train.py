@@ -49,7 +49,8 @@ from repro_torch.core import symbiosis as port_sym
 from repro_torch.models import blocks as port_blocks
 from repro_torch.models import transformer as port_tf
 from repro_torch.optim import AdamWState
-from repro_torch.training import job_hbm_bytes
+from repro_torch.training import (job_activation_bytes, job_charge_bytes,
+                                  job_hbm_bytes)
 from test_torch_finetune_engine import Pair
 from test_torch_mixed_serving import numpy_adapter_bank
 from test_torch_model import LOGIT_TOL, POOL_TOL
@@ -385,10 +386,15 @@ def test_engine_with_every_method_matches_reference():
     _, pc, _ = system()
     first = ("lora", "ia3", "prefix", "ia3", "prefix")
     probe = MethodsPair()
-    charges = [job_hbm_bytes(pc, probe.make(i, acfg=ACFGS[m])[1])
-               for i, m in enumerate(first)]
+    jobs = [probe.make(i, acfg=ACFGS[m])[1] for i, m in enumerate(first)]
+    charges = [job_hbm_bytes(pc, j) for j in jobs]
     assert len(set(charges)) == 3              # each method its own charge
-    p = MethodsPair(slot_bytes=sum(charges) * 1.01)
+    port_charges = [job_charge_bytes(pc, j) for j in jobs]
+    assert [b - a for a, b in zip(charges, port_charges)] == \
+        [job_activation_bytes(pc, j) for j in jobs]
+    # the same slack over the first five jobs' charges in both ledgers
+    p = MethodsPair(slot_bytes=sum(charges) * 1.01,
+                    port_slot_bytes=sum(port_charges) + sum(charges) * 0.01)
     # every stream is a fault stream (one bank's batches share their keys)
     p.submit(0, steps=3, acfg=ACFGS["lora"], faults={})
     p.submit(1, steps=3, acfg=ACFGS["ia3"], faults={1: "nan_batch"})
@@ -396,8 +402,8 @@ def test_engine_with_every_method_matches_reference():
     p.submit(3, steps=4, acfg=ACFGS["ia3"], faults={})
     p.submit(4, steps=4, acfg=ACFGS["prefix"], faults={2: "stream_end"})
     p.tick()
-    p.submit(5, steps=2, acfg=ACFGS["lora"], faults={})
-    p.submit(6, steps=2, acfg=ACFGS["ia3"], faults={})
+    p.submit(5, steps=2, acfg=ACFGS["ia3"], faults={})
+    p.submit(6, steps=2, acfg=ACFGS["lora"], faults={})
     p.run()
     assert [pj.status for _, pj in p.jobs] == [
         "finished", "quarantined", "finished", "finished", "finished_early",

@@ -207,7 +207,35 @@ exits non-zero and prints no result. Phases, each raising on failure:
    and 2 LoRA jobs checkpointed after 4 ticks, a newer corrupt copy
    skipped by ``restore``: streams, losses, adapters and AdamW states bit
    for bit the uninterrupted service's; 11d the fine-tuning charge
-   (``job_charge_bytes``) beside the peaks of 7c and 10b, none below.
+   (``job_charge_bytes``) beside the peaks of 7c and 10b, none below;
+12. tick-level telemetry (``repro_torch.obs``) on both engines and the
+   chaos sweep, on phase 4's base and bank. 12a phase 4's 8 requests in
+   four unsynchronised runs in turns (off, on, on, off), every tick under
+   ``torch.cuda.set_sync_debug_mode("warn")``: every stream and the
+   launches tick by tick equal to phase 4's, the synchronising calls per
+   tick (the warnings counted) equal in all four, 8 admit and 8 retire
+   events, the built steps and buckets equal; the median service tick
+   without admission, a decode tick's host time by span, telemetry's host
+   microseconds per span, decode row and event, each span's and each
+   client's latency percentiles; then off and on over int8 pages behind
+   phase 4b's router (against 4b) and on the dense layout (against 9a):
+   streams, launches per tick and syncs per tick; 12b ``telemetry.jsonl``
+   and ``metrics.prom`` accepted by ``python -m repro_torch.obs --check``;
+   12c a two-tick profiler capture on a fresh engine: ``capture_start`` /
+   ``capture_stop`` and a Chrome trace holding every serving span and the
+   paged attention and SGMV kernels; 12d a ``FinetuneEngine`` of 2 LoRA
+   jobs with telemetry against one without, bit for bit, and a
+   ``SymbiosisEngine`` with one shared ``Obs`` beside phase 4's requests
+   (streams phase 4's, losses the engine's alone, the merged feed in
+   sequence order); 12e how far a job's bits depend on its bucket on the
+   card (``faults.chaos.bank_rows_drift``: LoRA, IA3 and prefix jobs at the
+   chaos config alone and at every position of buckets of 2, 4 and 8
+   rows; printed, within ``P12_DRIFT_TOL``), then the chaos sweep
+   (``faults.chaos.run_sweep``) on the card: at least 30 faults of 4
+   kinds, the injected counts per scenario its CPU run's (where it is
+   ``ok``), serving and symbiotic scenarios without error, the
+   fine-tuning scenario's only errors bitwise drift within
+   ``P12_DRIFT_TOL``, the paged kernel and SGMV launched.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -226,6 +254,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -253,8 +282,10 @@ from repro_torch.optim import AdamWState, adamw_init  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.router import PlacementRouter, Slot  # noqa: E402
+from repro_torch.faults import chaos  # noqa: E402
 from repro_torch.faults.plan import (AllocHook,  # noqa: E402
                                      FaultyRequestStream, corrupt_flip)
+from repro_torch.obs import Obs, write_files  # noqa: E402
 from repro_torch.training import (FinetuneEngine, FinetuneJob,  # noqa: E402
                                   SymbiosisEngine, job_charge_bytes,
                                   job_hbm_bytes, make_job_stream)
@@ -293,6 +324,13 @@ def read_counts():
 
 def launch_count(name):
     return KERNELS[name][0].launches
+
+
+# what the serving runs of ``drive`` and ``p9_serve`` launched, tick by tick,
+# and the streams ``p9_serve`` served, by label (phase 12 compares its runs
+# with telemetry against them)
+TICK_LAUNCHES = {}
+SERVED = {}
 
 
 def log(msg):
@@ -836,6 +874,7 @@ def drive(eng, reqs, label, attn_name, idle_name):
     eng._decode_step = _timed(eng._decode_step, dec_t)
     torch.cuda.synchronize()
     reset_counts()
+    per_tick = TICK_LAUNCHES[label] = []
     t0 = time.perf_counter()
     more = True
     while more:
@@ -851,6 +890,7 @@ def drive(eng, reqs, label, attn_name, idle_name):
                                    sgmv.launches, eng.stats["ticks"],
                                    eng.stats["compact_prefill_batches"]),
                                   before))
+        per_tick.append((d_at, d_idle, d_sg))
         if d_at != L * d_tick or d_idle or d_sg != 2 * L * (d_tick + d_pre):
             raise AssertionError(
                 f"[{label}] tick {eng._tick}: {d_at} {attn_name}, "
@@ -932,6 +972,21 @@ def serve_full():
             streams)
 
 
+def quant_charges(cfg, spec, reqs):
+    """The requests' int8 page charges, smallest first."""
+    return sorted(kvcache.cache_bytes(cfg, r.prompt.shape[1]
+                                      + r.max_new_tokens, 1, quant=True,
+                                      page_block=spec.serve.page_block)
+                  for r in reqs)
+
+
+def quant_router(cfg, spec, reqs):
+    """Phase 4b's router: one slot holding the 4 largest of the requests'
+    int8 charges, not all 8."""
+    return PlacementRouter(cfg, [Slot(0, free_hbm=sum(
+        quant_charges(cfg, spec, reqs)[-4:]))])
+
+
 def serve_quant(cfg, base, bank, first, times4):
     """Phase 4b: the same requests over int8 pages, admitted by a router
     whose one slot holds the 4 largest of the requests' int8 charges, not
@@ -941,10 +996,8 @@ def serve_quant(cfg, base, bank, first, times4):
     warm_up(spec, base, bank)
     reqs = make_requests(cfg, C)
     blk = spec.serve.page_block
-    charges = sorted(kvcache.cache_bytes(cfg, r.prompt.shape[1]
-                                         + r.max_new_tokens, 1, quant=True,
-                                         page_block=blk) for r in reqs)
-    router = PlacementRouter(cfg, [Slot(0, free_hbm=sum(charges[-4:]))])
+    charges = quant_charges(cfg, spec, reqs)
+    router = quant_router(cfg, spec, reqs)
     eng = ServingEngine(spec, base, [bank], device=DEV, router=router)
     log(f"[phase 4b] kv=paged(block={blk})+int8: "
         f"{kvcache.make_cache_spec(cfg, quant=True).bytes_per_token} B per "
@@ -2783,12 +2836,14 @@ def p9_serve(cfg, base, bank, spec, label, attn, **engine_kw):
     eng._decode_step = _timed(eng._decode_step, dec_t)
     torch.cuda.synchronize()
     reset_counts()
+    per_tick = TICK_LAUNCHES[label] = []
     more = True
     while more:
         before = (read_counts(), eng.stats["ticks"], eng.stats["prefill_calls"])
         more = eng.service_tick()
         now = read_counts()
         d = {n: now[n] - before[0][n] for n in now}
+        per_tick.append(d)
         d_tick = eng.stats["ticks"] - before[1]
         d_pre = eng.stats["prefill_calls"] - before[2]
         want = {n: attn.get(n, 0) * L * d_tick for n in d}
@@ -2810,6 +2865,7 @@ def p9_serve(cfg, base, bank, spec, label, attn, **engine_kw):
         g = r.generated
         if g.min() < 0 or g.max() >= cfg.vocab:
             raise AssertionError(f"[{label}] tokens out of range: {g}")
+    SERVED[label] = [r.generated.copy() for r in reqs]
     return reqs, eng, gaps, groups, launches, dec_t
 
 
@@ -3897,6 +3953,436 @@ def phase11(cfg, base, bank, streams4, launches4, streams4b, launches4b,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: tick-level telemetry on both engines; the chaos sweep
+# ---------------------------------------------------------------------------
+
+P12_SPANS = ("admit", "prefill", "prefill_compact_gather", "compact_gather",
+             "jit_dispatch", "device_sync", "scatter", "health_audit")
+P12_TRAIN_SPANS = ("admit", "compact_gather", "train_step", "device_sync",
+                   "scatter")
+# device kernels a captured serving window must hold (the paged attention
+# split and SGMV)
+P12_TRACE_KERNELS = ("split_kernel", "sgmv")
+P12_LATENCIES = ("serve_queue_wait_seconds", "serve_ttft_seconds",
+                 "serve_intertoken_seconds", "serve_e2e_seconds")
+
+
+def span_totals(obs):
+    """(calls, seconds) of every span phase so far."""
+    out = {}
+    for (kind, name, labels), h in obs.metrics._data.items():
+        if kind == "histogram" and name == "span_seconds":
+            out[dict(labels)["phase"]] = (h.n, h.total)
+    return out
+
+
+def p12_run(cfg, base, bank, spec, obs, *, router=None):
+    """Phase 4's 8 requests on ``spec`` to the end, unsynchronised, every
+    tick under ``torch.cuda.set_sync_debug_mode("warn")``. Per tick: each
+    counted kernel's launches and the synchronising calls (counted from the
+    warnings). Per decode tick without an admission: its seconds on the
+    host's clock (its logits copy is its one wait for the device) and, with
+    telemetry, each span's calls and seconds. Returns (requests, engine,
+    launches per tick, syncs per tick, tick seconds, span totals over those
+    ticks)."""
+    eng = ServingEngine(spec, base, [bank], device=DEV, router=router,
+                        obs=obs)
+    reqs = make_requests(cfg, 4)
+    for r in reqs:
+        eng.submit(r)
+    launches, syncs, ticks, spans = [], [], [], {}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            more = True
+            while more:
+                n0, c0 = len(got), read_counts()
+                before = (eng.stats["ticks"], eng.stats["prefill_calls"])
+                s0 = span_totals(obs) if obs is not None else {}
+                t0 = time.perf_counter()
+                more = eng.service_tick()
+                dt = time.perf_counter() - t0
+                c1 = read_counts()
+                launches.append({k: c1[k] - c0[k] for k in c1})
+                syncs.append(sum("synchroniz" in str(w.message)
+                                 for w in got[n0:]))
+                if (eng.stats["ticks"], eng.stats["prefill_calls"]) == \
+                        (before[0] + 1, before[1]):
+                    ticks.append(dt)
+                    for k, (n, t) in (span_totals(obs) if obs is not None
+                                      else {}).items():
+                        n_, t_ = s0.get(k, (0, 0.0))
+                        a, b = spans.get(k, (0, 0.0))
+                        spans[k] = (a + n - n_, b + t - t_)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    done = eng.drain_done()
+    if len(done) != len(reqs) or any(r.status != "ok" for r in reqs):
+        raise AssertionError(f"[phase 12a] {len(done)} of {len(reqs)} "
+                             "requests finished ok")
+    return reqs, eng, launches, syncs, ticks, spans
+
+
+def same_launches(label, launches, ref, names=None):
+    """``launches`` (per tick, by kernel) against ``TICK_LAUNCHES[ref]``:
+    ``drive`` records (attention, idle attention, SGMV) tuples, named by
+    ``names``; ``p9_serve`` every counted kernel."""
+    got = [tuple(d[n] for n in names) if names else d for d in launches]
+    if got != TICK_LAUNCHES[ref]:
+        raise AssertionError(f"[{label}] launches per tick {got} differ from "
+                             f"{ref}'s {TICK_LAUNCHES[ref]}")
+
+
+def same_streams(label, reqs, want, what):
+    for i, r in enumerate(reqs):
+        if not np.array_equal(r.generated, want[i]):
+            raise AssertionError(f"[{label}] request {i}'s stream differs "
+                                 f"from {what} at step "
+                                 f"{first_diff(r.generated, want[i])}")
+
+
+def hist_line(h, scale=1e3, unit="ms"):
+    """A log-2 histogram as 'n, mean, p50 <=, p99 <=' (its percentiles are
+    bucket upper edges: within 2x)."""
+    return (f"n {h.n}, mean {h.mean * scale:.3f} {unit}, p50 <= "
+            f"{h.percentile(50) * scale:.3f}, p99 <= "
+            f"{h.percentile(99) * scale:.3f}")
+
+
+def p12_report(label, obs):
+    """Print every span phase, the tick and each client's latencies."""
+    for name in P12_SPANS:
+        h = obs.metrics.histogram("span_seconds", phase=name)
+        log(f"[{label}]   span {name:24s} {hist_line(h)}")
+    log(f"[{label}]   tick_seconds             "
+        f"{hist_line(obs.metrics.histogram('tick_seconds', engine='serving'))}")
+    for c in range(4):
+        log(f"[{label}]   client {c}: " + "; ".join(
+            f"{m[6:-8]} {hist_line(obs.metrics.histogram(m, client=c))}"
+            for m in P12_LATENCIES))
+
+
+def p12_host_cost(n=5000):
+    """Host microseconds of telemetry's pieces on this host: a span (its
+    ``record_function`` range and histogram), a decode row's updates
+    (counter, inter-token histogram, timestamp) and an event."""
+    obs, out = Obs(), {}
+    sp = obs.span("x")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with sp:
+            pass
+    out["span"] = (time.perf_counter() - t0) / n * 1e6
+    last = {}
+    t0 = time.perf_counter()
+    for i in range(n):
+        obs.metrics.counter("serve_decode_tokens_total", client=i % 4).inc(1)
+        obs.metrics.histogram("serve_intertoken_seconds",
+                              client=i % 4).observe(1e-2)
+        last[i % 8] = 1.0
+    out["row"] = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for i in range(n):
+        obs.event("admit", engine="serving", tick=i, tenant=i % 4, rows=1,
+                  prompt_tokens=64)
+    out["event"] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def p12_serving(cfg, base, bank, streams4, streams4b):
+    """12a / 12b / 12c."""
+    spec = serve_spec(cfg, quant=False)
+    paged = ("paged_decode_attn", "paged_decode_attn_quant", "sgmv")
+    # four runs in turns (off, on, on, off): streams and launches per tick
+    # against phase 4, synchronising calls per tick on against off, the
+    # median tick, and a decode tick's host time by span
+    med, syncs, spans_on, obs_on, engs = [], [], [], [], {}
+    for on in (False, True, True, False):
+        o = Obs() if on else None
+        rq, e, launches, sy, ticks, spans = p12_run(cfg, base, bank, spec, o)
+        same_streams("phase 12a", rq, streams4, "phase 4's")
+        same_launches("phase 12a", launches, "phase 4", paged)
+        med.append(statistics.median(ticks) * 1e3)
+        syncs.append(sy)
+        engs[on] = e
+        if on:
+            spans_on.append((spans, len(ticks)))
+            obs_on.append(o)
+    if any(sy != syncs[0] for sy in syncs):
+        raise AssertionError(f"[phase 12a] synchronising calls per tick, "
+                             f"off / on / on / off: {syncs}")
+    obs = obs_on[0]
+    ev = obs.events.peek()
+    kinds = {e.kind for e in ev}
+    if kinds != {"admit", "retire"} or len(ev) != 16:
+        raise AssertionError(f"[phase 12a] events {sorted(kinds)} x "
+                             f"{len(ev)}, want 8 admit and 8 retire")
+    for k in ("_prefill_steps", "_client_prefills"):
+        if set(getattr(engs[True], k)) != set(getattr(engs[False], k)):
+            raise AssertionError(f"[phase 12a] {k} differs with telemetry")
+    if engs[True]._buckets != engs[False]._buckets:
+        raise AssertionError("[phase 12a] buckets differ with telemetry")
+    log(f"[phase 12a] off / on / on / off: every stream phase 4's bit for "
+        f"bit and the launches phase 4's tick by tick "
+        f"({len(TICK_LAUNCHES['phase 4'])} ticks); synchronising calls per "
+        f"tick (sync debug mode 'warn') equal in all four: {syncs[0]}; "
+        f"{len(ev)} events (8 admit, 8 retire); built steps and buckets "
+        "equal with and without telemetry")
+    log(f"[phase 12a] service tick without admission, median ms over "
+        f"{len(ticks)} ticks (unprofiled, sync debug mode 'warn', in turns "
+        f"off / on / on / off): {med[0]:.3f} / {med[1]:.3f} / {med[2]:.3f} / "
+        f"{med[3]:.3f}")
+    for i, (spans, n) in enumerate(spans_on):
+        tot = sum(t for _, t in spans.values())
+        log(f"[phase 12a] on-run {i + 1}: a decode tick's host time by span "
+            f"(ms per tick over {n} ticks; calls per tick): " + ", ".join(
+                f"{k} {spans[k][1] / n * 1e3:.3f} ({spans[k][0] / n:g})"
+                for k in P12_SPANS if k in spans)
+            + f"; spans {tot / n * 1e3:.3f} of the median tick "
+            f"{med[1 + i]:.3f}")
+    cost = p12_host_cost()
+    spans, n = spans_on[0]
+    per_tick = (sum(c for c, _ in spans.values()) / n * cost["span"]
+                + 8 * cost["row"])
+    log(f"[phase 12a] telemetry's host cost on this host: span "
+        f"{cost['span']:.2f} us, decode row's updates {cost['row']:.2f} us, "
+        f"event {cost['event']:.2f} us; a decode tick of 8 rows "
+        f"({sum(c for c, _ in spans.values()) / n:g} spans) "
+        f"{per_tick:.1f} us")
+    p12_report("phase 12a on-run 1", obs)
+
+    # int8 pages behind phase 4b's router, and the dense layout: off, on
+    qspec, dspec = serve_spec(cfg, quant=True), p9_spec(cfg, 0)
+    for label, sp, ref, names, want in (
+            ("int8", qspec, "phase 4b",
+             ("paged_decode_attn_quant", "paged_decode_attn", "sgmv"),
+             streams4b),
+            ("dense", dspec, "phase 9a opportunistic", None,
+             SERVED["phase 9a opportunistic"])):
+        sy = {}
+        for on in (False, True):
+            router = (quant_router(cfg, sp, make_requests(cfg, 4))
+                      if sp is qspec else None)
+            rq, e, launches, sy[on], _, _ = p12_run(
+                cfg, base, bank, sp, Obs() if on else None, router=router)
+            same_streams(f"phase 12a {label}", rq, want, f"{ref}'s")
+            same_launches(f"phase 12a {label}", launches, ref, names)
+            if router is not None:
+                used = router.utilization()
+                if used["placements"] or (on and e._obs.metrics.gauge(
+                        "router_committed_bytes").value
+                        != used["committed_bytes"]):
+                    raise AssertionError(f"[phase 12a] int8 router after the "
+                                         f"drain: {used}")
+        if sy[True] != sy[False]:
+            raise AssertionError(f"[phase 12a] {label}: synchronising calls "
+                                 f"per tick {sy[True]} with telemetry, "
+                                 f"{sy[False]} without")
+        log(f"[phase 12a] {label}: off and on, launches equal {ref}'s tick by "
+            f"tick ({len(TICK_LAUNCHES[ref])} ticks), streams bit for bit; "
+            f"synchronising calls per tick equal: {sy[True]}")
+
+    # 12b: export and validate
+    out = tempfile.mkdtemp(prefix="p12_obs_")
+    files = write_files(obs, out)
+    chk = subprocess.run([sys.executable, "-m", "repro_torch.obs", "--check",
+                          *files], capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(
+                             Path(__file__).resolve().parent / "src")))
+    if chk.returncode:
+        raise AssertionError(f"[phase 12b] --check: {chk.stderr}")
+    log(f"[phase 12b] telemetry.jsonl ({os.path.getsize(files[0])} B) and "
+        f"metrics.prom ({os.path.getsize(files[1])} B) from 12a: "
+        f"{chk.stdout.strip()}")
+
+    # 12c: a profiler capture of two ticks on a fresh engine
+    cap = Obs()
+    eng = ServingEngine(spec, base, [bank], device=DEV, obs=cap, debug=True)
+    for r in make_requests(cfg, 4):
+        eng.submit(r)
+    cap.request_capture(os.path.join(out, "capture"), ticks=2)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        eng.service_tick()
+    dt = time.perf_counter() - t0
+    kinds = [e.kind for e in cap.events.peek()]
+    if "capture_start" not in kinds or "capture_stop" not in kinds \
+            or not cap.capture_path:
+        raise AssertionError(f"[phase 12c] capture events {kinds}")
+    trace = json.load(open(cap.capture_path))["traceEvents"]
+    names = {e.get("name", "") for e in trace}
+    missing = [p for p in P12_SPANS if f"repro_torch.obs/{p}" not in names]
+    kern = {k: sum(1 for e in trace if e.get("cat") == "kernel"
+                   and k in e.get("name", "")) for k in P12_TRACE_KERNELS}
+    if missing or not all(kern.values()):
+        raise AssertionError(f"[phase 12c] the trace lacks spans {missing} "
+                             f"or kernels {kern}")
+    log(f"[phase 12c] capture of 2 ticks ({dt:.3f} s with the profiler): "
+        f"capture_start, capture_stop, {cap.capture_path} "
+        f"({os.path.getsize(cap.capture_path)} B) holds every serving span "
+        f"and the kernels {kern}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def p12_training(cfg, base, bank, streams4):
+    """12d: a FinetuneEngine with and without telemetry, bit for bit; a
+    SymbiosisEngine with one shared Obs beside phase 4's requests."""
+    runs = []
+    for obs in (None, Obs()):
+        eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()),
+                             base, device=DEV, obs=obs)
+        jobs = train_jobs(cfg, 2)
+        for j in jobs:
+            eng.submit(j)
+        eng.run()
+        runs.append((eng, jobs, obs))
+    (off, a, _), (on, b, obs) = runs
+    for x, y in zip(a, b):
+        if x.losses != y.losses or not trees_equal(
+                (x.result.adapter, x.result.opt),
+                (y.result.adapter, y.result.opt)):
+            raise AssertionError(f"[phase 12d] {x.name} differs with "
+                                 "telemetry")
+    if on.stats != off.stats:
+        raise AssertionError("[phase 12d] stats differ with telemetry")
+    ticks = on.stats["train_ticks"]
+    log(f"[phase 12d] FinetuneEngine, 2 LoRA jobs x {TRAIN_STEPS} steps: "
+        f"losses, adapters and AdamW states with telemetry equal without, "
+        f"bit for bit; per train tick (host ms): " + ", ".join(
+            f"{p} {obs.metrics.histogram('span_seconds', phase=p).total / ticks * 1e3:.3f}"
+            for p in P12_TRAIN_SPANS) + "; tick " + hist_line(
+            obs.metrics.histogram("tick_seconds", engine="finetune")))
+    spec = dataclasses.replace(serve_spec(cfg, quant=False),
+                               finetune=FinetuneConfig())
+    shared = Obs()
+    sym = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                    device=DEV, obs=shared)
+    reqs, jobs = make_requests(cfg, 4), train_jobs(cfg, 2)
+    for item in reqs + jobs:
+        sym.submit(item)
+    sym.run()
+    same_streams("phase 12d", reqs, streams4, "phase 4's")
+    for x, y in zip(jobs, b):
+        if x.losses != y.losses:
+            raise AssertionError(f"[phase 12d] {x.name}'s losses beside "
+                                 "serving differ from the engine alone")
+    ev = sym.drain_events()
+    seqs = [e.seq for e in ev]
+    by = {(e.engine, e.kind) for e in ev}
+    if seqs != sorted(seqs) or not {("serving", "admit"), ("serving", "retire"),
+                                    ("finetune", "admit"),
+                                    ("finetune", "retire")} <= by \
+            or sym.drain_events():
+        raise AssertionError(f"[phase 12d] merged feed {sorted(by)}")
+    log(f"[phase 12d] SymbiosisEngine with one shared Obs: streams phase 4's, "
+        f"losses the engine's alone, bit for bit; the merged feed: {len(ev)} "
+        f"events in sequence order, " + ", ".join(
+            f"{eng_} {sum(e.engine == eng_ for e in ev)}"
+            for eng_ in ("serving", "finetune")))
+
+
+# How far a fine-tuning job may drift from its run in other buckets (the
+# card's merged train step is not bank-size invariant: ROADMAP Queue 3):
+# rounding, at the scale the CPU tests hold the port's training to JAX's
+# (losses atol = rtol = 1e-5 at ~4.9; states 1e-3 of a leaf's largest
+# magnitude, ``assert_state_close``'s atol scale).
+P12_DRIFT_TOL = {"loss": 1e-4, "state": 1e-3}
+P12_DRIFT_ERRORS = ("losses diverged from clean run", "adapter not bitwise "
+                    "clean", "optimizer state not bitwise clean",
+                    "committed prefix diverged")
+
+
+def within_drift(loss, state):
+    return loss <= P12_DRIFT_TOL["loss"] and state <= P12_DRIFT_TOL["state"]
+
+
+def p12_bank_invariance():
+    """How far a job's bits depend on its bucket on the card (the stated
+    departure): at the chaos config, LoRA, IA3 and prefix jobs over 2
+    compact train steps alone against every position of buckets of 2, 4
+    and 8 rows (a padding and a NaN row beside it). Prints where bits
+    differ and by how much; raises beyond ``P12_DRIFT_TOL``."""
+    tiny = chaos._tiny_cfg()
+    for label, acfg in (
+            ("LoRA r4", chaos._lora()),
+            ("IA3", AdapterConfig(method="ia3", targets=("k", "v", "down"))),
+            ("prefix", AdapterConfig(method="prefix", targets=("q", "v"),
+                                     n_prefix=4))):
+        drift = chaos.bank_rows_drift(tiny, acfg, 16, device=DEV)
+        loss = max((d[0] for d in drift.values()), default=0.0)
+        state = max((d[1] for d in drift.values()), default=0.0)
+        log(f"[phase 12e] compact train step, chaos config, {label}, 2 steps:"
+            f" a job alone against buckets of 2 / 4 / 8 at every position: "
+            + (f"{len(drift)} of 14 placements differ, {sorted(drift)}; "
+               f"largest drift: losses {loss:.3e}, state {state:.3e} (of a "
+               f"leaf's largest magnitude)" if drift else "bit for bit"))
+        if not within_drift(loss, state):
+            raise AssertionError(f"[phase 12e] {label}: bucket drift beyond "
+                                 f"{P12_DRIFT_TOL}: {drift}")
+
+
+def p12_chaos():
+    """12e: the chaos sweep on the card against its run on the CPU. The
+    serving and symbiotic scenarios hold bit for bit; the fine-tuning
+    scenario's faulted jobs train in other buckets than the clean run's, so
+    on the card its only bitwise errors may be drift, within
+    ``P12_DRIFT_TOL``."""
+    t0 = time.perf_counter()
+    cpu = chaos.run_sweep(seed=0, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    card = chaos.run_sweep(seed=0, device=DEV)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    counts = read_counts()
+    ft = card["scenarios"][0]
+    drift = [e for e in ft["errors"] if e.endswith(P12_DRIFT_ERRORS)]
+    other = [e for e in card["errors"] if e not in drift]
+    if other or card["total_injected"] < 30 or len(card["kinds"]) < 4 \
+            or not within_drift(ft["loss_drift"], ft["state_drift"]):
+        raise AssertionError(f"[phase 12e] sweep: {card['errors']}, "
+                             f"{card['total_injected']} faults, kinds "
+                             f"{card['kinds']}, fine-tuning drift "
+                             f"{ft['loss_drift']} / {ft['state_drift']}")
+    got = [r["injected"] for r in card["scenarios"]]
+    want = [r["injected"] for r in cpu["scenarios"]]
+    if got != want or not cpu["ok"] or cpu["scenarios"][0]["loss_drift"] \
+            or cpu["scenarios"][0]["state_drift"]:
+        raise AssertionError(f"[phase 12e] injected {got} on the card, "
+                             f"{want} on the CPU (ok {cpu['ok']})")
+    if not (counts["paged_decode_attn"] and counts["sgmv"]):
+        raise AssertionError(f"[phase 12e] launches {counts}")
+    log(f"[phase 12e] chaos sweep on the card: "
+        f"{card['total_injected']} faults of {len(card['kinds'])} kinds "
+        f"{card['kinds']}, injected per scenario {got} as on the CPU (where "
+        f"it is ok, bit for bit); serving and symbiotic contained bit for "
+        f"bit; fine-tuning contained, its bitwise departures {drift or 'none'}"
+        f" with largest drift losses {ft['loss_drift']:.3e}, state "
+        f"{ft['state_drift']:.3e} (limits {P12_DRIFT_TOL}); {t_card:.1f} s "
+        f"(CPU {t_cpu:.1f} s); launches {counts}")
+
+
+def phase12(cfg, base, bank, streams4, streams4b):
+    t = time.perf_counter()
+    p12_serving(cfg, base, bank, streams4, streams4b)
+    log(f"[phase 12a-c] done ({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p12_training(cfg, base, bank, streams4)
+    log(f"[phase 12d] done ({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p12_bank_invariance()
+    p12_chaos()
+    log(f"[phase 12e] done ({time.perf_counter() - t:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -3989,7 +4475,11 @@ def main() -> int:
     t = time.perf_counter()
     phase11(cfg, base, bank, streams4, launches4, streams4b, launches_q,
             peaks7, peaks10)
-    log(f"[phase 11] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 11] done ({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    phase12(cfg, base, bank, streams4, streams4b)
+    log(f"[phase 12] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's

@@ -12,9 +12,11 @@ pages through the compacted step:
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16 --kv-quant
 
 ``--device cpu`` runs the reduced config on the CPU through the kernels'
-plain versions. Weights are random, drawn from ``--seed``. ``--privacy``,
-``--mesh`` and ``--obs`` are declared as in JAX and exit "not ported
-yet".
+plain versions. Weights are random, drawn from ``--seed``. ``--obs DIR``
+attaches telemetry and writes ``telemetry.jsonl`` and ``metrics.prom``
+into DIR after the run (check them with ``python -m repro_torch.obs
+--check``). ``--privacy`` and ``--mesh`` are declared as in JAX and exit
+"not ported yet".
 """
 from __future__ import annotations
 
@@ -54,12 +56,13 @@ def main(argv=None):
     ap.add_argument("--privacy", action="store_true")
     ap.add_argument("--mesh", nargs=2, type=int, default=None,
                     metavar=("DATA", "MODEL"))
-    ap.add_argument("--obs", default=None, metavar="DIR")
+    ap.add_argument("--obs", default=None, metavar="DIR",
+                    help="attach telemetry and write telemetry.jsonl + "
+                         "metrics.prom into DIR at exit")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, val in (("--privacy", args.privacy), ("--mesh", args.mesh),
-                      ("--obs", args.obs is not None)):
+    for flag, val in (("--privacy", args.privacy), ("--mesh", args.mesh)):
         if val:
             raise SystemExit(f"{flag} is not ported yet: the port serves "
                              "on one device")
@@ -80,7 +83,11 @@ def main(argv=None):
     spec = EngineSpec(cfg=cfg, banks=(BankSpec("tenants", acfg,
                                                capacity=args.clients),),
                       serve=scfg, max_batch_per_client=args.batch)
-    eng = ServingEngine(spec, base, [bank], device=dev)
+    obs = None
+    if args.obs is not None:
+        from repro_torch.obs import Obs
+        obs = Obs()
+    eng = ServingEngine(spec, base, [bank], device=dev, obs=obs)
 
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
@@ -102,6 +109,10 @@ def main(argv=None):
     total = sum(r.generated.size for r in done)
     print(f"[serve] {len(done)} requests, {total} tokens in {dt:.2f}s "
           f"({total / dt:,.0f} tok/s) | engine stats: {eng.stats}")
+    if obs is not None:
+        from repro_torch.obs import write_files
+        print("[serve] telemetry written to %s and %s"
+              % write_files(obs, args.obs))
     return done
 
 

@@ -12,7 +12,9 @@ package's format):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
 
 Without ``--full-size`` the model is a reduced config (``--layers``,
-``--d-model``). ``--mesh`` and ``--obs`` are not ported yet and raise.
+``--d-model``). ``--obs DIR`` attaches telemetry and writes
+``telemetry.jsonl`` and ``metrics.prom`` into DIR after the run. ``--mesh``
+is not ported yet and raises.
 Weights are random, drawn from ``--seed``; each job's data is the
 synthetic Markov stream of its index.
 """
@@ -56,14 +58,15 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--mesh", nargs=2, type=int, default=None,
                     metavar=("DATA", "MODEL"))
-    ap.add_argument("--obs", default=None, metavar="DIR")
+    ap.add_argument("--obs", default=None, metavar="DIR",
+                    help="attach telemetry and write telemetry.jsonl + "
+                         "metrics.prom into DIR at exit")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, val in (("--mesh", args.mesh), ("--obs", args.obs is not None)):
-        if val:
-            raise SystemExit(f"{flag} is not ported yet: the port trains "
-                             "on one device")
+    if args.mesh:
+        raise SystemExit("--mesh is not ported yet: the port trains on one "
+                         "device")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -73,8 +76,12 @@ def main(argv=None):
         torch.Generator(device=dev).manual_seed(args.seed), dev)
     fcfg = FinetuneConfig(max_jobs=args.clients,
                           memory_optimized=not args.no_memory_optimized)
+    obs = None
+    if args.obs is not None:
+        from repro_torch.obs import Obs
+        obs = Obs()
     engine = FinetuneEngine(EngineSpec(cfg=cfg, finetune=fcfg), base,
-                            device=dev)
+                            device=dev, obs=obs)
     methods = (("lora", "ia3", "prefix") if args.peft == "mixed"
                else (args.peft,))
     jobs = []
@@ -113,6 +120,10 @@ def main(argv=None):
                            j.result.opt, name=j.name)
         print(f"[train] per-job checkpoints -> "
               f"{args.ckpt_dir}/step_{jobs[0].result.step:08d}")
+    if obs is not None:
+        from repro_torch.obs import write_files
+        print("[train] telemetry written to %s and %s"
+              % write_files(obs, args.obs))
     return first, last
 
 

@@ -105,9 +105,26 @@ The policy only changes which ready clients run a tick, never the math of
 a sequence's own stream: outputs equal serving each request alone.
 ``debug=True`` audits conservation (``faults.audit``) after every tick.
 
-Not ported yet, and refused with ``ValueError``: non-dense families, a
-``mesh`` and ``obs`` telemetry (with it the requests' timings and the
-fault paths' events). Refused as in JAX: mixed banks on the
+Telemetry: pass ``obs=repro_torch.obs.Obs()`` for tick-phase spans
+(``torch.profiler.record_function`` ranges and latency histograms),
+per-tenant metrics (queue wait, time to first token, inter-token and
+end-to-end latency, token and page counters, router charges) and the
+client-visible event log (``drain_events(client=...)``: admissions,
+retirements, backoff and retry, rejections, quarantines, health, bank
+growth), the feed JAX's engine gives for the same workload. The phases
+keep JAX's names: ``admit``, ``prefill``, ``prefill_compact_gather``,
+``compact_gather``, ``scatter`` and ``health_audit`` are host work;
+``jit_dispatch`` is the host's eager enqueue of the step's launches (JAX:
+the jitted call) and ``device_sync`` the copy of its logits to the host,
+the one point where a tick waits for the device. Telemetry leaves every
+output bit for bit unchanged and adds no synchronisation and no launch;
+``obs=None`` (the default) costs a shared null context per phase and never
+imports ``repro_torch.obs``. Every request carries its timeline whether or
+not ``obs`` is attached (``submit_t`` / ``admit_t`` / ``first_token_t`` /
+``finish_t``, and ``queue_wait`` / ``ttft`` / ``e2e_latency``).
+
+Not ported yet, and refused with ``ValueError``: non-dense families and a
+``mesh``. Refused as in JAX: mixed banks on the
 dense layout or with ``compact_decode=False``, ``compact_decode=True``
 without pages, ``bank_prefill`` on pages or with
 ``max_inflight_per_client`` other than 1, ``prefix_cache=True`` without
@@ -118,7 +135,9 @@ whose bank count differs, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -137,6 +156,15 @@ from repro_torch.faults.health import (HealthPolicy, HealthRecord,
                                        HealthState, TransientFault, classify)
 from repro_torch.serving.prefix_cache import PrefixIndex
 from repro_torch.serving.router import AdmissionStall, NoCapacity
+
+# telemetry off: one shared, reusable null context, so the tick loop's
+# ``with self._span(name)`` costs a call and nothing else, and nothing of
+# repro_torch.obs (or the profiler) is imported
+_NULL_CTX = contextlib.nullcontext()
+
+
+def _null_span(name: str):
+    return _NULL_CTX
 
 
 @dataclasses.dataclass
@@ -171,6 +199,10 @@ class Request:
     prompt_stream: Optional[object] = None
     # filled by the engine:
     generated: Optional[np.ndarray] = None  # [B, max_new_tokens]
+    submit_t: float = 0.0                   # perf_counter at submit()
+    admit_t: float = 0.0                    # ... at successful admission
+    first_token_t: float = 0.0              # ... when the first token sampled
+    finish_t: float = 0.0                   # ... at retirement
     # ok | quarantined (non-finite logits, or its client was quarantined
     # while it ran: terminated, its slots, pages and charge freed) |
     # rejected (its client was quarantined before it ran, or its prompt
@@ -178,6 +210,22 @@ class Request:
     status: str = "ok"
     # (tick, kind, reason) tuples, kind in backoff | quarantine | rejected
     fault_history: List[tuple] = dataclasses.field(default_factory=list)
+
+    @property
+    def queue_wait(self) -> Optional[float]:
+        """Seconds from submit to admission (None until admitted)."""
+        return self.admit_t - self.submit_t if self.admit_t else None
+
+    @property
+    def ttft(self) -> Optional[float]:
+        """Seconds from submit to the first sampled token."""
+        return (self.first_token_t - self.submit_t
+                if self.first_token_t else None)
+
+    @property
+    def e2e_latency(self) -> Optional[float]:
+        """Seconds from submit to retirement (None until finished)."""
+        return self.finish_t - self.submit_t if self.finish_t else None
 
 
 def _clients_of(tree) -> int:
@@ -217,10 +265,9 @@ class ServingEngine:
                  debug: bool = False, fault_hook=None, mesh=None, obs=None):
         if spec.serve is None:
             raise ValueError("ServingEngine needs a spec with serve=")
-        for name, val in (("mesh", mesh), ("obs", obs)):
-            if val is not None:
-                raise ValueError(f"{name}= is not ported yet: the port serves "
-                                 "paged banks on one device")
+        if mesh is not None:
+            raise ValueError("mesh= is not ported yet: the port serves "
+                             "on one device")
         if not spec.banks:
             raise ValueError("ServingEngine needs at least one BankSpec")
         banks = list(banks) if isinstance(banks, (tuple, list)) else [banks]
@@ -352,6 +399,14 @@ class ServingEngine:
                       "rejected_requests": 0, "quarantined_clients": 0,
                       "prefill_tokens_computed": 0, "prefix_hits": 0,
                       "pages_shared": 0, "cow_copies": 0}
+        # telemetry: obs=None is a no-op (``is not None`` guards and the
+        # shared null span); attached, every hook is host bookkeeping at a
+        # tick or phase boundary
+        self._obs = obs
+        self._span = _null_span if obs is None else obs.span
+        self._last_tok_t: Dict[int, float] = {}
+        if obs is not None:
+            obs.attach("serving", self)
 
     def _init_pages(self):
         """The host-side page allocator of a paged engine: per-client free
@@ -481,6 +536,7 @@ class ServingEngine:
         if req.sampling is not None and req.sampling.method not in (
                 "greedy", "temperature", "top_k"):
             raise ValueError(f"unknown sampling method {req.sampling.method!r}")
+        req.submit_t = time.perf_counter()
         self._queue.append(req)
 
     def _check_prompt(self, shape, max_new_tokens: int):
@@ -503,15 +559,29 @@ class ServingEngine:
 
     def drain_done(self) -> List[Request]:
         """Hand over (and forget) the finished-request list: served,
-        quarantined and rejected requests, each with its
-        ``fault_history``."""
+        quarantined and rejected requests, each with its latency timeline
+        and ``fault_history``."""
         done, self._done = self._done, []
         return done
+
+    def drain_events(self, *, client=None, kind: Optional[str] = None):
+        """Drain this engine's telemetry events, optionally only one
+        client's and / or one kind's; filtered drains leave the other
+        events queued (under a shared ``Obs``, the fine-tuning engine's
+        too). [] without telemetry."""
+        if self._obs is None:
+            return []
+        if client is None:
+            return self._obs.drain_events(kind=kind, engine="serving")
+        return self._obs.drain_events(client=client, kind=kind,
+                                      engine="serving")
 
     def service_tick(self) -> bool:
         """ONE engine tick: admission (+ the admitted requests' compacted
         prefill), the policy-chosen decode tick, retirement. Returns True
         while requests remain."""
+        obs = self._obs
+        t0 = obs.tick_start("serving") if obs is not None else 0.0
         if self._queue:
             self._waiting = deque(sorted(list(self._waiting) + self._queue,
                                          key=lambda r: r.arrive_tick))
@@ -522,29 +592,33 @@ class ServingEngine:
         tick = self._tick
         self._admission_faulted = False
         newly = []
-        # the backoff gate: a SUSPECT client's requests skip admission
-        # until its backoff expires (bounded by HealthPolicy.max_backoff),
-        # and do not count as attempted for the stall detector
-        attempted = []
-        for r in waiting:
-            if r.arrive_tick > tick:
-                continue
-            rec = self._client_health.get(r.client_id)
-            if rec is not None and not rec.eligible(tick):
-                continue
-            attempted.append(r)
-        if self.policy.admit_now(len(inflight)):
-            for req in attempted:
-                if req.client_id in self._quarantined_clients:
-                    continue      # swept to rejected by _quarantine_client
-                if req.status == "rejected":
-                    continue      # its stream ran dry inside _try_admit
-                slots = self._try_admit(req)
-                if slots is not None:
-                    waiting.remove(req)
-                    inflight.append(req)
-                    newly.append((req, slots))
-        if newly:
+        with self._span("admit"):
+            # the backoff gate: a SUSPECT client's requests skip admission
+            # until its backoff expires (bounded by HealthPolicy.max_backoff),
+            # and do not count as attempted for the stall detector
+            attempted, backing_off = [], 0
+            for r in waiting:
+                if r.arrive_tick > tick:
+                    continue
+                rec = self._client_health.get(r.client_id)
+                if rec is not None and not rec.eligible(tick):
+                    backing_off += 1
+                    continue
+                attempted.append(r)
+            if self.policy.admit_now(len(inflight)):
+                for req in attempted:
+                    if req.client_id in self._quarantined_clients:
+                        continue      # swept to rejected by _quarantine_client
+                    if req.status == "rejected":
+                        continue      # its stream ran dry inside _try_admit
+                    slots = self._try_admit(req)
+                    if slots is not None:
+                        waiting.remove(req)
+                        inflight.append(req)
+                        newly.append((req, slots))
+        if obs is not None and backing_off:
+            obs.metrics.counter("serve_backoff_skips_total").inc(backing_off)
+        with self._span("prefill"):
             self._prefill_admitted(newly)
         self.stats["peak_inflight"] = max(self.stats["peak_inflight"],
                                           len(inflight))
@@ -569,9 +643,12 @@ class ServingEngine:
             tick = min(r.arrive_tick for r in waiting)           # idle skip
         self._tick = tick
         if self.debug:
-            errs = serving_conservation(self)
+            with self._span("health_audit"):
+                errs = serving_conservation(self)
             if errs:
                 raise AssertionError("; ".join(errs))
+        if obs is not None:
+            obs.tick_end("serving", tick, t0)
         return bool(waiting or inflight)
 
     def run(self) -> List[Request]:
@@ -650,15 +727,49 @@ class ServingEngine:
         self._placement[id(req)] = placement
         for s in slots:
             self._slot_owner[c][s] = req
+        req.admit_t = time.perf_counter()
+        obs = self._obs
         if hits is not None:
             n_hit = sum(1 for h in hits if h.start > 0)
             if n_hit:
+                n_shared = sum(h.matched_blocks for h in hits)
+                n_cow = sum(1 for h in hits if h.tail_page is not None)
                 self.stats["prefix_hits"] += n_hit
-                self.stats["pages_shared"] += sum(h.matched_blocks
-                                                  for h in hits)
-                self.stats["cow_copies"] += sum(1 for h in hits
-                                                if h.tail_page is not None)
+                self.stats["pages_shared"] += n_shared
+                self.stats["cow_copies"] += n_cow
+                if obs is not None:
+                    m = obs.metrics
+                    m.counter("prefix_cache_hits_total", client=c).inc(n_hit)
+                    m.counter("pages_shared", client=c).inc(n_shared)
+                    if n_cow:
+                        m.counter("cow_copies_total", client=c).inc(n_cow)
+        if obs is not None:
+            m = obs.metrics
+            m.histogram("serve_queue_wait_seconds", client=c).observe(
+                req.admit_t - req.submit_t)
+            if self._paged:
+                m.gauge("serve_pages_free", client=c).set(
+                    len(self._free_pages[c]) - self._reserved[c])
+            if placement is not None:
+                m.counter("serve_hbm_charged_bytes_total", client=c).inc(
+                    placement.cache_bytes)
+            self._router_gauges()
+            obs.event("admit", engine="serving", tick=self._tick, tenant=c,
+                      rows=B, prompt_tokens=int(B * S))
+            if req.fault_history:
+                # a backed-off request made it through: its retry succeeded
+                obs.event("retry", engine="serving", tick=self._tick,
+                          tenant=c, attempts=len(req.fault_history))
         return slots
+
+    def _router_gauges(self):
+        """Mirror the router's placements and committed bytes (telemetry
+        on, router attached)."""
+        if self.router is not None:
+            u = self.router.utilization()
+            self._obs.metrics.gauge("router_placements").set(u["placements"])
+            self._obs.metrics.gauge("router_committed_bytes").set(
+                u["committed_bytes"])
 
     def _claim_pages(self, req: Request, slots: List[int], hits,
                      pages_per_row: int, prompt_pages: int):
@@ -737,6 +848,10 @@ class ServingEngine:
         rec = self._client_health.setdefault(c, HealthRecord())
         verdict = rec.trip(self._tick, reason, self.health_policy)
         req.fault_history.append((self._tick, "backoff", reason))
+        if self._obs is not None:
+            self._obs.event("backoff", engine="serving", tick=self._tick,
+                            tenant=c, reason=reason,
+                            until=rec.next_eligible_tick)
         if verdict == "quarantine":
             self._quarantine_client(c)
 
@@ -764,6 +879,10 @@ class ServingEngine:
                 self._waiting.remove(req)
                 self._done.append(req)
                 self.stats["rejected_requests"] += 1
+                if self._obs is not None:
+                    self._obs.event("reject", engine="serving",
+                                    tick=self._tick, tenant=req.client_id,
+                                    reason=f"request stream: {e}")
             return False
         req.prompt = prompt
         return True
@@ -789,13 +908,26 @@ class ServingEngine:
             req.fault_history.append((self._tick, "quarantine", bad))
             self._left[id(req)] = 0
             self.stats["quarantined_requests"] += 1
+            if self._obs is not None:
+                self._obs.event("quarantine", engine="serving",
+                                tick=self._tick, tenant=c, scope="request",
+                                reason=bad)
             if bad == "non-finite prefill logits":
                 self._fault_client(c, bad)
             return
         first = self._sample(first_logits, req)
+        req.first_token_t = time.perf_counter()
         req.generated[:, 0] = first
         self._last_tok[c, slots] = first
         self._left[id(req)] = req.max_new_tokens - 1
+        if self._obs is not None:
+            m = self._obs.metrics
+            m.counter("serve_prefill_tokens_total", client=c).inc(
+                int(req.prompt.size))
+            m.histogram("serve_ttft_seconds", client=c).observe(
+                req.first_token_t - req.submit_t)
+            # the first decode token's inter-token gap measures from here
+            self._last_tok_t[id(req)] = req.first_token_t
         if self._left[id(req)] > 0:
             # a request with max_new_tokens == 1 is done after prefill and
             # must never decode through its unassigned next table entry
@@ -819,6 +951,8 @@ class ServingEngine:
         Rows are independent (per-row positions, causal mask, last-token
         gather, writes bounded by rows or lengths), so every path gives
         each row the same result."""
+        if not newly:
+            return
         if not self._ragged:
             for req, slots in newly:
                 logits = (self._prefill_request_bankwide(req, slots)
@@ -914,41 +1048,49 @@ class ServingEngine:
         admission, reading its first ``ext`` table entries as shared-prefix
         lanes; the queued copy-on-write copies run first, so every prefix
         page a row reads holds its final bytes."""
-        rows = [(req, s, i) for req, slots in newly for i, s in enumerate(slots)]
-        n = len(rows)
-        nb = self._row_bucket(n)
-        starts = np.zeros((nb,), np.int32)
-        for r, (req, s, i) in enumerate(rows):
-            starts[r] = self._prefill_start.pop((req.client_id, s), 0)
-        suffix = [req.prompt.shape[1] - int(starts[r])
-                  for r, (req, _, _) in enumerate(rows)]
-        S_pad = self._bucket(max(suffix))
-        ext = self._ext_bucket(max(-(-int(starts[r]) // self._blk)
-                                   for r in range(n)))
-        toks = np.zeros((nb, S_pad), np.int32)
-        lengths = np.zeros((nb,), np.int32)
-        clients = np.zeros((nb,), np.int32)
-        slot_ids = np.zeros((nb,), np.int32)
-        rmask = np.zeros((nb,), bool)
-        for r, (req, s, i) in enumerate(rows):
-            toks[r, :suffix[r]] = req.prompt[i, starts[r]:]
-            lengths[r] = suffix[r]
-            clients[r] = req.client_id
-            slot_ids[r] = s
-            rmask[r] = True
-            self.stats["prefill_tokens"] += req.prompt.shape[1]
-            self.stats["prefill_tokens_computed"] += suffix[r]
+        with self._span("prefill_compact_gather"):
+            rows = [(req, s, i) for req, slots in newly
+                    for i, s in enumerate(slots)]
+            n = len(rows)
+            nb = self._row_bucket(n)
+            starts = np.zeros((nb,), np.int32)
+            for r, (req, s, i) in enumerate(rows):
+                starts[r] = self._prefill_start.pop((req.client_id, s), 0)
+            suffix = [req.prompt.shape[1] - int(starts[r])
+                      for r, (req, _, _) in enumerate(rows)]
+            S_pad = self._bucket(max(suffix))
+            ext = self._ext_bucket(max(-(-int(starts[r]) // self._blk)
+                                       for r in range(n)))
+            toks = np.zeros((nb, S_pad), np.int32)
+            lengths = np.zeros((nb,), np.int32)
+            clients = np.zeros((nb,), np.int32)
+            slot_ids = np.zeros((nb,), np.int32)
+            rmask = np.zeros((nb,), bool)
+            for r, (req, s, i) in enumerate(rows):
+                toks[r, :suffix[r]] = req.prompt[i, starts[r]:]
+                lengths[r] = suffix[r]
+                clients[r] = req.client_id
+                slot_ids[r] = s
+                rmask[r] = True
+                self.stats["prefill_tokens"] += req.prompt.shape[1]
+                self.stats["prefill_tokens_computed"] += suffix[r]
         self._flush_page_copies()
         self._sync_tbl()
-        logits, _, self.caches = self._prefill_step(
-            ext, self.base, self._bank_arg(), self.caches, *self._on_device(
-                toks, lengths, starts, clients, slot_ids,
-                *self._rows_arg(clients), rmask))
-        logits = logits.float().cpu().numpy()
+        with self._span("jit_dispatch"):
+            logits, _, self.caches = self._prefill_step(
+                ext, self.base, self._bank_arg(), self.caches,
+                *self._on_device(toks, lengths, starts, clients, slot_ids,
+                                 *self._rows_arg(clients), rmask))
+        with self._span("device_sync"):
+            logits = logits.float().cpu().numpy()
         self.stats["prefill_calls"] += 1
         self.stats["compact_prefill_batches"] += 1
         self.stats["compact_prefill_rows"] += n
         self.stats["compact_prefill_padded"] += nb - n
+        if self._obs is not None:
+            h = self._obs.metrics.histogram("admission_prefill_tokens")
+            for L in suffix:
+                h.observe(float(L))
         rows_of: Dict[int, List[int]] = {}
         for r, (req, s, i) in enumerate(rows):
             rows_of.setdefault(id(req), []).append(r)
@@ -1048,11 +1190,12 @@ class ServingEngine:
     def _decode_tick(self, serve: set, inflight: List[Request]):
         stepping = [r for r in inflight
                     if r.client_id in serve and self._left[id(r)] > 0]
-        if self._paged:
-            for req in stepping:
-                for s in self._slots_of[id(req)]:
-                    self._grow_slot_pages(req, req.client_id, s)
-        self._sync_tbl()
+        with self._span("compact_gather"):
+            if self._paged:
+                for req in stepping:
+                    for s in self._slots_of[id(req)]:
+                        self._grow_slot_pages(req, req.client_id, s)
+            self._sync_tbl()
         if self._compact:
             lookup, finite_of = self._decode_tick_compact(serve)
         else:
@@ -1061,25 +1204,40 @@ class ServingEngine:
             serve_sel = np.zeros((self.n_clients, 1), bool)
             serve_sel[sorted(serve)] = True
             active = self._active_mask & serve_sel
-            logits, self.caches = self._decode_step(
-                self.base, self._bank_arg(), self.caches,
-                *self._on_device(self._last_tok, active))
-            lg = logits.float().cpu().numpy()
+            with self._span("jit_dispatch"):
+                logits, self.caches = self._decode_step(
+                    self.base, self._bank_arg(), self.caches,
+                    *self._on_device(self._last_tok, active))
+            with self._span("device_sync"):
+                lg = logits.float().cpu().numpy()
             lookup = lambda c, slots: lg[c, slots]   # noqa: E731
             finite_of = lambda c, slots: np.isfinite(   # noqa: E731
                 lg[c, slots]).all()
-        for req in stepping:
-            if self._left[id(req)] <= 0:
-                continue          # its client was quarantined mid-tick
-            c, slots_r = req.client_id, self._slots_of[id(req)]
-            if not finite_of(c, slots_r):
-                self._quarantine_request(req, "non-finite decode logits")
-                continue
-            nxt = self._sample(lookup(c, slots_r), req)
-            req.generated[:, req.max_new_tokens - self._left[id(req)]] = nxt
-            self._last_tok[c, slots_r] = nxt
-            self._left[id(req)] -= 1
-            self.stats["decode_tokens"] += len(slots_r)
+        with self._span("scatter"):
+            obs = self._obs
+            # ONE host timestamp after the logits landed: every stepping
+            # request's inter-token sample this tick shares it
+            t_now = time.perf_counter() if obs is not None else 0.0
+            for req in stepping:
+                if self._left[id(req)] <= 0:
+                    continue          # its client was quarantined mid-tick
+                c, slots_r = req.client_id, self._slots_of[id(req)]
+                if not finite_of(c, slots_r):
+                    self._quarantine_request(req, "non-finite decode logits")
+                    continue
+                nxt = self._sample(lookup(c, slots_r), req)
+                req.generated[:, req.max_new_tokens - self._left[id(req)]] = nxt
+                self._last_tok[c, slots_r] = nxt
+                self._left[id(req)] -= 1
+                self.stats["decode_tokens"] += len(slots_r)
+                if obs is not None:
+                    obs.metrics.counter("serve_decode_tokens_total",
+                                        client=c).inc(len(slots_r))
+                    last = self._last_tok_t.get(id(req))
+                    if last is not None:
+                        obs.metrics.histogram("serve_intertoken_seconds",
+                                              client=c).observe(t_now - last)
+                    self._last_tok_t[id(req)] = t_now
         self.stats["ticks"] += 1
         self.stats["batched_clients"] += len(serve)
 
@@ -1087,21 +1245,25 @@ class ServingEngine:
         """The serving clients' active (client, slot) rows in one bucketed
         batch through the compacted step; returns (logits lookup, finite
         lookup) for the sampler."""
-        rows = [(c, s) for c in sorted(serve) for s in self._active_slots[c]]
-        n = len(rows)
-        nb = self._row_bucket(n)
-        clients = np.zeros((nb,), np.int32)
-        slots = np.zeros((nb,), np.int32)
-        mask = np.zeros((nb,), bool)
-        for i, (c, s) in enumerate(rows):
-            clients[i], slots[i], mask[i] = c, s, True
-        toks = self._last_tok[clients, slots]
-        logits, finite, self.caches = self._decode_step(
-            self.base, self._bank_arg(), self.caches,
-            *self._on_device(toks, clients, slots, *self._rows_arg(clients),
-                             mask))
-        lg = logits.float().cpu().numpy()
-        fin = finite.cpu().numpy()
+        with self._span("compact_gather"):
+            rows = [(c, s) for c in sorted(serve)
+                    for s in self._active_slots[c]]
+            n = len(rows)
+            nb = self._row_bucket(n)
+            clients = np.zeros((nb,), np.int32)
+            slots = np.zeros((nb,), np.int32)
+            mask = np.zeros((nb,), bool)
+            for i, (c, s) in enumerate(rows):
+                clients[i], slots[i], mask[i] = c, s, True
+            toks = self._last_tok[clients, slots]
+        with self._span("jit_dispatch"):
+            logits, finite, self.caches = self._decode_step(
+                self.base, self._bank_arg(), self.caches,
+                *self._on_device(toks, clients, slots,
+                                 *self._rows_arg(clients), mask))
+        with self._span("device_sync"):
+            lg = logits.float().cpu().numpy()
+            fin = finite.cpu().numpy()
         row_of = {cs: i for i, cs in enumerate(rows)}
         self.stats["compact_rows"] += n
         self.stats["compact_padded"] += nb - n
@@ -1136,6 +1298,10 @@ class ServingEngine:
         req.fault_history.append((self._tick, "quarantine", reason))
         self._left[id(req)] = 0
         self.stats["quarantined_requests"] += 1
+        if self._obs is not None:
+            self._obs.event("quarantine", engine="serving", tick=self._tick,
+                            tenant=req.client_id, scope="request",
+                            reason=reason)
         self._fault_client(req.client_id, reason)
 
     def _fault_client(self, c: int, reason: str):
@@ -1147,6 +1313,9 @@ class ServingEngine:
         if rec.state is not HealthState.QUARANTINED:
             rec.state = HealthState.SUSPECT
             rec.history.append((self._tick, "suspect", reason))
+            if self._obs is not None:
+                self._obs.event("health", engine="serving", tick=self._tick,
+                                tenant=c, state="suspect", reason=reason)
         if (c not in self._quarantined_clients and rec.total_faults
                 >= self.health_policy.client_quarantine_after):
             self._quarantine_client(c)
@@ -1165,6 +1334,10 @@ class ServingEngine:
             rec.state = HealthState.QUARANTINED
             rec.history.append((self._tick, "quarantined",
                                 f"{rec.total_faults} fault(s)"))
+        if self._obs is not None:
+            self._obs.event("quarantine", engine="serving", tick=self._tick,
+                            tenant=c, scope="client",
+                            faults=rec.total_faults)
         for pool in (self._queue, self._waiting):
             for r in [r for r in pool if r.client_id == c]:
                 pool.remove(r)
@@ -1173,6 +1346,10 @@ class ServingEngine:
                     (self._tick, "rejected", "client quarantined"))
                 self._done.append(r)
                 self.stats["rejected_requests"] += 1
+                if self._obs is not None:
+                    self._obs.event("reject", engine="serving",
+                                    tick=self._tick, tenant=c,
+                                    reason="client quarantined")
         for r in self._inflight:
             if r.client_id == c and self._left.get(id(r), 0) > 0:
                 r.status = "quarantined"
@@ -1182,6 +1359,7 @@ class ServingEngine:
                 self.stats["quarantined_requests"] += 1
 
     def _retire(self, req: Request):
+        req.finish_t = time.perf_counter()
         c = req.client_id
         for s in self._slots_of.pop(id(req)):
             self._slot_owner[c][s] = None
@@ -1208,6 +1386,20 @@ class ServingEngine:
         placement = self._placement.pop(id(req), None)
         if placement is not None:
             self.router.release(placement)
+        if self._obs is not None:
+            self._last_tok_t.pop(id(req), None)
+            m = self._obs.metrics
+            m.histogram("serve_e2e_seconds", client=c).observe(
+                req.finish_t - req.submit_t)
+            if self._paged:
+                m.gauge("serve_pages_free", client=c).set(
+                    len(self._free_pages[c]) - self._reserved[c])
+            self._router_gauges()
+            self._obs.event(
+                "retire", engine="serving", tick=self._tick, tenant=c,
+                status=req.status,
+                tokens=(0 if req.generated is None
+                        else int(req.generated.size)))
 
     def release_banks(self):
         """Release the per-bank adapter charges taken at construction (a
@@ -1249,7 +1441,8 @@ class ServingEngine:
         records and the quarantined and retired clients. A freshly built
         engine over the same spec resumes it bit for bit
         (``load_engine_state``). Banks admitted by ``admit_bank`` are not
-        captured."""
+        captured, nor are the requests' latency timelines (as in JAX: host
+        ``perf_counter`` stamps mean nothing in another process)."""
         state = {
             "inflight": [self._req_record(r) for r in self._inflight],
             "waiting": [self._req_record(r) for r in self._waiting],
@@ -1428,6 +1621,9 @@ class ServingEngine:
             [self._active_mask, np.zeros((k, self.max_b), bool)])
         self._active_slots.extend([[] for _ in range(k)])
         self._set_buckets()
+        if self._obs is not None:
+            self._obs.event("bank_growth", engine="serving", tick=self._tick,
+                            bank=m, clients=k, method=acfg.method)
         return BankAdmission(bank_id=m,
                              client_ids=list(range(old_C, self.n_clients)),
                              placement=placement)
@@ -1446,3 +1642,7 @@ class ServingEngine:
         if admission.placement is not None:
             self.router.release(admission.placement)
             admission.placement = None
+        if self._obs is not None:
+            self._obs.event("bank_retire", engine="serving", tick=self._tick,
+                            bank=admission.bank_id,
+                            clients=len(admission.client_ids))

@@ -49,11 +49,20 @@ them, admitting and retiring jobs mid-run.
   restored jobs lead the queue, and a job of the same bank behind one
   carries the same admission charge.)
 
-Not ported yet, and refused with ``ValueError``: a ``mesh``, ``obs``
-telemetry and non-dense families.
+Telemetry: with ``obs=repro_torch.obs.Obs()`` each tick is timed by
+phase (``admit``, ``compact_gather``, ``train_step``: the host's eager
+enqueue of the step, ``device_sync``: the losses' copy to the host,
+``scatter``), ``train_steps_total`` / ``train_tokens_total`` /
+``train_loss`` are kept per job and the admissions, retirements, backoffs,
+retries and quarantines land in the event log (``drain_events``), as in
+JAX's engine. ``obs=None`` costs a shared null context per phase.
+
+Not ported yet, and refused with ``ValueError``: a ``mesh`` and non-dense
+families.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -75,6 +84,13 @@ from repro_torch.models.blocks import _pick_chunk
 from repro_torch.optim import adamw_init
 from repro_torch.serving.router import AdmissionStall, NoCapacity
 from repro_torch.training.job import FinetuneJob, JobResult
+
+# telemetry off: one shared null context, no allocation per phase
+_NULL_CTX = contextlib.nullcontext()
+
+
+def _null_span(name):
+    return _NULL_CTX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,9 +323,8 @@ class FinetuneEngine:
                  router=None, health_policy: Optional[HealthPolicy] = None,
                  quarantine_dir: Optional[str] = None, debug: bool = False,
                  fault_hook=None, mesh=None, obs=None):
-        for name, val in (("mesh", mesh), ("obs", obs)):
-            if val is not None:
-                raise _not_ported(f"{name}=")
+        if mesh is not None:
+            raise _not_ported("mesh=")
         if not isinstance(spec, EngineSpec):
             raise TypeError("FinetuneEngine takes an EngineSpec")
         if spec.cfg.arch != DENSE:
@@ -343,6 +358,10 @@ class FinetuneEngine:
                       "compact_padded": 0, "train_tokens": 0,
                       "faults": 0, "quarantined": 0, "finished_early": 0,
                       "dropped_steps": 0}
+        self._obs = obs
+        self._span = _null_span if obs is None else obs.span
+        if obs is not None:
+            obs.attach("finetune", self)
 
     # ------------------------------------------------------------------
     def submit(self, job: FinetuneJob):
@@ -414,6 +433,12 @@ class FinetuneEngine:
                 job.health = rec
                 rec.trip(self.stats["train_ticks"], f"admission: {e}",
                          self.health_policy)
+                if self._obs is not None:
+                    self._obs.event("backoff", engine="finetune",
+                                    tick=self.stats["train_ticks"],
+                                    tenant=job.name,
+                                    reason=f"admission: {e}",
+                                    until=rec.next_eligible_tick)
                 return False
             raise                                 # rolled back, not swallowed
         bank.slots[slot] = job
@@ -424,7 +449,26 @@ class FinetuneEngine:
         if self._restore_slot.pop(id(job), None) is None:
             self.stats["admitted"] += 1     # a resumed job was counted once
         self.stats["peak_jobs"] = max(self.stats["peak_jobs"], self.n_active)
+        if self._obs is not None:
+            tick = self.stats["train_ticks"]
+            self._obs.event("admit", engine="finetune", tick=tick,
+                            tenant=job.name, bank=repr(key.acfg.method),
+                            steps=job.steps - job.start_step)
+            if job.health is not None and job.health.total_faults:
+                self._obs.event("retry", engine="finetune", tick=tick,
+                                tenant=job.name,
+                                attempts=job.health.total_faults)
+            self._router_gauges()
         return True
+
+    def _router_gauges(self):
+        """Mirror the router's placements and committed bytes (telemetry
+        on, router attached)."""
+        if self.router is not None:
+            u = self.router.utilization()
+            self._obs.metrics.gauge("router_placements").set(u["placements"])
+            self._obs.metrics.gauge("router_committed_bytes").set(
+                u["committed_bytes"])
 
     # ------------------------------------------------------------------
     # stepping
@@ -466,46 +510,61 @@ class FinetuneEngine:
             rows.append((s, job, b))
         if not rows:
             return
-        R = self._row_bucket(len(rows), bank.cap)
-        slots = np.zeros((R,), np.int32)
-        mask = np.zeros((R,), bool)
-        hyper = {k: np.zeros((R,), np.float32)
-                 for k in ("lr", "warmup", "total", "wd", "gnorm")}
-        hyper["step"] = np.zeros((R,), np.int32)
-        for i, (s, job, _) in enumerate(rows):
-            slots[i], mask[i] = s, True
-            hyper["step"][i] = self._step_of[id(job)]
-            hyper["lr"][i] = job.lr
-            hyper["warmup"][i] = job.warmup_steps
-            hyper["total"][i] = job.schedule_total
-            hyper["wd"][i] = job.weight_decay
-            hyper["gnorm"][i] = (job.max_grad_norm if job.max_grad_norm > 0
-                                 else np.inf)
-        n = len(rows)
-        batch = {k: torch.stack([b[k] for _, _, b in rows]
-                                + [torch.zeros_like(rows[0][2][k])] * (R - n))
-                 for k in rows[0][2]}
+        with self._span("compact_gather"):
+            R = self._row_bucket(len(rows), bank.cap)
+            slots = np.zeros((R,), np.int32)
+            mask = np.zeros((R,), bool)
+            hyper = {k: np.zeros((R,), np.float32)
+                     for k in ("lr", "warmup", "total", "wd", "gnorm")}
+            hyper["step"] = np.zeros((R,), np.int32)
+            for i, (s, job, _) in enumerate(rows):
+                slots[i], mask[i] = s, True
+                hyper["step"][i] = self._step_of[id(job)]
+                hyper["lr"][i] = job.lr
+                hyper["warmup"][i] = job.warmup_steps
+                hyper["total"][i] = job.schedule_total
+                hyper["wd"][i] = job.weight_decay
+                hyper["gnorm"][i] = (job.max_grad_norm
+                                     if job.max_grad_norm > 0 else np.inf)
+            n = len(rows)
+            batch = {k: torch.stack(
+                [b[k] for _, _, b in rows]
+                + [torch.zeros_like(rows[0][2][k])] * (R - n))
+                for k in rows[0][2]}
         dev = lambda a: torch.tensor(a, device=self.device)
-        bank.params, bank.opt, metrics = self._step_fn(bank.key)(
-            self.base, bank.params, bank.opt, batch, dev(slots), dev(mask),
-            {k: dev(v) for k, v in hyper.items()})
-        losses = metrics["loss"].cpu().numpy()
-        finite = metrics["finite"].cpu().numpy()
+        with self._span("train_step"):
+            bank.params, bank.opt, metrics = self._step_fn(bank.key)(
+                self.base, bank.params, bank.opt, batch, dev(slots),
+                dev(mask), {k: dev(v) for k, v in hyper.items()})
+        with self._span("device_sync"):
+            losses = metrics["loss"].cpu().numpy()
+            finite = metrics["finite"].cpu().numpy()
+        obs = self._obs
         committed = 0
-        for i, (_, job, _) in enumerate(rows):
-            if finite[i]:
-                job.losses.append(float(losses[i]))
-                self._step_of[id(job)] += 1
-                if job.health is not None:
-                    job.health.ok(tick)
-                committed += 1
-            else:
-                # the step dropped this row's commit (its slot kept the
-                # last clean state)
-                self.stats["dropped_steps"] += 1
-                self._job_fault(job, tick, NonFiniteFault(
-                    f"non-finite loss/grads at step "
-                    f"{self._step_of[id(job)]}"))
+        with self._span("scatter"):
+            for i, (_, job, _) in enumerate(rows):
+                if finite[i]:
+                    job.losses.append(float(losses[i]))
+                    self._step_of[id(job)] += 1
+                    if job.health is not None:
+                        job.health.ok(tick)
+                    committed += 1
+                    if obs is not None:
+                        label = job.name or "anon"
+                        obs.metrics.counter("train_steps_total",
+                                            job=label).inc()
+                        obs.metrics.counter("train_tokens_total",
+                                            job=label).inc(
+                            bank.key.batch * bank.key.seq)
+                        obs.metrics.gauge("train_loss", job=label).set(
+                            float(losses[i]))
+                else:
+                    # the step dropped this row's commit (its slot kept the
+                    # last clean state)
+                    self.stats["dropped_steps"] += 1
+                    self._job_fault(job, tick, NonFiniteFault(
+                        f"non-finite loss/grads at step "
+                        f"{self._step_of[id(job)]}"))
         self.stats["train_steps"] += committed
         self.stats["compact_rows"] += n
         self.stats["compact_padded"] += R - n
@@ -524,6 +583,10 @@ class FinetuneEngine:
         reason = f"{type(exc).__name__}: {exc}"
         if classify(exc) == "transient":
             if rec.trip(tick, reason, self.health_policy) == "retry":
+                if self._obs is not None:
+                    self._obs.event("backoff", engine="finetune", tick=tick,
+                                    tenant=job.name, reason=reason,
+                                    until=rec.next_eligible_tick)
                 return
         else:
             rec.quarantine(tick, reason)
@@ -548,6 +611,12 @@ class FinetuneEngine:
         then retire it, releasing its bank slot and router charge."""
         self._checkpoint_best_effort(job)
         self.stats["quarantined"] += 1
+        if self._obs is not None:
+            last = job.health.last_transition() if job.health else None
+            self._obs.event("quarantine", engine="finetune",
+                            tick=self.stats["train_ticks"], tenant=job.name,
+                            scope="job",
+                            reason=last[2] if last else "quarantined")
         self.retire(job, status="quarantined")
 
     def _finish_early(self, job: FinetuneJob, reason: str):
@@ -565,23 +634,33 @@ class FinetuneEngine:
         compact call per non-empty bank), retire exhausted jobs. Returns
         True while jobs remain active or queued."""
         tick = self.stats["train_ticks"]
+        obs = self._obs
+        t0 = obs.tick_start("finetune") if obs is not None else 0.0
         self._admission_faulted = False
         admitted_any = False
         backing_off = 0
-        for job in list(self._queue):
-            if job.health is not None and not job.health.active:
-                # admission retries exhausted: out of the queue, not a crash
-                self._queue.remove(job)
-                job.status = "quarantined"
-                self.stats["quarantined"] += 1
-                self.finished.append(job)
-                continue
-            if job.health is not None and not job.health.eligible(tick):
-                backing_off += 1
-                continue                           # SUSPECT: retry later
-            if self._try_admit(job):
-                self._queue.remove(job)
-                admitted_any = True
+        with self._span("admit"):
+            for job in list(self._queue):
+                if job.health is not None and not job.health.active:
+                    # admission retries exhausted: out of the queue, not a
+                    # crash
+                    self._queue.remove(job)
+                    job.status = "quarantined"
+                    self.stats["quarantined"] += 1
+                    self.finished.append(job)
+                    if obs is not None:
+                        obs.event("quarantine", engine="finetune", tick=tick,
+                                  tenant=job.name, scope="job",
+                                  reason="admission retries exhausted")
+                    continue
+                if job.health is not None and not job.health.eligible(tick):
+                    backing_off += 1
+                    continue                       # SUSPECT: retry later
+                if self._try_admit(job):
+                    self._queue.remove(job)
+                    admitted_any = True
+        if obs is not None and backing_off:
+            obs.metrics.counter("train_backoff_skips_total").inc(backing_off)
         if self._queue and not self._slot_of and not admitted_any \
                 and not self._admission_faulted and not backing_off:
             raise AdmissionStall(
@@ -600,7 +679,20 @@ class FinetuneEngine:
                 raise AssertionError("conservation audit failed after train "
                                      f"tick {self.stats['train_ticks'] - 1}:"
                                      "\n  " + "\n  ".join(errs))
+        if obs is not None:
+            obs.tick_end("finetune", tick, t0)
         return self.pending()
+
+    def drain_events(self, *, client=None, kind=None) -> list:
+        """Drain this engine's telemetry events, optionally only one job's
+        (``client`` matches the job's ``name``) and / or one kind's; the
+        other events stay queued. [] without telemetry."""
+        if self._obs is None:
+            return []
+        if client is None:
+            return self._obs.drain_events(kind=kind, engine="finetune")
+        return self._obs.drain_events(client=client, kind=kind,
+                                      engine="finetune")
 
     def run(self) -> List[FinetuneJob]:
         """Drive all queued/active jobs to their step budgets."""
@@ -638,6 +730,11 @@ class FinetuneEngine:
                                losses=list(job.losses))
         self.finished.append(job)
         self.stats["retired"] += 1
+        if self._obs is not None:
+            self._obs.event("retire", engine="finetune",
+                            tick=self.stats["train_ticks"], tenant=job.name,
+                            status=status, steps=step)
+            self._router_gauges()
         return job.result
 
     def checkpoint_job(self, job: FinetuneJob, directory: str) -> str:

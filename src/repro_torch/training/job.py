@@ -60,6 +60,13 @@ class FinetuneJob:
     def schedule_total(self) -> int:
         return self.total_steps or self.steps
 
+    @property
+    def fault_history(self) -> List[tuple]:
+        """The job's fault trajectory: its health record's ``(tick, state,
+        reason)`` entries, [] for a job that never faulted (the twin of
+        ``serving.Request.fault_history``)."""
+        return [] if self.health is None else list(self.health.history)
+
 
 @dataclasses.dataclass
 class JobResult:

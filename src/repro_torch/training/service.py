@@ -14,7 +14,10 @@ WHEN work runs, never its math: every request's stream and every job's
 trajectory equal each engine's alone. ``checkpoint`` writes both engines'
 snapshots (``engine_state``) as one CRC-framed blob; ``restore`` loads the
 newest valid one into freshly built engines, which resume every tenant bit
-for bit (a corrupt newer blob is skipped: last good wins).
+for bit (a corrupt newer blob is skipped: last good wins). With one ``Obs``
+shared by both engines (``from_spec(obs=)``) their spans, metrics and
+events land in one registry and one event log, labelled ``serving`` and
+``finetune``; ``drain_events`` merges the feeds in sequence order.
 """
 from __future__ import annotations
 
@@ -55,14 +58,16 @@ class SymbiosisEngine:
     @classmethod
     def from_spec(cls, spec: EngineSpec, base_params, *, serving_banks=None,
                   router=None, device="cuda", policy: Optional[str] = None,
-                  health_policy=None, fault_hook=None, **serving_kw):
+                  health_policy=None, fault_hook=None, obs=None,
+                  **serving_kw):
         """Build the service from ONE ``EngineSpec``: a ``ServingEngine``
         when ``spec.serve`` is set (over ``serving_banks``, one
         client-stacked adapter tree per spec bank), a ``FinetuneEngine``
         when ``spec.finetune`` is set, both over the same base tensors and,
         when given, one shared ``router``. ``health_policy`` and
         ``fault_hook`` go to both engines (the hook tells them apart by its
-        point, ``"serve_admit"`` or ``"train_admit"``)."""
+        point, ``"serve_admit"`` or ``"train_admit"``). One ``obs`` is
+        shared by both engines."""
         serving = None
         if spec.serve is not None:
             if serving_banks is None:
@@ -72,13 +77,14 @@ class SymbiosisEngine:
                                     router=router, device=device,
                                     policy=policy,
                                     health_policy=health_policy,
-                                    fault_hook=fault_hook, **serving_kw)
+                                    fault_hook=fault_hook, obs=obs,
+                                    **serving_kw)
         finetune = None
         if spec.finetune is not None:
             finetune = FinetuneEngine(spec, base_params, router=router,
                                       device=device,
                                       health_policy=health_policy,
-                                      fault_hook=fault_hook)
+                                      fault_hook=fault_hook, obs=obs)
         return cls(serving=serving, finetune=finetune)
 
     # ------------------------------------------------------------------
@@ -131,10 +137,21 @@ class SymbiosisEngine:
         return did
 
     def drain_events(self, *, client=None, kind=None) -> list:
-        """Both engines' client-visible events, merged. The engines emit
-        events only with ``obs`` telemetry, which is not ported yet, so
-        there are none."""
-        return []
+        """Both engines' client-visible events, merged in sequence order.
+        An ``Obs`` the engines share is drained once; distinct ones are
+        each drained and the results merged."""
+        seen, out = set(), []
+        for eng in (self.serving, self.finetune):
+            obs = getattr(eng, "_obs", None)
+            if obs is None or id(obs) in seen:
+                continue
+            seen.add(id(obs))
+            if client is None:
+                out.extend(obs.drain_events(kind=kind))
+            else:
+                out.extend(obs.drain_events(client=client, kind=kind))
+        out.sort(key=lambda e: e.seq)
+        return out
 
     def run(self):
         """Drive both workloads to completion against the shared base.

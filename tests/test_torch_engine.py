@@ -227,11 +227,13 @@ def test_engine_refuses_layouts_outside_the_slice(bad, kw):
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(prefix_cache=True), dict(obs=object())])
+                                dict(prefix_cache=True),
+                                dict(policy="round_robin")])
 def test_engine_refuses_options_outside_the_slice(kw):
-    """``mesh`` and ``obs`` are not ported; ``prefix_cache=True`` is refused
-    over int8 pools (``kv_quant``), as in JAX: int8 K/V doesn't
-    round-trip."""
+    """``mesh`` is not ported; ``prefix_cache=True`` is refused over int8
+    pools (``kv_quant``), as in JAX: int8 K/V doesn't round-trip; so is a
+    tick policy neither package knows. (``obs`` telemetry is ported:
+    ``tests/test_torch_obs.py``.)"""
     cfg, acfg, scfg, base, bank = _system()
     pc = port_config(cfg)
     pacfg = pcfg.AdapterConfig(method="lora", rank=4, alpha=8.0)

@@ -401,7 +401,7 @@ def test_policy_override_matches_reference(policy):
 
 def test_serve_cli_refuses_what_is_not_ported():
     from repro_torch.launch import serve
-    for flag in (["--privacy"], ["--mesh", "1", "1"], ["--obs", "d"]):
+    for flag in (["--privacy"], ["--mesh", "1", "1"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             serve.main(["--device", "cpu"] + flag)
 

@@ -336,15 +336,15 @@ def test_fresh_jobs_and_job_state():
 # what the port's FinetuneEngine does not take yet
 
 def test_engine_refuses_what_is_not_ported():
-    """A mesh, telemetry and other families are refused; so is a PEFT
-    method the engine does not know, in a bank spec or a job (it is never
-    trained as something else)."""
+    """A mesh and other families are refused; so is a PEFT method the
+    engine does not know, in a bank spec or a job (it is never trained as
+    something else). (``obs`` telemetry is ported:
+    ``tests/test_torch_obs.py``.)"""
     _, pc, base = system()
     spec = EngineSpec(cfg=pc, finetune=pcfg.FinetuneConfig())
     pb = port_base(pc, base)
-    for kw in (dict(mesh=object()), dict(obs=object())):
-        with pytest.raises(ValueError, match="not ported yet"):
-            FinetuneEngine(spec, pb, device="cpu", **kw)
+    with pytest.raises(ValueError, match="not ported yet"):
+        FinetuneEngine(spec, pb, device="cpu", mesh=object())
     moe = dataclasses.replace(pc, arch="moe")
     with pytest.raises(ValueError, match="'moe' family: not ported"):
         FinetuneEngine(EngineSpec(cfg=moe, finetune=pcfg.FinetuneConfig()),
@@ -377,9 +377,8 @@ def test_train_cli_on_the_cpu(capsys):
                               "--d-model", "128"])
     assert np.isfinite(first) and np.isfinite(last)
     assert "[train] done" in capsys.readouterr().out
-    for flag in (["--mesh", "1", "1"], ["--obs", "d"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            train.main(["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        train.main(["--device", "cpu", "--mesh", "1", "1"])
 
 
 def test_train_cli_defaults_to_the_reference_model(monkeypatch):

@@ -17,7 +17,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 assert {"repro_torch.serving.prefix_cache", "repro_torch.faults.audit",
         "repro_torch.faults.plan", "repro_torch.faults.health",
-        "repro_torch.checkpoint.ckpt"} \
+        "repro_torch.checkpoint.ckpt", "repro_torch.obs.metrics",
+        "repro_torch.obs.events", "repro_torch.obs.export",
+        "repro_torch.obs.trace", "repro_torch.obs.__main__",
+        "repro_torch.faults.chaos"} \
     <= set(names), names       # the port's own copies of pure-Python modules
 for name in names:
     importlib.import_module(name)

@@ -19,7 +19,11 @@ exits non-zero and prints no result. Phases, each raising on failure:
    ``sgmv_pallas`` accepts (ids in range or negative), those the JAX op
    takes by padding (T no multiple of block_t, fewer ids than blocks, the
    default block_t of 128), a block_t-256 prefill with a short last block,
-   and ranks 16 and 12, dead rows exact +0.0), fp32 at atol = rtol
+   and ranks 16 and 12, dead rows exact +0.0; phase 13's shapes:
+   deepseek-moe-16b's paged attention at K=16, G=1 (bf16 and int8 pools,
+   a row at pos -1) and SGMV at din 2048, the router's dout 64 at decode
+   and over a compacted prefill's flattened tokens, q/v at dout 2048),
+   fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
    fp32 on the same bf16 inputs; dense decode attention (split-KV and a
    combine) at granite's K=8, G=4, hd=128 over phase 9's layer slab
@@ -235,7 +239,31 @@ exits non-zero and prints no result. Phases, each raising on failure:
    kinds, the injected counts per scenario its CPU run's (where it is
    ``ok``), serving and symbiotic scenarios without error, the
    fine-tuning scenario's only errors bitwise drift within
-   ``P12_DRIFT_TOL``, the paged kernel and SGMV launched.
+   ``P12_DRIFT_TOL``, the paged kernel and SGMV launched;
+13. the MoE and VLM families on the serving path, after phase 4's granite
+   is freed. 13a deepseek-moe-16b at full width and depth (28 layers,
+   layer 0 dense, 64 routed experts top-6 + 2 shared, drop-free), bf16
+   random weights, 4 LoRA r8 tenants on q, v and the router, pages of 16,
+   phase 4's 8 requests: per tick 28 paged attention and 83 SGMV launches
+   (q and v on 28 layers, the router on 27 MoE layers) per decode tick and
+   83 per prefill batch; every stream bit for bit equal to it served alone
+   by a fresh engine (or, when a compacted prefill carried several, to
+   that batch served alone); the run's peak memory beyond base, bank and
+   caches; a 2-layer compacted prefill + decode with the kernels (no host
+   sync) and under ``plain_kernels()``, logits at 2e-2; the requests over
+   int8 pages and over the dense layout (launches tick by tick, streams
+   printed against the bf16 pages'). 13b an 8-row decode tick timed and
+   traced (kernels per tick, device-busy share), the routed experts of a
+   tick (27 layers x 3 bmm over 8-row capacity buffers) against their
+   byte bound, the 8 prompts' compacted prefill in one batch (time, peak
+   memory), and the paged kernel at G=1 over 13a's pool and SGMV at the
+   router's shape timed beside their plain versions, a library call and
+   their bounds. 13c llava-next-mistral-7b at full width and depth (the
+   image frontend stubbed): a client prefill of a 2,880-token image
+   prefix + 64 text tokens and 8 decode steps with the kernels (finite,
+   launches, positions), the same at 2 layers against ``plain_kernels()``
+   at 2e-2, then phase 4's 8 text requests through the engine (its text
+   backbone, as JAX's engine serves a VLM), launches tick by tick.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -244,6 +272,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import os
@@ -276,8 +305,10 @@ from repro_torch.core.base_executor import BaseExecutor, _bucket  # noqa: E402
 from repro_torch.core.frozen_linear import frozen_dense  # noqa: E402
 from repro_torch.core.engine_spec import BankSpec, EngineSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.data import SyntheticLMDataset  # noqa: E402
+from repro_torch.core.virtlayer import make_compact_ctx  # noqa: E402
+from repro_torch.data import SyntheticLMDataset, frontend_stub  # noqa: E402
 from repro_torch.models import blocks, get_model  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.optim import AdamWState, adamw_init  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -392,6 +423,12 @@ PAGED_CASES = {   # (B, K, G, hd, blk, nb, window, pos)
     # window edges 7 and 39 tokens into a split of any power-of-two pages
     "granite_window_cuts_a_split": (3, 8, 4, 128, 16, 32, 70,
                                     [300, 108, 511]),
+    # deepseek-moe-16b (phase 13): MHA, K=16, G=1 (a quarter of a block's
+    # query heads live), at phase 13's decode positions and a row at -1
+    "deepseek_g1_8rows": (8, 16, 1, 128, 16, 32, 0,
+                          [79, 100, 159, 200, 255, 271, 64, 511]),
+    "deepseek_g1_pos_minus_one": (5, 16, 1, 128, 16, 32, 0,
+                                  [-1, 15, 16, 300, -1]),
 }
 
 
@@ -458,7 +495,7 @@ def check_paged_quant(errs):
                 f"{str(dtype):15s} max_abs_err={e:.3e}")
 
 
-SGMV_CASES = {    # (T, block_t, dout, rank, ids), din 4096
+SGMV_CASES = {    # (T, block_t, dout, rank, ids[, din]), din 4096 if absent
     "decode_1row_q": (1, 1, 4096, 8, [2]),
     "decode_5rows_v": (5, 1, 1024, 8, [0, -1, 3, 9, 1]),
     "decode_16rows_q": (16, 1, 4096, 8, [0, 1, 2, 3, -1, 5, 1, 1, 0, 2, 3, 3,
@@ -482,12 +519,21 @@ SGMV_CASES = {    # (T, block_t, dout, rank, ids), din 4096
     "rank16_prefill_v": (300, 128, 1024, 16, [1, 0, 2]),
     "rank12_decode_v": (5, 1, 1024, 12, [3, -1, 0, 1, 1]),
     "rank12_prefill_q": (200, 64, 4096, 12, [2, 0, -1, 1]),
+    # deepseek-moe-16b (phase 13): d 2048; the router's LoRA (dout 64, its
+    # input the fp32 hidden state) at decode and over a compacted prefill's
+    # flattened [rows * S, d] tokens, one S-token block per row; q and v
+    # (dout 2048) at decode
+    "deepseek_router_decode": (8, 1, 64, 8, [0, 1, 2, 3, -1, 1, 2, 0], 2048),
+    "deepseek_router_prefill": (1024, 256, 64, 8, [2, 0, -1, 3], 2048),
+    "deepseek_qv_decode": (8, 1, 2048, 8, [3, 2, 1, 0, 0, -1, 2, 1], 2048),
 }
 
 
 def check_sgmv(errs):
-    din, n = 4096, 4
-    for i, (name, (T, bt, dout, r, ids)) in enumerate(SGMV_CASES.items()):
+    n = 4
+    for i, (name, (T, bt, dout, r, ids, *din)) in enumerate(
+            SGMV_CASES.items()):
+        din = din[0] if din else 4096
         g = gen(200 + i)
         x = torch.randn((T, din), generator=g, device=DEV)
         bank_a = torch.randn((n, 3, din, r), generator=g, device=DEV) / din ** 0.5
@@ -532,34 +578,44 @@ def plain_op(op, *args, **kw):
                       **kw)
 
 
-DENSE_CASES = {   # (B, T, window, pos): granite K=8, G=4, hd=128
+GRANITE, DEEPSEEK = "granite-3-8b", "deepseek-moe-16b"
+DENSE_CASES = {   # (B, T, window, pos, arch whose K, G, hd the case takes)
     # phase 9's layer slab (4 clients x 2 slots, max_seq 512) at its decode
     # positions (None: ``slab_positions``), and a window cutting the rows
-    "phase9_slab_T512": (8, 512, 0, None),
-    "phase9_slab_T512_window": (8, 512, 100, None),
-    "granite_T4096": (4, 4096, 0, [-1, 0, 2047, 4095]),
-    "granite_T4096_window": (4, 4096, 1000, [100, 1500, 4095, 999]),
-    "granite_T4093_prime": (2, 4093, 0, [4092, 77]),
-    "granite_B1_T32768_many_splits": (1, 32768, 0, [32767]),
-    "granite_window_cuts_a_split": (2, 4096, 300, [700, 4095]),
+    "phase9_slab_T512": (8, 512, 0, None, GRANITE),
+    "phase9_slab_T512_window": (8, 512, 100, None, GRANITE),
+    "granite_T4096": (4, 4096, 0, [-1, 0, 2047, 4095], GRANITE),
+    "granite_T4096_window": (4, 4096, 1000, [100, 1500, 4095, 999], GRANITE),
+    "granite_T4093_prime": (2, 4093, 0, [4092, 77], GRANITE),
+    "granite_B1_T32768_many_splits": (1, 32768, 0, [32767], GRANITE),
+    "granite_window_cuts_a_split": (2, 4096, 300, [700, 4095], GRANITE),
+    # 13a's dense run: deepseek-moe-16b's slab (K 16, G 1), at its decode
+    # positions and with its first row idle (position -1)
+    "deepseek_slab_T512": (8, 512, 0, None, DEEPSEEK),
+    "deepseek_slab_T512_idle_row": (8, 512, 0, "idle", DEEPSEEK),
 }
 
 
-def slab_positions():
-    """Phase 9's decode positions: 15 past each of phase 4's 8 prompts."""
+def slab_positions(arch=GRANITE):
+    """The dense slab's decode positions (phase 9, 13a): 15 past each of
+    phase 4's 8 prompts for ``arch``."""
     return [r.prompt.shape[1] + 15
-            for r in make_requests(get_config("granite-3-8b"), 4)]
+            for r in make_requests(get_config(arch), 4)]
 
 
 def check_dense(errs):
-    K, G, hd = 8, 4, 128
-    for i, (name, (B, T, window, pos)) in enumerate(DENSE_CASES.items()):
+    for i, (name, (B, T, window, pos, arch)) in enumerate(
+            DENSE_CASES.items()):
+        cfg = get_config(arch)
+        K, G, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.hd
         g = gen(500 + i)
         q = torch.randn((B, K, G, hd), generator=g, device=DEV)
         k = torch.randn((B, T, K, hd), generator=g, device=DEV)
         v = torch.randn((B, T, K, hd), generator=g, device=DEV)
-        p = torch.tensor(slab_positions() if pos is None else pos,
-                         dtype=torch.int32, device=DEV)
+        if pos in (None, "idle"):
+            slab = slab_positions(arch)
+            pos = [-1] + slab[1:] if pos == "idle" else slab
+        p = torch.tensor(pos, dtype=torch.int32, device=DEV)
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             qd, kd, vd = (t.to(dtype) for t in (q, k, v))
             got = da.decode_attn_cuda(qd, kd, vd, p, window=window)
@@ -568,8 +624,8 @@ def check_dense(errs):
             e = compare(f"decode_attn {name} {dtype}", got, want, tol)
             zeros_at_pos_minus_one(f"decode_attn {name}", got, p)
             errs.append(e)
-            log(f"[phase 2] decode_attn {name:24s} {str(dtype):15s} "
-                f"max_abs_err={e:.3e}")
+            log(f"[phase 2] decode_attn {name:24s} K={K} G={G} hd={hd} "
+                f"{str(dtype):15s} max_abs_err={e:.3e}")
 
 
 FLASH_CASES = {   # (B, S, T, H, K, causal, window, hd)
@@ -700,12 +756,12 @@ def check_ragged(errs):
 LORA = AdapterConfig(method="lora", rank=8, alpha=16.0, targets=("q", "v"))
 
 
-def make_system(cfg, n_clients, seed):
-    """bf16 base and LoRA bank from a seeded generator on the card; the
-    bank's B matrices (zero at init) are drawn too, so every client's
-    adapter differs and the SGMV routing matters."""
+def make_system(cfg, n_clients, seed, acfg=LORA):
+    """bf16 base and LoRA bank (``acfg``) from a seeded generator on the
+    card; the bank's B matrices (zero at init) are drawn too, so every
+    client's adapter differs and the SGMV routing matters."""
     g = gen(seed)
-    base, bank = symbiosis.init_system(cfg, LORA, n_clients, g, device=DEV,
+    base, bank = symbiosis.init_system(cfg, acfg, n_clients, g, device=DEV,
                                        adapter_dtype=torch.bfloat16)
     for leaf in bank["layers"].values():
         leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g, device=DEV)
@@ -724,16 +780,17 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode("default")
 
 
-def model_wiring(quant):
-    """Full-width granite, 2 layers: compacted prefill + decode with the
-    kernels and under plain_kernels(), over bf16 or (``quant``) int8
-    caches; logits must agree at bf16 tolerance. The kernel pass must not
-    sync the host (a CUDA graph could capture it)."""
-    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2)
+def model_wiring(quant, arch=GRANITE, acfg=LORA, label="phase 3"):
+    """Full-width ``arch`` (granite-3-8b), 2 layers: compacted prefill +
+    decode with the kernels and under plain_kernels(), over bf16 or
+    (``quant``) int8 caches, LoRA ``acfg``; logits must agree at bf16
+    tolerance. The kernel pass must not sync the host (a CUDA graph could
+    capture it)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     C, max_b, max_seq, blk = 4, 2, 512, 16
     scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=blk,
                        kv_quant=quant)
-    base, bank = make_system(cfg, C, seed=1)
+    base, bank = make_system(cfg, C, seed=1, acfg=acfg)
     nb, P = max_seq // blk, max_b * (max_seq // blk)
     rng = np.random.default_rng(3)
     lengths = rng.integers(64, 257, C).astype(np.int32)
@@ -745,8 +802,8 @@ def model_wiring(quant):
     rows = [torch.tensor(a, device=DEV) for a in
             (np.arange(C, dtype=np.int32), np.zeros(C, np.int32),
              np.ones(C, bool))]
-    prefill = symbiosis.make_compact_prefill(cfg, LORA, scfg)
-    decode = symbiosis.make_compact_decode_step(cfg, LORA, scfg)
+    prefill = symbiosis.make_compact_prefill(cfg, acfg, scfg)
+    decode = symbiosis.make_compact_decode_step(cfg, acfg, scfg)
     out, nxt = [], None
     for plain in (False, True):
         caches = symbiosis.init_client_caches(cfg, C, max_b, max_seq,
@@ -765,24 +822,26 @@ def model_wiring(quant):
     torch.cuda.synchronize()
     e1 = compare("model prefill logits", out[0][0], out[1][0], BF16_TOL)
     e2 = compare("model decode logits", out[0][1], out[1][1], BF16_TOL)
-    log(f"[phase 3] granite-3-8b width, 2 layers, "
+    log(f"[{label}] {arch} width, 2 layers, "
         f"{'int8' if quant else 'bf16'} caches: prefill logits max_abs_err="
         f"{e1:.3e}, decode logits max_abs_err={e2:.3e} (kernels vs plain); "
         "no host sync in the kernel pass")
 
 
-def dense_wiring():
-    """Full-width granite, 2 layers, phase 9's dense layout (4 clients x 2
-    slots, max_seq 512): a per-client prefill into each client's first
-    slot, then one masked decode tick over the 8 slot rows with the first
-    slots active, with the kernels and under plain_kernels(). Logits must
-    agree at bf16 tolerance; the kernel pass must launch the dense kernel
-    2 per layer in the tick and SGMV 2 per layer per call, the plain pass
-    nothing."""
-    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2)
+def dense_wiring(arch=GRANITE, acfg=LORA, label="phase 3"):
+    """Full-width ``arch`` (granite-3-8b), 2 layers, phase 9's dense layout
+    (4 clients x 2 slots, max_seq 512), LoRA ``acfg``: a per-client prefill
+    into each client's first slot, then one masked decode tick over the 8
+    slot rows with the first slots active, with the kernels and under
+    plain_kernels(). Logits must agree at bf16 tolerance; the kernel pass
+    must launch the dense kernel 2 per layer in the tick and SGMV
+    ``p13_sgmv_per_call`` times per call (2 per layer for q and v), the
+    plain pass nothing."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     C, max_b, max_seq, L = 4, 2, 512, cfg.n_layers
+    per_call = p13_sgmv_per_call(cfg, acfg)
     scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=0)
-    base, bank = make_system(cfg, C, seed=1)
+    base, bank = make_system(cfg, C, seed=1, acfg=acfg)
     rng = np.random.default_rng(5)
     lengths = rng.integers(64, 257, C).astype(np.int32)
     toks = np.zeros((C, max_b, 256), np.int32)
@@ -791,8 +850,8 @@ def dense_wiring():
     slot_mask = torch.tensor([True, False], device=DEV)
     active = torch.zeros((C, max_b), dtype=torch.bool, device=DEV)
     active[:, 0] = True
-    prefill = symbiosis.make_client_prefill(cfg, LORA, scfg)
-    decode = symbiosis.make_masked_decode_step(cfg, LORA, scfg)
+    prefill = symbiosis.make_client_prefill(cfg, acfg, scfg)
+    decode = symbiosis.make_masked_decode_step(cfg, acfg, scfg)
     out, nxt = [], None
     for plain in (False, True):
         caches = symbiosis.init_client_caches(cfg, C, max_b, max_seq,
@@ -816,18 +875,18 @@ def dense_wiring():
         torch.cuda.synchronize()
         want = {n: 0 for n in KERNELS}
         if not plain:
-            want.update(decode_attn=2 * L, sgmv=2 * L * (C + 1))
+            want.update(decode_attn=2 * L, sgmv=per_call * (C + 1))
         if read_counts() != want:
-            raise AssertionError(f"[phase 3] dense tick launches "
+            raise AssertionError(f"[{label}] dense tick launches "
                                  f"{read_counts()}, want {want}")
         out.append((lg1, lg2[:, 0]))
     e1 = compare("dense prefill logits", out[0][0], out[1][0], BF16_TOL)
     e2 = compare("dense decode logits", out[0][1], out[1][1], BF16_TOL)
-    log(f"[phase 3] granite-3-8b width, 2 layers, dense caches [L, C, B, T, "
-        f"K, hd] = {list(caches['layers']['k'].shape)}: per-client prefill "
+    log(f"[{label}] {arch} width, 2 layers, dense caches [L, C, B, T, K, "
+        f"hd] = {list(caches['layers']['k'].shape)}: per-client prefill "
         f"logits max_abs_err={e1:.3e}, masked decode logits (4 of 8 slots "
         f"active) max_abs_err={e2:.3e} (kernels vs plain; decode_attn "
-        f"{2 * L}, sgmv {2 * L * (C + 1)} launches in the kernel pass)")
+        f"{2 * L}, sgmv {per_call * (C + 1)} launches in the kernel pass)")
 
 
 def _timed(fn, bucket):
@@ -859,19 +918,30 @@ def serve_spec(cfg, quant):
                       serve=scfg, max_batch_per_client=2)
 
 
-def drive(eng, reqs, label, attn_name, idle_name):
+def drive(eng, reqs, label, attn_name, idle_name, sgmv_per_call=None,
+          groups=None):
     """Serve ``reqs`` to completion with every launch count set to 0 just
     before and read just after; per tick, the attention kernel
     ``attn_name`` must launch once per layer and decode tick, ``idle_name``
-    never, and SGMV twice per layer and decode tick or prefill batch.
-    Returns the counts and the timings."""
+    never, and SGMV ``sgmv_per_call`` times (default twice per layer: q
+    and v) per decode tick or prefill batch. ``groups``, a list, collects
+    the requests each compacted prefill carried. Returns the counts and
+    the timings."""
     L = eng.cfg.n_layers
+    sgmv_per_call = 2 * L if sgmv_per_call is None else sgmv_per_call
     attn, idle, sgmv = (KERNELS[n][0] for n in (attn_name, idle_name, "sgmv"))
     for r in reqs:
         eng.submit(r)
     pre_t, dec_t, tick_t, step_t = [], [], [], []
     eng._prefill_step = _timed(eng._prefill_step, pre_t)
     eng._decode_step = _timed(eng._decode_step, dec_t)
+    if groups is not None:
+        compact = eng._prefill_compact
+
+        def record(newly):
+            groups.append([req for req, _ in newly])
+            return compact(newly)
+        eng._prefill_compact = record
     torch.cuda.synchronize()
     reset_counts()
     per_tick = TICK_LAUNCHES[label] = []
@@ -891,7 +961,8 @@ def drive(eng, reqs, label, attn_name, idle_name):
                                    eng.stats["compact_prefill_batches"]),
                                   before))
         per_tick.append((d_at, d_idle, d_sg))
-        if d_at != L * d_tick or d_idle or d_sg != 2 * L * (d_tick + d_pre):
+        if d_at != L * d_tick or d_idle \
+                or d_sg != sgmv_per_call * (d_tick + d_pre):
             raise AssertionError(
                 f"[{label}] tick {eng._tick}: {d_at} {attn_name}, "
                 f"{d_idle} {idle_name} and {d_sg} SGMV launches for "
@@ -1293,7 +1364,8 @@ def sdpa_over_pages(q, k, v, tbl, pos, dequant=None):
     return out.reshape(B, K, G, hd)
 
 
-def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes):
+def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes,
+                   phase="phase 5"):
     """Kernel L2-cold and L2-warm, its device time with the host's enqueue
     hidden (``device_ms``), plain version and library yardstick, and
     the byte bound: ``pool_bytes`` (the live tokens' pool bytes), plus q
@@ -1311,7 +1383,7 @@ def time_attention(label, kernel, plain, library, q, tbl, pos, pool_bytes):
     nbytes = (2 * q.numel() * 2 + pool_bytes(tokens) + tbl.numel() * 4
               + pos.numel() * 4)
     bound_ms, by = bound(nbytes, 4 * tokens * K * G * hd)
-    log(f"[phase 5] {label} B={B} K={K} G={G} hd={hd}, {tokens} live "
+    log(f"[{phase}] {label} B={B} K={K} G={G} hd={hd}, {tokens} live "
         f"tokens, L2-cold: kernel {ms:.4f} ms (L2-warm {warm_ms:.4f}; device "
         f"time, enqueue hidden, {dev_ms:.4f}{aim_note(label, dev_ms)}), "
         f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (differs by "
@@ -2807,11 +2879,12 @@ def p9_spec(cfg, page_block, quant=False, policy="opportunistic"):
         spec.serve, page_block=page_block, policy=policy))
 
 
-def p9_serve(cfg, base, bank, spec, label, attn, **engine_kw):
+def p9_serve(cfg, base, bank, spec, label, attn, sgmv_per_call=None,
+             **engine_kw):
     """Serve phase 4's requests on ``spec`` with the launch
     counts checked tick by tick: per decode tick each ``attn`` kernel its
-    count per layer, SGMV twice per layer per decode tick or prefill call,
-    every other counted kernel 0. Records each request's top-2
+    count per layer, SGMV ``sgmv_per_call`` times (default twice per
+    layer) per decode tick or prefill call, every other counted kernel 0. Records each request's top-2
     logit gap per step and the requests each ragged per-client prefill
     carried. Returns (requests, engine, gaps, ragged groups, launches,
     decode-step ms)."""
@@ -2847,7 +2920,8 @@ def p9_serve(cfg, base, bank, spec, label, attn, **engine_kw):
         d_tick = eng.stats["ticks"] - before[1]
         d_pre = eng.stats["prefill_calls"] - before[2]
         want = {n: attn.get(n, 0) * L * d_tick for n in d}
-        want["sgmv"] = 2 * L * (d_tick + d_pre)
+        want["sgmv"] = (2 * L if sgmv_per_call is None else sgmv_per_call) \
+            * (d_tick + d_pre)
         if d != want:
             raise AssertionError(
                 f"[{label}] tick {eng._tick}: launches {d} for {d_tick} "
@@ -4383,6 +4457,417 @@ def phase12(cfg, base, bank, streams4, streams4b):
     log(f"[phase 12e] done ({time.perf_counter() - t:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the MoE and VLM families on the serving path
+# ---------------------------------------------------------------------------
+
+P13_LORA = AdapterConfig(method="lora", rank=8, alpha=16.0,
+                         targets=("q", "v", "router"))
+P13_TEXT = 64            # 13c's text prompt after the image prefix
+P13_DECODE = 8           # 13c's decode steps
+P13_WITNESS = 2          # 13c's decode steps at 32 layers, kernels vs plain
+
+
+def p13_sgmv_per_call(cfg, acfg):
+    """SGMV launches per decode tick or prefill call: one per layer for
+    each targeted attention projection and, with ``router``, one per MoE
+    layer (the layers from ``first_dense_layers`` on)."""
+    attn = sum(t in ("q", "k", "v", "o") for t in acfg.targets)
+    n_moe = (cfg.n_layers - cfg.first_dense_layers
+             if cfg.n_experts and cfg.is_moe_layer(cfg.first_dense_layers)
+             else 0)
+    return attn * cfg.n_layers + ("router" in acfg.targets) * n_moe
+
+
+def p13_spec(cfg, page_block=16, quant=False, acfg=P13_LORA):
+    """Phase 4's serving spec (4 clients x 2 slots, max_seq 512) for
+    ``cfg`` with the LoRA bank ``acfg``."""
+    spec = serve_spec(cfg, quant)
+    return dataclasses.replace(
+        spec, banks=(BankSpec("tenants", acfg, 4),),
+        serve=dataclasses.replace(spec.serve, page_block=page_block))
+
+
+def p13_served(eng, reqs, label, attn, idle, per_call, groups=None):
+    """``drive`` with the peak device memory the run adds beyond what was
+    allocated before it (base, bank, the engine's caches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    launches, times = drive(eng, reqs, label, attn, idle,
+                            sgmv_per_call=per_call, groups=groups)
+    times["peak_gb"] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    log(f"[{label}] peak memory beyond base, bank and caches "
+        f"({before / 1e9:.2f} GB): {times['peak_gb']:.3f} GB")
+    return launches, times
+
+
+def p13_alone(cfg, base, bank, spec, reqs, groups, label):
+    """Phase 9's rule on the compacted path: every stream bit for bit equal
+    to it served alone by a fresh engine of ``spec``, or, for a request
+    whose compacted prefill carried others (expert buffers of that batch's
+    size), to that batch served alone; a group's requests are also
+    printed against their own solo runs."""
+    in_group = {}
+    for g in groups:
+        if len(g) > 1:
+            for r, got in zip(g, p9_alone(cfg, base, bank, spec, g)):
+                in_group[id(r)] = got
+    solo = [p9_alone(cfg, base, bank, spec, [r])[0] for r in reqs]
+    for i, r in enumerate(reqs):
+        want = in_group.get(id(r), solo[i])
+        d = first_diff(r.generated, want)
+        if d is not None:
+            raise AssertionError(
+                f"[{label}] request {i}'s stream differs from it served "
+                f"alone ({'its prefill batch' if id(r) in in_group else 'solo'})"
+                f" at step {d}")
+        if id(r) in in_group and first_diff(r.generated, solo[i]) is not None:
+            log(f"[{label}]   request {i} differs from its own solo run at "
+                f"step {first_diff(r.generated, solo[i])} (its prefill "
+                "batch's expert buffers are larger)")
+    log(f"[{label}] every stream equals its run alone on a fresh engine, "
+        f"bit for bit ({len(in_group)} of them against the prefill batch "
+        f"that carried them; prefill batches {[len(g) for g in groups]})")
+
+
+def p13_vs(label, reqs, streams, what):
+    same = sum(first_diff(r.generated, s) is None
+               for r, s in zip(reqs, streams))
+    firsts = [first_diff(r.generated, s) for r, s in zip(reqs, streams)]
+    log(f"[{label}] {same} of {len(reqs)} streams equal {what} (first "
+        f"differing step per request: {firsts})")
+
+
+def phase13a(cfg, base, bank):
+    """deepseek-moe-16b behind the engine: pages (tick-checked launches,
+    streams against runs alone), 2-layer wiring on pages and on the dense
+    layout, int8 pages, dense."""
+    L, per_call = cfg.n_layers, p13_sgmv_per_call(cfg, P13_LORA)
+    spec = p13_spec(cfg)
+    warm_up(spec, base, bank)
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    reqs = make_requests(cfg, 4)
+    groups = []
+    launches, times = p13_served(eng, reqs, "phase 13a", "paged_decode_attn",
+                                 "paged_decode_attn_quant", per_call, groups)
+    log(f"[phase 13a] launches checked tick by tick: paged_decode_attn {L} "
+        f"and sgmv {per_call} (q and v on {L} layers, the router on "
+        f"{per_call - 2 * L} MoE layers) per decode tick, sgmv {per_call} "
+        "per prefill batch")
+    streams = [r.generated.copy() for r in reqs]
+    lengths = [r.prompt.shape[1] for r in reqs]
+    caches = eng.caches
+    del eng
+    p13_alone(cfg, base, bank, spec, reqs, groups, "phase 13a")
+    torch.cuda.empty_cache()
+
+    model_wiring(False, arch=DEEPSEEK, acfg=P13_LORA, label="phase 13a")
+    dense_wiring(arch=DEEPSEEK, acfg=P13_LORA, label="phase 13a")
+    torch.cuda.empty_cache()
+
+    spec_q = p13_spec(cfg, quant=True)
+    warm_up(spec_q, base, bank)
+    eng = ServingEngine(spec_q, base, [bank], device=DEV)
+    reqs_q = make_requests(cfg, 4)
+    p13_served(eng, reqs_q, "phase 13a int8", "paged_decode_attn_quant",
+               "paged_decode_attn", per_call)
+    p13_vs("phase 13a int8", reqs_q, streams, "the bf16 pages' stream")
+    del eng
+    torch.cuda.empty_cache()
+
+    spec_d = p13_spec(cfg, page_block=0)
+    warm_up(spec_d, base, bank)
+    reqs_d, eng, _, _, l_d, dec_d = p9_serve(
+        cfg, base, bank, spec_d, "phase 13a dense", {"decode_attn": 2},
+        sgmv_per_call=per_call)
+    log(f"[phase 13a dense] kv=dense [L, C, B, T, K, hd] = "
+        f"{list(eng.caches['layers']['k'].shape)}: {eng.stats['ticks']} "
+        f"masked decode ticks, launches {l_d} (checked tick by tick: "
+        f"decode_attn 2 x {L} per decode tick, sgmv {per_call} per decode "
+        f"tick and per prefill call); decode-step ms "
+        f"{statistics.median(dec_d) * 1e3:.3f} (median)")
+    p13_vs("phase 13a dense", reqs_d, streams, "the bf16 pages' stream")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, times, caches, lengths
+
+
+def p13_router_sgmv(bank, layer):
+    """The router's LoRA delta at decode: 8 fp32 rows (the hidden state
+    the router reads), one MoE layer's A [C, 2048, 8] / B [C, 8, 64] in
+    fp32 (the bank's bf16 cast, as ``apply_adapter_rows`` casts them),
+    block_t 1."""
+    A = bank["layers"]["router"]["A"].transpose(0, 1)[layer].float()
+    Bw = bank["layers"]["router"]["B"].transpose(0, 1)[layer].float()
+    n, din, r = A.shape
+    dout = Bw.shape[-1]
+    x = torch.randn((8, din), generator=gen(16), device=DEV)
+    ids = torch.arange(8, device=DEV, dtype=torch.int32) % n
+    scale = P13_LORA.alpha / P13_LORA.rank
+
+    def kernel():
+        return sg.sgmv_cuda(x, A, Bw, ids, block_t=1, scale=scale)
+
+    def library():
+        h = torch.bmm(x[:, None, :], A[ids.long()])
+        return torch.bmm(h, Bw[ids.long()])[:, 0] * scale
+
+    err = compare("sgmv router shape (kernel vs plain)", kernel(),
+                  sg.sgmv_plain(x, A, Bw, ids, block_t=1, scale=scale),
+                  F32_TOL)
+    lib_err = float((kernel() - library()).abs().max())
+    ms, warm_ms, dev_ms = (time_ms(kernel), time_ms(kernel, l2_cold=False),
+                           device_ms(kernel))
+    plain_ms = time_ms(lambda: sg.sgmv_plain(x, A, Bw, ids, block_t=1,
+                                             scale=scale), n=20)
+    lib_ms = time_ms(library)
+    nbytes = 8 * din * 4 + n * (din * r + r * dout) * 4 + 8 * 4 + 8 * dout * 4
+    bound_ms, by = bound(nbytes, 2 * 8 * r * (din + dout))
+    log(f"[phase 13b] sgmv router T=8 block_t=1 din={din} r={r} dout={dout} "
+        f"fp32 (max_abs_err {err:.3e} vs plain), L2-cold: kernel {ms:.4f} ms "
+        f"(L2-warm {warm_ms:.4f}; device time, enqueue hidden, "
+        f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, gather+bmm {lib_ms:.4f} ms "
+        f"(differs by {lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, "
+        f"{nbytes} B)")
+
+
+def phase13b(cfg, base, bank, caches, lengths, times_a):
+    """One 8-row decode tick timed and traced; the expert products against
+    their byte bound; the compacted prefill of phase 4's 8 prompts in one
+    batch, its time and peak memory; the two new kernel shapes timed."""
+    spec = p13_spec(cfg)
+    t13 = profile_tick(cfg, base, [bank], spec, "phase 13b")
+    moe_layers = [p["moe"] for p in base["layers"] if "moe" in p]
+    E, d = cfg.n_experts, cfg.d_model
+    xe = torch.randn((E, 8, d), generator=gen(17), device=DEV) \
+        .to(getattr(torch, cfg.dtype))
+
+    def experts():
+        for p in moe_layers:
+            moe_lib._expert_ffn(p, xe, blocks.DEFAULT_LIN, "")
+    ms = time_ms(experts, n=10)
+    wbytes = sum(t.numel() * t.element_size() for p in moe_layers
+                 for t in p["experts"].values())
+    bound_ms = wbytes / H100.hbm_bandwidth * 1e3
+    log(f"[phase 13b] routed experts of one decode tick (drop-free: every "
+        f"expert runs on a capacity buffer of 8 rows), {len(moe_layers)} MoE "
+        f"layers x 3 bmm: {ms:.3f} ms device time (CUDA events, L2-cold) "
+        f"against the byte bound {bound_ms:.3f} ms ({wbytes / 1e9:.2f} GB of "
+        f"expert weights at {H100.hbm_bandwidth / 1e12:.2f} TB/s): "
+        f"{100 * bound_ms / ms:.1f}% of the rate; the tick "
+        f"{t13['tick8_ms']:.3f} ms")
+
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    reqs = make_requests(cfg, 4)
+    pre_t = []
+    eng._prefill_step = _timed(eng._prefill_step, pre_t)
+    for r in reqs:
+        r.arrive_tick = 0
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    eng.service_tick()
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    st = eng.stats
+    if st["compact_prefill_batches"] != 1 or st["compact_prefill_rows"] != 8:
+        raise AssertionError(f"[phase 13b] the 8 prompts took "
+                             f"{st['compact_prefill_batches']} prefill batches")
+    S_pad = eng._bucket(max(lengths))
+    log(f"[phase 13b] compacted prefill of phase 4's 8 prompts in one batch "
+        f"({sum(lengths)} prompt tokens, 8 rows x {S_pad} = {8 * S_pad} with "
+        f"padding; expert buffers of {8 * S_pad} rows each): "
+        f"{pre_t[0] * 1e3:.2f} ms, peak memory beyond base, bank and caches "
+        f"{peak:.3f} GB (13a's staggered prefills: "
+        f"{times_a['peak_gb']:.3f} GB)")
+    del eng
+    torch.cuda.empty_cache()
+
+    q, pools, tbl, pos = attn_rows(cfg, caches, lengths)
+    pk, pv = pools["k"], pools["v"]
+    _, blk, K, hd = pk.shape
+    got = da.paged_decode_attn_cuda(q, pk, pv, tbl, pos)
+    err = compare("paged_decode_attn G=1 (kernel vs plain)", got,
+                  da.paged_decode_attn_plain(q.float(), pk.float(),
+                                             pv.float(), tbl, pos), BF16_TOL)
+    log(f"[phase 13b] paged_decode_attn at G=1 over 13a's pool "
+        f"({pk.shape[0]} pages): max_abs_err {err:.3e} vs plain")
+    time_attention(
+        "paged_decode_attn G=1",
+        lambda: da.paged_decode_attn_cuda(q, pk, pv, tbl, pos),
+        lambda: da.paged_decode_attn_plain(q, pk, pv, tbl, pos),
+        lambda: sdpa_over_pages(q, pk, pv, tbl, pos), q, tbl, pos,
+        lambda tokens: 2 * tokens * K * hd * 2, phase="phase 13b")
+    p13_router_sgmv(bank, cfg.first_dense_layers)
+
+
+def p13_image_run(cfg, base, bank, plain, feed=None, steps=P13_DECODE):
+    """A client prefill of a ``frontend_stub`` image prefix and a text
+    prompt, then ``steps`` greedy decode steps (``feed``: the tokens to
+    decode instead), with the kernels (no host sync; launches checked) or
+    under ``plain_kernels()``. Returns (logits [steps + 1, 1, V], fed
+    tokens)."""
+    L, Ti = cfg.n_layers, cfg.n_frontend_tokens
+    img = frontend_stub(cfg, 1, 1, generator=gen(14), device=DEV)[
+        "img_embed"][0]                                  # [1, Ti, d]
+    rng = np.random.default_rng(15)
+    text = torch.tensor(rng.integers(0, cfg.vocab, (1, P13_TEXT)),
+                        dtype=torch.int32, device=DEV)
+    lengths = torch.tensor([P13_TEXT], dtype=torch.int32, device=DEV)
+    rows = torch.tensor([1], dtype=torch.int32, device=DEV)   # client 1
+    ctx = make_compact_ctx(cfg, LORA, rows)
+    adapter = adapters.compact_adapter_bank(bank, rows)
+    model = get_model(cfg)
+    cache = model.init_cache(1, Ti + P13_TEXT + steps + 8,
+                             page_block=16, device=DEV)
+    fed = [] if feed is None else [torch.tensor([t], dtype=torch.int32,
+                                                device=DEV) for t in feed]
+    torch.cuda.synchronize()
+    reset_counts()
+    lgs = []
+    with blocks.plain_kernels() if plain else no_host_sync():
+        lg, cache = model.prefill(base, {"tokens": text, "img_embed": img},
+                                  cache, ctx, adapter, lengths=lengths)
+        lgs.append(lg)
+        for step in range(steps):
+            if feed is None:
+                fed.append(lg.argmax(-1).to(torch.int32))
+            lg, cache = model.decode_step(base, cache, fed[step], ctx,
+                                          adapter)
+            lgs.append(lg)
+    torch.cuda.synchronize()
+    want = {n: 0 for n in KERNELS}
+    if not plain:
+        want.update(paged_decode_attn=L * steps, sgmv=2 * L * (steps + 1))
+    if read_counts() != want:
+        raise AssertionError(f"[phase 13c] launches {read_counts()}, want "
+                             f"{want}")
+    out = torch.stack(lgs)
+    if int(cache["pos"][0]) != Ti + P13_TEXT + steps \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"[phase 13c] pos {cache['pos']}, or "
+                             "non-finite logits")
+    return out, [int(t[0]) for t in fed]
+
+
+def bf16_ulps(got, want):
+    """|got - want| in units of the bf16 spacing at max(|got|, |want|)
+    (8 significant bits: 2^(e - 8) for a magnitude in [2^(e-1), 2^e))."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    return (got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)
+
+
+def p13_image_prefill(cfg, base, bank):
+    """The image-prefix client prefill and decode at full depth, with the
+    kernels (finite, positions, launches) and under ``plain_kernels()``
+    (fed the kernel pass's tokens; ``P13_WITNESS`` decode steps, as the
+    plain paged attention steps page by page). In bf16 the two passes'
+    roundings drift apart past the bf16 tolerance over 32 layers: their
+    gap is printed in bf16 ulps of the logits, and the same pair in fp32
+    must agree at 1e-5 (the witness that the gap is rounding, not a
+    kernel error). Then at full width and 2 layers in bf16 at bf16
+    tolerance, as phase 3 compares granite."""
+    L, Ti, n = cfg.n_layers, cfg.n_frontend_tokens, P13_WITNESS
+    full, toks = p13_image_run(cfg, base, bank, plain=False)
+    log(f"[phase 13c] {cfg.name}, {L} layers: client prefill of a {Ti}-token "
+        f"image prefix + {P13_TEXT} text tokens, then {P13_DECODE} decode "
+        f"steps (pos {Ti + P13_TEXT + P13_DECODE}): finite, tokens {toks}; "
+        f"paged {L} and sgmv {2 * L} launches per step, no host sync")
+    full = full[:n + 1]
+    plain, _ = p13_image_run(cfg, base, bank, plain=True, feed=toks, steps=n)
+    gap, ulps = (full.float() - plain.float()).abs(), bf16_ulps(full, plain)
+    at = int(gap.argmax())
+    log(f"[phase 13c] {L} layers bf16, prefill + {n} steps, kernels vs "
+        f"plain: logits max_abs_err {float(gap.max()):.3e} at a logit of "
+        f"{float(plain.flatten()[at]):.3f} ({float(ulps.flatten()[at]):.0f} "
+        f"bf16 ulps there); at most "
+        f"{float(ulps.max()):.0f} ulps, {float((ulps > 1).float().mean()):.2e}"
+        f" of logits more than 1 ulp apart; |logits| <= "
+        f"{float(plain.float().abs().max()):.2f}")
+    del full, plain, gap, ulps
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    base32 = tree_map(lambda t: t.float(), base)
+    bank32 = tree_map(lambda t: t.float(), bank)
+    got, toks32 = p13_image_run(cfg32, base32, bank32, plain=False, steps=n)
+    want, _ = p13_image_run(cfg32, base32, bank32, plain=True, feed=toks32,
+                            steps=n)
+    e = compare(f"llava image-prefix prefill + decode logits ({L} layers, "
+                "fp32)", got, want, F32_TOL)
+    log(f"[phase 13c] {L} layers fp32, prefill + {n} steps, kernels vs "
+        f"plain: logits max_abs_err {e:.3e} at {F32_TOL}")
+    del base32, bank32, got, want
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    base2 = dict(base, layers=base["layers"][:2])
+    bank2 = tree_map(lambda t: t[:, :2], bank)
+    got, toks2 = p13_image_run(cfg2, base2, bank2, plain=False)
+    want, _ = p13_image_run(cfg2, base2, bank2, plain=True, feed=toks2)
+    e = compare("llava image-prefix prefill + decode logits (2 layers)", got,
+                want, BF16_TOL)
+    log(f"[phase 13c] the same at 2 layers: logits max_abs_err {e:.3e} "
+        "(kernels vs plain)")
+
+
+def phase13c():
+    """llava-next-mistral-7b at full width and depth: the image-prefix
+    client prefill, then the engine on phase 4's 8 text requests (its text
+    backbone, as JAX's engine serves a VLM)."""
+    cfg = get_config("llava-next-mistral-7b")
+    t0 = time.perf_counter()
+    base, bank = make_system(cfg, 4, seed=13)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(base))
+    log(f"[phase 13c] {cfg.name}: {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.2f} B params bf16 initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    p13_image_prefill(cfg, base, bank)
+    torch.cuda.empty_cache()
+    spec = p13_spec(cfg, acfg=LORA)
+    warm_up(spec, base, bank)
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    p13_served(eng, make_requests(cfg, 4), "phase 13c", "paged_decode_attn",
+               "paged_decode_attn_quant", 2 * cfg.n_layers)
+
+
+def free_device():
+    """Collect the engines' reference cycles (an engine whose steps were
+    wrapped for timing refers to itself), which hold base tensors until
+    the cyclic collector runs, then give the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 13] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+
+def phase13():
+    """The MoE and VLM families on the serving path: deepseek-moe-16b at
+    full width and depth (13a, 13b), then llava-next-mistral-7b (13c)."""
+    cfg = get_config("deepseek-moe-16b")
+    t0 = time.perf_counter()
+    base, bank = make_system(cfg, 4, seed=12, acfg=P13_LORA)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(base))
+    log(f"[phase 13a] {cfg.name}: {cfg.n_layers} layers (layer 0 dense, "
+        f"{cfg.n_experts} routed experts top-{cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared after it), "
+        f"{n_params / 1e9:.2f} B params bf16 initialised in "
+        f"{time.perf_counter() - t0:.1f} s; LoRA r8 on q, v and the router")
+    t = time.perf_counter()
+    launches, times, caches, lengths = phase13a(cfg, base, bank)
+    log(f"[phase 13a] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase13b(cfg, base, bank, caches, lengths, times)
+    log(f"[phase 13b] done ({time.perf_counter() - t:.1f} s)")
+    del base, bank, caches
+    free_device()
+    t = time.perf_counter()
+    phase13c()
+    log(f"[phase 13c] done ({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4479,7 +4964,13 @@ def main() -> int:
 
     t = time.perf_counter()
     phase12(cfg, base, bank, streams4, streams4b)
-    log(f"[phase 12] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 12] done ({time.perf_counter() - t:.1f} s)")
+    del base, bank
+    free_device()
+
+    t = time.perf_counter()
+    phase13()
+    log(f"[phase 13] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's

@@ -2,10 +2,11 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-dense serving paths (LoRA, IA3 and prefix banks) and its fine-tuning
-service (the same three methods) read. The port keeps its own copy so that
-it imports nothing of the JAX package; the fields it keeps have the same
-names and defaults, so a dense config describes the same model in both.
+serving paths (the dense, MoE and VLM families; LoRA, IA3 and prefix banks)
+and its fine-tuning service (the dense family, the same three methods)
+read. The port keeps its own copy so that it imports nothing of the JAX
+package; the fields it keeps have the same names and defaults, so a config
+describes the same model in both.
 """
 from __future__ import annotations
 
@@ -14,9 +15,23 @@ from dataclasses import dataclass
 from typing import Sequence
 
 
-# Architecture family. The port serves the dense family only; a config of
-# any other family is refused where a model or engine is built.
+# Architecture families. The port serves the pure-KV ones and fine-tunes
+# the dense one; a config of any other family (recurrent, hybrid,
+# encoder-decoder) is refused where a model or engine is built.
 DENSE = "dense"
+MOE = "moe"
+VLM = "vlm"        # LLaVA backbone (dense + patch-embedding frontend stub)
+FAMILIES = (DENSE, MOE, VLM)
+TRAIN_FAMILIES = (DENSE,)
+
+
+def check_family(cfg: "ModelConfig", families=FAMILIES, what="serves"):
+    """Refuse ``cfg`` unless its family is one of ``families``, which the
+    port ``what`` (serves, fine-tunes)."""
+    if cfg.arch not in families:
+        raise ValueError(f"{cfg.name} is of the {cfg.arch!r} family: not "
+                         f"ported yet; the port {what} the "
+                         f"{'/'.join(families)} families")
 
 
 @dataclass(frozen=True)
@@ -34,6 +49,17 @@ class ModelConfig:
     qk_norm: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_expert: int = 0                 # per-expert hidden dim; 0 -> d_ff
+    moe_every: int = 1                # MoE FFN where layer % moe_every == moe_offset
+    moe_offset: int = 0
+    first_dense_layers: int = 0       # DeepSeek-MoE: first layer(s) dense
+    dense_residual: bool = False      # Arctic: dense FFN in parallel with MoE
+    # --- VLM ---
+    n_frontend_tokens: int = 0        # image patch tokens (stubbed frontend)
     sliding_window: int = 0           # 0 -> full attention
     # --- dtypes ---
     dtype: str = "bfloat16"           # activations
@@ -53,18 +79,39 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.hp // self.n_kv_heads
 
+    @property
+    def ffn_hidden(self) -> int:
+        return self.d_expert or self.d_ff
+
+    def is_moe_layer(self, layer: int) -> bool:
+        if self.n_experts == 0:
+            return False
+        return layer % self.moe_every == self.moe_offset
+
     def reduced(self, n_layers: int = 2, d_model: int = 256,
-                vocab: int = 512) -> "ModelConfig":
-        """Tiny same-family variant for CPU smoke runs (dense families)."""
+                n_experts: int = 4, vocab: int = 512) -> "ModelConfig":
+        """Tiny same-family variant for CPU smoke runs."""
         heads = max(1, min(self.n_heads, d_model // 64))
         kv = max(1, min(self.n_kv_heads, heads))
         while heads % kv:
             kv -= 1
-        return dataclasses.replace(
-            self, name=self.name + "-smoke", n_layers=n_layers,
+        changes = dict(
+            name=self.name + "-smoke", n_layers=n_layers,
             d_model=d_model, n_heads=heads, n_kv_heads=kv,
             head_dim=64 if self.head_dim else 0, d_ff=d_model * 3,
             vocab=vocab, dtype="float32", param_dtype="float32")
+        if self.n_experts:
+            changes.update(
+                n_experts=min(self.n_experts, n_experts),
+                top_k=min(self.top_k, 2),
+                n_shared_experts=min(self.n_shared_experts, 1),
+                d_expert=(d_model // 2) if self.d_expert else 0,
+                moe_every=self.moe_every,
+                moe_offset=min(self.moe_offset, n_layers - 1),
+                first_dense_layers=min(self.first_dense_layers, 1))
+        if self.arch == VLM:
+            changes.update(n_frontend_tokens=16)
+        return dataclasses.replace(self, **changes)
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,10 @@
-"""Dense model configs served by the PyTorch port.
+"""Model configs served by the PyTorch port.
 
 ``get_config(arch_id)`` resolves the ``--arch`` CLI flag, as
-``repro.configs.get_config`` does, limited to the dense family; every
-config cites its source in ``CONFIG.source``.
+``repro.configs.get_config`` does, limited to the families the port serves
+(dense, MoE and VLM); every config cites its source in ``CONFIG.source``.
+arctic-480b (about 960 GB in bf16) fits no single card: it is registered
+for its ``reduced()`` variant.
 """
 from __future__ import annotations
 
@@ -10,12 +12,15 @@ import importlib
 
 from repro_torch.config import ModelConfig
 
-# arch-id -> module name (dense configs only)
+# arch-id -> module name (dense, MoE and VLM configs)
 ARCHS = {
     "granite-3-8b": "granite_3_8b",
     "command-r-35b": "command_r_35b",
     "stablelm-12b": "stablelm_12b",
     "qwen3-4b": "qwen3_4b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "arctic-480b": "arctic_480b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "symbiosis-llama2-13b": "symbiosis_llama2_13b",
     "gemma2-27b": "gemma2_27b",
     "starcoder2-15b": "starcoder2_15b",
@@ -24,7 +29,7 @@ ARCHS = {
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCHS:
-        raise KeyError(f"unknown or non-dense arch {arch_id!r}; the port "
+        raise KeyError(f"unknown or unported arch {arch_id!r}; the port "
                        f"serves: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch_id]}")
     return mod.CONFIG

@@ -5,7 +5,15 @@ nothing here imports JAX. Layouts:
 
 * base params: the JAX tree stacks layers on a leading [L] axis
   (``layers.attn.wq`` [L, d, H*hd], ...); the port keeps a list with one
-  dict per layer. Every other leaf keeps its shape ([din, dout] linears).
+  dict per layer. Every other leaf keeps its shape ([din, dout] linears,
+  [E, din, dout] expert stacks).
+* the MoE family's first ``cfg.first_dense_layers`` layers: JAX keeps them
+  apart, in a ``pre_layers`` list beside the [L - n_pre] stack, in the
+  params, adapter banks and caches alike; the port puts them first on its
+  one layer axis (the layer list, the banks' [L] axis, the caches' [L]
+  axis — one fused page pool over all L layers, so page copies, prefix
+  sharing and ``engine_state`` cover them as they stand). The ``to_numpy``
+  functions split them off again when given the config.
 * adapter banks: ``{"layers": {path: {"A": [C, L, din, r], "B": [C, L, r,
   dout]}}}`` (LoRA), ``{"layers": {path: {"scale": [C, L, n]}}}`` (IA3)
   and ``{"layers": {"prefix_k", "prefix_v": [C, L, n_prefix, K, hd]}}``
@@ -54,40 +62,84 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _zip(fn, trees):
+    """``fn`` over the matching leaves of trees of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _zip(fn, [t[k] for t in trees]) for k in trees[0]}
+    return fn(*trees)
+
+
+def _n_pre(cfg) -> int:
+    return 0 if cfg is None else cfg.first_dense_layers
+
+
 def params_from_numpy(cfg, tree, device):
-    """JAX base params (numpy leaves) -> the port's per-layer structure."""
+    """JAX base params (numpy leaves) -> the port's per-layer structure,
+    JAX's ``pre_layers`` first."""
     out = {k: _map(lambda a: tensor_from_numpy(a, device), v)
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(lambda a, i=i: tensor_from_numpy(a[i], device),
-                          tree["layers"])
-                     for i in range(cfg.n_layers)]
+           for k, v in tree.items() if k not in ("layers", "pre_layers")}
+    pre = [_map(lambda a: tensor_from_numpy(a, device), layer)
+           for layer in tree.get("pre_layers", [])]
+    out["layers"] = pre + [
+        _map(lambda a, i=i: tensor_from_numpy(a[i], device), tree["layers"])
+        for i in range(cfg.n_layers - len(pre))]
     return out
 
 
-def params_to_numpy(params):
-    """Inverse of ``params_from_numpy``: layers stacked back on [L]."""
+def params_to_numpy(params, cfg=None):
+    """Inverse of ``params_from_numpy``: the layers after ``cfg``'s
+    ``first_dense_layers`` stacked back on [L], those before it in
+    ``pre_layers``."""
     out = {k: _map(tensor_to_numpy, v) for k, v in params.items()
            if k != "layers"}
     per = [_map(tensor_to_numpy, layer) for layer in params["layers"]]
+    n_pre = _n_pre(cfg)
+    if n_pre:
+        out["pre_layers"] = per[:n_pre]
+    out["layers"] = _zip(lambda *leaves: np.stack(leaves), per[n_pre:])
+    return out
 
-    def stack(*leaves):
-        return np.stack(leaves)
 
-    def zip_map(trees):
-        if isinstance(trees[0], dict):
-            return {k: zip_map([t[k] for t in trees]) for k in trees[0]}
-        return stack(*trees)
+def _fold_pre(tree, axis: int):
+    """A JAX tree's ``pre_layers`` leaves put first on the layer ``axis``
+    of its ``layers`` leaves (the pre-layer leaf lacks that axis)."""
+    if "pre_layers" not in tree:
+        return tree
+    out = {k: v for k, v in tree.items() if k != "pre_layers"}
+    out["layers"] = _zip(
+        lambda full, *pre: np.concatenate(
+            [np.expand_dims(np.asarray(a), axis) for a in pre]
+            + [np.asarray(full)], axis=axis),
+        [tree["layers"]] + list(tree["pre_layers"]))
+    return out
 
-    out["layers"] = zip_map(per)
+
+def _split_pre(tree, axis: int, n_pre: int):
+    """Inverse of ``_fold_pre`` on numpy leaves."""
+    if not n_pre:
+        return tree
+    out = dict(tree)
+    layers = tree["layers"]
+    out["pre_layers"] = [_map(lambda a, i=i: np.ascontiguousarray(
+        np.take(a, i, axis=axis)), layers) for i in range(n_pre)]
+    out["layers"] = _map(lambda a: np.ascontiguousarray(
+        np.take(a, range(n_pre, a.shape[axis]), axis=axis)), layers)
     return out
 
 
 def bank_from_numpy(acfg, tree, device):
     """Client-stacked LoRA, IA3 or prefix bank (numpy leaves) -> torch,
-    same layout."""
+    same layout; JAX's ``pre_layers`` go first on the [C, L, ...] leaves'
+    layer axis."""
     if acfg.method not in ("lora", "ia3", "prefix"):
         raise ValueError(f"unknown PEFT method {acfg.method!r}")
-    return _map(lambda a: tensor_from_numpy(a, device), tree)
+    return _map(lambda a: tensor_from_numpy(a, device), _fold_pre(tree, 1))
+
+
+def bank_to_numpy(tree, cfg=None):
+    """Inverse of ``bank_from_numpy``: numpy leaves in JAX's layout, the
+    first ``cfg.first_dense_layers`` layers split off as ``pre_layers``."""
+    return _split_pre(_map(tensor_to_numpy, tree), 1, _n_pre(cfg))
 
 
 def _dense_bank(tree) -> bool:
@@ -96,21 +148,26 @@ def _dense_bank(tree) -> bool:
 
 
 def caches_from_numpy(tree, device):
-    """JAX caches (numpy leaves) -> torch: a dense bank's KV leaves from
-    [C, L, ...] to layer-major [L, C, ...] (contiguous), anything else in
-    the same layout."""
-    out = _map(lambda a: tensor_from_numpy(a, device), tree)
-    if _dense_bank(tree):
+    """JAX caches (numpy leaves) -> torch: JAX's ``pre_layers`` first on
+    the layer axis, and a dense bank's KV leaves from [C, L, ...] to
+    layer-major [L, C, ...] (contiguous); anything else in the same
+    layout."""
+    dense_bank = _dense_bank(tree)
+    out = _map(lambda a: tensor_from_numpy(a, device),
+               _fold_pre(tree, 1 if dense_bank else 0))
+    if dense_bank:
         out["layers"] = {n: t.transpose(0, 1).contiguous()
                          for n, t in out["layers"].items()}
     return out
 
 
-def caches_to_numpy(caches):
+def caches_to_numpy(caches, cfg=None):
     """The port's caches -> numpy leaves in JAX's layout, for comparison
-    with JAX (the inverse of ``caches_from_numpy``)."""
+    with JAX (the inverse of ``caches_from_numpy``; give ``cfg`` to split
+    off an MoE model's first dense layers as ``pre_layers``)."""
     out = _map(tensor_to_numpy, caches)
-    if _dense_bank(caches):
+    dense_bank = _dense_bank(caches)
+    if dense_bank:
         out["layers"] = {n: np.ascontiguousarray(np.swapaxes(a, 0, 1))
                          for n, a in out["layers"].items()}
-    return out
+    return _split_pre(out, 1 if dense_bank else 0, _n_pre(cfg))

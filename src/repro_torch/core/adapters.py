@@ -1,5 +1,5 @@
-"""PEFT adapters: LoRA, IA3 and prefix tuning — the dense branch of
-``repro.core.adapters``.
+"""PEFT adapters: LoRA, IA3 and prefix tuning — the pure-KV families'
+branch of ``repro.core.adapters``.
 
 An adapter tree mirrors the model's layer container, one client's leaves
 carrying a leading [L] axis: LoRA ``{"layers": {path: {"A": [L, din, r],
@@ -8,6 +8,18 @@ the output dim, the input dim for ``down``), prefix ``{"layers":
 {"prefix_k", "prefix_v": [L, n_prefix, K, hd]}}``. A client BANK stacks
 clients on a leading axis ([C, L, ...]) — the JAX package's layout, so
 banks cross over through numpy unchanged (``convert.bank_from_numpy``).
+
+An MoE model adds the ``router`` target [d, n_experts] (its input is the
+fp32 hidden state). Every layer carries the same leaves, as JAX's
+``_layer_adapter`` builds them: the router leaf of a dense-FFN layer, and
+the ``gate`` / ``up`` / ``down`` leaves of an MoE layer (whose shared
+experts are ``shared_*`` paths and whose routed experts have no hook), are
+carried and never read. JAX keeps the layers before
+``cfg.first_dense_layers`` in a separate ``pre_layers`` list; the port keeps
+them as the first rows of the one [L] axis, as it keeps the base layers
+and the KV caches (``convert`` carries banks across), so ``compact_*`` and
+``_relay`` need no second container and ``adapter_bytes`` counts the same
+L layers.
 
 Ways to apply an adapter: one client's tree (``apply_adapter`` /
 ``pre_scale``), a compacted serving batch whose rows name their client
@@ -29,13 +41,13 @@ from typing import Dict
 import torch
 
 from repro_torch.common.tree import tree_map
-from repro_torch.config import AdapterConfig, DENSE, ModelConfig
+from repro_torch.config import AdapterConfig, ModelConfig, check_family
 from repro_torch.kernels.sgmv import sgmv
 
 
 def _dense_target_dims(cfg: ModelConfig) -> Dict[str, tuple]:
     hd, d = cfg.hd, cfg.d_model
-    return {
+    dims = {
         "q": (d, cfg.hp * hd),
         "k": (d, cfg.n_kv_heads * hd),
         "v": (d, cfg.n_kv_heads * hd),
@@ -44,6 +56,9 @@ def _dense_target_dims(cfg: ModelConfig) -> Dict[str, tuple]:
         "up": (d, cfg.d_ff),
         "down": (cfg.d_ff, d),
     }
+    if cfg.n_experts:
+        dims["router"] = (d, cfg.n_experts)
+    return dims
 
 
 # Default target sets per PEFT method (what the CLI hands to jobs that do
@@ -59,9 +74,7 @@ DEFAULT_TARGETS = {
 
 def resolve_targets(cfg: ModelConfig, acfg: AdapterConfig):
     """[(path, (din, dout))] of the adapter's targets this model has."""
-    if cfg.arch != DENSE:
-        raise ValueError(f"the port's adapters serve the dense family; "
-                         f"{cfg.name} is {cfg.arch!r}")
+    check_family(cfg)
     dims = _dense_target_dims(cfg)
     return [(t, dims[t]) for t in acfg.targets if t in dims]
 
@@ -187,8 +200,12 @@ def apply_adapter_rows(y, x, path, ad_slice, acfg: AdapterConfig,
     ``rows_mask`` [n] bool marks the rows this bank owns (None: all rows,
     the single-bank path). Decode rows are [n, 1, d] (one SGMV block per
     token); compacted PREFILL rows are [n, S, d] (one S-token block per
-    row, all owned by that row's adapter). A/B are cast to the activation
-    dtype before the kernel, as in JAX."""
+    row, all owned by that row's adapter); the MoE router's input has the
+    same rows (``moe._route``). (JAX's router reads the batch flattened
+    to [n*S, d], one block per TOKEN, so in its compacted and mixed
+    prefill the first n tokens take the n rows' routers and the rest none;
+    its per-client prefill applies each row's own, as here.) A/B are cast
+    to the activation dtype before the kernel, as in JAX."""
     leaf = ad_slice.get(path) if isinstance(ad_slice, dict) else None
     if leaf is None:
         return y
@@ -315,7 +332,8 @@ def compact_mixed_bank(banks, rows_local, rows_method):
     the prefix-attention add; every row then computes bitwise what its
     single-method run computes, whatever its neighbours' methods. (The JAX
     function, through ``_mixed_stacked`` and ``_mixed_flat``, also re-lays
-    list containers, ``pre_layers``; the port's dense trees have none.)"""
+    list containers, ``pre_layers``; the port's trees keep those layers on
+    the [L] axis.)"""
     out = {}
     for m, bank in enumerate(banks):
         res = _relay(bank["layers"], rows_local)

@@ -14,7 +14,8 @@ backward returns ``dx`` and no weight or bias gradient. PyTorch's own
 requiring grad (the torch-like baseline marks the base, see
 ``core.symbiosis.make_row_grad_fn``). Where autograd records nothing
 (inference, or no input requiring grad) the product runs inline.
-``frozen_expert`` waits for the MoE family.
+``frozen_expert`` is the same for the MoE family's stacked experts: x [E,
+C, din] @ w [E, din, dout] as one ``bmm``, ``dx = dy @ wᵀ`` per expert.
 """
 from __future__ import annotations
 
@@ -52,3 +53,34 @@ def frozen_dense(x, w, b=None):
             t is not None and t.requires_grad for t in (x, w, b)):
         return _FrozenDense.apply(x, w, b)
     return plain_dense(x, w, b)
+
+
+def plain_expert(x, w):
+    """x [E, C, din] @ w [E, din, dout] as autograd records it (the
+    torch-like baseline)."""
+    return torch.bmm(x, w)
+
+
+class _FrozenExpert(torch.autograd.Function):
+    @staticmethod
+    def forward(x, w):
+        return plain_expert(x, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])       # the weight only
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        dx = torch.bmm(g, w.transpose(1, 2)) if ctx.needs_input_grad[0] \
+            else None
+        return dx, None
+
+
+def frozen_expert(x, w):
+    """x [E, C, din] @ w [E, din, dout] (a frozen expert bank) with the
+    memory-optimized backward (paper §3.6)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _FrozenExpert.apply(x, w)
+    return plain_expert(x, w)

@@ -41,8 +41,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.config import (AdapterConfig, DENSE, ModelConfig,
-                                ServeConfig, TrainConfig)
+from repro_torch.config import (AdapterConfig, ModelConfig, ServeConfig,
+                                TrainConfig, check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core.virtlayer import (make_bank_ctx, make_client_ctx,
                                         make_compact_ctx, make_mixed_ctx)
@@ -66,13 +66,16 @@ def init_system(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
 def serve_cache_kwargs(cfg: ModelConfig, scfg: ServeConfig):
     """Cache-construction kwargs implied by a ServeConfig: the paged layout
     (``page_block > 0``) and, with ``kv_quant``, int8 entries with
-    per-head scales. No ``page_block`` means the dense layout."""
+    per-head scales. No ``page_block`` means the dense layout. Every
+    family the port serves (dense, MoE, VLM) is pure-KV and takes both;
+    any other is refused."""
+    check_family(cfg)
     kw = {}
-    if scfg.page_block and cfg.arch == DENSE:
+    if scfg.page_block:
         kw["page_block"] = scfg.page_block
         if scfg.pool_pages:
             kw["pool_pages"] = scfg.pool_pages
-    if scfg.kv_quant and cfg.arch == DENSE:
+    if scfg.kv_quant:
         kw["quant"] = True
     return kw
 
@@ -166,7 +169,7 @@ def stack_client_caches(cfg: ModelConfig, max_seq: int, per_client,
 def _check_paged(cfg, scfg, what):
     if "page_block" not in serve_cache_kwargs(cfg, scfg):
         raise ValueError(f"{what} requires the paged KV layout (ServeConfig."
-                         "page_block > 0) on the dense family")
+                         "page_block > 0)")
 
 
 def _gather_rows(caches, clients, slots):

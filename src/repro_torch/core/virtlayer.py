@@ -16,16 +16,23 @@ from typing import Optional
 
 from repro_torch.config import AdapterConfig, ModelConfig
 from repro_torch.core import adapters as adapters_lib
-from repro_torch.core.frozen_linear import frozen_dense, plain_dense
+from repro_torch.core.frozen_linear import (frozen_dense, frozen_expert,
+                                            plain_dense, plain_expert)
 from repro_torch.models.blocks import LinearFns
 from repro_torch.models.transformer import LinCtx
 
 
-def _ctx(base_dense, hook, pre=None) -> LinCtx:
+def _ctx(base, hook, pre=None) -> LinCtx:
     """LinCtx whose layer linears run ``pre(x, path, ad_slice)`` on the
     input (IA3's ``down`` scaling), the base product, then ``hook(y, x,
     path, ad_slice)`` on its output, x being the scaled input; embed and
-    lm_head get the bare base."""
+    lm_head get the bare base. ``base`` is a (dense, expert) pair; the
+    MoE experts' products run the bare base in every context: no adapter
+    hook sees them (JAX's contexts do the same)."""
+    base_dense, base_expert = base
+
+    def expert(x, w, path):
+        return base_expert(x, w)
 
     def for_layer(ad_slice) -> LinearFns:
         def dense(x, w, b, path):
@@ -33,14 +40,16 @@ def _ctx(base_dense, hook, pre=None) -> LinCtx:
                 x = pre(x, path, ad_slice)
             return hook(base_dense(x, w, b), x, path, ad_slice)
 
-        return LinearFns(dense=dense)
+        return LinearFns(dense=dense, expert=expert)
 
-    return LinCtx(top=LinearFns(dense=lambda x, w, b, path: base_dense(x, w, b)),
+    return LinCtx(top=LinearFns(dense=lambda x, w, b, path: base_dense(x, w, b),
+                                expert=expert),
                   for_layer=for_layer)
 
 
-def _base(memory_optimized: bool):
-    return frozen_dense if memory_optimized else plain_dense
+def _base(memory_optimized: bool = True):
+    return ((frozen_dense, frozen_expert) if memory_optimized
+            else (plain_dense, plain_expert))
 
 
 def make_client_ctx(cfg: ModelConfig, acfg: Optional[AdapterConfig] = None,
@@ -63,7 +72,7 @@ def make_compact_ctx(cfg: ModelConfig, acfg: AdapterConfig,
     client-stacked ([C, ...], see ``adapters.compact_adapter_bank``);
     LoRA deltas are applied per row through the SGMV kernel, IA3 scales
     per row."""
-    return _ctx(frozen_dense,
+    return _ctx(_base(),
                 lambda y, x, path, ad: adapters_lib.apply_adapter_rows(
                     y, x, path, ad, acfg, cfg, rows_client),
                 lambda x, path, ad: adapters_lib.pre_scale_rows(
@@ -100,7 +109,7 @@ def make_mixed_ctx(cfg: ModelConfig, acfgs, rows_local,
                                                 rows_mask=mask)
         return y
 
-    return _ctx(frozen_dense, hook, pre)
+    return _ctx(_base(), hook, pre)
 
 
 def make_bank_ctx(cfg: ModelConfig, acfg: AdapterConfig, n_rows: int, *,

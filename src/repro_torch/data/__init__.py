@@ -1,4 +1,5 @@
 from repro_torch.data.pipeline import (ClientBatchStream, SyntheticLMDataset,
-                                       make_client_batches)
+                                       frontend_stub, make_client_batches)
 
-__all__ = ["ClientBatchStream", "SyntheticLMDataset", "make_client_batches"]
+__all__ = ["ClientBatchStream", "SyntheticLMDataset", "frontend_stub",
+           "make_client_batches"]

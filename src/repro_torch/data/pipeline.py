@@ -4,8 +4,8 @@ Deterministic per-(client, step) streams with a learnable order-1 Markov
 structure, so fine-tuning loss decreases. The tokens are drawn with numpy
 exactly as the JAX package draws them, so both give the same batches bit
 for bit; the port hands them over as torch tensors on the caller's device.
-The dense family has no modality frontend, so no frontend stand-ins are
-added.
+A VLM's image frontend is stubbed (``frontend_stub``, the one allowed
+stub); the dense family's training streams carry no frontend stand-in.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config import ModelConfig
+from repro_torch.config import VLM, ModelConfig
 
 
 @dataclasses.dataclass
@@ -57,10 +57,28 @@ class SyntheticLMDataset:
                 "labels": torch.tensor(toks[:, :, 1:], device=self.device)}
 
 
+def frontend_stub(cfg: ModelConfig, n_clients: int, batch: int, *,
+                  generator: torch.Generator,
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    """Precomputed image-frontend embeddings (the one allowed stub): a
+    VLM's ViT/projector anyres patch embeddings ``img_embed`` [C, B,
+    n_frontend_tokens, d] in ``cfg.dtype``, normal * 0.02 drawn from
+    ``generator`` (which must live on ``device``); other families get
+    none. JAX's ``frontend_stub`` draws from ``PRNGKey(seed)``; its draw
+    crosses over through ``convert.tensor_from_numpy``."""
+    if cfg.arch != VLM:
+        return {}
+    dev = resolve_device(device)
+    emb = torch.randn((n_clients, batch, cfg.n_frontend_tokens, cfg.d_model),
+                      generator=generator, dtype=torch.float32, device=dev)
+    return {"img_embed": (emb * 0.02).to(getattr(torch, cfg.dtype))}
+
+
 def make_client_batches(cfg: ModelConfig, n_clients: int,
                         batch_per_client: int, seq_len: int, *, seed: int = 0,
                         device="cuda") -> "ClientBatchStream":
-    """Dataset composed per model family (the dense family adds nothing)."""
+    """Dataset composed per model family (the dense family adds nothing;
+    the MoE and VLM families do not fine-tune yet)."""
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq_len,
                             n_clients=n_clients,
                             batch_per_client=batch_per_client, seed=seed,

@@ -1,5 +1,5 @@
 """Multi-tenant serving CLI of the port (``repro.launch.serve``'s, for the
-dense family).
+dense, MoE and VLM families).
 
 Serves a bank of LoRA clients against one shared base with the port's
 ServingEngine, on the card by default. With no ``--page-block`` (0, as in
@@ -10,6 +10,11 @@ pages through the compacted step:
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16 --kv-quant
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full-size --page-block 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --full-size --page-block 16
+
+An MoE model routes drop-free (exact); a VLM is served as its text
+backbone, as JAX's engine serves it (no image prefix).
 
 ``--device cpu`` runs the reduced config on the CPU through the kernels'
 plain versions. Weights are random, drawn from ``--seed``. ``--obs DIR``

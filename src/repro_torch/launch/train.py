@@ -14,7 +14,8 @@ package's format):
 Without ``--full-size`` the model is a reduced config (``--layers``,
 ``--d-model``). ``--obs DIR`` attaches telemetry and writes
 ``telemetry.jsonl`` and ``metrics.prom`` into DIR after the run. ``--mesh``
-is not ported yet and raises.
+is not ported yet and raises, as does an MoE or VLM ``--arch`` (the port
+serves those families; their fine-tuning is not ported yet).
 Weights are random, drawn from ``--seed``; each job's data is the
 synthetic Markov stream of its index.
 """
@@ -28,7 +29,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save_job_state
-from repro_torch.config import AdapterConfig, FinetuneConfig
+from repro_torch.config import (TRAIN_FAMILIES, AdapterConfig, FinetuneConfig,
+                                check_family)
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.adapters import DEFAULT_TARGETS
 from repro_torch.core.engine_spec import EngineSpec
@@ -68,8 +70,12 @@ def main(argv=None):
         raise SystemExit("--mesh is not ported yet: the port trains on one "
                          "device")
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    try:
+        check_family(cfg, TRAIN_FAMILIES, "fine-tunes")
+    except ValueError as e:
+        raise SystemExit(f"--arch {args.arch}: {e}")
+    dev = resolve_device(args.device)
     if not args.full_size:
         cfg = cfg.reduced(n_layers=args.layers, d_model=args.d_model)
     base = get_model(cfg).init_params(

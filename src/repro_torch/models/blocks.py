@@ -1,9 +1,11 @@
-"""Shared neural building blocks (PyTorch, functional) — the dense family's
-paged and dense decode paths of ``repro.models.blocks``.
+"""Shared neural building blocks (PyTorch, functional) — the pure-KV
+families' paged and dense decode paths of ``repro.models.blocks``.
 
 Every frozen-base matmul goes through a ``LinearFns`` hook, the port's form
 of the paper's VirtLayer splice: the default hook runs the matmul inline;
 ``core.virtlayer`` substitutes hooks that add per-client LoRA deltas.
+``expert`` carries the MoE family's stacked expert products, which no
+adapter hook ever sees.
 Linear weights keep the JAX layout [din, dout] (``x @ w``).
 
 Paged KV caches hold K/V in a pool of fixed-size pages [P, block, K, hd]
@@ -36,17 +38,25 @@ from repro_torch.kernels import plain_kernels  # noqa: F401 (test oracle)
 from repro_torch.kernels.decode_attn import decode_attn
 
 
+def _default_dense(x, w, b, path):
+    y = x @ w
+    return y + b if b is not None else y
+
+
+def _default_expert(x, w, path):
+    """JAX's ``einsum("eci,eio->eco")`` (computed outside any Pallas
+    kernel there) as one batched product."""
+    return torch.bmm(x, w)
+
+
 class LinearFns(NamedTuple):
     """Hook for base-model linear layers.
 
     dense(x, w, b, path): x [..., din] @ w [din, dout] (+ b) -> [..., dout]
+    expert(x, w, path):   x [E, C, din] @ w [E, din, dout] -> [E, C, dout]
     """
     dense: Callable
-
-
-def _default_dense(x, w, b, path):
-    y = x @ w
-    return y + b if b is not None else y
+    expert: Callable = _default_expert
 
 
 DEFAULT_LIN = LinearFns(dense=_default_dense)
@@ -498,10 +508,11 @@ def mha_decode_quant(params, cfg, x, cache_k, cache_ks, cache_v, cache_vs,
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, cfg, dtype, device):
-    return {"gate": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
-            "up": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
-            "down": dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device)}
+def mlp_init(gen, cfg, dtype, device, d_ff=None):
+    d_ff = d_ff or cfg.d_ff
+    return {"gate": dense_init(gen, cfg.d_model, d_ff, dtype, device),
+            "up": dense_init(gen, cfg.d_model, d_ff, dtype, device),
+            "down": dense_init(gen, d_ff, cfg.d_model, dtype, device)}
 
 
 def mlp_forward(params, x, lin: LinearFns, *, path_prefix: str = ""):

@@ -3,17 +3,16 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.config import DENSE, ModelConfig
+from repro_torch.config import ModelConfig, check_family
 from repro_torch.models import transformer
 
 
 def get_model(cfg: ModelConfig):
     """Namespace with init_params / init_cache / forward / prefill /
-    decode_step, all taking ``cfg`` pre-bound. Only the dense family is
-    ported so far."""
-    if cfg.arch != DENSE:
-        raise ValueError(f"the port serves the dense family only; "
-                         f"{cfg.name} is {cfg.arch!r}")
+    decode_step, all taking ``cfg`` pre-bound. The dense, MoE and VLM
+    families share ``models.transformer`` (as in JAX); the recurrent,
+    hybrid and encoder-decoder families are not ported yet."""
+    check_family(cfg)
 
     def bind(fn_name):
         fn = getattr(transformer, fn_name)

@@ -1,5 +1,5 @@
-"""Decoder-only dense transformer: the training forward and the paged KV
-layout — the dense branch of ``repro.models.transformer``.
+"""Decoder-only transformer (dense, MoE and VLM backbones): the training
+forward, the paged and the dense KV layouts — ``repro.models.transformer``.
 
 Parameters are plain dicts of tensors: ``embed`` [V,d], ``final_norm``,
 ``lm_head`` [d,V] and ``layers``, a list with one dict per layer (the JAX
@@ -9,6 +9,17 @@ execution through every frozen matmul; ``adapter`` is a PEFT tree whose
 ``layers`` leaves carry a leading [L] axis and are sliced per layer. A
 prefix-tuning adapter adds its own attention branch (``_prefix_attend``),
 gated per row in a mixed-method batch.
+
+Heterogeneous layers: a layer's FFN is a dense ``mlp`` or an MoE ``moe``
+(``models.moe``, drop-free on every serving path), Arctic's MoE layers
+carrying a dense ``mlp`` in parallel too. The first
+``cfg.first_dense_layers`` layers (JAX's unrolled ``pre_layers``) are
+dense; every later layer has the structure of the first of them (JAX's
+scanned layers share one). The port keeps them all in the one ``layers``
+list and every KV cache over all ``n_layers`` layers (``convert`` folds
+JAX's separate pre-layer trees in as layer 0). A VLM batch may carry
+``img_embed`` [B, Ti, d] (``data.pipeline.frontend_stub``): the image
+tokens lead the text, positions run over both, and prefill caches both.
 
 Paged caches keep one tensor per pool leaf, [L, P, blk, K, hd]: ``k`` and
 ``v`` in the activation dtype or, for an int8 cache, ``k``/``v`` in int8
@@ -32,8 +43,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.config import DENSE, ModelConfig
-from repro_torch.models import blocks
+from repro_torch.config import VLM, ModelConfig, check_family
+from repro_torch.models import blocks, moe as moe_lib
 from repro_torch.models.blocks import DEFAULT_LIN, LinearFns
 
 
@@ -47,12 +58,6 @@ class LinCtx(NamedTuple):
 DEFAULT_CTX = LinCtx(top=DEFAULT_LIN, for_layer=lambda adapter_slice: DEFAULT_LIN)
 
 
-def _check_dense(cfg: ModelConfig):
-    if cfg.arch != DENSE:
-        raise ValueError(f"the port serves the dense family; {cfg.name} is "
-                         f"{cfg.arch!r}")
-
-
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
@@ -61,20 +66,35 @@ def _dtype(name: str) -> torch.dtype:
 # Init
 # ---------------------------------------------------------------------------
 
-def _layer_init(gen, cfg: ModelConfig, dtype, device):
-    return {
+def _is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
+    """Whether layer ``layer_idx`` has an MoE FFN: every layer from
+    ``first_dense_layers`` on is shaped like that first one."""
+    n_pre = cfg.first_dense_layers
+    if layer_idx < n_pre:
+        return False
+    return cfg.is_moe_layer(n_pre)
+
+
+def _layer_init(gen, cfg: ModelConfig, layer_idx: int, dtype, device):
+    p = {
         "ln1": blocks.rmsnorm_init(cfg.d_model, dtype, device),
         "ln2": blocks.rmsnorm_init(cfg.d_model, dtype, device),
         "attn": blocks.attn_init(gen, cfg, dtype, device),
-        "mlp": blocks.mlp_init(gen, cfg, dtype, device),
     }
+    if _is_moe(cfg, layer_idx):
+        p["moe"] = moe_lib.moe_init(gen, cfg, dtype, device)
+        if cfg.dense_residual:
+            p["mlp"] = blocks.mlp_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = blocks.mlp_init(gen, cfg, dtype, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random base parameters from ``generator`` (which must live on
     ``device``), with the JAX package's distributions: linears uniform in
     ±1/sqrt(din), embeddings normal * 0.02, norm scales 1."""
-    _check_dense(cfg)
+    check_family(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.param_dtype)
     params = {
@@ -84,8 +104,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = blocks.dense_init(generator, cfg.d_model, cfg.vocab,
                                               dtype, dev)
-    params["layers"] = [_layer_init(generator, cfg, dtype, dev)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [_layer_init(generator, cfg, i, dtype, dev)
+                        for i in range(cfg.n_layers)]
     return params
 
 
@@ -161,18 +181,31 @@ def _apply_prefixes(attn, attn_p, cfg: ModelConfig, h, adapter_slice,
     return attn
 
 
+def _ffn(p, cfg: ModelConfig, h, lin: LinearFns, with_aux: bool):
+    """The layer's FFN: (y, aux). An MoE layer's aux is its load-balance
+    loss (Arctic's dense residual added in parallel), None without
+    ``with_aux``; a dense layer's is None. MoE dispatch is drop-free."""
+    if "moe" in p:
+        y, aux = moe_lib.moe_forward(p["moe"], cfg, h, lin,
+                                     with_aux=with_aux)
+        if "mlp" in p:
+            y = y + blocks.mlp_forward(p["mlp"], h, lin)
+        return y, aux
+    return blocks.mlp_forward(p["mlp"], h, lin), None
+
+
 def _layer_forward(p, cfg: ModelConfig, x, positions, lin: LinearFns,
-                   adapter_slice=None, *, ext_kv=None):
-    """One layer over a sequence; also returns its own K/V [B,S,K,hd]
-    (``ext_kv`` lanes, see ``blocks.mha_forward``, are attended to but not
-    returned)."""
+                   adapter_slice=None, *, ext_kv=None, with_aux=False):
+    """One layer over a sequence: (x, k, v, aux), with its own K/V
+    [B,S,K,hd] (``ext_kv`` lanes, see ``blocks.mha_forward``, are attended
+    to but not returned) and its FFN's aux loss or None (``_ffn``)."""
     h = blocks.rmsnorm(p["ln1"], x)
     attn, k, v = blocks.mha_forward(p["attn"], cfg, h, positions, lin,
                                     ext_kv=ext_kv)
     attn = _apply_prefixes(attn, p["attn"], cfg, h, adapter_slice, lin)
     x = x + attn
-    h = blocks.rmsnorm(p["ln2"], x)
-    return x + blocks.mlp_forward(p["mlp"], h, lin), k, v
+    y, aux = _ffn(p, cfg, blocks.rmsnorm(p["ln2"], x), lin, with_aux)
+    return x + y, k, v, aux
 
 
 def _layer_decode(p, cfg: ModelConfig, x, pools, pos, lin: LinearFns,
@@ -199,12 +232,20 @@ def _layer_decode(p, cfg: ModelConfig, x, pools, pos, lin: LinearFns,
                                        pools["v"], tbl, pos, lin, write=write)
     attn = _apply_prefixes(attn, p["attn"], cfg, h, adapter_slice, lin)
     x = x + attn
-    h = blocks.rmsnorm(p["ln2"], x)
-    return x + blocks.mlp_forward(p["mlp"], h, lin)
+    return x + _ffn(p, cfg, blocks.rmsnorm(p["ln2"], x), lin, False)[0]
 
 
 def embed_tokens(cfg, params, tokens, lin: LinearFns):
     return params["embed"][tokens.long()].to(_dtype(cfg.dtype))
+
+
+def _embed_batch(cfg, params, batch, lin: LinearFns):
+    """Token embeddings [B, S_total, d]: a VLM batch's ``img_embed``
+    [B, Ti, d] leads its text (S_total = Ti + S)."""
+    x = embed_tokens(cfg, params, batch["tokens"], lin)
+    if cfg.arch == VLM and "img_embed" in batch:
+        x = torch.cat([batch["img_embed"].to(x.dtype), x], dim=1)
+    return x
 
 
 def lm_head(cfg, params, x, lin: LinearFns):
@@ -219,31 +260,43 @@ def lm_head(cfg, params, x, lin: LinearFns):
 # ---------------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params, batch, ctx: LinCtx = DEFAULT_CTX,
-            adapter=None, *, remat: bool = True):
-    """Training / scoring forward over whole sequences. batch: tokens [B,S].
-    Returns logits [B,S,V] (the dense family has no auxiliary loss).
-    Attention is the plain ``blocks.mha_forward``, as in the JAX package,
-    whose training forward reaches no kernel. ``remat`` recomputes each
-    layer body in the backward (``torch.utils.checkpoint``, the JAX
-    package's ``jax.checkpoint`` of the scan body), so only the layer
-    inputs are held between the passes."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens, ctx.top)
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+            adapter=None, *, remat: bool = True, with_aux: bool = False):
+    """Training / scoring forward over whole sequences. batch: tokens [B,S]
+    (+ ``img_embed`` [B,Ti,d] for a VLM). Returns logits [B,S_total,V], or
+    with ``with_aux`` (logits, aux) where aux is the MoE layers' summed
+    load-balance loss (JAX's second output; 0 for the dense family). MoE
+    dispatch is drop-free (JAX's ``capacity_factor=None``; the training
+    knob comes with the MoE fine-tuning slice). Attention is the
+    plain ``blocks.mha_forward``, as in the JAX package, whose training
+    forward reaches no kernel. ``remat`` recomputes each layer body in the
+    backward (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint`` of the scan body), so only the layer inputs are held
+    between the passes."""
+    x = _embed_batch(cfg, params, batch, ctx.top)
+    B, S_total = x.shape[:2]
+    positions = torch.arange(S_total, device=x.device)[None, :] \
+        .expand(B, S_total)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if with_aux else None
     for i, p in enumerate(params["layers"]):
         ad = _adapter_layer(adapter, i)
         lin = ctx.for_layer(ad)
 
         def body(x, p=p, lin=lin, ad=ad):
-            return _layer_forward(p, cfg, x, positions, lin, ad)[0]
+            x, _, _, a = _layer_forward(p, cfg, x, positions, lin, ad,
+                                        with_aux=with_aux)
+            return x, a
 
         if remat:
-            x = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(body, x,
+                                                     use_reentrant=False)
         else:
-            x = body(x)
+            x, a = body(x)
+        if a is not None:
+            aux = aux + a
     x = blocks.rmsnorm(params["final_norm"], x)
-    return lm_head(cfg, params, x, ctx.top)
+    logits = lm_head(cfg, params, x, ctx.top)
+    return (logits, aux) if with_aux else logits
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +340,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
     ``block_tbl`` [B, n_blocks]; pool_pages=0 fully provisions. Otherwise
     dense, [L, B, T, K, hd] with T = max_seq, or with ``window > 0`` a ring
     of depth ``min(window, max_seq)`` (decode it with ``ring=True``)."""
-    _check_dense(cfg)
+    check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg.dtype)
     K, hd = cfg.n_kv_heads, cfg.hd
@@ -379,6 +432,11 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
     (dense only; the port's in-place form of its JAX callers' merge) keeps
     the bits of the rows where it is False.
 
+    A VLM batch's ``img_embed`` [B, Ti, d] leads every row: positions run
+    over the Ti + S tokens, all Ti image tokens and the row's ``lengths``
+    text tokens are cached, logits are taken at position Ti + lengths - 1
+    and decode resumes at Ti + lengths (JAX's ``prefix``).
+
     ``starts`` [B] (optional, paged only) makes this a SUFFIX prefill: row
     b already holds ``starts[b]`` tokens of K/V in the pages its table
     names (shared prefix pages mapped at admission), this call's tokens sit
@@ -393,8 +451,12 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
     needs ``starts`` and an unquantized cache: int8 K/V does not
     round-trip."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens, ctx.top)
+    B = tokens.shape[0]
+    x = _embed_batch(cfg, params, batch, ctx.top)
+    S = x.shape[1]                                   # S_total
+    prefix = S - tokens.shape[1]                     # leading image tokens
+    if lengths is not None:
+        lengths = prefix + lengths.to(torch.int32)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     tbl = cache.get("block_tbl")
     if tbl is None:
@@ -427,8 +489,8 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
             ext = tuple(layers[n][etbl + i * Pl].reshape(
                 (B, ext_blocks * blk) + layers[n].shape[2:])
                 for n in ("k", "v")) + (epos,)
-        x, k, v = _layer_forward(p, cfg, x, positions, ctx.for_layer(ad), ad,
-                                 ext_kv=ext)
+        x, k, v, _ = _layer_forward(p, cfg, x, positions, ctx.for_layer(ad),
+                                    ad, ext_kv=ext)
         if "k_s" in layers:
             parts = zip(("k", "k_s", "v", "v_s"),
                         blocks.quantize_head(k) + blocks.quantize_head(v))

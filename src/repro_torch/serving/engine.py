@@ -1,6 +1,9 @@
-"""Continuous-batching multi-client serving engine — the dense family's
-scope of ``repro.serving.engine.ServingEngine``: paged or dense KV, the
-compacted or the masked bank-wide decode, and every prefill path.
+"""Continuous-batching multi-client serving engine — the pure-KV families'
+(dense, MoE, VLM) scope of ``repro.serving.engine.ServingEngine``: paged or
+dense KV, the compacted or the masked bank-wide decode, and every prefill
+path. The three families take every path alike, as in JAX (an MoE
+dispatches drop-free, so right-padded ragged prefill stays exact); a VLM
+is served as its text backbone (JAX's engine passes no ``img_embed``).
 
 One frozen base serves one or more banks of adapter clients on one device:
 
@@ -123,8 +126,8 @@ imports ``repro_torch.obs``. Every request carries its timeline whether or
 not ``obs`` is attached (``submit_t`` / ``admit_t`` / ``first_token_t`` /
 ``finish_t``, and ``queue_wait`` / ``ttft`` / ``e2e_latency``).
 
-Not ported yet, and refused with ``ValueError``: non-dense families and a
-``mesh``. Refused as in JAX: mixed banks on the
+Not ported yet, and refused with ``ValueError``: the recurrent, hybrid
+and encoder-decoder families, and a ``mesh``. Refused as in JAX: mixed banks on the
 dense layout or with ``compact_decode=False``, ``compact_decode=True``
 without pages, ``bank_prefill`` on pages or with
 ``max_inflight_per_client`` other than 1, ``prefix_cache=True`` without
@@ -146,7 +149,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map
-from repro_torch.config import DENSE
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
@@ -275,9 +277,6 @@ class ServingEngine:
             raise ValueError(f"{len(banks)} adapter trees for "
                              f"{len(spec.banks)} declared banks")
         cfg, scfg = spec.cfg, spec.serve
-        if cfg.arch != DENSE:
-            raise ValueError(f"the port serves the dense family; {cfg.name} "
-                             f"is {cfg.arch!r}")
         cache_kw = symbiosis.serve_cache_kwargs(cfg, scfg)
         self._paged = "page_block" in cache_kw
         mixed = len(banks) > 1

@@ -1,13 +1,13 @@
-"""KV-cache sizing and the analytic placement cost (the dense ``"kv"`` kind
-of ``repro.serving.kvcache``).
+"""KV-cache sizing and the analytic placement cost (the ``"kv"`` kind of
+``repro.serving.kvcache``, the pure-KV families: dense, MoE and VLM).
 
 ``cache_bytes`` is what the engine's ``PlacementRouter`` charges against
 device memory for a request's lifetime: ``quant=True`` prices int8 entries
 plus one f32 scale per head per token for K and V each, and
 ``page_block > 0`` rounds the context up to whole pages (what the paged
 allocator pins). ``decode_token_cost`` is the router's per-token latency
-model of the on-card placement. Only the dense family is ported; the
-recurrent, hybrid and encoder-decoder kinds raise. The ring-buffer helpers
+model of the on-card placement. The recurrent, hybrid and
+encoder-decoder kinds are not ported and raise. The ring-buffer helpers
 (``ring_cache_init``, ``ring_write``, and ``ring_valid_mask`` from
 ``models.blocks``, which decodes over rings with it) are the
 sliding-window cache of depth ``window``.
@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.hardware import H100, Chip
-from repro_torch.config import DENSE, ModelConfig
+from repro_torch.config import ModelConfig, check_family
 from repro_torch.models.blocks import dense_write, dense_write_index
 from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 
@@ -40,12 +40,11 @@ def _dt_bytes(cfg: ModelConfig) -> int:
 
 
 def make_cache_spec(cfg: ModelConfig, *, quant: bool = False) -> CacheSpec:
-    """The decode-state spec of a dense model: K and V of every layer per
-    token, in the activation dtype or, with ``quant``, int8 entries plus a
-    f32 scale per head."""
-    if cfg.arch != DENSE:
-        raise ValueError(f"cache sizing is ported for the dense family; "
-                         f"{cfg.name} is {cfg.arch!r}")
+    """The decode-state spec of a pure-KV model: K and V of every one of
+    its ``n_layers`` layers per token (an MoE's dense first layers
+    included), in the activation dtype or, with ``quant``, int8 entries
+    plus a f32 scale per head."""
+    check_family(cfg)
     if quant:
         kv_row = cfg.n_kv_heads * (cfg.hd * 1 + 4) * 2
     else:

@@ -72,7 +72,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save_job_state
 from repro_torch.common.tree import tree_map
-from repro_torch.config import AdapterConfig, DENSE, FinetuneConfig, ModelConfig
+from repro_torch.config import (AdapterConfig, FinetuneConfig, ModelConfig,
+                                TRAIN_FAMILIES, check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
@@ -327,8 +328,7 @@ class FinetuneEngine:
             raise _not_ported("mesh=")
         if not isinstance(spec, EngineSpec):
             raise TypeError("FinetuneEngine takes an EngineSpec")
-        if spec.cfg.arch != DENSE:
-            raise _not_ported(f"the {spec.cfg.arch!r} family")
+        check_family(spec.cfg, TRAIN_FAMILIES, "fine-tunes")
         for b in spec.banks:
             _check_method(b.acfg)
         self.device = resolve_device(device)

@@ -20,7 +20,9 @@ assert {"repro_torch.serving.prefix_cache", "repro_torch.faults.audit",
         "repro_torch.checkpoint.ckpt", "repro_torch.obs.metrics",
         "repro_torch.obs.events", "repro_torch.obs.export",
         "repro_torch.obs.trace", "repro_torch.obs.__main__",
-        "repro_torch.faults.chaos"} \
+        "repro_torch.faults.chaos", "repro_torch.models.moe",
+        "repro_torch.configs.deepseek_moe_16b",
+        "repro_torch.configs.llava_next_mistral_7b"} \
     <= set(names), names       # the port's own copies of pure-Python modules
 for name in names:
     importlib.import_module(name)
@@ -77,6 +79,12 @@ def test_serving_engine_defaults_to_cuda():
 
 
 def test_non_dense_configs_are_refused():
+    """The families the port does not serve yet (recurrent, hybrid,
+    encoder-decoder) have no config; the MoE and VLM ones do."""
     from repro_torch.configs import get_config
-    with pytest.raises(KeyError):
-        get_config("deepseek-moe-16b")
+    for arch in ("rwkv6-7b", "jamba-v0.1-52b", "whisper-small"):
+        with pytest.raises(KeyError):
+            get_config(arch)
+    assert [get_config(a).arch for a in ("deepseek-moe-16b", "arctic-480b",
+                                         "llava-next-mistral-7b")] \
+        == ["moe", "moe", "vlm"]

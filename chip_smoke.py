@@ -263,7 +263,28 @@ exits non-zero and prints no result. Phases, each raising on failure:
    prefix + 64 text tokens and 8 decode steps with the kernels (finite,
    launches, positions), the same at 2 layers against ``plain_kernels()``
    at 2e-2, then phase 4's 8 text requests through the engine (its text
-   backbone, as JAX's engine serves a VLM), launches tick by tick.
+   backbone, as JAX's engine serves a VLM), launches tick by tick;
+14. the MoE and VLM families fine-tune, on phase 13's bases (14a, 14b,
+   14c, 14e on deepseek before it is freed, 14d on llava). 14a deepseek's
+   width, 2 layers (dense, then MoE), fp32: a 2-row LoRA (q, v, router)
+   and a 2-row IA3 bank's merged step, drop-free and at
+   ``capacity_factor=1.25``, each row against its one-row run (losses,
+   grads, per-row aux and dropped pairs printed; the drift within
+   ``P12_DRIFT_TOL``); 14b a ``FinetuneEngine`` of 4 LoRA jobs (q, v,
+   router; 2 x 256 tokens) at full size behind a router that holds a
+   fifth back: the 4-row tick on the host clock (median of 5), one tick
+   traced (device busy, kernels, the expert ``bmm`` share), peak memory
+   beyond base and bank at 1 and 4 jobs under ``job_charge_bytes``, and
+   1 job with the MoE body not recomputed, for the record; 14c a
+   ``SymbiosisEngine`` of 13a's requests beside 2 jobs: streams bit for
+   bit 13a's, 28 paged and 83 SGMV launches per decode tick checked tick
+   by tick, each job bit for bit its ``FinetuneEngine`` run alone; then
+   ``make_mixed_step`` at 2 layers (the dense kernel 2 per layer, its
+   decode against ``plain_kernels()`` at 2e-2); 14d llava-next-mistral-7b
+   at full size: 2 jobs of 1 x (2,880 image + 256 text) positions with
+   ``remat``, 3 ticks, losses finite and falling, peak under the charge;
+   14e a deepseek ``FinetuneEngine`` killed after a tick resumes from its
+   blob bit for bit (blob bytes, save and load ms).
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -305,7 +326,8 @@ from repro_torch.core.base_executor import BaseExecutor, _bucket  # noqa: E402
 from repro_torch.core.frozen_linear import frozen_dense  # noqa: E402
 from repro_torch.core.engine_spec import BankSpec, EngineSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.core.virtlayer import make_compact_ctx  # noqa: E402
+from repro_torch.core.virtlayer import (make_bank_ctx,  # noqa: E402
+                                        make_client_ctx, make_compact_ctx)
 from repro_torch.data import SyntheticLMDataset, frontend_stub  # noqa: E402
 from repro_torch.models import blocks, get_model  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -1895,11 +1917,12 @@ def tree_clone(tree):
     return tree_map(lambda x: x.clone(), tree)
 
 
-def random_lora(cfg, n, seed):
-    """``n`` LoRA trees stacked on a leading axis, fp32, A and B drawn (a
-    fresh adapter's B is zero, which would leave the B grads alone)."""
+def random_lora(cfg, n, seed, acfg=LORA):
+    """``n`` LoRA trees of ``acfg`` stacked on a leading axis, fp32, A and
+    B drawn (a fresh adapter's B is zero, which would leave the B grads
+    alone)."""
     g = gen(seed)
-    bank = adapters.init_client_bank(cfg, LORA, n, g, device=DEV)
+    bank = adapters.init_client_bank(cfg, acfg, n, g, device=DEV)
     for leaf in bank["layers"].values():
         leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g, device=DEV)
                         * 0.02)
@@ -2047,11 +2070,14 @@ def check_step_on_card():
     torch.cuda.empty_cache()
 
 
-def train_jobs(cfg, n, steps=TRAIN_STEPS, first_seed=0):
-    return [FinetuneJob(acfg=LORA, batch_size=TRAIN_B, seq_len=TRAIN_S,
-                        steps=steps, lr=1e-3, warmup_steps=1,
+def train_jobs(cfg, n, steps=TRAIN_STEPS, first_seed=0, acfg=LORA,
+               batch=TRAIN_B, lr=1e-3, warmup=1):
+    """``n`` jobs of ``acfg`` over ``batch`` x ``TRAIN_S`` tokens (a VLM's
+    after its image prefix)."""
+    return [FinetuneJob(acfg=acfg, batch_size=batch, seq_len=TRAIN_S,
+                        steps=steps, lr=lr, warmup_steps=warmup,
                         seed=first_seed + i, name=f"job-{first_seed + i}",
-                        data=make_job_stream(cfg, TRAIN_B, TRAIN_S,
+                        data=make_job_stream(cfg, batch, TRAIN_S,
                                              seed=first_seed + i, device=DEV))
             for i in range(n)]
 
@@ -3979,7 +4005,8 @@ def p11_service(cfg, base, bank, streams4, launches4):
 
 def p11_charge(cfg, peaks7, peaks10):
     """11d: the fine-tuning charge (JAX's ``job_hbm_bytes`` plus the port's
-    ``job_activation_bytes``) beside the peaks measured in 7c (1 and 4
+    ``job_activation_bytes`` and ``job_working_bytes``) beside the peaks
+    measured in 7c (1 and 4
     LoRA jobs, §3.6 and the torch-like baseline) and 10b (1 job per
     method): no charge may fall below its peak."""
     jobs = {m: p10_jobs(cfg)[2 * i] for i, m in
@@ -4590,7 +4617,7 @@ def phase13a(cfg, base, bank):
     p13_vs("phase 13a dense", reqs_d, streams, "the bf16 pages' stream")
     del eng
     torch.cuda.empty_cache()
-    return launches, times, caches, lengths
+    return launches, times, caches, lengths, streams
 
 
 def p13_router_sgmv(bank, layer):
@@ -4829,6 +4856,455 @@ def phase13c():
     eng = ServingEngine(spec, base, [bank], device=DEV)
     p13_served(eng, make_requests(cfg, 4), "phase 13c", "paged_decode_attn",
                "paged_decode_attn_quant", 2 * cfg.n_layers)
+    del eng, bank
+    free_device()
+    t = time.perf_counter()
+    phase14d(cfg, base)
+    log(f"[phase 14d] done ({time.perf_counter() - t:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the MoE and VLM families fine-tune on the shared base
+# ---------------------------------------------------------------------------
+
+P14_STEPS = 7            # 14b: 4 jobs, a warm tick, 5 timed, 1 traced
+P14_LLAVA_LR = 1e-3      # 14d: 3 steps on one batch, no warmup
+
+
+class FixedBatch:
+    """A job stream that hands out its first batch at every step, so each
+    step's loss reads what the steps before it learned, on the same
+    tokens (a random base learns little from 3 new batches: the loss
+    then moves by less than it varies from batch to batch)."""
+
+    def __init__(self, stream):
+        self.b = stream.batch(0)
+
+    def batch(self, step):
+        return self.b
+
+
+@contextlib.contextmanager
+def moe_dropped():
+    """Records each ``moe._slot_positions`` call's dropped (token, slot)
+    pairs per group of rows, as a list of lists."""
+    out = []
+    orig = moe_lib._slot_positions
+
+    def record(idx, E, cap, rows=1):
+        pos, keep = orig(idx, E, cap, rows)
+        out.append((~keep).reshape(rows, -1).sum(1).tolist())
+        return pos, keep
+    moe_lib._slot_positions = record
+    try:
+        yield out
+    finally:
+        moe_lib._slot_positions = orig
+
+
+@contextlib.contextmanager
+def moe_body_kept():
+    """The MoE body run without its recompute (a training call saves the
+    dispatch buffers and expert hiddens, as before this slice): the step
+    copied outside the package, for the record."""
+    orig = moe_lib.moe_forward
+
+    def body(params, cfg, x, lin, *, path_prefix="", capacity_factor=None,
+             dispatch="scatter", with_aux=True, rows=1):
+        return moe_lib._body(params, cfg, x, lin, path_prefix,
+                             capacity_factor, dispatch, with_aux, rows)
+    moe_lib.moe_forward = body
+    try:
+        yield
+    finally:
+        moe_lib.moe_forward = orig
+
+
+def p14_rows(cfg2, base2, acfg, bank, cf, label):
+    """14a: a 2-row bank's merged step against each row's one-row run
+    (the same program at R = 1): losses, grads, aux and dropped pairs per
+    row; the drift within ``P12_DRIFT_TOL``."""
+    batch = train_batches(cfg2, 2, 140)
+    merged = symbiosis._make_rows_grad_fn(
+        cfg2, acfg, remat=False, memory_optimized=True, microbatch=0,
+        moe_dispatch="scatter", capacity_factor=cf)
+    solo = symbiosis.make_row_grad_fn(cfg2, acfg, remat=False,
+                                      capacity_factor=cf)
+    with moe_dropped() as drops:
+        losses, grads = merged(bank, base2, batch)
+    model = get_model(cfg2)
+    with torch.no_grad():
+        _, aux = model.forward(
+            base2, {k: v.flatten(0, 1) for k, v in batch.items()},
+            make_bank_ctx(cfg2, acfg, 2),
+            adapters.compact_adapter_bank(bank, per_row=TRAIN_B),
+            remat=False, with_aux=True, capacity_factor=cf, rows=2)
+    loss_d = state_d = 0.0
+    solo_aux, solo_drops = [], []
+    for r in range(2):
+        one = tree_map(lambda t: t[r], bank)
+        b1 = {k: v[r] for k, v in batch.items()}
+        with moe_dropped() as d1:
+            l1, g1 = solo(one, base2, b1)
+        solo_drops.append(d1[0][0])
+        with torch.no_grad():
+            solo_aux.append(float(model.forward(
+                base2, b1, make_client_ctx(cfg2, acfg), one, remat=False,
+                with_aux=True, capacity_factor=cf)[1]))
+        loss_d = max(loss_d, abs(float(losses[r]) - float(l1)))
+        for a, c in zip(tree_leaves(grads), tree_leaves(g1)):
+            scale = float(c.abs().max()) or 1.0
+            state_d = max(state_d, float((a[r] - c).abs().max()) / scale)
+    drift = "bit for bit" if loss_d == state_d == 0.0 else \
+        f"drift: losses {loss_d:.3e}, grads {state_d:.3e} of a leaf's max"
+    log(f"[phase 14a] {label} capacity_factor={cf}: losses "
+        f"{[round(float(x), 5) for x in losses]}, per-row aux "
+        f"{[round(float(x), 5) for x in aux]} (alone "
+        f"{[round(x, 5) for x in solo_aux]}), dropped (token, slot) pairs "
+        f"per row in the MoE layer {drops[0]} (alone {solo_drops}); each row "
+        f"against its one-row run: {drift}")
+    if not within_drift(loss_d, state_d) or not torch.isfinite(losses).all():
+        raise AssertionError(f"[phase 14a] {label} cf={cf}: rows drift "
+                             f"{loss_d:.3e} / {state_d:.3e} beyond "
+                             f"{P12_DRIFT_TOL}")
+    if cf is None and any(drops[0]):
+        raise AssertionError(f"[phase 14a] drop-free step dropped {drops}")
+
+
+def phase14a(cfg, base):
+    """14a: deepseek's width, 2 layers (dense, then MoE), fp32: a 2-row
+    LoRA (q, v, router) and a 2-row IA3 bank, drop-free and at 1.25."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               param_dtype="float32")
+    base2 = tree_map(lambda t: t.float(), dict(base,
+                                               layers=base["layers"][:2]))
+    banks = {"LoRA r8 q/v/router": (P13_LORA,
+                                    random_lora(cfg2, 2, 141, P13_LORA)),
+             "IA3 k/v/down": (P10_ACFGS["ia3"],
+                              random_bank(cfg2, P10_ACFGS["ia3"], 2, 142))}
+    for label, (acfg, bank) in banks.items():
+        for cf in (None, 1.25):
+            p14_rows(cfg2, base2, acfg, bank, cf, label)
+    del base2, banks
+    torch.cuda.empty_cache()
+
+
+def p14_expert_share(prof, E):
+    """Device ms of the traced tick's expert products (``aten::bmm`` over
+    [E, ...] operands: forward, recompute and dx), or None when the
+    profiler attributes no device time to operators."""
+    total = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = e.input_shapes or []
+        if e.key == "aten::bmm" and shapes and shapes[0] \
+                and shapes[0][0] == E:
+            total += getattr(e, "device_time_total", 0.0)
+    return total / 1e3 if total else None
+
+
+def p14_memory(cfg, base, job):
+    """Peak device memory beyond base and bank of one bank step at 1 and
+    4 jobs, against ``job_charge_bytes``; then 1 job with the MoE body not
+    recomputed (``moe_body_kept``)."""
+    charge = job_charge_bytes(cfg, job)
+    step = symbiosis.make_compact_train_step(cfg, P13_LORA, remat=False)
+
+    def peak(R):
+        bank = random_lora(cfg, R, 143, P13_LORA)
+        opt = AdamWState(step=torch.zeros(R, dtype=torch.int32, device=DEV),
+                         m=tree_map(torch.zeros_like, bank),
+                         v=tree_map(torch.zeros_like, bank))
+        batch = train_batches(cfg, R, 144)
+        args = (torch.arange(R, dtype=torch.int32, device=DEV),
+                torch.ones(R, dtype=torch.bool, device=DEV), step7a_hyper(R))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(base, bank, opt, batch, *args)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    peaks = {R: peak(R) for R in (1, 4)}
+    with moe_body_kept():
+        kept = peak(1)
+    torch.cuda.empty_cache()
+    log(f"[phase 14b] peak device memory beyond base and bank, one bank "
+        f"step (drop-free, remat off), GB: 1 job {peaks[1] / 1e9:.3f}, 4 jobs "
+        f"{peaks[4] / 1e9:.3f}; charge per job {charge / 1e9:.3f} "
+        f"(job_hbm_bytes {job_hbm_bytes(cfg, job) / 1e9:.3f}); 1 job with the "
+        f"MoE body kept, not recomputed: {kept / 1e9:.3f} "
+        f"(+{(kept - peaks[1]) / 1e9:.3f})")
+    for R, p in peaks.items():
+        if p > R * charge:
+            raise AssertionError(f"[phase 14b] {R} job(s) peak at {p} B, "
+                                 f"above the charge {R * charge} B")
+
+
+def phase14b(cfg, base):
+    """14b: a FinetuneEngine of 4 deepseek LoRA jobs (q, v, router; 2 x 256
+    tokens) at full size behind a router that holds the fifth back: the
+    tick on the host clock, one tick traced, memory against the charge."""
+    jobs = (train_jobs(cfg, 4, P14_STEPS, acfg=P13_LORA)
+            + train_jobs(cfg, 1, 2, first_seed=4, acfg=P13_LORA))
+    charge = job_charge_bytes(cfg, jobs[0])
+    router = PlacementRouter(cfg, [Slot(0, free_hbm=4.5 * charge)])
+    eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()), base,
+                         device=DEV, router=router)
+    for j in jobs:
+        eng.submit(j)
+    ticks, traced_tick = [], None
+    for t in range(P14_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        traced_tick = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.05)
+    if eng.stats["peak_jobs"] != 4 or jobs[4].status != "queued":
+        raise AssertionError(f"[phase 14b] peak {eng.stats['peak_jobs']}, "
+                             f"job 4 {jobs[4].status}")
+    eng.run()
+    if any(j.status != "finished" for j in jobs) or not all(
+            np.isfinite(j.losses).all() for j in jobs):
+        raise AssertionError(f"[phase 14b] {[j.status for j in jobs]} "
+                             f"{[j.losses for j in jobs]}")
+    used = router.utilization()
+    if router.conservation_errors() or used["committed_bytes"]:
+        raise AssertionError(f"[phase 14b] router after the drain: {used}")
+    tokens = 4 * TRAIN_B * TRAIN_S
+    med = statistics.median(ticks[1:6])
+    log(f"[phase 14b] {cfg.name}: 5 LoRA r8 jobs (q, v, router; {TRAIN_B} x "
+        f"{TRAIN_S} tokens), router slot {4.5 * charge:.0f} B for charges of "
+        f"{charge} B: 4 rows for {P14_STEPS} ticks, job 4 after; stats "
+        f"{eng.stats}; losses {[[round(x, 4) for x in j.losses] for j in jobs]}")
+    log(f"[phase 14b] 4-row train tick (host clock, synchronised): "
+        f"{[round(t * 1e3, 3) for t in ticks]} ms; median of 5 after the "
+        f"first {med * 1e3:.3f} ms, {tokens / med:.0f} tokens/s")
+    busy_ms, n_kern, by_name = device_profile(prof)
+    if n_kern:
+        gemm = sum(d for name, (n, d) in by_name.items()
+                   if any(k in name for k in GEMM_NAMES)) / 1e3
+        expert = p14_expert_share(prof, cfg.n_experts)
+        log(f"[phase 14b] one traced 4-row tick: {traced_tick:.3f} ms on the "
+            f"host clock (CPU and device traced), device busy {busy_ms:.3f} "
+            f"ms = {100 * busy_ms / (med * 1e3):.1f}% of the unprofiled "
+            f"median; {n_kern} kernels; matrix products {gemm:.3f} ms; expert "
+            f"bmm (forward, recompute, dx) "
+            + (f"{expert:.3f} ms = {100 * expert / busy_ms:.1f}% of the busy "
+               "time" if expert is not None else "not measured") +
+            "; top kernels:")
+        for name, (n, d) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+            log(f"[phase 14b]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+    else:
+        log("[phase 14b] the profiler saw no device events: device busy not "
+            "measured")
+    del eng, prof
+    gc.collect()
+    p14_memory(cfg, base, jobs[0])
+
+
+def p14_mixed(cfg, base, bank):
+    """14c: ``make_mixed_step`` at 2 layers bf16 (2 clients train at the
+    default capacity 1.25, a dense 4 x 2-slot bank decodes one token):
+    every launch count 0 just before, read just after (the dense kernel 2
+    per layer, SGMV per targeted layer); the decode half against the
+    decode step under ``plain_kernels()`` at 2e-2."""
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    base2 = dict(base, layers=base["layers"][:2])
+    inf = tree_map(lambda t: t[:, :2], bank)
+    scfg = ServeConfig(n_clients=4, max_seq=64)
+    caches = symbiosis.init_client_caches(cfg2, 4, 2, 64, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (4, 2, 16), generator=gen(145),
+                         device=DEV, dtype=torch.int32)
+    logits, caches = symbiosis.make_multi_client_prefill(cfg2, P13_LORA,
+                                                         scfg)(
+        base2, inf, caches, {"tokens": toks})
+    tok = logits.argmax(-1).to(torch.int32)
+    ft = random_lora(cfg2, 2, 146, P13_LORA)
+    opt = p10_opt(ft, P10_STEP)
+    plain_caches = tree_clone(caches)
+    mixed = symbiosis.make_mixed_step(cfg2, P13_LORA, P10_TCFG, scfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = mixed(base2, ft, opt, train_batches(cfg2, 2, 147), inf, caches, tok,
+                P10_STEP)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {n: 0 for n in KERNELS}
+    want.update(decode_attn=2 * 2, sgmv=p13_sgmv_per_call(cfg2, P13_LORA))
+    if counts != want or not torch.isfinite(out[4]["loss"]).all():
+        raise AssertionError(f"[phase 14c] mixed step launched {counts}, "
+                             f"want {want}; losses {out[4]['loss']}")
+    reset_counts()
+    with blocks.plain_kernels():
+        plg, _ = symbiosis.make_multi_client_decode_step(cfg2, P13_LORA,
+                                                         scfg)(
+            base2, inf, plain_caches, tok)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError(f"[phase 14c] plain pass launched "
+                             f"{read_counts()}")
+    err = compare("[phase 14c] mixed decode logits against plain", out[3],
+                  plg, BF16_TOL)
+    log(f"[phase 14c] make_mixed_step, {cfg.name} 2 layers bf16 (2 clients "
+        f"train at capacity_factor 1.25, losses "
+        f"{[round(float(x), 4) for x in out[4]['loss']]}; 4 x 2 slots decode "
+        f"dense): launches {counts}; decode logits against plain_kernels(): "
+        f"max abs err {err:.3e} ({BF16_TOL})")
+
+
+def phase14c(cfg, base, bank, streams13):
+    """14c: a SymbiosisEngine of 13a's requests (4 LoRA tenants on bf16
+    pages) beside 2 deepseek jobs: streams bit for bit 13a's, launches
+    checked tick by tick, the jobs bit for bit their FinetuneEngine run in
+    the same bucket; then the mixed step."""
+    L, per_call = cfg.n_layers, p13_sgmv_per_call(cfg, P13_LORA)
+    spec = dataclasses.replace(p13_spec(cfg), finetune=FinetuneConfig())
+    sym = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                    device=DEV)
+    reqs = make_requests(cfg, 4)
+    jobs = train_jobs(cfg, 2, 3, first_seed=20, acfg=P13_LORA)
+    for item in reqs + jobs:
+        sym.submit(item)
+    serving = sym.serving
+    attn, sgmv = KERNELS["paged_decode_attn"][0], KERNELS["sgmv"][0]
+    torch.cuda.synchronize()
+    reset_counts()
+    more, per_tick = True, []
+    while more:
+        before = (attn.launches, sgmv.launches, serving.stats["ticks"],
+                  serving.stats["compact_prefill_batches"])
+        more = sym.tick()
+        d_at, d_sg, d_tick, d_pre = (a - b for a, b in zip(
+            (attn.launches, sgmv.launches, serving.stats["ticks"],
+             serving.stats["compact_prefill_batches"]), before))
+        per_tick.append((d_at, d_sg))
+        if d_at != L * d_tick or d_sg != per_call * (d_tick + d_pre):
+            raise AssertionError(f"[phase 14c] a tick launched {d_at} paged "
+                                 f"and {d_sg} SGMV kernels for {d_tick} "
+                                 f"decode ticks, {d_pre} prefills")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for i, r in enumerate(reqs):
+        if first_diff(r.generated, streams13[i]) is not None:
+            raise AssertionError(f"[phase 14c] request {i}'s stream differs "
+                                 "from 13a's")
+    alone = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()),
+                           base, device=DEV)
+    solo = train_jobs(cfg, 2, 3, first_seed=20, acfg=P13_LORA)
+    for j in solo:
+        alone.submit(j)
+    alone.run()
+    for a, b in zip(jobs, solo):
+        if a.losses != b.losses or not trees_equal(
+                (a.result.adapter, a.result.opt),
+                (b.result.adapter, b.result.opt)):
+            raise AssertionError(f"[phase 14c] {a.name} differs from its "
+                                 "FinetuneEngine run alone")
+    st = sym.stats
+    log(f"[phase 14c] SymbiosisEngine over 13a's base: 8 requests (4 LoRA "
+        f"tenants on q, v, router, bf16 pages) beside 2 LoRA jobs in "
+        f"{st['ticks']} ticks ({st['decode_ticks']} serving, "
+        f"{st['train_ticks']} train): every stream equals 13a's bit for bit; "
+        f"paged {L} and sgmv {per_call} per decode tick and {per_call} per "
+        f"prefill, checked tick by tick (launches {counts}); the jobs' "
+        f"losses, adapters and AdamW states equal their FinetuneEngine run "
+        f"alone (the same 2-row bucket) bit for bit: "
+        f"{[[round(x, 4) for x in j.losses] for j in jobs]}")
+    del sym, alone
+    gc.collect()
+    p14_mixed(cfg, base, bank)
+
+
+def phase14e(cfg, base):
+    """14e: a deepseek FinetuneEngine of 2 jobs killed after a tick and
+    resumed by a fresh engine from its blob ends bit for bit as the
+    uninterrupted run."""
+    spec = EngineSpec(cfg=cfg, finetune=FinetuneConfig())
+    ref = FinetuneEngine(spec, base, device=DEV)
+    ref_jobs = train_jobs(cfg, 2, 3, first_seed=30, acfg=P13_LORA)
+    for j in ref_jobs:
+        ref.submit(j)
+    ref.run()
+    with tempfile.TemporaryDirectory() as d:
+        eng = FinetuneEngine(spec, base, device=DEV)
+        for j in train_jobs(cfg, 2, 3, first_seed=30, acfg=P13_LORA):
+            eng.submit(j)
+        eng.train_tick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_engine_state(d, eng.engine_state())
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del eng                                          # the crash
+        t0 = time.perf_counter()
+        _, state = load_engine_state(d)
+        fresh = FinetuneEngine(spec, base, device=DEV)
+        fresh.load_engine_state(state)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        done = {j.name: j for j in fresh.run()}
+    for want in ref_jobs:
+        got = done[want.name]
+        if got.losses != want.losses or not trees_equal(
+                (got.result.adapter, got.result.opt),
+                (want.result.adapter, want.result.opt)):
+            raise AssertionError(f"[phase 14e] {want.name} resumed differs "
+                                 f"from the uninterrupted run")
+    log(f"[phase 14e] {cfg.name} FinetuneEngine of 2 LoRA jobs (q, v, "
+        f"router) killed after 1 of 3 ticks: blob of {size} B written in "
+        f"{t_save * 1e3:.1f} ms, loaded by a fresh engine in "
+        f"{t_load * 1e3:.1f} ms; both jobs' losses, adapters and AdamW "
+        f"states equal the uninterrupted run bit for bit")
+
+
+def phase14d(cfg, base):
+    """14d: llava-next-mistral-7b at full width and depth: 2 LoRA jobs of
+    1 x 256 text tokens after the 2,880-token image prefix, remat, 3
+    ticks on each job's first batch; losses finite and falling, peak
+    memory against the charge."""
+    jobs = train_jobs(cfg, 2, 3, first_seed=40, batch=1, lr=P14_LLAVA_LR,
+                      warmup=0)
+    for j in jobs:
+        j.data = FixedBatch(j.data)
+    fcfg = FinetuneConfig(remat=True)
+    eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=fcfg), base,
+                         device=DEV)
+    for j in jobs:
+        eng.submit(j)
+    charge = job_charge_bytes(cfg, jobs[0], remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ticks = timed_ticks(eng)
+    peak = torch.cuda.max_memory_allocated() - before
+    losses = [j.losses for j in jobs]
+    log(f"[phase 14d] {cfg.name}: 2 LoRA r8 jobs (q, v), 1 x "
+        f"({cfg.n_frontend_tokens} image + {TRAIN_S} text) positions, "
+        f"remat, lr {P14_LLAVA_LR}, each on its first batch: losses "
+        f"{[[round(x, 5) for x in l] for l in losses]}; tick ms "
+        f"{[round(t * 1e3, 1) for t in ticks]}; peak beyond base "
+        f"{peak / 1e9:.3f} GB against a charge of {2 * charge / 1e9:.3f} GB "
+        f"for the 2 jobs ({charge / 1e9:.3f} each)")
+    if any(j.status != "finished" for j in jobs) or not all(
+            np.isfinite(x).all() and x[2] < x[1] < x[0] for x in losses):
+        raise AssertionError(f"[phase 14d] {[j.status for j in jobs]}, "
+                             f"losses {losses}: not finite and falling")
+    if peak > 2 * charge:
+        raise AssertionError(f"[phase 14d] peak {peak} B above the charge "
+                             f"{2 * charge} B")
 
 
 def free_device():
@@ -4842,7 +5318,9 @@ def free_device():
 
 def phase13():
     """The MoE and VLM families on the serving path: deepseek-moe-16b at
-    full width and depth (13a, 13b), then llava-next-mistral-7b (13c)."""
+    full width and depth (13a, 13b), then llava-next-mistral-7b (13c); and
+    their fine-tuning on the same bases (phase 14: 14a, 14b, 14c, 14e on
+    deepseek before it is freed, 14d on llava)."""
     cfg = get_config("deepseek-moe-16b")
     t0 = time.perf_counter()
     base, bank = make_system(cfg, 4, seed=12, acfg=P13_LORA)
@@ -4854,12 +5332,22 @@ def phase13():
         f"{n_params / 1e9:.2f} B params bf16 initialised in "
         f"{time.perf_counter() - t0:.1f} s; LoRA r8 on q, v and the router")
     t = time.perf_counter()
-    launches, times, caches, lengths = phase13a(cfg, base, bank)
+    launches, times, caches, lengths, streams = phase13a(cfg, base, bank)
     log(f"[phase 13a] done ({time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
     phase13b(cfg, base, bank, caches, lengths, times)
     log(f"[phase 13b] done ({time.perf_counter() - t:.1f} s)")
-    del base, bank, caches
+    del caches
+    free_device()
+    for name, run in (("14a", lambda: phase14a(cfg, base)),
+                      ("14b", lambda: phase14b(cfg, base)),
+                      ("14c", lambda: phase14c(cfg, base, bank, streams)),
+                      ("14e", lambda: phase14e(cfg, base))):
+        t = time.perf_counter()
+        run()
+        free_device()
+        log(f"[phase {name}] done ({time.perf_counter() - t:.1f} s)")
+    del base, bank
     free_device()
     t = time.perf_counter()
     phase13c()

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.common.tree import tree_map
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -187,25 +188,62 @@ def restore_checkpoint(directory: str, step: int, like: Any, *,
     return _unflatten(like, out)
 
 
+def _split_pre(tree, n_pre: int):
+    """One job's adapter tree (leaves [L, ...]) in JAX's layout: its first
+    ``n_pre`` layers (an MoE model's ``first_dense_layers``, kept by JAX
+    in a ``pre_layers`` list) split off the [L] axis."""
+    if not n_pre:
+        return tree
+    lay = tree["layers"]
+    return {"layers": tree_map(lambda t: t[n_pre:], lay),
+            "pre_layers": [tree_map(lambda t, i=i: t[i], lay)
+                           for i in range(n_pre)]}
+
+
+def _fold_pre(tree):
+    """Inverse of ``_split_pre``."""
+    if "pre_layers" not in tree:
+        return tree
+    return {"layers": tree_map(
+        lambda full, *pre: torch.cat([p[None] for p in pre] + [full]),
+        tree["layers"], *tree["pre_layers"])}
+
+
+def _job_tree(adapter, opt, n_pre: int):
+    """The {adapter, opt} tree JAX writes for a job, every adapter-shaped
+    tree (the params and both AdamW moments) in JAX's layout."""
+    return {"adapter": _split_pre(adapter, n_pre),
+            "opt": type(opt)(opt.step, _split_pre(opt.m, n_pre),
+                             _split_pre(opt.v, n_pre))}
+
+
 def save_job_state(directory: str, step: int, adapter: Any, opt: Any, *,
-                   name: str = "job") -> str:
+                   name: str = "job", cfg=None) -> str:
     """Persist one fine-tuning JOB's client-side state — adapter params +
     AdamW state — as one checkpoint (the as-a-service persistence unit: a
     retired job carries it out, a resumed job carries it back in through
     ``FinetuneJob(init_adapter=..., init_opt=..., start_step=step)``). The
-    round trip is exact (arrays stored verbatim)."""
-    return save_checkpoint(directory, step, {"adapter": adapter, "opt": opt},
+    round trip is exact (arrays stored verbatim). Give the model's ``cfg``
+    for an MoE model with ``first_dense_layers``: its layers before them
+    are written as JAX writes them (a ``pre_layers`` list)."""
+    n_pre = 0 if cfg is None else cfg.first_dense_layers
+    return save_checkpoint(directory, step, _job_tree(adapter, opt, n_pre),
                            name=name)
 
 
 def restore_job_state(directory: str, step: int, like_adapter: Any,
-                      like_opt: Any, *, name: str = "job", device="cuda"):
+                      like_opt: Any, *, name: str = "job", device="cuda",
+                      cfg=None):
     """Inverse of ``save_job_state``: ``(adapter, opt)`` restored into the
-    structures of the given exemplars, on ``device``."""
+    structures of the given exemplars (the port's layout; ``cfg`` as
+    there), on ``device``."""
+    n_pre = 0 if cfg is None else cfg.first_dense_layers
     out = restore_checkpoint(directory, step,
-                             {"adapter": like_adapter, "opt": like_opt},
+                             _job_tree(like_adapter, like_opt, n_pre),
                              name=name, device=device)
-    return out["adapter"], out["opt"]
+    opt = out["opt"]
+    return _fold_pre(out["adapter"]), type(opt)(
+        opt.step, _fold_pre(opt.m), _fold_pre(opt.v))
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -2,9 +2,8 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-serving paths (the dense, MoE and VLM families; LoRA, IA3 and prefix banks)
-and its fine-tuning service (the dense family, the same three methods)
-read. The port keeps its own copy so that it imports nothing of the JAX
+serving paths and its fine-tuning service (the dense, MoE and VLM
+families; LoRA, IA3 and prefix banks) read. The port keeps its own copy so that it imports nothing of the JAX
 package; the fields it keeps have the same names and defaults, so a config
 describes the same model in both.
 """
@@ -15,14 +14,14 @@ from dataclasses import dataclass
 from typing import Sequence
 
 
-# Architecture families. The port serves the pure-KV ones and fine-tunes
-# the dense one; a config of any other family (recurrent, hybrid,
-# encoder-decoder) is refused where a model or engine is built.
+# Architecture families. The port serves and fine-tunes the pure-KV ones;
+# a config of any other family (recurrent, hybrid, encoder-decoder) is
+# refused where a model or engine is built.
 DENSE = "dense"
 MOE = "moe"
 VLM = "vlm"        # LLaVA backbone (dense + patch-embedding frontend stub)
 FAMILIES = (DENSE, MOE, VLM)
-TRAIN_FAMILIES = (DENSE,)
+TRAIN_FAMILIES = (DENSE, MOE, VLM)
 
 
 def check_family(cfg: "ModelConfig", families=FAMILIES, what="serves"):

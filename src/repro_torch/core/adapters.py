@@ -146,8 +146,13 @@ def apply_adapter(y, x, path, ad_slice, acfg: AdapterConfig, cfg: ModelConfig):
     if leaf is None:
         return y
     if acfg.method == "lora":
-        delta = (x @ leaf["A"].to(x.dtype)) @ leaf["B"].to(x.dtype)
-        return y + (acfg.alpha / acfg.rank) * delta
+        # one-row ``bmm`` pair, the product ``apply_adapter_bank`` runs for
+        # R rows: a job's delta has the same bits alone and in a bank (a
+        # plain ``mm`` rounds differently at some shapes on the CPU)
+        xr = x.reshape(1, -1, x.shape[-1])
+        delta = torch.bmm(torch.bmm(xr, leaf["A"].to(x.dtype)[None]),
+                          leaf["B"].to(x.dtype)[None])
+        return y + (acfg.alpha / acfg.rank) * delta.reshape(y.shape)
     if acfg.method == "ia3" and path != "down":
         return y * leaf["scale"].to(y.dtype)
     return y

@@ -33,7 +33,10 @@ the rows' batches run as ONE forward whose base linears see every row's
 tokens (§3.7 batching) while each row's adapter acts on its own sequences
 only (a LoRA ``bmm`` per row, a per-row IA3 scale, each sequence given
 its row's prefix), and ``torch.autograd.grad`` of the sum of the per-row
-losses yields each row's own grads.
+losses yields each row's own grads. An MoE model routes each row's
+tokens alone in that forward (``moe_forward(rows=R)``: the row's own
+capacity, dropped tokens and aux loss, as JAX's ``vmap`` gives a row), and
+a VLM batch's ``img_embed`` rides beside its tokens.
 """
 from __future__ import annotations
 
@@ -546,41 +549,53 @@ def _accumulate(grad_fn, nmb: int, axis: int):
 
 def make_row_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
                      remat: bool = True, memory_optimized: bool = True,
-                     microbatch: int = 0, differentiate_base: bool = False):
+                     microbatch: int = 0, moe_dispatch: str = "scatter",
+                     capacity_factor=None, differentiate_base: bool = False):
     """One JOB's loss-and-grads closure: ``fn(adapter, base, batch[B, ...])
     -> (loss, adapter_grads)``; ``microbatch > 1`` accumulates grads over
-    B/microbatch-sized slices (mean of per-microbatch means, fp32).
-    ``differentiate_base=True`` makes the base's linears hold their inputs
-    for the backward: the torch-like memory baseline of Fig 9/10."""
+    B/microbatch-sized slices (mean of per-microbatch means, fp32). The
+    loss is ``lm_loss`` with the MoE layers' aux loss (``capacity_factor``
+    None: drop-free, as JAX's default here); a VLM batch's ``img_embed``
+    leads its text. ``differentiate_base=True`` makes the base's linears
+    hold their inputs for the backward: the torch-like memory baseline of
+    Fig 9/10."""
     model = get_model(cfg)
     ctx = make_client_ctx(cfg, acfg, memory_optimized=memory_optimized)
 
     def client_loss(adapter, base, batch):
-        logits = model.forward(base, batch, ctx, adapter, remat=remat)
-        return lm_loss(logits, batch["labels"], batch.get("mask"))
+        logits, aux = model.forward(base, batch, ctx, adapter, remat=remat,
+                                    with_aux=True,
+                                    capacity_factor=capacity_factor,
+                                    moe_dispatch=moe_dispatch)
+        return lm_loss(logits, batch["labels"], batch.get("mask"), aux)
 
     return _accumulate(_value_and_grad(client_loss, differentiate_base),
                        microbatch, axis=0)
 
 
 def _make_rows_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
-                       remat: bool, memory_optimized: bool, microbatch: int):
+                       remat: bool, memory_optimized: bool, microbatch: int,
+                       moe_dispatch: str, capacity_factor):
     """R bank rows at once: ``fn(params[R, ...], base, batch[R, B, ...]) ->
     (losses [R], grads [R, ...])``. One forward over the rows' R*B
-    sequences; each row's loss is ``lm_loss`` of its own logits."""
+    sequences, every leaf of the batch (a VLM's ``img_embed`` too)
+    flattened to [R*B, ...]; each MoE layer routes each row's B sequences
+    alone (``rows=R``: its own capacity, drops and aux), and each row's
+    loss is ``lm_loss`` of its own logits with its own aux."""
     model = get_model(cfg)
 
     def rows_loss(params, base, batch):
         R, B = batch["tokens"].shape[:2]
         ctx = make_bank_ctx(cfg, acfg, R, memory_optimized=memory_optimized)
-        logits = model.forward(
-            base, {"tokens": batch["tokens"].flatten(0, 1)}, ctx,
+        logits, aux = model.forward(
+            base, {k: v.flatten(0, 1) for k, v in batch.items()}, ctx,
             adapters_lib.compact_adapter_bank(params, per_row=B),
-            remat=remat)
+            remat=remat, with_aux=True, capacity_factor=capacity_factor,
+            moe_dispatch=moe_dispatch, rows=R)
         logits = logits.reshape((R, B) + logits.shape[1:])
         mask = batch.get("mask")
         return torch.stack([lm_loss(logits[i], batch["labels"][i],
-                                    None if mask is None else mask[i])
+                                    None if mask is None else mask[i], aux[i])
                             for i in range(R)])
 
     return _accumulate(_value_and_grad(rows_loss, not memory_optimized),
@@ -588,7 +603,9 @@ def _make_rows_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
 
 
 def make_multi_client_train_step(cfg: ModelConfig, acfg: AdapterConfig,
-                                 tcfg: TrainConfig):
+                                 tcfg: TrainConfig, *,
+                                 moe_dispatch: str = "scatter",
+                                 capacity_factor=1.25):
     """C clients fine-tune their own adapters against the shared base, on
     one schedule (``tcfg``):
 
@@ -602,11 +619,15 @@ def make_multi_client_train_step(cfg: ModelConfig, acfg: AdapterConfig,
     whole batch when the factor does not strictly divide B), then each
     client's AdamW update at ``tcfg``'s values: ``adamw_update_hyper``
     with every row alike, which equals JAX's ``vmap(adamw_update)`` row by
-    row. New trees are returned; the inputs are left as they were.
+    row. New trees are returned; the inputs are left as they were. An MoE
+    model's experts take ``capacity_factor`` (JAX's default here, 1.25:
+    tokens past a client's capacity drop), per client.
     ``metrics``: ``loss`` [C], ``gnorm`` [C], ``lr``."""
     rows = _make_rows_grad_fn(cfg, acfg, remat=tcfg.remat,
                               memory_optimized=tcfg.memory_optimized_backward,
-                              microbatch=tcfg.microbatch)
+                              microbatch=tcfg.microbatch,
+                              moe_dispatch=moe_dispatch,
+                              capacity_factor=capacity_factor)
     clip = tcfg.max_grad_norm if tcfg.max_grad_norm else float("inf")
 
     def train_step(base, bank, opt, batch, step):
@@ -625,7 +646,8 @@ def make_multi_client_train_step(cfg: ModelConfig, acfg: AdapterConfig,
 
 
 def make_mixed_step(cfg: ModelConfig, acfg: AdapterConfig, tcfg: TrainConfig,
-                    scfg: ServeConfig):
+                    scfg: ServeConfig, *, moe_dispatch: str = "scatter",
+                    capacity_factor=1.25):
     """Fine-tuning clients take a train step while inference clients
     decode, all against the same resident base (paper §4.4):
 
@@ -634,8 +656,12 @@ def make_mixed_step(cfg: ModelConfig, acfg: AdapterConfig, tcfg: TrainConfig,
 
     ``make_multi_client_train_step`` then ``make_multi_client_decode_step``
     (a dense bank: every slot decodes one token, caches written in
-    place). The live-service form is ``training.SymbiosisEngine``."""
-    train_step = make_multi_client_train_step(cfg, acfg, tcfg)
+    place). The live-service form is ``training.SymbiosisEngine``. The
+    train half takes ``capacity_factor`` (JAX's default, 1.25) and
+    ``moe_dispatch``."""
+    train_step = make_multi_client_train_step(
+        cfg, acfg, tcfg, moe_dispatch=moe_dispatch,
+        capacity_factor=capacity_factor)
     decode_step = make_multi_client_decode_step(cfg, acfg, scfg)
 
     def mixed(base, ft_bank, ft_opt, ft_batch, inf_bank, inf_caches,
@@ -651,7 +677,9 @@ def make_mixed_step(cfg: ModelConfig, acfg: AdapterConfig, tcfg: TrainConfig,
 
 def make_baseline_train_step(cfg: ModelConfig, acfg: AdapterConfig,
                              tcfg: TrainConfig, *,
-                             memory_optimized: bool = False):
+                             memory_optimized: bool = False,
+                             moe_dispatch: str = "scatter",
+                             capacity_factor=None):
     """Dedicated single-job trainer — the oracle every FinetuneEngine job
     is compared against, and (by default, ``memory_optimized=False``) the
     torch-like memory baseline, whose base linears hold their inputs.
@@ -661,6 +689,8 @@ def make_baseline_train_step(cfg: ModelConfig, acfg: AdapterConfig,
     row_grads = make_row_grad_fn(cfg, acfg, remat=tcfg.remat,
                                  memory_optimized=memory_optimized,
                                  microbatch=tcfg.microbatch,
+                                 moe_dispatch=moe_dispatch,
+                                 capacity_factor=capacity_factor,
                                  differentiate_base=not memory_optimized)
 
     def train_step(base, adapter, opt, batch, step):
@@ -701,7 +731,9 @@ def _commit(full_tree, rows_tree, slots, keep):
 
 def make_compact_train_step(cfg: ModelConfig, acfg: AdapterConfig, *,
                             microbatch: int = 0, remat: bool = True,
-                            memory_optimized: bool = True):
+                            memory_optimized: bool = True,
+                            moe_dispatch: str = "scatter",
+                            capacity_factor=None):
     """Job-masked, slot-compacted multi-job train step — the FinetuneEngine's
     tick over ONE bank (jobs sharing an AdapterConfig, batch shape and
     microbatching, each with its OWN AdamW state, schedule position and
@@ -727,14 +759,17 @@ def make_compact_train_step(cfg: ModelConfig, acfg: AdapterConfig, *,
     the solo ``make_row_grad_fn`` program, as the JAX step's ``R == 1``
     branch does. ``memory_optimized=False`` runs the torch-like baseline
     (base linears hold their inputs), as ``make_baseline_train_step``
-    does."""
+    does. An MoE model routes each row alone (``capacity_factor`` None:
+    drop-free, JAX's default here), so a row's loss and grads do not depend
+    on the rows beside it."""
+    moe_kw = dict(moe_dispatch=moe_dispatch, capacity_factor=capacity_factor)
     solo = make_row_grad_fn(cfg, acfg, remat=remat,
                             memory_optimized=memory_optimized,
                             microbatch=microbatch,
-                            differentiate_base=not memory_optimized)
+                            differentiate_base=not memory_optimized, **moe_kw)
     merged = _make_rows_grad_fn(cfg, acfg, remat=remat,
                                 memory_optimized=memory_optimized,
-                                microbatch=microbatch)
+                                microbatch=microbatch, **moe_kw)
 
     def train_step(base, bank, opt, batch, slots, row_mask, hyper):
         slots = slots.long()

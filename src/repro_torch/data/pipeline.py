@@ -5,7 +5,9 @@ structure, so fine-tuning loss decreases. The tokens are drawn with numpy
 exactly as the JAX package draws them, so both give the same batches bit
 for bit; the port hands them over as torch tensors on the caller's device.
 A VLM's image frontend is stubbed (``frontend_stub``, the one allowed
-stub); the dense family's training streams carry no frontend stand-in.
+stub) and ``make_client_batches`` composes it into a VLM's batches, as
+JAX's does; its draw is the port's own (JAX draws it from ``jax.random``),
+so a test that holds the port against JAX hands JAX's draw over.
 """
 from __future__ import annotations
 
@@ -77,13 +79,19 @@ def frontend_stub(cfg: ModelConfig, n_clients: int, batch: int, *,
 def make_client_batches(cfg: ModelConfig, n_clients: int,
                         batch_per_client: int, seq_len: int, *, seed: int = 0,
                         device="cuda") -> "ClientBatchStream":
-    """Dataset composed per model family (the dense family adds nothing;
-    the MoE and VLM families do not fine-tune yet)."""
+    """Dataset + frontend stub composed per model family: a VLM's batches
+    also carry ``img_embed`` [C, B, n_frontend_tokens, d], drawn once from
+    ``seed`` on the host (the same bits on every device) and handed out
+    with every step, as JAX's static stand-in."""
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq_len,
                             n_clients=n_clients,
                             batch_per_client=batch_per_client, seed=seed,
                             device=device)
-    return ClientBatchStream(ds, {})
+    extra = frontend_stub(cfg, n_clients, batch_per_client,
+                          generator=torch.Generator().manual_seed(seed),
+                          device="cpu")
+    return ClientBatchStream(ds, {k: v.to(ds.device)
+                                  for k, v in extra.items()})
 
 
 class ClientBatchStream:

@@ -10,13 +10,19 @@ package's format):
       --steps 20 --seq 256 --batch 2 [--peft lora|ia3|prefix|mixed] \
       [--ckpt-dir DIR]
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --full-size \
+      --arch deepseek-moe-16b --clients 4 --steps 10 --seq 256
+  PYTHONPATH=src python -m repro_torch.launch.train --full-size \
+      --arch llava-next-mistral-7b --clients 2 --batch 1 --remat
 
+Every ``--arch`` of the port trains: the dense, MoE and VLM families (an
+MoE model's experts drop-free, as the JAX engine's; a VLM job's batches
+lead with the stubbed image prefix, ``n_frontend_tokens`` positions).
 Without ``--full-size`` the model is a reduced config (``--layers``,
-``--d-model``). ``--obs DIR`` attaches telemetry and writes
-``telemetry.jsonl`` and ``metrics.prom`` into DIR after the run. ``--mesh``
-is not ported yet and raises, as does an MoE or VLM ``--arch`` (the port
-serves those families; their fine-tuning is not ported yet).
-Weights are random, drawn from ``--seed``; each job's data is the
+``--d-model``). ``--remat`` recomputes each layer in the backward.
+``--obs DIR`` attaches telemetry and writes ``telemetry.jsonl`` and
+``metrics.prom`` into DIR after the run. ``--mesh`` is not ported yet and
+raises. Weights are random, drawn from ``--seed``; each job's data is the
 synthetic Markov stream of its index.
 """
 from __future__ import annotations
@@ -55,6 +61,8 @@ def main(argv=None):
     ap.add_argument("--full-size", action="store_true",
                     help="the full config; default: a reduced one")
     ap.add_argument("--no-memory-optimized", action="store_true")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer body in the backward")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--layers", type=int, default=2)
@@ -81,7 +89,8 @@ def main(argv=None):
     base = get_model(cfg).init_params(
         torch.Generator(device=dev).manual_seed(args.seed), dev)
     fcfg = FinetuneConfig(max_jobs=args.clients,
-                          memory_optimized=not args.no_memory_optimized)
+                          memory_optimized=not args.no_memory_optimized,
+                          remat=args.remat)
     obs = None
     if args.obs is not None:
         from repro_torch.obs import Obs
@@ -123,7 +132,7 @@ def main(argv=None):
     if args.ckpt_dir:
         for j in jobs:
             save_job_state(args.ckpt_dir, j.result.step, j.result.adapter,
-                           j.result.opt, name=j.name)
+                           j.result.opt, name=j.name, cfg=cfg)
         print(f"[train] per-job checkpoints -> "
               f"{args.ckpt_dir}/step_{jobs[0].result.step:08d}")
     if obs is not None:

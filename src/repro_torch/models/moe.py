@@ -25,11 +25,14 @@ token. Top-k is a stable descending sort, so ties go to the lower expert
 index as ``jax.lax.top_k`` gives them (a zero hidden state, e.g. a padding
 row, gives all-equal logits).
 
-Left to the fine-tuning slice: JAX wraps the body in ``closure_convert`` +
-``jax.checkpoint`` for a bitwise vmap-vs-solo backward; without
-differentiation that wrapper is the identity, so ``moe_forward`` here is
-the body alone. The serving paths pass ``with_aux=False``: the aux loss is
-never computed there (XLA drops the unused value from JAX's jitted steps).
+Training: a merged bank step passes ``rows=R``, and each row's tokens
+route, drop and pay their aux loss alone, as in JAX's ``vmap`` of the row
+program. JAX wraps the body in ``closure_convert`` + ``jax.checkpoint``;
+here a training call (grad enabled, aux asked for) runs it under
+``torch.utils.checkpoint``: the layer saves its input only and the
+backward recomputes the body. The serving paths pass ``with_aux=False``:
+the aux loss is never computed there (XLA drops the unused value from
+JAX's jitted steps) and the body runs alone, no launch added.
 No op here makes the host wait for the device: the one-hot masks are
 comparisons (``F.one_hot`` checks its input's range on the host).
 """
@@ -39,6 +42,7 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.blocks import LinearFns, dense_init
@@ -87,11 +91,13 @@ def _full_fp32():
 
 
 def _route(params, cfg, x, lin: LinearFns, path_prefix: str,
-           with_aux: bool = True):
-    """Router over x [B,S,d]: (gate_vals [T,k] f32, idx [T,k] int64, aux
-    scalar f32, or None without ``with_aux``), T = B*S. The router product
-    reads x unflattened, so an adapter hook sees its B rows (JAX's reads
-    [T,d]; the product is the same)."""
+           with_aux: bool = True, rows: int = 1):
+    """Router over x [B,S,d]: (gate_vals [T,k] f32, idx [T,k] int64, aux),
+    T = B*S. The router product reads x unflattened, so an adapter hook
+    sees its B rows (JAX's reads [T,d]; the product is the same). The
+    tokens form ``rows`` groups of T/rows, and each group's load-balance
+    aux loss is over its own tokens alone: aux [rows] f32 (a scalar for
+    ``rows=1``), or None without ``with_aux``."""
     E, k = cfg.n_experts, cfg.top_k
     T = x.shape[0] * x.shape[1]
     with _full_fp32():
@@ -103,22 +109,24 @@ def _route(params, cfg, x, lin: LinearFns, path_prefix: str,
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
     if not with_aux:
         return gate_vals, idx, None
-    # load-balance auxiliary loss (Switch-style)
-    me = probs.mean(0)                                              # [E]
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device) \
-        .index_add_(0, idx.reshape(-1),
+    # load-balance auxiliary loss (Switch-style), one per group
+    Tg = T // rows
+    me = probs.reshape(rows, Tg, E).mean(1)                         # [R,E]
+    group = torch.arange(rows, device=x.device).repeat_interleave(Tg * k)
+    ce = torch.zeros((rows * E,), dtype=torch.float32, device=x.device) \
+        .index_add_(0, group * E + idx.reshape(-1),
                     torch.ones((T * k,), dtype=torch.float32,
-                               device=x.device)) / (T * k)
-    aux = E * torch.sum(me * ce)
-    return gate_vals, idx, aux
+                               device=x.device)).reshape(rows, E) / (Tg * k)
+    aux = E * torch.sum(me * ce, dim=-1)                            # [R]
+    return gate_vals, idx, aux[0] if rows == 1 else aux
 
 
-def _slot_positions(idx, E: int, cap: int):
+def _slot_positions(idx, E: int, cap: int, rows: int = 1):
     """Each (token, slot)'s position in its expert's capacity buffer, in
-    token order, and whether it fits."""
+    token order within its group of T/rows tokens, and whether it fits."""
     T, k = idx.shape
-    onehot = _one_hot(idx.reshape(T * k), E)                        # [T*k,E]
-    pos = torch.cumsum(onehot, dim=0) - 1
+    onehot = _one_hot(idx.reshape(rows, T * k // rows), E)          # [R,Tg*k,E]
+    pos = torch.cumsum(onehot, dim=1) - 1
     pos_in_e = (pos * onehot).sum(-1).reshape(T, k)                 # [T,k]
     return pos_in_e, pos_in_e < cap
 
@@ -131,43 +139,46 @@ def _expert_ffn(params, xe, lin: LinearFns, path_prefix: str):
                       path_prefix + "experts_down")                 # [E,cap,d]
 
 
-def moe_forward(params, cfg, x, lin: LinearFns, *, path_prefix: str = "",
-                capacity_factor=None, dispatch: str = "scatter",
-                with_aux: bool = True):
-    """x [B,S,d] -> ([B,S,d], aux_loss scalar; None without ``with_aux``).
-
-    capacity_factor=None (the default) is drop-free and exact; a float
-    caps each expert buffer at factor * T * k / E rows (padded to 8), and
-    the (token, slot) pairs past it, in token order, are dropped exactly
-    as JAX drops them."""
+def _body(params, cfg, x, lin: LinearFns, path_prefix: str,
+          capacity_factor, dispatch: str, with_aux: bool, rows: int):
+    """route -> dispatch -> experts -> combine (+ the shared experts)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
+    Tg = T // rows
     xt = x.reshape(T, d)
-    cap = _capacity(T, E, k, capacity_factor)
+    cap = _capacity(Tg, E, k, capacity_factor)
+    C = rows * cap                                  # buffer rows per expert
 
-    gate_vals, idx, aux = _route(params, cfg, x, lin, path_prefix, with_aux)
-    pos_in_e, keep = _slot_positions(idx, E, cap)
+    gate_vals, idx, aux = _route(params, cfg, x, lin, path_prefix, with_aux,
+                                 rows)
+    pos_in_e, keep = _slot_positions(idx, E, cap, rows)
     weights = (gate_vals * keep).to(x.dtype)                        # [T,k]
 
     if dispatch == "scatter":
-        dest = torch.where(keep, idx * cap + pos_in_e, E * cap).reshape(-1)
+        group = torch.arange(rows, device=x.device) \
+            .repeat_interleave(Tg)[:, None]                         # [T,1]
+        dest = torch.where(keep, idx * C + group * cap + pos_in_e,
+                           E * C).reshape(-1)
         src = xt.repeat_interleave(k, dim=0)                        # [T*k,d]
-        xe = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device) \
-            .index_add_(0, dest, src)[:E * cap]
-        ye = _expert_ffn(params, xe.reshape(E, cap, d), lin, path_prefix)
-        gathered = ye.reshape(E * cap, d)[dest.clamp_max(E * cap - 1)]
+        xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device) \
+            .index_add_(0, dest, src)[:E * C]
+        ye = _expert_ffn(params, xe.reshape(E, C, d), lin, path_prefix)
+        gathered = ye.reshape(E * C, d)[dest.clamp_max(E * C - 1)]
         gathered = torch.where(keep.reshape(-1, 1), gathered, 0) \
             .reshape(T, k, d)                                       # fill 0
         yt = (gathered * weights[..., None]).sum(dim=1)
     elif dispatch == "einsum":
         disp = (_one_hot(idx, E).to(x.dtype)[..., :, None]
                 * _one_hot(pos_in_e, cap).to(x.dtype)[..., None, :]
-                * keep[..., None, None].to(x.dtype))                # [T,k,E,cap]
-        xe = torch.einsum("td,tkec->ecd", xt, disp)
-        ye = _expert_ffn(params, xe, lin, path_prefix)
-        combine = disp * gate_vals[..., None, None].to(x.dtype)
-        yt = torch.einsum("ecd,tkec->td", ye, combine)
+                * keep[..., None, None].to(x.dtype)) \
+            .reshape(rows, Tg, k, E, cap)                           # [R,Tg,k,E,cap]
+        xe = torch.einsum("rtd,rtkec->ercd", xt.reshape(rows, Tg, d), disp)
+        ye = _expert_ffn(params, xe.reshape(E, C, d), lin, path_prefix)
+        combine = disp * gate_vals.reshape(rows, Tg, k)[..., None, None] \
+            .to(x.dtype)
+        yt = torch.einsum("ercd,rtkec->rtd", ye.reshape(E, rows, cap, d),
+                          combine).reshape(T, d)
     else:
         raise ValueError(f"unknown dispatch {dispatch}")
 
@@ -176,3 +187,36 @@ def moe_forward(params, cfg, x, lin: LinearFns, *, path_prefix: str = "",
                                      path_prefix=path_prefix + "shared_") \
             .to(yt.dtype)
     return yt.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_forward(params, cfg, x, lin: LinearFns, *, path_prefix: str = "",
+                capacity_factor=None, dispatch: str = "scatter",
+                with_aux: bool = True, rows: int = 1):
+    """x [B,S,d] -> ([B,S,d], aux_loss; None without ``with_aux``).
+
+    ``rows`` groups the B sequences into that many groups of B/rows (a
+    merged bank step's rows, each a job's batch): each group routes alone,
+    as JAX's ``vmap`` of the row program sees it. A group has its own
+    capacity, slot positions, dropped pairs and aux loss (aux [rows]; a
+    scalar for ``rows=1``), and the capacity buffers of all groups are one
+    [E, rows*cap, d] tensor, group r's slots at ``r*cap`` on, so each expert
+    weight is still ONE batched product whatever ``rows`` is.
+
+    capacity_factor=None (the default) is drop-free and exact; a float
+    caps each group's expert buffer at factor * (B/rows)*S * k / E rows
+    (padded to 8), and the (token, slot) pairs past it, in token order, are
+    dropped exactly as JAX drops them.
+
+    A call that asks for the aux loss with grad enabled is a training call:
+    the body runs under ``torch.utils.checkpoint`` (JAX's
+    ``jax.checkpoint``), so the layer saves only its inputs and the
+    backward recomputes the routing, the dispatch buffers and the expert
+    hiddens. Tensors the ``lin`` hook closes over (a router-targeted
+    adapter's leaves) take their grads through the recomputed region. The
+    serving paths pass ``with_aux=False`` and run the body alone."""
+    args = (params, cfg, x, lin, path_prefix, capacity_factor, dispatch,
+            with_aux, rows)
+    if with_aux and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            _body, *args, use_reentrant=False, preserve_rng_state=False)
+    return _body(*args)

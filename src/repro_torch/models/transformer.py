@@ -181,13 +181,17 @@ def _apply_prefixes(attn, attn_p, cfg: ModelConfig, h, adapter_slice,
     return attn
 
 
-def _ffn(p, cfg: ModelConfig, h, lin: LinearFns, with_aux: bool):
+def _ffn(p, cfg: ModelConfig, h, lin: LinearFns, with_aux: bool, *,
+         capacity_factor=None, moe_dispatch: str = "scatter", rows: int = 1):
     """The layer's FFN: (y, aux). An MoE layer's aux is its load-balance
-    loss (Arctic's dense residual added in parallel), None without
-    ``with_aux``; a dense layer's is None. MoE dispatch is drop-free."""
+    loss (Arctic's dense residual added in parallel), per group of
+    ``rows`` (``moe.moe_forward``), None without ``with_aux``; a dense
+    layer's is None. Serving callers keep the defaults: drop-free."""
     if "moe" in p:
         y, aux = moe_lib.moe_forward(p["moe"], cfg, h, lin,
-                                     with_aux=with_aux)
+                                     capacity_factor=capacity_factor,
+                                     dispatch=moe_dispatch,
+                                     with_aux=with_aux, rows=rows)
         if "mlp" in p:
             y = y + blocks.mlp_forward(p["mlp"], h, lin)
         return y, aux
@@ -195,16 +199,19 @@ def _ffn(p, cfg: ModelConfig, h, lin: LinearFns, with_aux: bool):
 
 
 def _layer_forward(p, cfg: ModelConfig, x, positions, lin: LinearFns,
-                   adapter_slice=None, *, ext_kv=None, with_aux=False):
+                   adapter_slice=None, *, ext_kv=None, with_aux=False,
+                   **moe_kw):
     """One layer over a sequence: (x, k, v, aux), with its own K/V
     [B,S,K,hd] (``ext_kv`` lanes, see ``blocks.mha_forward``, are attended
-    to but not returned) and its FFN's aux loss or None (``_ffn``)."""
+    to but not returned) and its FFN's aux loss or None (``_ffn``, which
+    takes ``moe_kw``)."""
     h = blocks.rmsnorm(p["ln1"], x)
     attn, k, v = blocks.mha_forward(p["attn"], cfg, h, positions, lin,
                                     ext_kv=ext_kv)
     attn = _apply_prefixes(attn, p["attn"], cfg, h, adapter_slice, lin)
     x = x + attn
-    y, aux = _ffn(p, cfg, blocks.rmsnorm(p["ln2"], x), lin, with_aux)
+    y, aux = _ffn(p, cfg, blocks.rmsnorm(p["ln2"], x), lin, with_aux,
+                  **moe_kw)
     return x + y, k, v, aux
 
 
@@ -260,31 +267,40 @@ def lm_head(cfg, params, x, lin: LinearFns):
 # ---------------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params, batch, ctx: LinCtx = DEFAULT_CTX,
-            adapter=None, *, remat: bool = True, with_aux: bool = False):
+            adapter=None, *, remat: bool = True, with_aux: bool = False,
+            capacity_factor=None, moe_dispatch: str = "scatter",
+            rows: int = 1):
     """Training / scoring forward over whole sequences. batch: tokens [B,S]
-    (+ ``img_embed`` [B,Ti,d] for a VLM). Returns logits [B,S_total,V], or
-    with ``with_aux`` (logits, aux) where aux is the MoE layers' summed
-    load-balance loss (JAX's second output; 0 for the dense family). MoE
-    dispatch is drop-free (JAX's ``capacity_factor=None``; the training
-    knob comes with the MoE fine-tuning slice). Attention is the
-    plain ``blocks.mha_forward``, as in the JAX package, whose training
-    forward reaches no kernel. ``remat`` recomputes each layer body in the
-    backward (``torch.utils.checkpoint``, the JAX package's
-    ``jax.checkpoint`` of the scan body), so only the layer inputs are held
-    between the passes."""
+    (+ ``img_embed`` [B,Ti,d] for a VLM: the image prefix, then the text).
+    Returns logits [B,S_total,V], or with ``with_aux`` (logits, aux) where
+    aux is the MoE layers' summed load-balance loss (JAX's second output;
+    0 for the dense family), [rows] when ``rows > 1``.
+
+    ``capacity_factor`` (None: drop-free), ``moe_dispatch`` and ``rows``
+    go to every MoE layer (``moe.moe_forward``): with ``rows=R`` the B
+    sequences are R bank rows of B/R each, and each row routes and drops
+    alone. A training call (``with_aux`` under grad) recomputes each MoE
+    body in the backward. Attention is the plain ``blocks.mha_forward``,
+    as in the JAX package, whose training forward reaches no kernel.
+    ``remat`` recomputes each layer body in the backward
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
+    the scan body), so only the layer inputs are held between the
+    passes."""
     x = _embed_batch(cfg, params, batch, ctx.top)
     B, S_total = x.shape[:2]
     positions = torch.arange(S_total, device=x.device)[None, :] \
         .expand(B, S_total)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
-        if with_aux else None
+    aux = torch.zeros((rows,) if rows > 1 else (), dtype=torch.float32,
+                      device=x.device) if with_aux else None
+    moe_kw = dict(capacity_factor=capacity_factor, moe_dispatch=moe_dispatch,
+                  rows=rows)
     for i, p in enumerate(params["layers"]):
         ad = _adapter_layer(adapter, i)
         lin = ctx.for_layer(ad)
 
         def body(x, p=p, lin=lin, ad=ad):
             x, _, _, a = _layer_forward(p, cfg, x, positions, lin, ad,
-                                        with_aux=with_aux)
+                                        with_aux=with_aux, **moe_kw)
             return x, a
 
         if remat:

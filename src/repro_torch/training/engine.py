@@ -25,7 +25,8 @@ them, admitting and retiring jobs mid-run.
   ``FinetuneConfig.max_jobs`` and, with a ``PlacementRouter`` attached, by
   a device-memory charge for what a job pins (``job_charge_bytes``: JAX's
   ``job_hbm_bytes`` plus the activations the port's step saves for its
-  backward, ``job_activation_bytes``). A job that does not fit stays
+  backward, ``job_activation_bytes``, and its working set beside them,
+  ``job_working_bytes``). A job that does not fit stays
   queued without blocking later jobs; capacity releases at retire.
   Admission is transactional: a failure releases the charge, and a
   ``TransientFault`` (an injected ``fault_hook`` failure at the
@@ -57,8 +58,11 @@ enqueue of the step, ``device_sync``: the losses' copy to the host,
 retries and quarantines land in the event log (``drain_events``), as in
 JAX's engine. ``obs=None`` costs a shared null context per phase.
 
-Not ported yet, and refused with ``ValueError``: a ``mesh`` and non-dense
-families.
+The MoE family's jobs route each job's tokens alone in the merged step
+(drop-free, as JAX's engine) and recompute each MoE body in the backward;
+a VLM job's batches lead with its image prefix. Not ported yet, and
+refused with ``ValueError``: a ``mesh`` and the hybrid, recurrent and
+encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -72,8 +76,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save_job_state
 from repro_torch.common.tree import tree_map
-from repro_torch.config import (AdapterConfig, FinetuneConfig, ModelConfig,
-                                TRAIN_FAMILIES, check_family)
+from repro_torch.config import (VLM, AdapterConfig, FinetuneConfig,
+                                ModelConfig, TRAIN_FAMILIES, check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
@@ -188,11 +192,12 @@ _LORA_INPUTS = {"q": "ln1", "k": "ln1", "v": "ln1", "o": "attn",
 
 
 def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
-                       S: int, memory_optimized: bool) -> int:
+                       S: int, memory_optimized: bool,
+                       moe: bool = False) -> int:
     """Bytes one layer of one job's §3.6 step saves for its backward, when
-    its input requires grad, over ``seqs`` sequences of ``S`` tokens.
-    Frozen linears save only their (resident) weight
-    (``core.frozen_linear``); what is left, op by op in
+    its input requires grad, over ``seqs`` sequences of ``S`` tokens (a
+    VLM's count its image prefix). Frozen linears save only their
+    (resident) weight (``core.frozen_linear``); what is left, op by op in
     ``transformer._layer_forward``:
 
     * each RMSNorm its fp32 input and rsqrt (and an fp32 copy of a
@@ -200,10 +205,16 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
     * RoPE's fp32 cos and sin tables, for q and for k;
     * the attention's q, its GQA-repeated K and V per query chunk, the
       fp32 softmax and its copy in the activation dtype, and the mask;
-    * the SwiGLU's gate, silu(gate) and up;
-    * the adapter: LoRA's inputs (one per distinct input) and ``x @ A``
-      per target, IA3's scaled tensors, the prefix branch's q and softmax;
-      adapter leaves cast to a narrower activation dtype;
+    * a dense FFN's SwiGLU: gate, silu(gate) and up; an MoE layer's
+      recomputed body (``moe=True``) only its input, the ln2 product
+      (``_moe_body_saved_bytes`` counts what its backward recomputes),
+      and Arctic's dense residual its SwiGLU beside it;
+    * the adapter on the paths this layer has (an MoE layer has no
+      ``gate`` / ``up`` / ``down`` but its dense residual's; the router is
+      read inside the recomputed body): LoRA's inputs (one per distinct
+      input) and ``x @ A`` per target, IA3's scaled tensors, the prefix
+      branch's q and softmax; adapter leaves cast to a narrower activation
+      dtype;
     * without ``memory_optimized`` (the torch-like baseline) also every
       base linear's input and each norm's normalized product, which the
       base's weight gradients would read."""
@@ -222,16 +233,26 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
     b += 2 * n_chunks * seqs * H * S * hd * a            # repeated K, V
     b += seqs * H * S * S * (4 + (a if narrow else 0))   # softmax (+ cast)
     b += seqs * S * S                                    # causal mask
-    b += 3 * T * F * a                                   # SwiGLU
-    targets = adapters_lib.resolve_targets(cfg, acfg)
+    swiglu = not moe or cfg.dense_residual
+    if swiglu:
+        b += 3 * T * F * a                               # SwiGLU
     widths = {"ln1": d, "attn": H * hd, "ln2": d, "mlp": F}
+    if moe:
+        b += T * d * a                   # the recomputed body's input
+        del widths["ln2"]                # ... which LoRA's gate/up read too
+        if not cfg.dense_residual:
+            del widths["mlp"]
+    paths = {"q", "k", "v", "o"} | ({"gate", "up", "down"} if swiglu
+                                    else set())
+    targets = [(p, dims) for p, dims in
+               adapters_lib.resolve_targets(cfg, acfg) if p in paths]
     inputs = set() if memory_optimized else set(widths)
     if not memory_optimized:
         b += 2 * T * d * 4 + (T * (H + K) * hd * 4 if cfg.qk_norm else 0)
         if acfg.method == "prefix":
             b += T * H * hd * a          # the prefix branch's own o input
     if acfg.method == "lora":
-        inputs |= {_LORA_INPUTS[p] for p, _ in targets}
+        inputs |= {_LORA_INPUTS[p] for p, _ in targets} & set(widths)
         r = acfg.rank
         for p, (din, dout) in targets:
             b += T * r * a + (r * (din + dout) * a if narrow else 0)
@@ -249,51 +270,147 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
     return b + sum(T * widths[g] * a for g in inputs)
 
 
+def _moe_body_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
+                          S: int, memory_optimized: bool,
+                          capacity_factor=None) -> int:
+    """Bytes ONE MoE layer's body (``moe.moe_forward``, scatter dispatch)
+    saves when its backward recomputes it, for one job's T = seqs*S tokens:
+    held beside the step's saved tensors while that layer's backward runs.
+    The router's fp32 softmax, sort order and sorted values (the top-k
+    gate values are a view of them), the normaliser, and ``ce``; the dispatch and gather indices, the keep mask and the gate
+    weights; the gathered expert outputs and one [T*k, d] dispatch copy;
+    the experts' SwiGLU at E x cap rows (cap = T drop-free, a job's
+    capacity otherwise: a bank of R jobs holds R of them); the shared
+    experts' SwiGLU; a router LoRA's ``x @ A`` and, in a narrower
+    activation dtype, the router's fp32 input. Without
+    ``memory_optimized`` also the experts' and shared experts' inputs and
+    the router's fp32 input."""
+    from repro_torch.models.moe import _capacity
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    T = seqs * S
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    fe, Fs = cfg.ffn_hidden, cfg.ffn_hidden * cfg.n_shared_experts
+    cap = _capacity(T, E, k, capacity_factor)
+    b = T * E * (4 + 8 + 4) + T * 4 + E * 4              # the router
+    b += T * k * (1 + 8 + 8 + a) + 2 * T * k * d * a     # dispatch, combine
+    b += 3 * E * cap * fe * a + 3 * T * Fs * a           # SwiGLUs
+    fp32_in = a != 4 and not memory_optimized
+    if acfg.method == "lora" and "router" in acfg.targets:
+        b += T * acfg.rank * 4
+        fp32_in = a != 4
+    if fp32_in:
+        b += T * d * 4
+    if not memory_optimized:
+        b += ((E * cap + 1) * d + E * cap * fe) * a + T * Fs * a
+    return b
+
+
 def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
                          remat: bool = False,
                          memory_optimized: bool = True) -> int:
     """What the port's §3.6 step holds for its backward, counted from the
     shapes (the port's own term beside ``job_hbm_bytes``, whose JAX
     estimate counts one fp32 residual stream per layer): every layer's
-    saved tensors (``_layer_saved_bytes``) for one microbatch, or with
-    ``remat`` each layer's input plus ONE layer's tensors (recomputed in
-    its backward), then the final norm and the loss's fp32 log-probs,
-    label ids and mask (without ``memory_optimized``, also the lm_head's
-    input, the final norm's product and the embedding's ids). Jobs merged
-    in one bank step hold the sum of their terms, up to their adapters'
-    casts and per-sequence prefix copies."""
+    saved tensors (``_layer_saved_bytes``, dense and MoE layers each by
+    their kind) for one microbatch, or with ``remat`` each layer's input
+    plus ONE layer's tensors (recomputed in its backward); an MoE model
+    adds one MoE body's recomputed tensors (``_moe_body_saved_bytes``,
+    drop-free as the engine's step); then the final norm and the loss's
+    fp32 log-probs, label ids and mask (without ``memory_optimized``, also
+    the lm_head's input, the final norm's product and the embedding's
+    ids). A VLM job runs its ``n_frontend_tokens`` image positions before
+    its ``seq_len`` text positions through every layer and the final
+    norm; the loss reads the text. Jobs merged in one bank step hold the
+    sum of their terms, up to their adapters' casts and per-sequence
+    prefix copies."""
+    from repro_torch.models.transformer import _is_moe
     nmb = max(1, job.microbatch)
     if job.batch_size % nmb or job.batch_size == nmb:
         nmb = 1
     seqs = job.batch_size // nmb
-    S = job.seq_len
-    T = seqs * S
+    S = job.seq_len + (cfg.n_frontend_tokens if cfg.arch == VLM else 0)
+    T, T_text = seqs * S, seqs * job.seq_len
     a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    layer = _layer_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized)
-    body = (cfg.n_layers * T * cfg.d_model * a + layer if remat
-            else cfg.n_layers * layer)
+    L, n_moe = cfg.n_layers, sum(_is_moe(cfg, i) for i in range(cfg.n_layers))
+    dense = _layer_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized)
+    moe = recompute = 0
+    if n_moe:
+        moe = _layer_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized,
+                                 moe=True)
+        recompute = _moe_body_saved_bytes(cfg, job.acfg, seqs, S,
+                                          memory_optimized)
+    if remat:
+        body = L * T * cfg.d_model * a + max(dense if n_moe < L else 0,
+                                             moe + recompute)
+    else:
+        body = (L - n_moe) * dense + n_moe * moe + recompute
     head = (T * cfg.d_model * 4 + T * 4
             + (cfg.d_model * 4 if cfg.param_dtype != "float32" else 0)
-            + T * cfg.vocab * 4 + T * 8 + T * 4)
+            + T_text * cfg.vocab * 4 + T_text * 8 + T_text * 4)
     if not memory_optimized:
-        head += T * cfg.d_model * (a + 4) + T * 8
+        head += T * cfg.d_model * (a + 4) + T_text * 8
     return body + head
+
+
+def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
+                      remat: bool = False,
+                      memory_optimized: bool = True) -> int:
+    """What the port's step allocates for a job beside the tensors it saves
+    for its backward (``job_activation_bytes``), read off the peaks
+    measured on an H100 (``chip_smoke.py`` 14b / 14d, PERF.md: at two
+    llava jobs', three [T, d_ff] gradients, six adapter-shaped fp32 trees
+    and the image batch were live beside the saved tensors):
+
+    * the backward's largest gradient working set of one layer: a dense
+      FFN's three [T, d_ff] gradients (its down product's input grad and
+      both halves of the SwiGLU's), or an MoE body's expert-hidden and
+      expert-output gradients at the job's capacity buffer, E x cap x
+      (fe + d) (drop-free: cap = T), whichever is larger;
+    * the step's copies of the job's adapter state: the gathered params
+      and AdamW moments, the grads, and the updated params and moments
+      (seven fp32 trees at the update; six were live at llava's peak);
+    * the job's batch: token and label ids, and a VLM's image prefix.
+
+    ``remat`` and ``memory_optimized`` change none of these."""
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.transformer import _is_moe
+    nmb = max(1, job.microbatch)
+    if job.batch_size % nmb or job.batch_size == nmb:
+        nmb = 1
+    seqs = job.batch_size // nmb
+    Ti = cfg.n_frontend_tokens if cfg.arch == VLM else 0
+    T = seqs * (job.seq_len + Ti)
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    grads = 0
+    if any(not _is_moe(cfg, i) or cfg.dense_residual
+           for i in range(cfg.n_layers)):
+        grads = 3 * T * cfg.d_ff * a
+    if any(_is_moe(cfg, i) for i in range(cfg.n_layers)):
+        cap = _capacity(T, cfg.n_experts, cfg.top_k, None)
+        grads = max(grads, cfg.n_experts * cap
+                    * (cfg.ffn_hidden + cfg.d_model) * a)
+    state = 7 * adapters_lib.adapter_bytes(cfg, job.acfg)[1]
+    batch = job.batch_size * (job.seq_len * 8 + Ti * cfg.d_model * a)
+    return grads + state + batch
 
 
 def job_charge_bytes(cfg: ModelConfig, job: FinetuneJob, *,
                      remat: bool = False,
                      memory_optimized: bool = True) -> int:
     """The router charge ``FinetuneEngine`` takes for a job: JAX's
-    ``job_hbm_bytes`` plus the port's ``job_activation_bytes`` (a stated
-    departure: JAX's activation estimate under-charges the port's step)."""
+    ``job_hbm_bytes`` plus the port's ``job_activation_bytes`` and
+    ``job_working_bytes`` (a stated departure: JAX's activation estimate
+    under-charges the port's step)."""
+    kw = dict(remat=remat, memory_optimized=memory_optimized)
     return (job_hbm_bytes(cfg, job, remat=remat)
-            + job_activation_bytes(cfg, job, remat=remat,
-                                   memory_optimized=memory_optimized))
+            + job_activation_bytes(cfg, job, **kw)
+            + job_working_bytes(cfg, job, **kw))
 
 
 def _not_ported(what: str):
     return ValueError(f"{what}: not ported yet; the port's FinetuneEngine "
-                      "trains jobs of the dense family on one device")
+                      "trains jobs of the dense, MoE and VLM families on "
+                      "one device")
 
 
 def _to_host(tree):
@@ -743,7 +860,7 @@ class FinetuneEngine:
         init_opt=..., start_step=...)``)."""
         adapter, opt, step = self.job_state(job)
         return save_job_state(directory, step, adapter, opt,
-                              name=job.name or "job")
+                              name=job.name or "job", cfg=self.cfg)
 
     # ------------------------------------------------------------------
     # whole-engine crash recovery

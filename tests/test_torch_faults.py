@@ -61,7 +61,8 @@ from repro_torch.serving.engine import (Request, SamplingParams,
 from repro_torch.serving.router import PlacementRouter, Slot
 from repro_torch.training import (FinetuneJob, SymbiosisEngine,
                                   job_activation_bytes, job_charge_bytes,
-                                  job_hbm_bytes, make_job_stream)
+                                  job_hbm_bytes, job_working_bytes,
+                                  make_job_stream)
 from conftest import tiny
 from test_torch_finetune_engine import LORA4, Pair
 from test_torch_mixed_serving import (make_engines, numpy_adapter_bank,
@@ -701,7 +702,8 @@ def test_activation_term_counts_the_saved_tensors(dtype, method, kv_heads,
     for remat in (False, True):
         assert job_hbm_bytes(cfg, job, remat=remat) == \
             jax_job_hbm_bytes(jcfg, jjob, remat=remat)
-        assert job_charge_bytes(cfg, job, remat=remat,
-                                memory_optimized=mem_opt) - \
-            job_hbm_bytes(cfg, job, remat=remat) == job_activation_bytes(
-                cfg, job, remat=remat, memory_optimized=mem_opt)
+        kw = dict(remat=remat, memory_optimized=mem_opt)
+        assert job_charge_bytes(cfg, job, **kw) - \
+            job_hbm_bytes(cfg, job, remat=remat) == \
+            job_activation_bytes(cfg, job, **kw) + \
+            job_working_bytes(cfg, job, **kw)

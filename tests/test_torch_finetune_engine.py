@@ -8,7 +8,8 @@ resume fields ``init_adapter`` / ``init_opt``) and the same synthetic data
 streams. After every tick the host-side state must be EXACTLY equal:
 admissions, each job's bank and slot, per-job step counts, statuses, the
 ``stats`` dict, and the router's charges, which differ by exactly the
-port's ``job_activation_bytes`` per job (a stated departure); losses agree
+port's ``job_activation_bytes`` + ``job_working_bytes`` per job (a stated
+departure); losses agree
 at atol = rtol = 1e-5 and the final adapters and AdamW moments at rtol 1e-4
 with an atol scaled to each leaf (fp32, the two frameworks sum in different orders; see
 ``test_torch_train.py::assert_state_close``).
@@ -50,7 +51,7 @@ from repro_torch.faults.plan import FaultyStream as PortFaultyStream
 from repro_torch.training import (FinetuneEngine, FinetuneJob,
                                   SymbiosisEngine, job_activation_bytes,
                                   job_charge_bytes, job_hbm_bytes,
-                                  make_job_stream)
+                                  job_working_bytes, make_job_stream)
 from test_torch_model import numpy_bank
 from test_torch_train import (TOL, assert_state_close, numpy_adapter, port_base,
                               system)
@@ -63,13 +64,16 @@ class Pair:
     """The JAX engine and the port's, driven with the same operations.
 
     The port charges a job JAX's ``job_hbm_bytes`` plus its own
-    ``job_activation_bytes`` (a stated departure), so its router slot is
+    ``job_activation_bytes`` and ``job_working_bytes`` (a stated
+    departure), so its router slot is
     ``port_slot_bytes`` (default: ``slot_bytes``) and every check holds the
     difference of the two ledgers to the port's terms exactly."""
 
+    system = staticmethod(system)     # (JAX config, port config, base)
+
     def __init__(self, fcfg=None, slot_bytes=None, port_slot_bytes=None,
                  reserve=None):
-        self.cfg, self.pc, base = system()
+        self.cfg, self.pc, base = self.system()
         fcfg = fcfg or {}
         self.fcfg = pcfg.FinetuneConfig(**fcfg)
         jrouter = prouter = None
@@ -105,10 +109,12 @@ class Pair:
         defaults.update(kw)
         ja, pa = JaxAdapterConfig(**acfg), pcfg.AdapterConfig(**acfg)
         ad = self.numpy_adapter(ja, seed)
-        jad = jax.tree.map(jnp.asarray, ad)
+        jad = jax.tree.map(jnp.asarray, self.jax_layout(ad))
         tad = tree_map(torch.from_numpy, ad)
         jdata = jax_job_stream(self.cfg, batch, seq, seed=seed)
-        pdata = make_job_stream(self.pc, batch, seq, seed=seed, device="cpu")
+        pdata = self.port_stream(
+            make_job_stream(self.pc, batch, seq, seed=seed, device="cpu"),
+            seed)
         if faults is not None:        # every batch then carries a mask
             jdata = FaultyStream(jdata, faults)
             pdata = PortFaultyStream(pdata, faults)
@@ -122,6 +128,14 @@ class Pair:
     def numpy_adapter(self, ja, seed):
         """Job ``seed``'s starting adapter (numpy, LoRA A and B non-zero)."""
         return numpy_adapter(self.cfg, 100 + seed, acfg=ja)
+
+    def jax_layout(self, tree):
+        """A numpy adapter-shaped tree of the port in JAX's layout."""
+        return tree
+
+    def port_stream(self, stream, seed):
+        """The port's job stream, made to hand out what JAX's does."""
+        return stream
 
     def submit(self, seed, **kw):
         pair = self.make(seed, **kw)
@@ -149,10 +163,12 @@ class Pair:
                                for k, b in eng._banks.items())}
 
     def term(self, pj):
-        """The port's activation term of job ``pj`` under this engine."""
-        return job_activation_bytes(
-            self.pc, pj, remat=self.fcfg.remat,
-            memory_optimized=self.fcfg.memory_optimized)
+        """The port's terms of job ``pj``'s charge under this engine: its
+        saved activations and its step's working set."""
+        kw = dict(remat=self.fcfg.remat,
+                  memory_optimized=self.fcfg.memory_optimized)
+        return (job_activation_bytes(self.pc, pj, **kw)
+                + job_working_bytes(self.pc, pj, **kw))
 
     def check(self):
         assert self._snapshot(self.port, 1) == self._snapshot(self.jax, 0)
@@ -191,10 +207,10 @@ class Pair:
             if pj.result is None:
                 continue
             assert pj.result.step == jj.result.step
-            assert_state_close((pj.result.adapter, pj.result.opt.m,
-                                pj.result.opt.v),
-                               (jj.result.adapter, jj.result.opt.m,
-                                jj.result.opt.v))
+            assert_state_close(
+                tuple(self.jax_layout(tree_map(np.asarray, t)) for t in
+                      (pj.result.adapter, pj.result.opt.m, pj.result.opt.v)),
+                (jj.result.adapter, jj.result.opt.m, jj.result.opt.v))
             assert int(pj.result.opt.step) == int(jj.result.opt.step)
 
 
@@ -252,7 +268,8 @@ def test_router_backpressure_serializes_jobs():
     nbytes = job_hbm_bytes(pc, probe[1])
     assert nbytes == jax_job_hbm_bytes(cfg, probe[0])
     charge = job_charge_bytes(pc, probe[1])
-    assert charge - nbytes == job_activation_bytes(pc, probe[1])
+    assert charge - nbytes == job_activation_bytes(pc, probe[1]) + \
+        job_working_bytes(pc, probe[1])
     p = Pair(slot_bytes=nbytes * 1.5, port_slot_bytes=charge * 1.5)
     p.submit(0, steps=2)
     p.submit(1, steps=2)
@@ -345,9 +362,9 @@ def test_engine_refuses_what_is_not_ported():
     pb = port_base(pc, base)
     with pytest.raises(ValueError, match="not ported yet"):
         FinetuneEngine(spec, pb, device="cpu", mesh=object())
-    moe = dataclasses.replace(pc, arch="moe")
-    with pytest.raises(ValueError, match="'moe' family: not ported"):
-        FinetuneEngine(EngineSpec(cfg=moe, finetune=pcfg.FinetuneConfig()),
+    hybrid = dataclasses.replace(pc, arch="hybrid")
+    with pytest.raises(ValueError, match="'hybrid' family: not ported"):
+        FinetuneEngine(EngineSpec(cfg=hybrid, finetune=pcfg.FinetuneConfig()),
                        pb, device="cpu")
     odd = pcfg.AdapterConfig(method="adapterfusion", targets=("q",))
     with pytest.raises(ValueError, match="unknown PEFT method"):

@@ -50,7 +50,7 @@ from repro_torch.models import blocks as port_blocks
 from repro_torch.models import transformer as port_tf
 from repro_torch.optim import AdamWState
 from repro_torch.training import (job_activation_bytes, job_charge_bytes,
-                                  job_hbm_bytes)
+                                  job_hbm_bytes, job_working_bytes)
 from test_torch_finetune_engine import Pair
 from test_torch_mixed_serving import numpy_adapter_bank
 from test_torch_model import LOGIT_TOL, POOL_TOL
@@ -391,7 +391,8 @@ def test_engine_with_every_method_matches_reference():
     assert len(set(charges)) == 3              # each method its own charge
     port_charges = [job_charge_bytes(pc, j) for j in jobs]
     assert [b - a for a, b in zip(charges, port_charges)] == \
-        [job_activation_bytes(pc, j) for j in jobs]
+        [job_activation_bytes(pc, j) + job_working_bytes(pc, j)
+         for j in jobs]
     # the same slack over the first five jobs' charges in both ledgers
     p = MethodsPair(slot_bytes=sum(charges) * 1.01,
                     port_slot_bytes=sum(port_charges) + sum(charges) * 0.01)

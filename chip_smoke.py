@@ -22,7 +22,9 @@ exits non-zero and prints no result. Phases, each raising on failure:
    and ranks 16 and 12, dead rows exact +0.0; phase 13's shapes:
    deepseek-moe-16b's paged attention at K=16, G=1 (bf16 and int8 pools,
    a row at pos -1) and SGMV at din 2048, the router's dout 64 at decode
-   and over a compacted prefill's flattened tokens, q/v at dout 2048),
+   and over a compacted prefill's flattened tokens, q/v at dout 2048;
+   phase 15's: jamba-v0.1-52b's router LoRA at din 4096, dout 16, at
+   decode and over a per-client prefill's 2 rows of a 256-token prompt),
    fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
    fp32 on the same bf16 inputs; dense decode attention (split-KV and a
@@ -284,7 +286,36 @@ exits non-zero and prints no result. Phases, each raising on failure:
    at full size: 2 jobs of 1 x (2,880 image + 256 text) positions with
    ``remat``, 3 ticks, losses finite and falling, peak under the charge;
    14e a deepseek ``FinetuneEngine`` killed after a tick resumes from its
-   blob bit for bit (blob bytes, save and load ms).
+   blob bit for bit (blob bytes, save and load ms);
+15. the hybrid family on the serving path, after phase 13's bases are
+   freed: jamba-v0.1-52b at full width (d_model 4096, 32 heads / 8 KV,
+   ED 8192, d_state 16, d_conv 4, 16 experts top-2 on the odd sublayers,
+   vocab 65,536), cut to 2 of its 4 periods (16 of 32 layers: 2
+   attention, 14 Mamba, 8 MoE, 6 dense MLP sublayers, ~26 B params, ~52
+   GB bf16; its full depth, ~103 GB, fits no single card; two periods is
+   the least depth whose page tables carry a group offset), random bf16
+   weights, 4 LoRA r8 tenants on q, v and the router (one leaf per
+   group). 15a pages of 16, ``max_seq`` 1024: phase 4's 8 requests and a
+   512-token one (two 256-token scan chunks), per-request prefills at
+   the true length; launches checked tick by tick (2 paged attention and
+   12 ``sgmv`` per decode tick, 12 ``sgmv`` per prefill); every stream bit
+   for bit its run alone on a fresh engine; a 300-token prompt refused
+   with the reference's chunk error; the same requests with one slot per
+   client (slot reuse), every stream its run alone. 15b the dense layout:
+   the same, 4 dense-decode launches (split and combine on 2 sublayers)
+   per tick. 15c a per-client prefill per client and a compacted decode
+   of the 4 rows, with the kernels (no host sync) and under
+   ``plain_kernels()``: at 16 layers bf16 the logits' gap printed in bf16
+   ulps (it exceeds 2e-2: rounding carried through the hidden state, as
+   phase 13c's llava), one period (8 layers) bf16 held at 2e-2, then, the
+   bf16 base freed, one period (~53 GB) fp32 at 1e-5 with TF32 off. 15d the
+   caches' bytes per slot (``max_memory_allocated`` over an engine's
+   construction) beside the router's charge, 15a's peak beyond base,
+   bank and caches, an 8-row decode tick timed and traced as phase 4's,
+   a 256-token prefill beside the selective scan alone at its shapes
+   (the scan's share), and ``sgmv`` at the router's shape (din 4096,
+   dout 16, fp32, 8 rows) timed beside its plain version, a gather +
+   ``bmm`` and its bound, as phase 13b times deepseek's.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -330,6 +361,8 @@ from repro_torch.core.virtlayer import (make_bank_ctx,  # noqa: E402
                                         make_client_ctx, make_compact_ctx)
 from repro_torch.data import SyntheticLMDataset, frontend_stub  # noqa: E402
 from repro_torch.models import blocks, get_model  # noqa: E402
+from repro_torch.models import hybrid as hybrid_lib  # noqa: E402
+from repro_torch.models import mamba as mamba_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.optim import AdamWState, adamw_init  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
@@ -548,6 +581,11 @@ SGMV_CASES = {    # (T, block_t, dout, rank, ids[, din]), din 4096 if absent
     "deepseek_router_decode": (8, 1, 64, 8, [0, 1, 2, 3, -1, 1, 2, 0], 2048),
     "deepseek_router_prefill": (1024, 256, 64, 8, [2, 0, -1, 3], 2048),
     "deepseek_qv_decode": (8, 1, 2048, 8, [3, 2, 1, 0, 0, -1, 2, 1], 2048),
+    # jamba-v0.1-52b (phase 15): d 4096; the router's LoRA (dout 16, its
+    # input the fp32 hidden state) at decode and over a per-client
+    # prefill's 2 slot rows of a 256-token prompt, one block per row
+    "jamba_router_decode": (8, 1, 16, 8, [0, 1, 2, 3, -1, 1, 2, 0]),
+    "jamba_router_prefill": (512, 256, 16, 8, [2, 2]),
 }
 
 
@@ -785,7 +823,7 @@ def make_system(cfg, n_clients, seed, acfg=LORA):
     g = gen(seed)
     base, bank = symbiosis.init_system(cfg, acfg, n_clients, g, device=DEV,
                                        adapter_dtype=torch.bfloat16)
-    for leaf in bank["layers"].values():
+    for leaf in next(iter(bank.values())).values():    # layers / groups
         leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g, device=DEV)
                         * 0.05)
     return base, bank
@@ -4620,13 +4658,15 @@ def phase13a(cfg, base, bank):
     return launches, times, caches, lengths, streams
 
 
-def p13_router_sgmv(bank, layer):
+def p13_router_sgmv(bank, layer, label="phase 13b"):
     """The router's LoRA delta at decode: 8 fp32 rows (the hidden state
-    the router reads), one MoE layer's A [C, 2048, 8] / B [C, 8, 64] in
-    fp32 (the bank's bf16 cast, as ``apply_adapter_rows`` casts them),
-    block_t 1."""
-    A = bank["layers"]["router"]["A"].transpose(0, 1)[layer].float()
-    Bw = bank["layers"]["router"]["B"].transpose(0, 1)[layer].float()
+    the router reads), one MoE layer's (a hybrid's: one group's) A [C,
+    din, 8] / B [C, 8, E] in fp32 (the bank's bf16 cast, as
+    ``apply_adapter_rows`` casts them), block_t 1; deepseek's din 2048 and
+    E 64, jamba's 4096 and 16."""
+    leaf = next(iter(bank.values()))["router"]        # layers / groups
+    A = leaf["A"].transpose(0, 1)[layer].float()
+    Bw = leaf["B"].transpose(0, 1)[layer].float()
     n, din, r = A.shape
     dout = Bw.shape[-1]
     x = torch.randn((8, din), generator=gen(16), device=DEV)
@@ -4651,7 +4691,7 @@ def p13_router_sgmv(bank, layer):
     lib_ms = time_ms(library)
     nbytes = 8 * din * 4 + n * (din * r + r * dout) * 4 + 8 * 4 + 8 * dout * 4
     bound_ms, by = bound(nbytes, 2 * 8 * r * (din + dout))
-    log(f"[phase 13b] sgmv router T=8 block_t=1 din={din} r={r} dout={dout} "
+    log(f"[{label}] sgmv router T=8 block_t=1 din={din} r={r} dout={dout} "
         f"fp32 (max_abs_err {err:.3e} vs plain), L2-cold: kernel {ms:.4f} ms "
         f"(L2-warm {warm_ms:.4f}; device time, enqueue hidden, "
         f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, gather+bmm {lib_ms:.4f} ms "
@@ -5307,13 +5347,13 @@ def phase14d(cfg, base):
                              f"{2 * charge} B")
 
 
-def free_device():
+def free_device(label="phase 13"):
     """Collect the engines' reference cycles (an engine whose steps were
     wrapped for timing refers to itself), which hold base tensors until
     the cyclic collector runs, then give the cached blocks back."""
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[phase 13] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    log(f"[{label}] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
 
 def phase13():
@@ -5354,6 +5394,387 @@ def phase13():
     log(f"[phase 13c] done ({time.perf_counter() - t:.1f} s)")
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid family on the serving path
+# ---------------------------------------------------------------------------
+
+P15_LORA = AdapterConfig(method="lora", rank=8, alpha=16.0,
+                         targets=("q", "v", "router"))
+P15_GROUPS = 2           # of jamba-v0.1-52b's 4 periods: 16 of its 32 layers
+P15_MAX_SEQ = 1024
+P15_LONG = 512           # 15a's ninth request: two 256-token scan chunks
+P15_REFUSED = 300        # a prompt length JAX's chunk contract refuses
+
+
+def p15_config(groups=P15_GROUPS, dtype="bfloat16"):
+    """jamba-v0.1-52b at full width, cut to ``groups`` of its 8-layer
+    periods (the least depth with two groups' page-table offsets is 2)."""
+    cfg = get_config("jamba-v0.1-52b")
+    return dataclasses.replace(cfg, n_layers=groups * cfg.attn_every,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def p15_counts(cfg, acfg=P15_LORA):
+    """(attention sublayers, SGMV launches per decode tick or prefill call):
+    one attention sublayer per group; the LoRA on its q and v and on the
+    router of each MoE sublayer (one group leaf reaches them all)."""
+    G = cfg.n_layers // cfg.attn_every
+    n_moe = sum(hybrid_lib.sub_is_moe(cfg, j) for j in range(cfg.attn_every))
+    attn = sum(t in ("q", "k", "v", "o") for t in acfg.targets)
+    return G, G * (attn + ("router" in acfg.targets) * n_moe)
+
+
+def p15_spec(cfg, page_block=16, max_b=2):
+    """Phase 4's serving spec (4 clients, opportunistic) over ``max_b``
+    slots per client, ``max_seq`` 1024, LoRA ``P15_LORA``."""
+    scfg = ServeConfig(n_clients=4, max_seq=P15_MAX_SEQ, page_block=page_block,
+                       policy="opportunistic")
+    return EngineSpec(cfg=cfg, banks=(BankSpec("tenants", P15_LORA, 4),),
+                      serve=scfg, max_batch_per_client=max_b)
+
+
+def p15_requests(cfg):
+    """Phase 4's 8 staggered requests and a ninth of ``P15_LONG`` tokens
+    for client 0 at tick 7 (it waits for one of client 0's slots)."""
+    reqs = make_requests(cfg, 4)
+    rng = np.random.default_rng(15)
+    reqs.append(Request(client_id=0, max_new_tokens=16, arrive_tick=7,
+                        prompt=rng.integers(0, cfg.vocab, (1, P15_LONG))
+                        .astype(np.int32)))
+    return reqs
+
+
+def p15_serve(cfg, base, bank, spec, label, attn_name, reqs):
+    """Serve ``reqs`` with every launch count set to 0 just before and read
+    just after, checked tick by tick: per decode tick ``attn_name`` once
+    (paged) or twice (dense: split and combine) per attention sublayer,
+    SGMV ``p15_counts`` times per decode tick and per prefill call (one
+    per request: the hybrid prefills unpadded), every other kernel never.
+    Returns (engine, launches, decode-step s, prefill s, peak bytes the run
+    added beyond base, bank and caches)."""
+    G, per_call = p15_counts(cfg)
+    attn_per = {"paged_decode_attn": 1, "decode_attn": 2}[attn_name]
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    for r in reqs:
+        eng.submit(r)
+    dec_t, pre_t = [], []
+    eng._decode_step = _timed(eng._decode_step, dec_t)
+    eng._client_prefill = _timed(eng._client_prefill, pre_t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    per_tick = TICK_LAUNCHES[label] = []
+    more = True
+    while more:
+        before = (read_counts(), eng.stats["ticks"], eng.stats["prefill_calls"])
+        more = eng.service_tick()
+        now = read_counts()
+        d = {n: now[n] - before[0][n] for n in now}
+        per_tick.append(d)
+        d_tick = eng.stats["ticks"] - before[1]
+        d_pre = eng.stats["prefill_calls"] - before[2]
+        want = {n: 0 for n in d}
+        want[attn_name] = attn_per * G * d_tick
+        want["sgmv"] = per_call * (d_tick + d_pre)
+        if d != want:
+            raise AssertionError(
+                f"[{label}] tick {eng._tick}: launches {d} for {d_tick} "
+                f"decode ticks and {d_pre} prefill calls; want {want}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    launches = read_counts()
+    done = eng.drain_done()
+    if len(done) != len(reqs) or eng.stats["quarantined_requests"]:
+        raise AssertionError(f"[{label}] {len(done)} of {len(reqs)} requests "
+                             f"finished, {eng.stats['quarantined_requests']} "
+                             "quarantined")
+    for r in reqs:
+        g = r.generated
+        if r.status != "ok" or g.shape != (1, 16) or g.min() < 0 \
+                or g.max() >= cfg.vocab:
+            raise AssertionError(f"[{label}] client {r.client_id}: status "
+                                 f"{r.status}, tokens {g}")
+    st = eng.stats
+    log(f"[{label}] served {len(done)} requests ({st['prefill_tokens']} "
+        f"prompt + {st['decode_tokens'] + len(done)} generated tokens): "
+        f"{st['ticks']} decode ticks, {st['prefill_calls']} per-request "
+        f"prefills, launches {launches} (checked tick by tick: {attn_name} "
+        f"{attn_per * G} and sgmv {per_call} per decode tick, sgmv "
+        f"{per_call} per prefill); decode-step ms "
+        f"{statistics.median(dec_t) * 1e3:.3f} (median of {len(dec_t)}), "
+        f"prefill ms {statistics.median(pre_t) * 1e3:.3f} (median of "
+        f"{len(pre_t)}); peak beyond base, bank and caches "
+        f"{peak / 1e9:.3f} GB")
+    return eng, launches, dec_t, pre_t, peak
+
+
+def p15_alone(cfg, base, bank, spec, reqs, label):
+    """Every stream bit for bit equal to it served alone by a fresh engine
+    of ``spec``."""
+    for i, r in enumerate(reqs):
+        d = first_diff(r.generated, p9_alone(cfg, base, bank, spec, [r])[0])
+        if d is not None:
+            raise AssertionError(f"[{label}] request {i}'s stream differs "
+                                 f"from it served alone at step {d}")
+    log(f"[{label}] every stream ({len(reqs)}, the {P15_LONG}-token one "
+        "included) equals its run alone on a fresh engine, bit for bit")
+
+
+def p15_refused(cfg, base, bank, spec):
+    """A prompt of ``P15_REFUSED`` tokens (no multiple of the 256-token
+    chunk) is refused at its prefill with JAX's message."""
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    eng.submit(Request(0, np.zeros((1, P15_REFUSED), np.int32), 4))
+    want = f"seq {P15_REFUSED} % chunk 256 != 0"
+    try:
+        eng.service_tick()
+    except ValueError as e:
+        if want not in str(e):
+            raise
+        log(f"[phase 15a] a {P15_REFUSED}-token prompt refused: {e}")
+        return
+    raise AssertionError(f"[phase 15a] a {P15_REFUSED}-token prompt was "
+                         "served")
+
+
+def phase15a(cfg, base, bank):
+    """Pages: 8 + 1 requests (streams against runs alone), the refused
+    length, and one slot per client (slot reuse)."""
+    spec = p15_spec(cfg)
+    warm_up(spec, base, bank)
+    reqs = p15_requests(cfg)
+    eng, launches, dec_t, _, peak = p15_serve(
+        cfg, base, bank, spec, "phase 15a", "paged_decode_attn", reqs)
+    del eng
+    p15_alone(cfg, base, bank, spec, reqs, "phase 15a")
+    p15_refused(cfg, base, bank, spec)
+    spec1 = p15_spec(cfg, max_b=1)
+    reqs1 = p15_requests(cfg)
+    eng, _, _, _, _ = p15_serve(cfg, base, bank, spec1, "phase 15a reuse",
+                                "paged_decode_attn", reqs1)
+    del eng
+    p15_alone(cfg, base, bank, spec1, reqs1, "phase 15a reuse")
+    p13_vs("phase 15a reuse", reqs1, [r.generated for r in reqs],
+           "the 2-slot run's stream")
+    return [r.generated.copy() for r in reqs], launches, dec_t, peak
+
+
+def phase15b(cfg, base, bank, streams):
+    """The dense layout: the same requests, streams against runs alone."""
+    spec = p15_spec(cfg, page_block=0)
+    warm_up(spec, base, bank)
+    reqs = p15_requests(cfg)
+    eng, _, _, _, _ = p15_serve(cfg, base, bank, spec, "phase 15b",
+                                "decode_attn", reqs)
+    attn = f"sub{cfg.attn_every - 1}"
+    shapes = {n: list(t.shape) for n, t in eng.caches["groups"][attn].items()}
+    shapes.update({n: list(t.shape) for n, t in
+                   eng.caches["groups"]["sub0"].items()})
+    log(f"[phase 15b] kv=dense, bank caches {shapes} (attention sublayer "
+        f"{attn}: [G, C, B, T, K, hd]; Mamba sublayer sub0: [G, C, B, ...])")
+    del eng
+    p15_alone(cfg, base, bank, spec, reqs, "phase 15b")
+    p13_vs("phase 15b", reqs, streams, "the pages' stream")
+
+
+def p15_wiring(cfg, base, bank, tol, label):
+    """A per-client prefill of one prompt per client (64-256 tokens, slot
+    0; slot 1 a dummy of length 0) into a paged bank, then one compacted
+    decode of the 4 rows, with the kernels (no host sync) and under
+    ``plain_kernels()``: launches (paged attention once per attention
+    sublayer in the decode, SGMV ``p15_counts`` per call; none plain) and
+    logits at ``tol``, or, with ``tol`` None, their gap printed in bf16
+    ulps (16 layers in bf16: the two passes' roundings, carried through
+    the hidden state, drift past the bf16 tolerance, as llava's 32 layers
+    do in 13c; one period in bf16 and in fp32 are held). Returns the two
+    max errors."""
+    C, max_b, max_seq, blk = 4, 2, 512, 16
+    G, per_call = p15_counts(cfg)
+    scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=blk)
+    rng = np.random.default_rng(3)
+    lengths = [int(n) for n in rng.integers(64, 257, C)]
+    toks = [torch.tensor(np.stack([rng.integers(0, cfg.vocab, n),
+                                   np.zeros(n, np.int64)]),
+                         dtype=torch.int32, device=DEV) for n in lengths]
+    lens = [torch.tensor([n, 0], dtype=torch.int32, device=DEV)
+            for n in lengths]
+    mask = torch.tensor([True, False], device=DEV)
+    rows = [torch.tensor(a, device=DEV) for a in
+            (np.arange(C, dtype=np.int32), np.zeros(C, np.int32),
+             np.ones(C, bool))]
+    prefill = symbiosis.make_client_prefill(cfg, P15_LORA, scfg)
+    decode = symbiosis.make_compact_decode_step(cfg, P15_LORA, scfg)
+    out, nxt = [], None
+    for plain in (False, True):
+        caches = symbiosis.init_client_caches(cfg, C, max_b, max_seq,
+                                              page_block=blk, device=DEV)
+        P = max_b * (max_seq // blk)
+        caches["block_tbl"] += (torch.arange(C, dtype=torch.int32,
+                                             device=DEV) * P)[:, None, None]
+        torch.cuda.synchronize()
+        reset_counts()
+        with blocks.plain_kernels() if plain else no_host_sync():
+            lg1 = []
+            for c in range(C):
+                lg, caches = prefill(base, bank, caches, c, c, toks[c],
+                                     lens[c], mask)
+                lg1.append(lg[0])
+            lg1 = torch.stack(lg1)
+            if nxt is None:
+                nxt = lg1.argmax(-1).to(torch.int32)
+            lg2, _, caches = decode(base, bank, caches, nxt, *rows)
+        torch.cuda.synchronize()
+        want = {n: 0 for n in KERNELS}
+        if not plain:
+            want.update(paged_decode_attn=G, sgmv=per_call * (C + 1))
+        if read_counts() != want:
+            raise AssertionError(f"[{label}] launches {read_counts()}, want "
+                                 f"{want}")
+        out.append((lg1, lg2))
+    gaps = []
+    for what, (got, want) in (("prefill", (out[0][0], out[1][0])),
+                              ("decode", (out[0][1], out[1][1]))):
+        if tol is not None:
+            gaps.append(compare(f"{label} {what} logits", got, want, tol))
+            continue
+        gap, ulps = (got.float() - want.float()).abs(), bf16_ulps(got, want)
+        at = int(gap.argmax())
+        gaps.append(float(gap.max()))
+        log(f"[{label}] {cfg.n_layers} layers {cfg.dtype} {what} logits, "
+            f"kernels vs plain: max_abs_err {gaps[-1]:.3e} at a logit of "
+            f"{float(want.flatten()[at]):.3f} ({float(ulps.flatten()[at]):.0f}"
+            f" bf16 ulps there); at most {float(ulps.max()):.0f} ulps, "
+            f"{float((ulps > 1).float().mean()):.2e} of logits more than 1 "
+            f"ulp apart; |logits| <= {float(want.float().abs().max()):.2f}")
+    log(f"[{label}] {cfg.n_layers} layers {cfg.dtype}: per-client prefill "
+        f"(prompts {lengths}) logits max_abs_err={gaps[0]:.3e}, compacted "
+        f"decode logits max_abs_err={gaps[1]:.3e}, kernels vs plain"
+        f"{'' if tol is None else f' at {tol}'}; paged_decode_attn {G} and "
+        f"sgmv {per_call * (C + 1)} launches in the kernel pass, no host sync")
+    return gaps
+
+
+def p15_scan_share(cfg, base, bank):
+    """A 256-token prompt's per-client prefill on the host clock (the
+    second of two, the first warming), beside the selective scan alone at
+    that prefill's shapes (2 slot rows x 256 steps x ED 8192 x N 16, CUDA
+    events, L2-cold) times the Mamba sublayers: the scan's share."""
+    spec = p15_spec(cfg)
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    pre_t = []
+    eng._client_prefill = _timed(eng._client_prefill, pre_t)
+    rng = np.random.default_rng(16)
+    for _ in range(2):
+        eng.submit(Request(1, rng.integers(0, cfg.vocab, (1, 256))
+                           .astype(np.int32), 1))
+        eng.run()
+    del eng
+    ed, N = cfg.mamba_expand * cfg.d_model, cfg.d_state
+    g = gen(17)
+    act = getattr(torch, cfg.dtype)
+    x = torch.randn((2, 256, ed), generator=g, device=DEV).to(act)
+    dt = F.softplus(torch.randn((2, 256, ed), generator=g, device=DEV) - 2)
+    Bc, Cc = (torch.randn((2, 256, N), generator=g, device=DEV).to(act)
+              for _ in range(2))
+    p = base["groups"][0]["sub0"]["mamba"]
+    A = -torch.exp(p["A_log"])
+    h0 = torch.zeros((2, ed, N), device=DEV)
+    scan_ms = time_ms(lambda: mamba_lib.selective_scan(
+        x, dt, Bc, Cc, A, p["D"], h0), n=10)
+    n_mamba = sum(not hybrid_lib.sub_is_attn(cfg, j)
+                  for j in range(cfg.attn_every)) * (cfg.n_layers
+                                                     // cfg.attn_every)
+    pre_ms = pre_t[-1] * 1e3
+    log(f"[phase 15d] a 256-token prompt's per-client prefill (2 slot rows): "
+        f"{pre_ms:.2f} ms on the host clock; the selective scan alone at its "
+        f"shapes {scan_ms:.3f} ms x {n_mamba} Mamba sublayers = "
+        f"{n_mamba * scan_ms:.2f} ms, {100 * n_mamba * scan_ms / pre_ms:.1f}% "
+        "of the prefill")
+    return pre_ms, scan_ms
+
+
+def p15_charges(cfg, base, bank):
+    """What an engine's caches take per slot on the card
+    (``max_memory_allocated`` over its construction) beside the router's
+    charge for a request that holds one slot for ``max_seq`` tokens: the
+    Mamba state and a full row of K/V on both layouts."""
+    for page_block in (16, 0):
+        spec = p15_spec(cfg, page_block=page_block)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        eng = ServingEngine(spec, base, [bank], device=DEV)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - mem0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        slots = 4 * spec.max_batch_per_client
+        charge = kvcache.cache_bytes(cfg, P15_MAX_SEQ, 1,
+                                     page_block=page_block)
+        spec_c = kvcache.make_cache_spec(cfg)
+        log(f"[phase 15d] {'paged' if page_block else 'dense'} engine caches:"
+            f" {held / slots:,.0f} B per slot held ({peak / slots:,.0f} B at "
+            f"the construction's peak); the router charges {charge:,} B for "
+            f"a slot of {P15_MAX_SEQ} tokens ({spec_c.fixed_bytes:,} B of "
+            f"Mamba state + {spec_c.bytes_per_token:,} B of K/V per token)")
+        if held < slots * charge:
+            raise AssertionError(f"[phase 15d] the caches hold {held} B, "
+                                 f"less than {slots} charges of {charge} B")
+        del eng
+
+
+def phase15():
+    """The hybrid family on the serving path: jamba-v0.1-52b at full width,
+    2 of its 4 periods (16 of 32 layers: 2 attention, 14 Mamba, 8 MoE
+    sublayers, 6 dense MLPs; about 26 B params, 52 GB in bf16, where its
+    full depth, about 103 GB, fits no 80 GB card), 4 LoRA r8 tenants on q,
+    v and the router. 15a pages, 15b the dense layout, 15c kernels against
+    plain (bf16 at 16 layers printed, at one period held at 2e-2; then
+    fp32 at one period held at 1e-5 after the bf16 base is freed), 15d
+    readings."""
+    cfg = p15_config()
+    t0 = time.perf_counter()
+    base, bank = make_system(cfg, 4, seed=15, acfg=P15_LORA)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(base))
+    log(f"[phase 15a] {cfg.name}: {cfg.n_layers} of 32 layers "
+        f"({cfg.n_layers // cfg.attn_every} periods; d_model {cfg.d_model}, "
+        f"ED {cfg.mamba_expand * cfg.d_model}, d_state {cfg.d_state}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}), {n_params / 1e9:.2f} B "
+        f"params bf16 ({torch.cuda.memory_allocated() / 1e9:.1f} GB) "
+        f"initialised in {time.perf_counter() - t0:.1f} s; LoRA r8 on q, v "
+        "and the router")
+    t = time.perf_counter()
+    streams, launches, dec_t, peak = phase15a(cfg, base, bank)
+    log(f"[phase 15a] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase15b(cfg, base, bank, streams)
+    log(f"[phase 15b] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    p15_wiring(cfg, base, bank, None, "phase 15c")
+    p15_wiring(p15_config(groups=1), dict(base, groups=base["groups"][:1]),
+               tree_map(lambda x: x[:, :1], bank), BF16_TOL, "phase 15c")
+    log(f"[phase 15c] bf16 done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    p15_charges(cfg, base, bank)
+    log(f"[phase 15d] peak beyond base, bank and caches in 15a's run: "
+        f"{peak / 1e9:.3f} GB")
+    profile_tick(cfg, base, [bank], p15_spec(cfg), "phase 15d")
+    p15_scan_share(cfg, base, bank)
+    p13_router_sgmv(bank, 0, label="phase 15d")
+    log(f"[phase 15d] done ({time.perf_counter() - t:.1f} s)")
+    del base, bank
+    free_device("phase 15")
+    t = time.perf_counter()
+    cfg32 = p15_config(groups=1, dtype="float32")
+    base32, bank32 = make_system(cfg32, 4, seed=15, acfg=P15_LORA)
+    bank32 = tree_map(lambda x: x.float(), bank32)
+    p15_wiring(cfg32, base32, bank32, F32_TOL, "phase 15c")
+    del base32, bank32
+    free_device("phase 15")
+    log(f"[phase 15c] fp32 done ({time.perf_counter() - t:.1f} s)")
 
 
 def main() -> int:
@@ -5458,7 +5879,12 @@ def main() -> int:
 
     t = time.perf_counter()
     phase13()
-    log(f"[phase 13] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 13] done ({time.perf_counter() - t:.1f} s)")
+    free_device()
+
+    t = time.perf_counter()
+    phase15()
+    log(f"[phase 15] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's

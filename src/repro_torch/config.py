@@ -2,8 +2,9 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-serving paths and its fine-tuning service (the dense, MoE and VLM
-families; LoRA, IA3 and prefix banks) read. The port keeps its own copy so that it imports nothing of the JAX
+serving paths (the dense, MoE, VLM and hybrid families) and its
+fine-tuning service (the dense, MoE and VLM families; LoRA, IA3 and prefix
+banks) read. The port keeps its own copy so that it imports nothing of the JAX
 package; the fields it keeps have the same names and defaults, so a config
 describes the same model in both.
 """
@@ -14,13 +15,14 @@ from dataclasses import dataclass
 from typing import Sequence
 
 
-# Architecture families. The port serves and fine-tunes the pure-KV ones;
-# a config of any other family (recurrent, hybrid, encoder-decoder) is
-# refused where a model or engine is built.
+# Architecture families. The port serves the pure-KV ones and the hybrid,
+# and fine-tunes the pure-KV ones; a config of any other family (recurrent,
+# encoder-decoder) is refused where a model or engine is built.
 DENSE = "dense"
 MOE = "moe"
 VLM = "vlm"        # LLaVA backbone (dense + patch-embedding frontend stub)
-FAMILIES = (DENSE, MOE, VLM)
+HYBRID = "hybrid"  # Jamba: Mamba + attention interleave + MoE
+FAMILIES = (DENSE, MOE, VLM, HYBRID)
 TRAIN_FAMILIES = (DENSE, MOE, VLM)
 
 
@@ -57,6 +59,11 @@ class ModelConfig:
     moe_offset: int = 0
     first_dense_layers: int = 0       # DeepSeek-MoE: first layer(s) dense
     dense_residual: bool = False      # Arctic: dense FFN in parallel with MoE
+    # --- Hybrid (Jamba) ---
+    attn_every: int = 0               # attention on layers where (layer+1) % attn_every == 0
+    d_state: int = 16                 # Mamba state dim
+    d_conv: int = 4
+    mamba_expand: int = 2
     # --- VLM ---
     n_frontend_tokens: int = 0        # image patch tokens (stubbed frontend)
     sliding_window: int = 0           # 0 -> full attention
@@ -87,6 +94,13 @@ class ModelConfig:
             return False
         return layer % self.moe_every == self.moe_offset
 
+    def is_attn_layer(self, layer: int) -> bool:
+        """Hybrid: whether decoder layer ``layer`` is attention (the others
+        are Mamba); every layer of the other families is."""
+        if self.arch != HYBRID:
+            return True
+        return (layer + 1) % self.attn_every == 0
+
     def reduced(self, n_layers: int = 2, d_model: int = 256,
                 n_experts: int = 4, vocab: int = 512) -> "ModelConfig":
         """Tiny same-family variant for CPU smoke runs."""
@@ -108,6 +122,8 @@ class ModelConfig:
                 moe_every=self.moe_every,
                 moe_offset=min(self.moe_offset, n_layers - 1),
                 first_dense_layers=min(self.first_dense_layers, 1))
+        if self.arch == HYBRID:
+            changes.update(attn_every=2, n_layers=max(n_layers, 2))
         if self.arch == VLM:
             changes.update(n_frontend_tokens=16)
         return dataclasses.replace(self, **changes)

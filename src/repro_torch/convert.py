@@ -14,10 +14,14 @@ nothing here imports JAX. Layouts:
   axis — one fused page pool over all L layers, so page copies, prefix
   sharing and ``engine_state`` cover them as they stand). The ``to_numpy``
   functions split them off again when given the config.
+* the hybrid family: JAX stacks its periods on a leading [G] axis
+  (``groups.sub{j}.mamba.in_proj`` [G, d, 2*ED], ...); the port keeps a
+  ``groups`` list with one dict of ``sub{j}`` dicts per group.
 * adapter banks: ``{"layers": {path: {"A": [C, L, din, r], "B": [C, L, r,
   dout]}}}`` (LoRA), ``{"layers": {path: {"scale": [C, L, n]}}}`` (IA3)
   and ``{"layers": {"prefix_k", "prefix_v": [C, L, n_prefix, K, hd]}}``
-  (prefix) in both packages.
+  (prefix) in both packages; a hybrid bank has ``groups`` and [C, G, ...]
+  leaves in both.
 * paged bank caches: ``{"layers": {"k", "v": [L, C*P, blk, K, hd]},
   "pos": [C, B], "block_tbl": [C, B, n_blocks]}`` in both packages.
 * dense bank caches (no ``block_tbl``, ``pos`` [C, B]): JAX stacks them
@@ -26,6 +30,12 @@ nothing here imports JAX. Layouts:
   slot rows are one contiguous slab for the dense decode-attention
   kernel. A model-level dense cache (``pos`` [B]) is [L, B, T, K, hd] in
   both. int8 caches carry their ``k_s`` / ``v_s`` scales the same way.
+* hybrid caches: ``{"groups": {"sub{j}": {"k", "v"} or {"h", "conv"}},
+  "pos", ("block_tbl")}``, leaves [G, ...], the same at model level in
+  both packages. In a bank JAX stacks every per-slot leaf (the Mamba
+  state, dense K/V rows) client-major, [C, G, B, ...]; the port puts the
+  client axis after the group axis, [G, C, B, ...], as it lays out dense
+  KV rows (paged pools [G, C*P, ...] alike in both).
 
 bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) cross as their 16-bit
 patterns, so no value is rounded on the way.
@@ -34,6 +44,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.common.tree import tree_leaves
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -74,29 +86,32 @@ def _n_pre(cfg) -> int:
 
 
 def params_from_numpy(cfg, tree, device):
-    """JAX base params (numpy leaves) -> the port's per-layer structure,
-    JAX's ``pre_layers`` first."""
+    """JAX base params (numpy leaves) -> the port's per-layer (or, for the
+    hybrid, per-group) structure, JAX's ``pre_layers`` first."""
+    stacked = "groups" if "groups" in tree else "layers"
     out = {k: _map(lambda a: tensor_from_numpy(a, device), v)
-           for k, v in tree.items() if k not in ("layers", "pre_layers")}
+           for k, v in tree.items() if k not in (stacked, "pre_layers")}
     pre = [_map(lambda a: tensor_from_numpy(a, device), layer)
            for layer in tree.get("pre_layers", [])]
-    out["layers"] = pre + [
-        _map(lambda a, i=i: tensor_from_numpy(a[i], device), tree["layers"])
-        for i in range(cfg.n_layers - len(pre))]
+    n = len(tree_leaves(tree[stacked])[0])
+    out[stacked] = pre + [
+        _map(lambda a, i=i: tensor_from_numpy(a[i], device), tree[stacked])
+        for i in range(n)]
     return out
 
 
 def params_to_numpy(params, cfg=None):
     """Inverse of ``params_from_numpy``: the layers after ``cfg``'s
     ``first_dense_layers`` stacked back on [L], those before it in
-    ``pre_layers``."""
+    ``pre_layers``; a hybrid's groups on [G]."""
+    stacked = "groups" if "groups" in params else "layers"
     out = {k: _map(tensor_to_numpy, v) for k, v in params.items()
-           if k != "layers"}
-    per = [_map(tensor_to_numpy, layer) for layer in params["layers"]]
+           if k != stacked}
+    per = [_map(tensor_to_numpy, layer) for layer in params[stacked]]
     n_pre = _n_pre(cfg)
     if n_pre:
         out["pre_layers"] = per[:n_pre]
-    out["layers"] = _zip(lambda *leaves: np.stack(leaves), per[n_pre:])
+    out[stacked] = _zip(lambda *leaves: np.stack(leaves), per[n_pre:])
     return out
 
 
@@ -142,32 +157,49 @@ def bank_to_numpy(tree, cfg=None):
     return _split_pre(_map(tensor_to_numpy, tree), 1, _n_pre(cfg))
 
 
-def _dense_bank(tree) -> bool:
-    return (isinstance(tree, dict) and "pos" in tree
-            and "block_tbl" not in tree and tree["pos"].ndim == 2)
+_POOLS = ("k", "v", "k_s", "v_s")
+
+
+def _bank_slot_leaves(fn, tree):
+    """``fn`` over the per-slot leaves of a BANK cache's layer container
+    (``layers`` / ``groups``): every leaf but a paged bank's pools; other
+    leaves, and a model-level cache (``pos`` [B]) whole, as they are."""
+    if not (isinstance(tree, dict) and "pos" in tree
+            and np.ndim(tree["pos"]) == 2):
+        return tree
+    paged = "block_tbl" in tree
+
+    def walk(t, name=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return t if paged and name in _POOLS else fn(t)
+
+    return {k: walk(v) if k in ("layers", "groups") else v
+            for k, v in tree.items()}
+
+
+def _pre_axis(tree) -> int:
+    """The layer axis of a JAX bank's per-slot leaves: 1 behind the client
+    axis in a dense bank, 0 in a paged one's pools and a model cache."""
+    dense_bank = (isinstance(tree, dict) and "pos" in tree
+                  and "block_tbl" not in tree and np.ndim(tree["pos"]) == 2)
+    return 1 if dense_bank else 0
 
 
 def caches_from_numpy(tree, device):
     """JAX caches (numpy leaves) -> torch: JAX's ``pre_layers`` first on
-    the layer axis, and a dense bank's KV leaves from [C, L, ...] to
-    layer-major [L, C, ...] (contiguous); anything else in the same
-    layout."""
-    dense_bank = _dense_bank(tree)
+    the layer axis, and a bank's per-slot leaves (dense KV rows, a
+    hybrid's Mamba state) from client-major [C, L, ...] to [L, C, ...]
+    (contiguous); anything else in the same layout."""
     out = _map(lambda a: tensor_from_numpy(a, device),
-               _fold_pre(tree, 1 if dense_bank else 0))
-    if dense_bank:
-        out["layers"] = {n: t.transpose(0, 1).contiguous()
-                         for n, t in out["layers"].items()}
-    return out
+               _fold_pre(tree, _pre_axis(tree)))
+    return _bank_slot_leaves(lambda t: t.transpose(0, 1).contiguous(), out)
 
 
 def caches_to_numpy(caches, cfg=None):
     """The port's caches -> numpy leaves in JAX's layout, for comparison
     with JAX (the inverse of ``caches_from_numpy``; give ``cfg`` to split
     off an MoE model's first dense layers as ``pre_layers``)."""
-    out = _map(tensor_to_numpy, caches)
-    dense_bank = _dense_bank(caches)
-    if dense_bank:
-        out["layers"] = {n: np.ascontiguousarray(np.swapaxes(a, 0, 1))
-                         for n, a in out["layers"].items()}
-    return _split_pre(out, 1 if dense_bank else 0, _n_pre(cfg))
+    out = _bank_slot_leaves(lambda a: np.ascontiguousarray(
+        np.swapaxes(a, 0, 1)), _map(tensor_to_numpy, caches))
+    return _split_pre(out, _pre_axis(caches), _n_pre(cfg))

@@ -1,5 +1,5 @@
-"""PEFT adapters: LoRA, IA3 and prefix tuning — the pure-KV families'
-branch of ``repro.core.adapters``.
+"""PEFT adapters: LoRA, IA3 and prefix tuning — the pure-KV and hybrid
+families' branches of ``repro.core.adapters``.
 
 An adapter tree mirrors the model's layer container, one client's leaves
 carrying a leading [L] axis: LoRA ``{"layers": {path: {"A": [L, din, r],
@@ -8,6 +8,10 @@ the output dim, the input dim for ``down``), prefix ``{"layers":
 {"prefix_k", "prefix_v": [L, n_prefix, K, hd]}}``. A client BANK stacks
 clients on a leading axis ([C, L, ...]) — the JAX package's layout, so
 banks cross over through numpy unchanged (``convert.bank_from_numpy``).
+The hybrid family's container is ``groups``, one leaf per period of
+``attn_every`` sublayers ([G, ...], G = n_layers / attn_every), which
+every sublayer of the group that calls the target path shares
+(``models.hybrid``): ``adapter_bytes`` counts G leaves, as JAX does.
 
 An MoE model adds the ``router`` target [d, n_experts] (its input is the
 fp32 hidden state). Every layer carries the same leaves, as JAX's
@@ -41,7 +45,8 @@ from typing import Dict
 import torch
 
 from repro_torch.common.tree import tree_map
-from repro_torch.config import AdapterConfig, ModelConfig, check_family
+from repro_torch.config import (HYBRID, AdapterConfig, ModelConfig,
+                                check_family)
 from repro_torch.kernels.sgmv import sgmv
 
 
@@ -72,6 +77,14 @@ DEFAULT_TARGETS = {
 }
 
 
+def adapter_layout(cfg: ModelConfig) -> tuple:
+    """(container key, leaves per client) of ``cfg``'s adapter trees:
+    ``("groups", G)`` for the hybrid family, ``("layers", L)`` else."""
+    if cfg.arch == HYBRID:
+        return "groups", cfg.n_layers // cfg.attn_every
+    return "layers", cfg.n_layers
+
+
 def resolve_targets(cfg: ModelConfig, acfg: AdapterConfig):
     """[(path, (din, dout))] of the adapter's targets this model has."""
     check_family(cfg)
@@ -84,8 +97,9 @@ def init_adapter(cfg: ModelConfig, acfg: AdapterConfig, generator, *,
     """One client's tree, per layer: LoRA A ~ normal / sqrt(din) and B = 0
     (a fresh adapter adds nothing); IA3 scales of 1 on the output dim (the
     input dim for ``down``); prefix K/V ~ normal * 0.02, [n_prefix, K,
-    hd]. The JAX package's distributions."""
-    L = cfg.n_layers
+    hd]. The JAX package's distributions. The hybrid family's tree holds
+    one leaf per group under ``groups`` (``adapter_layout``)."""
+    key, L = adapter_layout(cfg)
     tree = {}
     for path, (din, dout) in resolve_targets(cfg, acfg):
         if acfg.method == "lora":
@@ -106,7 +120,7 @@ def init_adapter(cfg: ModelConfig, acfg: AdapterConfig, generator, *,
                           * 0.02).to(dtype)
     elif acfg.method not in ("lora", "ia3"):
         raise ValueError(f"unknown PEFT method {acfg.method!r}")
-    return {"layers": tree}
+    return {key: tree}
 
 
 def init_client_bank(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
@@ -122,8 +136,9 @@ def adapter_bytes(cfg: ModelConfig, acfg: AdapterConfig,
     """(param_count, param_bytes) of one client's adapter in ``dtype``
     (``init_adapter``'s default fp32): what a client pins beyond the shared
     base, and what ``PlacementRouter.route_bank`` charges per client (a
-    fine-tuning job's AdamW moments add 2 x param_count x 4 bytes)."""
-    L = cfg.n_layers
+    fine-tuning job's AdamW moments add 2 x param_count x 4 bytes). A
+    hybrid model's adapter has one leaf per group (``adapter_layout``)."""
+    _, L = adapter_layout(cfg)
     if acfg.method == "lora":
         n = sum(L * acfg.rank * (din + dout)
                 for _, (din, dout) in resolve_targets(cfg, acfg))
@@ -321,8 +336,9 @@ def compact_adapter_bank(bank, rows_client=None, *, per_row: int = 1):
     name their client in ``rows_client`` [n] (needed only by prefix
     leaves, see ``_relay``). A merged training batch passes no ids and
     ``per_row=B``: bank row i owns sequences [i*B, (i+1)*B), and each of
-    them takes row i's prefix."""
-    return {"layers": _relay(bank["layers"], rows_client, per_row)}
+    them takes row i's prefix. The container (``layers``, or a hybrid
+    bank's ``groups``) keeps its key."""
+    return {key: _relay(c, rows_client, per_row) for key, c in bank.items()}
 
 
 def compact_mixed_bank(banks, rows_local, rows_method):
@@ -338,12 +354,14 @@ def compact_mixed_bank(banks, rows_local, rows_method):
     single-method run computes, whatever its neighbours' methods. (The JAX
     function, through ``_mixed_stacked`` and ``_mixed_flat``, also re-lays
     list containers, ``pre_layers``; the port's trees keep those layers on
-    the [L] axis.)"""
+    the [L] axis.) The banks share one container key (``layers``, or a
+    hybrid model's ``groups``)."""
+    key = next(iter(banks[0]))
     out = {}
     for m, bank in enumerate(banks):
-        res = _relay(bank["layers"], rows_local)
+        res = _relay(bank[key], rows_local)
         if "prefix_k" in res:
             L, n = res["prefix_k"].shape[:2]
             res["prefix_rows"] = (rows_method == m)[None].expand(L, n)
         out[f"m{m}"] = res
-    return {"layers": out}
+    return {key: out}

@@ -44,14 +44,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.config import (AdapterConfig, ModelConfig, ServeConfig,
-                                TrainConfig, check_family)
+from repro_torch.config import (HYBRID, AdapterConfig, ModelConfig,
+                                ServeConfig, TrainConfig, check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core.virtlayer import (make_bank_ctx, make_client_ctx,
                                         make_compact_ctx, make_mixed_ctx)
 from repro_torch.models import get_model
+from repro_torch.models.hybrid import sub_is_attn
 from repro_torch.models.losses import lm_loss
-from repro_torch.models.transformer import default_block_table, pool_leaves
 from repro_torch.optim import adamw_update, adamw_update_hyper, warmup_cosine
 
 
@@ -69,45 +69,48 @@ def init_system(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
 def serve_cache_kwargs(cfg: ModelConfig, scfg: ServeConfig):
     """Cache-construction kwargs implied by a ServeConfig: the paged layout
     (``page_block > 0``) and, with ``kv_quant``, int8 entries with
-    per-head scales. No ``page_block`` means the dense layout. Every
-    family the port serves (dense, MoE, VLM) is pure-KV and takes both;
-    any other is refused."""
+    per-head scales. No ``page_block`` means the dense layout. The pure-KV
+    families (dense, MoE, VLM) take both; the hybrid pages its attention
+    sublayers' K/V and, as in JAX, drops ``kv_quant`` (its Mamba state is
+    never quantized, and JAX quantizes pure-KV caches only). Any other
+    family is refused."""
     check_family(cfg)
     kw = {}
     if scfg.page_block:
         kw["page_block"] = scfg.page_block
         if scfg.pool_pages:
             kw["pool_pages"] = scfg.pool_pages
-    if scfg.kv_quant:
+    if scfg.kv_quant and cfg.arch != HYBRID:
         kw["quant"] = True
     return kw
+
+
+def _container(caches) -> str:
+    """The layer container of a cache tree: ``layers``, or a hybrid
+    model's ``groups``."""
+    return "groups" if "groups" in caches else "layers"
 
 
 def init_client_caches(cfg: ModelConfig, n_clients: int, batch: int,
                        max_seq: int, dtype=None, *, window: int = 0,
                        quant: bool = False, page_block: int = 0,
                        pool_pages: int = 0, device="cuda"):
-    """Bank caches: ``pos`` [C, B] per slot and either, paged, ``block_tbl``
-    [C, B, n_blocks] and the GLOBAL FLAT page pools {"k","v"} [L, C*P, blk,
-    K, hd], or, dense, the layer-major slot rows {"k","v"} [L, C, B, T, K,
-    hd] (T = max_seq, or a ring of ``min(window, max_seq)``). With
-    ``quant``: int8 {"k","v"} and f32 {"k_s","v_s"} scales [..., K, 1]."""
+    """Bank caches: ``init_cache``'s tree for ``batch`` slots with a client
+    axis inserted in each per-slot leaf at its slot axis
+    (``cache_slot_axes``): ``pos`` [C, B], dense KV rows layer-major [L, C,
+    B, T, K, hd] (T = max_seq, or a ring of ``min(window, max_seq)``), a
+    hybrid model's Mamba state [G, C, B, ...]. Paged, the pools are GLOBAL
+    and FLAT, [L, C*P, blk, K, hd] (client c owns pages [c*P, (c+1)*P)),
+    and ``block_tbl`` is [C, B, n_blocks], every client's the one-client
+    default. With ``quant``: int8 {"k","v"} and f32 {"k_s","v_s"} scales
+    [..., K, 1]."""
     dev = resolve_device(device)
-    dtype = dtype or getattr(torch, cfg.dtype)
-    K, hd = cfg.n_kv_heads, cfg.hd
-    pos = torch.zeros((n_clients, batch), dtype=torch.int32, device=dev)
-    if not page_block:
-        T = min(window, max_seq) if window else max_seq
-        shape = (cfg.n_layers, n_clients, batch, T, K, hd)
-        return {"layers": pool_leaves(shape, dtype, quant, dev), "pos": pos}
-    if window:
-        raise ValueError("the paged cache subsumes the ring-buffer variant "
-                         "(window=)")
-    _, P, tbl = default_block_table(batch, max_seq, page_block, pool_pages,
-                                    dev)
-    shape = (cfg.n_layers, n_clients * P, page_block, K, hd)
-    return {"layers": pool_leaves(shape, dtype, quant, dev), "pos": pos,
-            "block_tbl": tbl[None].repeat(n_clients, 1, 1)}
+    kw = {k: v for k, v in (("window", window), ("quant", quant),
+                            ("page_block", page_block),
+                            ("pool_pages", pool_pages)) if v}
+    one = get_model(cfg).init_cache(batch, max_seq, dtype, device=dev, **kw)
+    return stack_client_caches(cfg, max_seq, [one] * n_clients, offset=False,
+                               **kw)
 
 
 def _kv_names(cache_kw):
@@ -116,26 +119,37 @@ def _kv_names(cache_kw):
 
 def cache_slot_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
     """Per-leaf slot axis of ONE client's cache (``init_cache``'s tree):
-    ``pos`` 0; dense KV leaves [L, B, T, ...] 1; paged pools (no slot axis:
+    ``pos`` 0; dense KV leaves ([L, B, T, ...], a hybrid's [G, B, T, ...])
+    and a hybrid's Mamba state ([G, B, ...]) 1; paged pools (no slot axis:
     their writes are gated inside the model) and ``block_tbl``
     (engine-managed) None. The JAX function derives this map by building
     the cache at two batch sizes; the port knows its trees and writes it
-    down, the same map on every leaf."""
+    down, the same map on every leaf. The bank steps read every slot and
+    page axis from here and ``cache_page_axes``."""
     paged = bool(cache_kw.get("page_block"))
-    axes = {"layers": {n: None if paged else 1
-                       for n in _kv_names(cache_kw)}, "pos": 0}
+    kv = None if paged else 1
+    if cfg.arch == HYBRID:
+        axes = {"groups": {
+            f"sub{j}": ({"k": kv, "v": kv} if sub_is_attn(cfg, j)
+                        else {"h": 1, "conv": 1})
+            for j in range(cfg.attn_every)}, "pos": 0}
+    else:
+        axes = {"layers": {n: kv for n in _kv_names(cache_kw)}, "pos": 0}
     if paged:
         axes["block_tbl"] = None
     return axes
 
 
 def cache_page_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
-    """Per-leaf page axis of ONE client's PAGED cache: pools [L, P, ...] 1,
-    ``pos`` and ``block_tbl`` None (the twin of ``cache_slot_axes``)."""
+    """Per-leaf page axis of ONE client's PAGED cache: pools [L, P, ...]
+    (a hybrid's [G, P, ...]) 1; ``pos``, ``block_tbl`` and per-slot state
+    None (the twin of ``cache_slot_axes``)."""
     if not cache_kw.get("page_block"):
         raise ValueError("page axes exist only for paged caches")
-    return {"layers": {n: 1 for n in _kv_names(cache_kw)}, "pos": None,
-            "block_tbl": None}
+    axes = tree_map(lambda ax: 1 if ax is None else None,
+                    cache_slot_axes(cfg, max_seq, **cache_kw))
+    axes["block_tbl"] = None
+    return axes
 
 
 def _slot_mask(mask, ax, ndim):
@@ -146,27 +160,43 @@ def _slot_mask(mask, ax, ndim):
     return mask.reshape(shape)
 
 
-def stack_client_caches(cfg: ModelConfig, max_seq: int, per_client,
-                        **cache_kw):
+def _slot_leaves(cache, axes):
+    """[(leaf, slot axis)] of the per-slot leaves in a cache's layer
+    container (dense KV rows, Mamba state; not the pools), in the order
+    ``tree_leaves`` walks them. The axis is the model-level one: a bank
+    leaf carries its client axis there, its slots right after."""
+    key = _container(cache)
+    return [(t, ax) for t, ax in zip(tree_leaves(cache[key]),
+                                     tree_leaves(axes[key])) if ax is not None]
+
+
+def stack_client_caches(cfg: ModelConfig, max_seq: int, per_client, *,
+                        offset: bool = True, **cache_kw):
     """Stack per-client model caches (``init_cache`` trees, e.g. after
-    standalone prefills on identity tables) into the BANK layout: ``pos``
-    gains a leading client axis; dense KV leaves stack layer-major, [L, C,
-    B, T, ...]; paged pools fold into the one global flat pool (client c's
+    standalone prefills on identity tables) into the BANK layout: each
+    per-slot leaf gains the client axis at its slot axis (``pos`` [C, B],
+    dense KV [L, C, B, T, ...], Mamba state [G, C, B, ...]); paged pools
+    fold into the one global flat pool on their page axis (client c's
     pages land in [c*P, (c+1)*P)) and block tables are offset to global
-    page ids. The inverse convention of ``init_client_caches``."""
-    C = len(per_client)
-    pos = torch.stack([pc["pos"] for pc in per_client])
-    names = per_client[0]["layers"].keys()
-    if not cache_kw.get("page_block"):
-        return {"layers": {n: torch.stack([pc["layers"][n]
-                                           for pc in per_client], dim=1)
-                           for n in names}, "pos": pos}
-    P = per_client[0]["layers"]["k"].shape[1]
-    tbl = torch.stack([pc["block_tbl"] for pc in per_client])
-    off = torch.arange(C, dtype=tbl.dtype, device=tbl.device) * P
-    return {"layers": {n: torch.cat([pc["layers"][n] for pc in per_client],
-                                    dim=1) for n in names},
-            "pos": pos, "block_tbl": tbl + off[:, None, None]}
+    page ids (``offset=False`` keeps them as they are: the bank of
+    ``init_client_caches``). The inverse convention of JAX's
+    ``init_client_caches``."""
+    axes = cache_slot_axes(cfg, max_seq, **cache_kw)
+    key = _container(per_client[0])
+    out = {key: tree_map(lambda ax, *ts: torch.cat(ts, dim=1) if ax is None
+                         else torch.stack(ts, dim=ax),
+                         axes[key], *(pc[key] for pc in per_client)),
+           "pos": torch.stack([pc["pos"] for pc in per_client])}
+    if cache_kw.get("page_block"):
+        tbl = torch.stack([pc["block_tbl"] for pc in per_client])
+        if offset:
+            P = next(t.shape[1] for t, ax in zip(
+                tree_leaves(per_client[0][key]), tree_leaves(axes[key]))
+                if ax is None)
+            tbl = tbl + (torch.arange(len(per_client), dtype=tbl.dtype,
+                                      device=tbl.device) * P)[:, None, None]
+        out["block_tbl"] = tbl
+    return out
 
 
 def _check_paged(cfg, scfg, what):
@@ -175,15 +205,20 @@ def _check_paged(cfg, scfg, what):
                          "page_block > 0)")
 
 
-def _gather_rows(caches, clients, slots):
+def _gather_rows(caches, axes, clients, slots):
     """Per-row view of the bank caches for rows (clients[i], slots[i]):
-    the pools pass through (flat already); pos and table rows are
-    gathered. Returns (flat row ids, compact cache)."""
+    the pools pass through (flat already); pos, table rows and every other
+    per-slot leaf (a hybrid's Mamba state: copies, written back by
+    ``_scatter_rows``) are gathered. Returns (flat row ids, compact
+    cache)."""
     C, B = caches["pos"].shape
     rows = clients.long() * B + slots.long()
-    return rows, {"layers": caches["layers"],
-                  "pos": caches["pos"].reshape(C * B)[rows],
-                  "block_tbl": caches["block_tbl"].reshape(C * B, -1)[rows]}
+    key = _container(caches)
+    return rows, {key: tree_map(
+        lambda t, ax: t if ax is None else t.flatten(ax, ax + 1)
+        .index_select(ax, rows), caches[key], axes[key]),
+        "pos": caches["pos"].reshape(C * B)[rows],
+        "block_tbl": caches["block_tbl"].reshape(C * B, -1)[rows]}
 
 
 def _scatter_pos(caches, rows, row_mask, new_pos):
@@ -193,6 +228,28 @@ def _scatter_pos(caches, rows, row_mask, new_pos):
     flat = caches["pos"].view(-1)
     delta = torch.where(row_mask, new_pos.to(torch.int32) - flat[rows], 0)
     flat.index_put_((rows,), delta, accumulate=True)
+
+
+def _scatter_rows(caches, compact, axes, rows, row_mask):
+    """Write the live rows of the compact cache's per-slot leaves (a
+    hybrid's Mamba state) back into the bank IN PLACE. Padding rows alias
+    real slots, so each is pointed at the first live row (same slot, same
+    bytes: JAX drops them with ``mode="drop"``), and with no live row every
+    row writes back what its slot holds. Fixed shapes, no host sync; the
+    pure-KV families have no such leaf and launch nothing here."""
+    pairs = [(full, part, ax) for (full, ax), (part, _) in
+             zip(_slot_leaves(caches, axes), _slot_leaves(compact, axes))]
+    if not pairs:
+        return
+    first = row_mask.long().argmax(dim=0, keepdim=True)
+    src = torch.where(row_mask, torch.arange(rows.shape[0],
+                                             device=rows.device), first)
+    dst = rows[src]
+    any_kept = row_mask.any()
+    for full, part, ax in pairs:
+        flat = full.flatten(ax, ax + 1)
+        flat.index_copy_(ax, dst, torch.where(
+            any_kept, part.index_select(ax, src), flat.index_select(ax, dst)))
 
 
 def _row_ctx(cfg, acfg, bank, clients, locals_=None, methods=None):
@@ -233,18 +290,23 @@ def make_compact_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig):
     ``tokens[i]``; ``row_mask`` False marks padding rows, whose logits are
     garbage and whose writes are dropped. ``finite`` is the probe the
     engine quarantines on. Per-row LoRA goes through SGMV, attention
-    through the paged decode kernel. The caches are updated IN PLACE and
-    returned; the step never waits on the host."""
+    through the paged decode kernel. A hybrid model's Mamba state is
+    gathered per row and its live rows written back (padding rows
+    dropped). The caches are updated IN PLACE and returned; the step never
+    waits on the host."""
     _check_paged(cfg, scfg, "compact decode")
     model = get_model(cfg)
     acfg = tuple(acfg) if isinstance(acfg, (tuple, list)) else acfg
+    axes = cache_slot_axes(cfg, scfg.max_seq,
+                           **serve_cache_kwargs(cfg, scfg))
 
     def run(base, bank, caches, tokens, clients, slots, row_mask,
             locals_=None, methods=None):
-        rows, cache = _gather_rows(caches, clients, slots)
+        rows, cache = _gather_rows(caches, axes, clients, slots)
         ctx, adapter = _row_ctx(cfg, acfg, bank, clients, locals_, methods)
         logits, new = model.decode_step(base, cache, tokens, ctx, adapter,
                                         active=row_mask)
+        _scatter_rows(caches, new, axes, rows, row_mask)
         _scatter_pos(caches, rows, row_mask, new["pos"])
         return logits, torch.isfinite(logits).all(dim=-1), caches
 
@@ -279,17 +341,26 @@ def make_compact_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
     (``transformer.prefill``); rows with fewer cached blocks mask the rest
     by position, and 0 is the full prefill. Per-row LoRA goes through SGMV
     with one S_pad-token block per row. Caches are updated IN PLACE and
-    returned."""
+    returned. The hybrid family is refused, as in JAX: its recurrent state
+    cannot take right-padded rows, and its admissions stay on
+    ``make_client_prefill``."""
     _check_paged(cfg, scfg, "compact prefill")
+    if cfg.arch == HYBRID:
+        raise ValueError(
+            f"compact prefill serves the pure-KV families (dense/MoE/VLM); "
+            f"{cfg.arch} admissions stay on the per-client prefill path")
     if ext_blocks and scfg.kv_quant:
         raise ValueError("shared-prefix prefill (ext_blocks > 0) requires "
                          "an unquantized KV cache")
     model = get_model(cfg)
     acfg = tuple(acfg) if isinstance(acfg, (tuple, list)) else acfg
 
+    axes = cache_slot_axes(cfg, scfg.max_seq,
+                           **serve_cache_kwargs(cfg, scfg))
+
     def run(base, bank, caches, tokens, lengths, starts, clients, slots,
             row_mask, locals_=None, methods=None):
-        rows, cache = _gather_rows(caches, clients, slots)
+        rows, cache = _gather_rows(caches, axes, clients, slots)
         ctx, adapter = _row_ctx(cfg, acfg, bank, clients, locals_, methods)
         logits, new = model.prefill(base, {"tokens": tokens}, cache, ctx,
                                     adapter, lengths=lengths, starts=starts,
@@ -305,12 +376,13 @@ def make_compact_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
     return compact_mixed if isinstance(acfg, tuple) else run
 
 
-def _bank_rows(caches):
+def _bank_rows(caches, axes):
     """A dense bank cache as one batch of its C*B slot rows in (client,
-    slot) order: [L, C, B, ...] leaves as [L, C*B, ...] views and ``pos``
-    [C*B] (views: writes land in the bank cache)."""
-    return {"layers": {n: t.view((t.shape[0], -1) + t.shape[3:])
-                       for n, t in caches["layers"].items()},
+    slot) order: each per-slot leaf [.., C, B, ..] as its [.., C*B, ..]
+    view and ``pos`` [C*B] (views: writes land in the bank cache)."""
+    key = _container(caches)
+    return {key: tree_map(lambda t, ax: t.flatten(ax, ax + 1), caches[key],
+                          axes[key]),
             "pos": caches["pos"].view(-1)}
 
 
@@ -340,31 +412,32 @@ def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
     ``tokens`` [max_b, S_pad] right-padded prompts on the admitted rows,
     dummies elsewhere; ``lengths`` [max_b] their true lengths (the engine
     gives other rows 0); ``slot_mask`` [max_b] bool the admitted slots.
-    Dense caches: the admitted slots' rows are zeroed over all T lanes,
-    as JAX's ``zero_slots`` leaves them, then the prefill writes lanes [0,
-    S_pad) of those rows only. Paged caches: the pools are written only
-    where lengths > 0. Other slots and clients keep their bits; ``pos``
-    takes the new value on the admitted slots. LoRA goes through SGMV (one
+    Every per-slot leaf of the admitted slots is zeroed first, as JAX's
+    ``zero_slots`` leaves it (dense KV rows over all T lanes, a hybrid's
+    Mamba state), and the prefill writes those leaves on the admitted rows
+    only (dense KV: lanes [0, S_pad)). Paged pools are written only where
+    lengths > 0. Other slots and clients keep their bits; ``pos`` takes
+    the new value on the admitted slots. LoRA goes through SGMV (one
     S_pad-token block per row), IA3 and prefix through the row hooks, every
     row the client's adapter. Caches are written IN PLACE and returned."""
     model = get_model(cfg)
-    paged = "page_block" in serve_cache_kwargs(cfg, scfg)
+    axes = cache_slot_axes(cfg, scfg.max_seq,
+                           **serve_cache_kwargs(cfg, scfg))
 
     def prefill_one(base, bank, caches, c, a, tokens, lengths, slot_mask):
         c, a = int(c), int(a)
         rows = torch.full((tokens.shape[0],), a, dtype=torch.int32,
                           device=tokens.device)
         ctx, adapter = _row_ctx(cfg, acfg, bank, rows)
-        if paged:
-            cache = {"layers": caches["layers"], "pos": caches["pos"][c],
-                     "block_tbl": caches["block_tbl"][c]}
-            kw = {}
-        else:
-            cache = {"layers": {n: t[:, c] for n, t in
-                                caches["layers"].items()},
-                     "pos": caches["pos"][c]}
-            for leaf in cache["layers"].values():       # zero_slots
-                leaf.masked_fill_(_slot_mask(slot_mask, 1, leaf.ndim), 0)
+        key = _container(caches)
+        cache = {key: tree_map(lambda t, ax: t if ax is None
+                               else t.select(ax, c), caches[key], axes[key]),
+                 "pos": caches["pos"][c]}
+        if "block_tbl" in caches:
+            cache["block_tbl"] = caches["block_tbl"][c]
+        kw = {}
+        for leaf, ax in _slot_leaves(cache, axes):     # zero_slots
+            leaf.masked_fill_(_slot_mask(slot_mask, ax, leaf.ndim), 0)
             kw = {"write_rows": slot_mask}
         logits, new = model.prefill(base, {"tokens": tokens}, cache, ctx,
                                     adapter, lengths=lengths, **kw)
@@ -398,8 +471,10 @@ def make_masked_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
     attention over a ring of depth T). Caches are written IN PLACE and
     returned."""
     model = get_model(cfg)
-    paged = "page_block" in serve_cache_kwargs(cfg, scfg)
+    cache_kw = serve_cache_kwargs(cfg, scfg)
+    paged = "page_block" in cache_kw
     compact = make_compact_decode_step(cfg, acfg, scfg) if paged else None
+    axes = cache_slot_axes(cfg, scfg.max_seq, **cache_kw)
 
     def decode(base, bank, caches, tokens, active):
         C, B = caches["pos"].shape
@@ -413,7 +488,7 @@ def make_masked_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
                                         slots, act)
             return logits.reshape(C, B, -1), caches
         ctx, adapter = _row_ctx(cfg, acfg, bank, clients)
-        rows = _bank_rows(caches)
+        rows = _bank_rows(caches, axes)
         logits, new = model.decode_step(base, rows, tokens.reshape(C * B),
                                         ctx, adapter, ring=ring, active=act)
         rows["pos"].copy_(torch.where(act, new["pos"], rows["pos"]))
@@ -435,13 +510,15 @@ def make_multi_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
     clients' rows. Caches are written IN PLACE and returned."""
     _check_dense(scfg, "the multi-client prefill")
     model = get_model(cfg)
+    axes = cache_slot_axes(cfg, scfg.max_seq,
+                           **serve_cache_kwargs(cfg, scfg))
 
     def prefill(base, bank, caches, batch, write_clients=None):
         tokens = batch["tokens"]
         C, B, S = tokens.shape
         ctx, adapter = _row_ctx(cfg, acfg, bank,
                                 _row_clients(C, B, tokens.device))
-        rows = _bank_rows(caches)
+        rows = _bank_rows(caches, axes)
         write_rows = (None if write_clients is None
                       else write_clients.repeat_interleave(B))
         logits, new = model.prefill(base, {"tokens": tokens.reshape(C * B, S)},
@@ -481,10 +558,15 @@ def make_page_copy(cfg: ModelConfig, scfg: ServeConfig):
     of the pool, so the pools keep their ``data_ptr`` and the host never
     waits. ``src``/``dst`` are global page ids (host ints)."""
     _check_paged(cfg, scfg, "page copy")
+    page_axes = cache_page_axes(cfg, scfg.max_seq,
+                                **serve_cache_kwargs(cfg, scfg))
 
     def copy_page(caches, src, dst):
-        for leaf in caches["layers"].values():
-            leaf[:, dst].copy_(leaf[:, src])
+        key = _container(caches)
+        for leaf, pax in zip(tree_leaves(caches[key]),
+                             tree_leaves(page_axes[key])):
+            if pax is not None:
+                leaf.select(pax, dst).copy_(leaf.select(pax, src))
         return caches
 
     return copy_page

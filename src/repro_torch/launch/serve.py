@@ -1,5 +1,5 @@
 """Multi-tenant serving CLI of the port (``repro.launch.serve``'s, for the
-dense, MoE and VLM families).
+dense, MoE, VLM and hybrid families).
 
 Serves a bank of LoRA clients against one shared base with the port's
 ServingEngine, on the card by default. With no ``--page-block`` (0, as in
@@ -12,9 +12,15 @@ pages through the compacted step:
   PYTHONPATH=src python -m repro_torch.launch.serve --full-size --page-block 16 --kv-quant
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full-size --page-block 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --full-size --page-block 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --full-size --page-block 16
 
 An MoE model routes drop-free (exact); a VLM is served as its text
-backbone, as JAX's engine serves it (no image prefix).
+backbone, as JAX's engine serves it (no image prefix). A hybrid (Jamba)
+prefills one request per call at its true length, within JAX's chunk
+contract (a prompt of at most 256 tokens, or a multiple of 256), and its
+layout line says what the engine runs (``--kv-quant`` is dropped, as in
+JAX). jamba-v0.1-52b at full size is about 103 GB in bf16: its full depth
+fits no single 80 GB card.
 
 ``--device cpu`` runs the reduced config on the CPU through the kernels'
 plain versions. Weights are random, drawn from ``--seed``. ``--obs DIR``

@@ -3,19 +3,21 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-from repro_torch.config import ModelConfig, check_family
-from repro_torch.models import transformer
+from repro_torch.config import HYBRID, ModelConfig, check_family
+from repro_torch.models import hybrid, transformer
 
 
 def get_model(cfg: ModelConfig):
     """Namespace with init_params / init_cache / forward / prefill /
     decode_step, all taking ``cfg`` pre-bound. The dense, MoE and VLM
-    families share ``models.transformer`` (as in JAX); the recurrent,
-    hybrid and encoder-decoder families are not ported yet."""
+    families share ``models.transformer`` and the hybrid has
+    ``models.hybrid`` (as in JAX); the recurrent and encoder-decoder
+    families are not ported yet."""
     check_family(cfg)
+    module = hybrid if cfg.arch == HYBRID else transformer
 
     def bind(fn_name):
-        fn = getattr(transformer, fn_name)
+        fn = getattr(module, fn_name)
         return lambda *a, **kw: fn(cfg, *a, **kw)
 
     return SimpleNamespace(

@@ -1,9 +1,15 @@
 """Continuous-batching multi-client serving engine — the pure-KV families'
-(dense, MoE, VLM) scope of ``repro.serving.engine.ServingEngine``: paged or
-dense KV, the compacted or the masked bank-wide decode, and every prefill
-path. The three families take every path alike, as in JAX (an MoE
-dispatches drop-free, so right-padded ragged prefill stays exact); a VLM
-is served as its text backbone (JAX's engine passes no ``img_embed``).
+(dense, MoE, VLM) and the hybrid's scope of
+``repro.serving.engine.ServingEngine``: paged or dense KV, the compacted or
+the masked bank-wide decode, and every prefill path. The pure-KV families
+take every path alike, as in JAX (an MoE dispatches drop-free, so
+right-padded ragged prefill stays exact); a VLM is served as its text
+backbone (JAX's engine passes no ``img_embed``). A hybrid (Jamba) carries
+per-slot Mamba state beside its attention sublayers' K/V: as in JAX its
+prompts prefill one request per call at their true length (no ragged or
+compacted prefill, so no shared-prefix pages), the admitted slots' state
+zeroed first, and ``kv_quant`` is dropped; its decode takes the compacted
+and the masked steps like the others.
 
 One frozen base serves one or more banks of adapter clients on one device:
 
@@ -126,11 +132,12 @@ imports ``repro_torch.obs``. Every request carries its timeline whether or
 not ``obs`` is attached (``submit_t`` / ``admit_t`` / ``first_token_t`` /
 ``finish_t``, and ``queue_wait`` / ``ttft`` / ``e2e_latency``).
 
-Not ported yet, and refused with ``ValueError``: the recurrent, hybrid
-and encoder-decoder families, and a ``mesh``. Refused as in JAX: mixed banks on the
+Not ported yet, and refused with ``ValueError``: the recurrent and
+encoder-decoder families, and a ``mesh``. Refused as in JAX: mixed banks on the
 dense layout or with ``compact_decode=False``, ``compact_decode=True``
 without pages, ``bank_prefill`` on pages or with
-``max_inflight_per_client`` other than 1, ``prefix_cache=True`` without
+``max_inflight_per_client`` other than 1, ``ragged_prefill=True`` on the
+hybrid, ``prefix_cache=True`` without
 the compacted prefill or over int8 pools, and ``admit_bank`` unless the
 engine is paged and compacted. ``engine_state`` does not capture banks
 admitted by ``admit_bank``, and ``load_engine_state`` refuses a snapshot
@@ -149,6 +156,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map
+from repro_torch.config import DENSE, MOE, VLM
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
@@ -158,6 +166,8 @@ from repro_torch.faults.health import (HealthPolicy, HealthRecord,
                                        HealthState, TransientFault, classify)
 from repro_torch.serving.prefix_cache import PrefixIndex
 from repro_torch.serving.router import AdmissionStall, NoCapacity
+
+KV_FAMILIES = (DENSE, MOE, VLM)        # pure-KV: right-padding is exact
 
 # telemetry off: one shared, reusable null context, so the tick loop's
 # ``with self._span(name)`` costs a call and nothing else, and nothing of
@@ -298,9 +308,14 @@ class ServingEngine:
         if compact_decode and not self._paged:
             raise ValueError("compact_decode requires the paged KV layout "
                              "(ServeConfig.page_block > 0)")
-        if ragged_prefill and bank_prefill:
+        # right-padding rows to a shared bucket is exact for the pure-KV
+        # families only: pads would run through a hybrid's recurrent state,
+        # so its admissions take one call per request, unpadded (JAX's rule)
+        can_ragged = cfg.arch in KV_FAMILIES and not bank_prefill
+        if ragged_prefill and not can_ragged:
             raise ValueError("ragged_prefill right-pads rows to a shared "
-                             "bucket; not the bank_prefill ablation")
+                             "bucket; attention families only (and not the "
+                             "bank_prefill ablation)")
         for bs, tree in zip(spec.banks, banks):
             if _clients_of(tree) != bs.capacity:
                 raise ValueError(f"bank {bs.name!r}: adapter tree holds "
@@ -330,7 +345,7 @@ class ServingEngine:
         self.max_inflight = 1 if bank_prefill else max_inflight_per_client
         self._compact = (self._paged if compact_decode is None
                          else compact_decode)
-        self._ragged = (not bank_prefill if ragged_prefill is None
+        self._ragged = (can_ragged if ragged_prefill is None
                         else ragged_prefill)
         self._compact_prefill = self._ragged and self._paged
         self._quant = bool(cache_kw.get("quant"))
@@ -1144,7 +1159,11 @@ class ServingEngine:
         return [torch.tensor(a, device=self.device) for a in arrays]
 
     def _bucket(self, S: int) -> int:
-        """Bucketed prompt length (right-padding is exact for attention)."""
+        """Bucketed prompt length: right-padding is exact for the pure-KV
+        families; a hybrid prefills at the true length (pads would run
+        through its recurrent state)."""
+        if self.cfg.arch not in KV_FAMILIES:
+            return S
         b = 8
         while b < S:
             b *= 2
@@ -1594,12 +1613,17 @@ class ServingEngine:
             [self._method_of, np.full((k,), m, np.int32)])
         self._local_of = np.concatenate([self._local_of, locs])
         self.n_clients = old_C + k
-        # per-slot leaves grow along the client axis, pools along the page
-        # axis: the appended pages ARE the new clients' ranges
+        # per-slot leaves grow along their client axis, pools along the
+        # page axis: the appended pages ARE the new clients' ranges
         fresh = self._new_caches(k)
+        axes = symbiosis.cache_slot_axes(
+            self.cfg, self.scfg.max_seq,
+            **symbiosis.serve_cache_kwargs(self.cfg, self.scfg))
+        key = "groups" if "groups" in self.caches else "layers"
         self.caches = {
-            "layers": {n: torch.cat([t, fresh["layers"][n]], dim=1)
-                       for n, t in self.caches["layers"].items()},
+            key: tree_map(lambda ax, t, f: torch.cat(
+                [t, f], dim=1 if ax is None else ax), axes[key],
+                self.caches[key], fresh[key]),
             "pos": torch.cat([self.caches["pos"], fresh["pos"]]),
             "block_tbl": torch.cat([self.caches["block_tbl"],
                                     fresh["block_tbl"]])}

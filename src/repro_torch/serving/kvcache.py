@@ -1,13 +1,14 @@
 """KV-cache sizing and the analytic placement cost (the ``"kv"`` kind of
-``repro.serving.kvcache``, the pure-KV families: dense, MoE and VLM).
+``repro.serving.kvcache``, the pure-KV families: dense, MoE and VLM; and
+its ``"hybrid"`` kind).
 
 ``cache_bytes`` is what the engine's ``PlacementRouter`` charges against
 device memory for a request's lifetime: ``quant=True`` prices int8 entries
 plus one f32 scale per head per token for K and V each, and
 ``page_block > 0`` rounds the context up to whole pages (what the paged
 allocator pins). ``decode_token_cost`` is the router's per-token latency
-model of the on-card placement. The recurrent, hybrid and
-encoder-decoder kinds are not ported and raise. The ring-buffer helpers
+model of the on-card placement. The recurrent and encoder-decoder kinds
+are not ported and raise. The ring-buffer helpers
 (``ring_cache_init``, ``ring_write``, and ``ring_valid_mask`` from
 ``models.blocks``, which decodes over rings with it) are the
 sliding-window cache of depth ``window``.
@@ -19,7 +20,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.hardware import H100, Chip
-from repro_torch.config import ModelConfig, check_family
+from repro_torch.config import HYBRID, ModelConfig, check_family
 from repro_torch.models.blocks import dense_write, dense_write_index
 from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 
@@ -27,7 +28,7 @@ from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
     """Shape/bytes description of one client's decode state."""
-    kind: str                    # "kv" (the only kind the port serves)
+    kind: str                    # "kv" | "hybrid"
     bytes_per_token: int         # marginal device bytes per context token
     fixed_bytes: int             # state independent of the sequence length
 
@@ -40,15 +41,24 @@ def _dt_bytes(cfg: ModelConfig) -> int:
 
 
 def make_cache_spec(cfg: ModelConfig, *, quant: bool = False) -> CacheSpec:
-    """The decode-state spec of a pure-KV model: K and V of every one of
+    """The decode-state spec: for a pure-KV model, K and V of every one of
     its ``n_layers`` layers per token (an MoE's dense first layers
     included), in the activation dtype or, with ``quant``, int8 entries
-    plus a f32 scale per head."""
+    plus a f32 scale per head. For a hybrid, K and V of its attention
+    layers (one per ``attn_every``) per token, and a fixed per-slot state
+    of every Mamba layer: ``h`` [ED, d_state] and ``conv`` [d_conv - 1,
+    ED], both f32 (JAX's formula, its ``quant`` row too)."""
     check_family(cfg)
     if quant:
         kv_row = cfg.n_kv_heads * (cfg.hd * 1 + 4) * 2
     else:
         kv_row = cfg.n_kv_heads * cfg.hd * _dt_bytes(cfg) * 2
+    if cfg.arch == HYBRID:
+        n_attn = cfg.n_layers // cfg.attn_every
+        n_mamba = cfg.n_layers - n_attn
+        ed = cfg.mamba_expand * cfg.d_model
+        fixed = n_mamba * (ed * cfg.d_state * 4 + (cfg.d_conv - 1) * ed * 4)
+        return CacheSpec("hybrid", n_attn * kv_row, fixed)
     return CacheSpec("kv", cfg.n_layers * kv_row, 0)
 
 

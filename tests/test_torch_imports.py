@@ -79,12 +79,13 @@ def test_serving_engine_defaults_to_cuda():
 
 
 def test_non_dense_configs_are_refused():
-    """The families the port does not serve yet (recurrent, hybrid,
-    encoder-decoder) have no config; the MoE and VLM ones do."""
+    """The families the port does not serve yet (recurrent,
+    encoder-decoder) have no config; the MoE, VLM and hybrid ones do."""
     from repro_torch.configs import get_config
-    for arch in ("rwkv6-7b", "jamba-v0.1-52b", "whisper-small"):
+    for arch in ("rwkv6-7b", "whisper-small"):
         with pytest.raises(KeyError):
             get_config(arch)
     assert [get_config(a).arch for a in ("deepseek-moe-16b", "arctic-480b",
-                                         "llava-next-mistral-7b")] \
-        == ["moe", "moe", "vlm"]
+                                         "llava-next-mistral-7b",
+                                         "jamba-v0.1-52b")] \
+        == ["moe", "moe", "vlm", "hybrid"]

@@ -305,17 +305,42 @@ exits non-zero and prints no result. Phases, each raising on failure:
    the same, 4 dense-decode launches (split and combine on 2 sublayers)
    per tick. 15c a per-client prefill per client and a compacted decode
    of the 4 rows, with the kernels (no host sync) and under
-   ``plain_kernels()``: at 16 layers bf16 the logits' gap printed in bf16
-   ulps (it exceeds 2e-2: rounding carried through the hidden state, as
-   phase 13c's llava), one period (8 layers) bf16 held at 2e-2, then, the
-   bf16 base freed, one period (~53 GB) fp32 at 1e-5 with TF32 off. 15d the
-   caches' bytes per slot (``max_memory_allocated`` over an engine's
-   construction) beside the router's charge, 15a's peak beyond base,
-   bank and caches, an 8-row decode tick timed and traced as phase 4's,
-   a 256-token prefill beside the selective scan alone at its shapes
-   (the scan's share), and ``sgmv`` at the router's shape (din 4096,
-   dout 16, fp32, 8 rows) timed beside its plain version, a gather +
-   ``bmm`` and its bound, as phase 13b times deepseek's.
+   ``plain_kernels()``: at 16 layers bf16 the logits held at
+   ``P15_PAIR_TOL`` (4 bf16 ulps of the largest logits), with their gap
+   printed in ulps, and its two controls: (a) the same pair with the SGMV
+   op alone on its plain version (printed), (b) after the bf16 base is
+   freed, the 16 layers in fp32 on a jamba narrowed to d_model 1024 held
+   at 1e-5; one period (8 layers) bf16 held at 2e-2, and one period (~53
+   GB) fp32 at 1e-5 with TF32 off. 15d the caches' bytes on both layouts,
+   built by ``init_client_caches`` and by an engine: the allocator's bytes
+   held and requested over the construction and again after
+   ``gc.collect`` and ``empty_cache``, the requested bytes equal to the
+   tree, the tree to the router's charge per slot plus ``pos`` and
+   ``block_tbl``, and what is held beyond the tree equal to the slack of
+   the leaves' own allocator blocks (``memory_snapshot``), at most 1 MiB
+   a leaf; 15a's peak beyond base, bank and caches, an 8-row decode tick
+   timed and traced as phase 4's, a 256-token prefill beside the
+   selective scan alone at its shapes (the scan's share), and ``sgmv`` at
+   the router's shape (din 4096, dout 16, fp32, 8 rows) timed beside its
+   plain version, a gather + ``bmm`` and its bound, as phase 13b times
+   deepseek's;
+16. the hybrid family fine-tunes on phase 15's base (no new kernel:
+   JAX's training path reaches none; the serving side's two run in
+   16c): 16a, on 15c's fp32 one-period base, a 2-row LoRA (q, v, router)
+   and a 2-row IA3 (k, v, down) bank of 1 x 256 tokens, one compact
+   train step each against each row's one-row run (losses and updated
+   states within ``P12_DRIFT_TOL``); 16b a ``FinetuneEngine`` of 4 LoRA
+   jobs of 1 x 256 tokens behind a router that holds a fifth back: tick
+   ms on the host clock, one tick traced (device busy, kernels, the
+   expert ``bmm`` share; the selective scan's share from its time alone
+   at the tick's shapes, forward and forward + backward), the peak beyond
+   base and bank at 1 and 4 jobs held below ``job_charge_bytes``, and at
+   1 job with the scan's blocks not checkpointed (printed); 16c a
+   ``SymbiosisEngine`` serving phase 15a's 8 requests beside 2 jobs:
+   paged attention 2 and ``sgmv`` 12 per decode tick and 12 per prefill,
+   tick by tick, every stream bit for bit 15a's, the jobs bit for bit
+   their ``FinetuneEngine`` run alone; 16d a 2-job engine killed after 1
+   of 3 ticks resumes from its blob bit for bit.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -1961,7 +1986,7 @@ def random_lora(cfg, n, seed, acfg=LORA):
     alone)."""
     g = gen(seed)
     bank = adapters.init_client_bank(cfg, acfg, n, g, device=DEV)
-    for leaf in bank["layers"].values():
+    for leaf in next(iter(bank.values())).values():    # layers / groups
         leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g, device=DEV)
                         * 0.02)
     return bank
@@ -3202,7 +3227,7 @@ def random_bank(cfg, acfg, n, seed):
         return random_lora(cfg, n, seed)
     g = gen(seed)
     bank = adapters.init_client_bank(cfg, acfg, n, g, device=DEV)
-    for leaf in bank["layers"].values():
+    for leaf in next(iter(bank.values())).values():    # layers / groups
         if isinstance(leaf, dict):
             leaf["scale"].add_(torch.randn(leaf["scale"].shape, generator=g,
                                            device=DEV) * 0.1)
@@ -5406,6 +5431,16 @@ P15_GROUPS = 2           # of jamba-v0.1-52b's 4 periods: 16 of its 32 layers
 P15_MAX_SEQ = 1024
 P15_LONG = 512           # 15a's ninth request: two 256-token scan chunks
 P15_REFUSED = 300        # a prompt length JAX's chunk contract refuses
+# 15c's 16-layer bf16 pair, kernels against plain: 4 bf16 ulps of logits
+# in [2, 4) (2^-6 each; every |logit| here is below 3). Its controls: with
+# the SGMV op alone on its plain version the prefill's logits are bit for
+# bit and the decode's 1 ulp apart (the paged kernel's sums), so the gap
+# is the two kernels' fp32 sums in another order, rounded to bf16 and
+# carried through 16 layers; in fp32 (a narrower jamba, the same 16
+# layers) the pair holds at 1e-5, so the kernels compute the same
+# function. The pair read 2.4 / 2.1 ulps (3.711e-02 / 3.320e-02); a wrong
+# row, page or adapter moves logits by tenths.
+P15_PAIR_TOL = dict(atol=4 * 2.0 ** -6, rtol=0.0)
 
 
 def p15_config(groups=P15_GROUPS, dtype="bfloat16"):
@@ -5414,6 +5449,15 @@ def p15_config(groups=P15_GROUPS, dtype="bfloat16"):
     cfg = get_config("jamba-v0.1-52b")
     return dataclasses.replace(cfg, n_layers=groups * cfg.attn_every,
                                dtype=dtype, param_dtype=dtype)
+
+
+def p15_narrow():
+    """Phase 15c's control (b): jamba at phase 15's depth and layer
+    pattern (2 periods: 14 Mamba, 2 attention, 8 MoE sublayers of 16
+    experts top-2) in fp32, narrowed to d_model 1024 (8 heads of 128, 2
+    K/V heads: jamba's GQA group of 4), d_ff 3584."""
+    return dataclasses.replace(p15_config(dtype="float32"), d_model=1024,
+                               n_heads=8, n_kv_heads=2, d_ff=3584)
 
 
 def p15_counts(cfg, acfg=P15_LORA):
@@ -5580,17 +5624,28 @@ def phase15b(cfg, base, bank, streams):
     p13_vs("phase 15b", reqs, streams, "the pages' stream")
 
 
-def p15_wiring(cfg, base, bank, tol, label):
+@contextlib.contextmanager
+def sgmv_plain_only():
+    """Route the SGMV op alone to its plain version: every other kernel
+    still launches (phase 15c's control of the SGMV kernel's sums)."""
+    ops = importlib.import_module("repro_torch.kernels.sgmv.ops")
+    orig = ops.launches_kernel
+    ops.launches_kernel = lambda t: False
+    try:
+        yield
+    finally:
+        ops.launches_kernel = orig
+
+
+def p15_wiring(cfg, base, bank, tol, label, sgmv_plain=False):
     """A per-client prefill of one prompt per client (64-256 tokens, slot
     0; slot 1 a dummy of length 0) into a paged bank, then one compacted
-    decode of the 4 rows, with the kernels (no host sync) and under
+    decode of the 4 rows, with the kernels (no host sync; with
+    ``sgmv_plain`` the SGMV op alone on its plain version) and under
     ``plain_kernels()``: launches (paged attention once per attention
     sublayer in the decode, SGMV ``p15_counts`` per call; none plain) and
-    logits at ``tol``, or, with ``tol`` None, their gap printed in bf16
-    ulps (16 layers in bf16: the two passes' roundings, carried through
-    the hidden state, drift past the bf16 tolerance, as llava's 32 layers
-    do in 13c; one period in bf16 and in fp32 are held). Returns the two
-    max errors."""
+    logits at ``tol``, or, with ``tol`` None, their gap only printed, in
+    bf16 ulps too. Returns the two max errors."""
     C, max_b, max_seq, blk = 4, 2, 512, 16
     G, per_call = p15_counts(cfg)
     scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=blk)
@@ -5616,7 +5671,8 @@ def p15_wiring(cfg, base, bank, tol, label):
                                              device=DEV) * P)[:, None, None]
         torch.cuda.synchronize()
         reset_counts()
-        with blocks.plain_kernels() if plain else no_host_sync():
+        with blocks.plain_kernels() if plain else (
+                sgmv_plain_only() if sgmv_plain else no_host_sync()):
             lg1 = []
             for c in range(C):
                 lg, caches = prefill(base, bank, caches, c, c, toks[c],
@@ -5629,7 +5685,8 @@ def p15_wiring(cfg, base, bank, tol, label):
         torch.cuda.synchronize()
         want = {n: 0 for n in KERNELS}
         if not plain:
-            want.update(paged_decode_attn=G, sgmv=per_call * (C + 1))
+            want.update(paged_decode_attn=G,
+                        sgmv=0 if sgmv_plain else per_call * (C + 1))
         if read_counts() != want:
             raise AssertionError(f"[{label}] launches {read_counts()}, want "
                                  f"{want}")
@@ -5637,23 +5694,29 @@ def p15_wiring(cfg, base, bank, tol, label):
     gaps = []
     for what, (got, want) in (("prefill", (out[0][0], out[1][0])),
                               ("decode", (out[0][1], out[1][1]))):
-        if tol is not None:
-            gaps.append(compare(f"{label} {what} logits", got, want, tol))
-            continue
         gap, ulps = (got.float() - want.float()).abs(), bf16_ulps(got, want)
         at = int(gap.argmax())
         gaps.append(float(gap.max()))
-        log(f"[{label}] {cfg.n_layers} layers {cfg.dtype} {what} logits, "
-            f"kernels vs plain: max_abs_err {gaps[-1]:.3e} at a logit of "
-            f"{float(want.flatten()[at]):.3f} ({float(ulps.flatten()[at]):.0f}"
-            f" bf16 ulps there); at most {float(ulps.max()):.0f} ulps, "
-            f"{float((ulps > 1).float().mean()):.2e} of logits more than 1 "
-            f"ulp apart; |logits| <= {float(want.float().abs().max()):.2f}")
-    log(f"[{label}] {cfg.n_layers} layers {cfg.dtype}: per-client prefill "
+        if cfg.dtype == "bfloat16":
+            log(f"[{label}] {cfg.n_layers} layers {cfg.dtype} {what} logits, "
+                f"kernels vs plain: max_abs_err {gaps[-1]:.3e} at a logit of "
+                f"{float(want.flatten()[at]):.3f} "
+                f"({float(ulps.flatten()[at]):.0f} bf16 ulps there); at most "
+                f"{float(ulps.max()):.0f} ulps, "
+                f"{float((ulps > 1).float().mean()):.2e} of logits more than "
+                f"1 ulp apart; |logits| <= "
+                f"{float(want.float().abs().max()):.2f}")
+        if tol is not None:
+            compare(f"[{label}] {cfg.n_layers} layers {cfg.dtype} {what} "
+                    "logits", got, want, tol)
+    log(f"[{label}] {cfg.n_layers} layers {cfg.dtype} d_model "
+        f"{cfg.d_model}: per-client prefill "
         f"(prompts {lengths}) logits max_abs_err={gaps[0]:.3e}, compacted "
-        f"decode logits max_abs_err={gaps[1]:.3e}, kernels vs plain"
+        f"decode logits max_abs_err={gaps[1]:.3e}, kernels"
+        f"{' (sgmv plain)' if sgmv_plain else ''} vs plain"
         f"{'' if tol is None else f' at {tol}'}; paged_decode_attn {G} and "
-        f"sgmv {per_call * (C + 1)} launches in the kernel pass, no host sync")
+        f"sgmv {0 if sgmv_plain else per_call * (C + 1)} launches in the "
+        f"kernel pass{'' if sgmv_plain else ', no host sync'}")
     return gaps
 
 
@@ -5696,33 +5759,120 @@ def p15_scan_share(cfg, base, bank):
     return pre_ms, scan_ms
 
 
+def _alloc_bytes():
+    """(allocated, requested) bytes of the caching allocator now: what its
+    blocks hold, and what the tensors in them asked for (None where this
+    PyTorch keeps no requested count)."""
+    st = torch.cuda.memory_stats()
+    return (st["allocated_bytes.all.current"],
+            st.get("requested_bytes.all.current"))
+
+
+def _block_slack(tensors):
+    """Sum over the allocator blocks that hold ``tensors`` of the block's
+    size less the bytes its tensor requested (``memory_snapshot``), or
+    None where the snapshot does not say."""
+    ptrs = {t.untyped_storage().data_ptr() for t in tensors}
+    slack, found = 0, 0
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated" and addr in ptrs:
+                if "requested_size" not in blk:
+                    return None
+                slack += blk["size"] - blk["requested_size"]
+                found += 1
+            addr += blk["size"]
+    return slack if found == len(ptrs) else None
+
+
+def p15_cache_held(make, label):
+    """Allocator bytes held (allocated) and asked for (requested) beside
+    the tree's ``nbytes``, over ``make()``'s construction and again after
+    ``gc.collect()`` and ``empty_cache()``; the surplus of held over the
+    tree attributed to the blocks holding the leaves. Returns (the object
+    made, its cache tree's leaves, held bytes)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a0, r0 = _alloc_bytes()
+    made = make()
+    torch.cuda.synchronize()
+    a1, r1 = _alloc_bytes()
+    peak = torch.cuda.max_memory_allocated() - a0
+    gc.collect()
+    torch.cuda.empty_cache()
+    a2, r2 = _alloc_bytes()
+    caches = made.caches if isinstance(made, ServingEngine) else made
+    leaves = tree_leaves(caches)
+    tree = sum(t.nbytes for t in leaves)
+    slack = _block_slack(leaves)
+    req = "not measured" if r0 is None else f"{r1 - r0:,} / {r2 - r0:,}"
+    log(f"[phase 15d] {label}: {len(leaves)} leaves of {tree:,} B; "
+        f"allocator held {a1 - a0:,} B after construction, {a2 - a0:,} B "
+        f"after gc.collect + empty_cache (peak {peak:,} B), requested "
+        f"{req} B; held beyond the tree {a2 - a0 - tree:,} B, the leaves' "
+        f"blocks beyond their requests "
+        f"{'not measured' if slack is None else f'{slack:,}'} B")
+    if r0 is not None and not r1 - r0 == r2 - r0 == tree:
+        raise AssertionError(f"[phase 15d] {label}: {r1 - r0} / {r2 - r0} "
+                             f"B requested, the tree is {tree} B")
+    if a1 != a2 or (slack is not None and a2 - a0 - tree != slack):
+        raise AssertionError(f"[phase 15d] {label}: the surplus "
+                             f"{a2 - a0 - tree} B is not the leaves' "
+                             f"blocks' {slack} B (held {a1 - a0} then "
+                             f"{a2 - a0})")
+    if not 0 <= a2 - a0 - tree <= len(leaves) * P15_SPLIT_SLACK:
+        raise AssertionError(f"[phase 15d] {label}: {a2 - a0 - tree} B "
+                             f"beyond the tree, past {len(leaves)} x "
+                             f"{P15_SPLIT_SLACK} B")
+    return made, leaves, a2 - a0
+
+
+# the caching allocator keeps a large free block whole when what is left
+# after a request would be at most 1 MiB, and counts it whole as allocated
+P15_SPLIT_SLACK = 1 << 20
+
+
 def p15_charges(cfg, base, bank):
-    """What an engine's caches take per slot on the card
-    (``max_memory_allocated`` over its construction) beside the router's
-    charge for a request that holds one slot for ``max_seq`` tokens: the
-    Mamba state and a full row of K/V on both layouts."""
+    """What the caches take on the card beside the router's charge for a
+    request that holds one slot for ``max_seq`` tokens (the Mamba state
+    and a full row of K/V), on both layouts: ``init_client_caches`` alone
+    and a ``ServingEngine``'s construction (``p15_cache_held``). The tree
+    is the charge per slot plus ``pos`` and ``block_tbl``, which the
+    charge leaves out; the bytes requested are the tree exactly; what the
+    allocator holds beyond it is its blocks' slack, at most 1 MiB per
+    leaf."""
     for page_block in (16, 0):
         spec = p15_spec(cfg, page_block=page_block)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mem0 = torch.cuda.memory_allocated()
-        eng = ServingEngine(spec, base, [bank], device=DEV)
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated() - mem0
-        peak = torch.cuda.max_memory_allocated() - mem0
+        layout = "paged" if page_block else "dense"
         slots = 4 * spec.max_batch_per_client
         charge = kvcache.cache_bytes(cfg, P15_MAX_SEQ, 1,
                                      page_block=page_block)
         spec_c = kvcache.make_cache_spec(cfg)
-        log(f"[phase 15d] {'paged' if page_block else 'dense'} engine caches:"
-            f" {held / slots:,.0f} B per slot held ({peak / slots:,.0f} B at "
-            f"the construction's peak); the router charges {charge:,} B for "
-            f"a slot of {P15_MAX_SEQ} tokens ({spec_c.fixed_bytes:,} B of "
-            f"Mamba state + {spec_c.bytes_per_token:,} B of K/V per token)")
-        if held < slots * charge:
-            raise AssertionError(f"[phase 15d] the caches hold {held} B, "
-                                 f"less than {slots} charges of {charge} B")
-        del eng
+        for what, make in (
+                ("init_client_caches", lambda: symbiosis.init_client_caches(
+                    cfg, 4, spec.max_batch_per_client, P15_MAX_SEQ,
+                    page_block=page_block, device=DEV)),
+                ("ServingEngine", lambda: ServingEngine(spec, base, [bank],
+                                                        device=DEV))):
+            made, leaves, held = p15_cache_held(make, f"{layout} {what}")
+            caches = made.caches if what == "ServingEngine" else made
+            small = sum(caches[k].nbytes for k in ("pos", "block_tbl")
+                        if k in caches)
+            tree = sum(t.nbytes for t in leaves)
+            log(f"[phase 15d] {layout} {what}: {held / slots:,.0f} B per slot "
+                f"held; the router charges {charge:,} B for a slot of "
+                f"{P15_MAX_SEQ} tokens ({spec_c.fixed_bytes:,} B of Mamba "
+                f"state + {spec_c.bytes_per_token:,} B of K/V per token); "
+                f"tree = {slots} charges + {small:,} B of pos and block_tbl")
+            if tree != slots * charge + small:
+                raise AssertionError(f"[phase 15d] {layout} {what}: tree "
+                                     f"{tree} B, {slots} charges of {charge}"
+                                     f" B and {small} B")
+            del made, caches, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase15():
@@ -5731,9 +5881,10 @@ def phase15():
     sublayers, 6 dense MLPs; about 26 B params, 52 GB in bf16, where its
     full depth, about 103 GB, fits no 80 GB card), 4 LoRA r8 tenants on q,
     v and the router. 15a pages, 15b the dense layout, 15c kernels against
-    plain (bf16 at 16 layers printed, at one period held at 2e-2; then
-    fp32 at one period held at 1e-5 after the bf16 base is freed), 15d
-    readings."""
+    plain (bf16 at 16 layers held at ``P15_PAIR_TOL`` beside its SGMV
+    control, at one period held at 2e-2; then, the bf16 base freed, fp32
+    at 16 narrow layers and at one period held at 1e-5), 15d readings;
+    phase 16 (16b-d) on the bf16 base, 16a on the fp32 one."""
     cfg = p15_config()
     t0 = time.perf_counter()
     base, bank = make_system(cfg, 4, seed=15, acfg=P15_LORA)
@@ -5753,7 +5904,9 @@ def phase15():
     phase15b(cfg, base, bank, streams)
     log(f"[phase 15b] done ({time.perf_counter() - t:.1f} s)")
     t = time.perf_counter()
-    p15_wiring(cfg, base, bank, None, "phase 15c")
+    p15_wiring(cfg, base, bank, P15_PAIR_TOL, "phase 15c")
+    p15_wiring(cfg, base, bank, None, "phase 15c control (a)",
+               sgmv_plain=True)
     p15_wiring(p15_config(groups=1), dict(base, groups=base["groups"][:1]),
                tree_map(lambda x: x[:, :1], bank), BF16_TOL, "phase 15c")
     log(f"[phase 15c] bf16 done ({time.perf_counter() - t:.1f} s)")
@@ -5765,16 +5918,405 @@ def phase15():
     p15_scan_share(cfg, base, bank)
     p13_router_sgmv(bank, 0, label="phase 15d")
     log(f"[phase 15d] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase16(cfg, base, bank, streams[:8])
+    log(f"[phase 16] bf16 done ({time.perf_counter() - t:.1f} s)")
     del base, bank
     free_device("phase 15")
     t = time.perf_counter()
+    cfgn = p15_narrow()
+    basen, bankn = make_system(cfgn, 4, seed=15, acfg=P15_LORA)
+    bankn = tree_map(lambda x: x.float(), bankn)
+    p15_wiring(cfgn, basen, bankn, F32_TOL, "phase 15c control (b)")
+    del basen, bankn
+    free_device("phase 15")
     cfg32 = p15_config(groups=1, dtype="float32")
     base32, bank32 = make_system(cfg32, 4, seed=15, acfg=P15_LORA)
     bank32 = tree_map(lambda x: x.float(), bank32)
     p15_wiring(cfg32, base32, bank32, F32_TOL, "phase 15c")
-    del base32, bank32
-    free_device("phase 15")
+    del bank32
+    torch.cuda.empty_cache()
     log(f"[phase 15c] fp32 done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    phase16a(cfg32, base32)
+    del base32
+    free_device("phase 16")
+    log(f"[phase 16a] done ({time.perf_counter() - t:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the hybrid family fine-tunes on the shared base
+# ---------------------------------------------------------------------------
+
+P16_IA3 = AdapterConfig(method="ia3", targets=("k", "v", "down"))
+P16_SEQ = 256            # one sequence of one scan chunk per job
+P16_STEPS = 6            # 16b: 4 jobs, a warm tick, 4 timed, 1 traced
+
+
+def p16_jobs(cfg, n, steps, first_seed, acfg=P15_LORA):
+    """``n`` jobs of ``acfg`` over 1 x ``P16_SEQ`` tokens."""
+    return [FinetuneJob(acfg=acfg, batch_size=1, seq_len=P16_SEQ,
+                        steps=steps, lr=1e-3, warmup_steps=1,
+                        seed=first_seed + i, name=f"jamba-{first_seed + i}",
+                        data=make_job_stream(cfg, 1, P16_SEQ,
+                                             seed=first_seed + i, device=DEV))
+            for i in range(n)]
+
+
+def p16_batches(cfg, n_rows, seed):
+    """One step's batch for ``n_rows`` jobs, [R, 1, P16_SEQ]."""
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=P16_SEQ,
+                            n_clients=n_rows, batch_per_client=1, seed=seed,
+                            device=DEV)
+    return ds.batch(0)
+
+
+def p16_rows(cfg, base, acfg, bank, label):
+    """16a: one compact train step over a 2-row bank against each row's
+    one-row bucket (the solo program) from the same state: losses, and
+    the updated adapters and AdamW moments (each leaf's gap over its own
+    largest magnitude), within ``P12_DRIFT_TOL``."""
+    step = symbiosis.make_compact_train_step(cfg, acfg, remat=False)
+    batch = p16_batches(cfg, 2, 162)
+    opt = p10_opt(bank, P10_STEP)
+    hyper = step7a_hyper(2)
+    mask = torch.ones(2, dtype=torch.bool, device=DEV)
+    slots = torch.arange(2, dtype=torch.int32, device=DEV)
+    b2, o2, m2 = step(base, tree_clone(bank), tree_clone(opt), batch, slots,
+                      mask, hyper)
+    loss_d = state_d = 0.0
+    for r in range(2):
+        b1, o1, m1 = step(base, tree_clone(bank), tree_clone(opt),
+                          {k: v[r:r + 1] for k, v in batch.items()},
+                          slots[r:r + 1], mask[:1],
+                          {k: v[r:r + 1] for k, v in hyper.items()})
+        loss_d = max(loss_d, abs(float(m2["loss"][r]) - float(m1["loss"][0])))
+        for a, c in zip(tree_leaves((b2, o2.m, o2.v)),
+                        tree_leaves((b1, o1.m, o1.v))):
+            scale = float(c[r].abs().max()) or 1.0
+            state_d = max(state_d, float((a[r] - c[r]).abs().max()) / scale)
+    drift = "bit for bit" if loss_d == state_d == 0.0 else \
+        f"drift: losses {loss_d:.3e}, states {state_d:.3e} of a leaf's max"
+    log(f"[phase 16a] {label}: 2-row step losses "
+        f"{[round(float(x), 5) for x in m2['loss']]}; each row against its "
+        f"one-row run: {drift}")
+    if not within_drift(loss_d, state_d) or not m2["finite"].all():
+        raise AssertionError(f"[phase 16a] {label}: rows drift {loss_d:.3e}"
+                             f" / {state_d:.3e} beyond {P12_DRIFT_TOL}")
+
+
+def phase16a(cfg, base):
+    """16a: jamba's width, 1 period, fp32 (phase 15c's base): a 2-row LoRA
+    (q, v, router) and a 2-row IA3 (k, v, down) bank of 1 x 256 tokens."""
+    for label, acfg, bank in (
+            ("LoRA r8 q/v/router", P15_LORA,
+             random_lora(cfg, 2, 160, P15_LORA)),
+            ("IA3 k/v/down", P16_IA3, random_bank(cfg, P16_IA3, 2, 161))):
+        p16_rows(cfg, base, acfg, bank, label)
+        del bank
+        torch.cuda.empty_cache()
+
+
+def p16_recorded_mamba(cfg, acfg):
+    """Mamba sublayers whose input requires grad in a job's step (every one
+    after the first sublayer an adapter of ``acfg`` reaches: the others
+    run their scan unrecorded)."""
+    t = set(acfg.targets)
+
+    def reached(j):
+        if hybrid_lib.sub_is_attn(cfg, j) and t & {"q", "k", "v", "o"}:
+            return True
+        if hybrid_lib.sub_is_moe(cfg, j):
+            return "router" in t
+        return bool(t & {"gate", "up", "down"})
+
+    first = min(j for j in range(cfg.attn_every) if reached(j))
+    n = sum(not hybrid_lib.sub_is_attn(cfg, j) for j in range(cfg.attn_every))
+    G = cfg.n_layers // cfg.attn_every
+    return G * n - sum(not hybrid_lib.sub_is_attn(cfg, j)
+                       for j in range(first + 1))
+
+
+def p16_scan_ms(cfg, base, rows):
+    """Device ms of one Mamba sublayer's selective scan at a ``rows``-job
+    train step's shapes ([rows, 256, ED, N]): unrecorded (forward only),
+    and forward plus backward (its checkpointed blocks recomputed)."""
+    ed, N = cfg.mamba_expand * cfg.d_model, cfg.d_state
+    g = gen(163)
+    act = getattr(torch, cfg.dtype)
+    x = torch.randn((rows, P16_SEQ, ed), generator=g, device=DEV).to(act)
+    dt = F.softplus(torch.randn((rows, P16_SEQ, ed), generator=g,
+                                device=DEV) - 2)
+    Bc, Cc = (torch.randn((rows, P16_SEQ, N), generator=g, device=DEV)
+              .to(act) for _ in range(2))
+    p = base["groups"][0]["sub0"]["mamba"]
+    A = -torch.exp(p["A_log"])
+    h0 = torch.zeros((rows, ed, N), device=DEV)
+    fwd = time_ms(lambda: mamba_lib.selective_scan(x, dt, Bc, Cc, A, p["D"],
+                                                   h0), n=5)
+    ins = [t.detach().requires_grad_(True) for t in (x, dt, Bc, Cc)]
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            y, _ = mamba_lib.selective_scan(*ins, A, p["D"], h0)
+            torch.autograd.grad(y.sum(), ins)
+    return fwd, time_ms(fwd_bwd, n=5)
+
+
+def p16_memory(cfg, base, job):
+    """Peak device memory beyond base and bank of one bank step at 1 and 4
+    jobs (1 x 256 tokens each, remat off, drop-free), against
+    ``job_charge_bytes``; then 1 job with the scan not checkpointed (its
+    blocks' temporaries kept for the backward, as before this slice)."""
+    charge = job_charge_bytes(cfg, job)
+    step = symbiosis.make_compact_train_step(cfg, P15_LORA, remat=False)
+
+    def peak(R):
+        bank = random_lora(cfg, R, 164, P15_LORA)
+        opt = AdamWState(step=torch.zeros(R, dtype=torch.int32, device=DEV),
+                         m=tree_map(torch.zeros_like, bank),
+                         v=tree_map(torch.zeros_like, bank))
+        batch = p16_batches(cfg, R, 165)
+        args = (torch.arange(R, dtype=torch.int32, device=DEV),
+                torch.ones(R, dtype=torch.bool, device=DEV), step7a_hyper(R))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(base, bank, opt, batch, *args)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    peaks = {R: peak(R) for R in (1, 4)}
+    orig = torch.utils.checkpoint.checkpoint
+    try:      # the scan's blocks alone run unchecked: other checkpoints stay
+        torch.utils.checkpoint.checkpoint = lambda fn, *a, **kw: (
+            fn(*a) if fn is mamba_lib._scan_block_saved else
+            orig(fn, *a, **kw))
+        kept = peak(1)
+    except torch.cuda.OutOfMemoryError:
+        kept = None
+    finally:
+        torch.utils.checkpoint.checkpoint = orig
+    torch.cuda.empty_cache()
+    log(f"[phase 16b] peak device memory beyond base and bank, one bank "
+        f"step (1 x {P16_SEQ} tokens a job, drop-free, remat off), GB: 1 job "
+        f"{peaks[1] / 1e9:.3f}, 4 jobs {peaks[4] / 1e9:.3f}; charge per job "
+        f"{charge / 1e9:.3f} (job_hbm_bytes {job_hbm_bytes(cfg, job) / 1e9:.3f}"
+        f"); 1 job with the scan's blocks not checkpointed: "
+        + ("out of memory" if kept is None else
+           f"{kept / 1e9:.3f} (+{(kept - peaks[1]) / 1e9:.3f})"))
+    for R, p in peaks.items():
+        if p > R * charge:
+            raise AssertionError(f"[phase 16b] {R} job(s) peak at {p} B, "
+                                 f"above the charge {R * charge} B")
+    return peaks
+
+
+def phase16b(cfg, base):
+    """16b: a FinetuneEngine of 4 jamba LoRA jobs (q, v, router; 1 x 256
+    tokens) behind a router that holds the fifth back: the tick on the
+    host clock, one tick traced (busy share, kernels, the expert products'
+    share), the selective scan's share from its time alone, memory against
+    the charge."""
+    jobs = (p16_jobs(cfg, 4, P16_STEPS, 50) + p16_jobs(cfg, 1, 2, 54))
+    charge = job_charge_bytes(cfg, jobs[0])
+    router = PlacementRouter(cfg, [Slot(0, free_hbm=4.5 * charge)])
+    eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()), base,
+                         device=DEV, router=router)
+    for j in jobs:
+        eng.submit(j)
+    ticks = []
+    for _ in range(P16_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        traced_tick = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.05)
+    if eng.stats["peak_jobs"] != 4 or jobs[4].status != "queued":
+        raise AssertionError(f"[phase 16b] peak {eng.stats['peak_jobs']}, "
+                             f"job 4 {jobs[4].status}")
+    eng.run()
+    if any(j.status != "finished" for j in jobs) or not all(
+            np.isfinite(j.losses).all() for j in jobs):
+        raise AssertionError(f"[phase 16b] {[j.status for j in jobs]} "
+                             f"{[j.losses for j in jobs]}")
+    used = router.utilization()
+    if router.conservation_errors() or used["committed_bytes"]:
+        raise AssertionError(f"[phase 16b] router after the drain: {used}")
+    med = statistics.median(ticks[1:])
+    log(f"[phase 16b] {cfg.name} ({cfg.n_layers} layers): 5 LoRA r8 jobs (q, "
+        f"v, router; 1 x {P16_SEQ} tokens), router slot {4.5 * charge:.0f} B "
+        f"for charges of {charge} B: 4 rows for {P16_STEPS} ticks, job 4 "
+        f"after; stats {eng.stats}; losses "
+        f"{[[round(x, 4) for x in j.losses] for j in jobs]}")
+    log(f"[phase 16b] 4-row train tick (host clock, synchronised): "
+        f"{[round(t * 1e3, 3) for t in ticks]} ms; median of "
+        f"{len(ticks) - 1} after the first {med * 1e3:.3f} ms, "
+        f"{4 * P16_SEQ / med:.0f} tokens/s")
+    busy_ms, n_kern, by_name = device_profile(prof)
+    fwd, fwd_bwd = p16_scan_ms(cfg, base, 4)
+    n_rec = p16_recorded_mamba(cfg, P15_LORA)
+    n_mamba = sum(not hybrid_lib.sub_is_attn(cfg, j)
+                  for j in range(cfg.attn_every)) * (cfg.n_layers
+                                                     // cfg.attn_every)
+    scan = n_rec * fwd_bwd + (n_mamba - n_rec) * fwd
+    log(f"[phase 16b] the selective scan alone at the tick's shapes (4 x "
+        f"{P16_SEQ} steps, CUDA events, L2-cold): {fwd:.3f} ms forward, "
+        f"{fwd_bwd:.3f} ms forward + backward (blocks recomputed); "
+        f"{n_rec} of {n_mamba} Mamba sublayers record (the others' inputs "
+        f"need no grad): {scan:.2f} ms a tick")
+    if n_kern:
+        expert = p14_expert_share(prof, cfg.n_experts)
+        log(f"[phase 16b] one traced 4-row tick: {traced_tick:.3f} ms on the "
+            f"host clock (CPU and device traced), device busy {busy_ms:.3f} "
+            f"ms = {100 * busy_ms / (med * 1e3):.1f}% of the unprofiled "
+            f"median; {n_kern} kernels; the scan {scan:.2f} ms = "
+            f"{100 * scan / busy_ms:.1f}% of the busy time; expert bmm "
+            f"(forward, recompute, dx) "
+            + (f"{expert:.3f} ms = {100 * expert / busy_ms:.1f}%" if expert
+               is not None else "not measured") + "; top kernels:")
+        for name, (n, d) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+            log(f"[phase 16b]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+    else:
+        log("[phase 16b] the profiler saw no device events: device busy not "
+            "measured")
+    del eng, prof
+    gc.collect()
+    return p16_memory(cfg, base, jobs[0])
+
+
+def phase16c(cfg, base, bank, streams):
+    """16c: a SymbiosisEngine serving phase 15a's 8 requests (pages) beside
+    2 jamba jobs on the same base: launches checked tick by tick (paged
+    attention once per attention sublayer and SGMV ``p15_counts`` per
+    decode tick, SGMV per per-request prefill), every stream bit for bit
+    15a's (each its run alone), the jobs bit for bit their
+    FinetuneEngine run alone."""
+    G, per_call = p15_counts(cfg)
+    spec = dataclasses.replace(p15_spec(cfg), finetune=FinetuneConfig())
+    sym = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                    device=DEV)
+    reqs = make_requests(cfg, 4)
+    jobs = p16_jobs(cfg, 2, 3, 60)
+    for item in reqs + jobs:
+        sym.submit(item)
+    serving = sym.serving
+    attn, sgmv = KERNELS["paged_decode_attn"][0], KERNELS["sgmv"][0]
+    torch.cuda.synchronize()
+    reset_counts()
+    more, serve_ticks = True, 0
+    while more:
+        before = (attn.launches, sgmv.launches, serving.stats["ticks"],
+                  serving.stats["prefill_calls"])
+        more = sym.tick()
+        d_at, d_sg, d_tick, d_pre = (a - b for a, b in zip(
+            (attn.launches, sgmv.launches, serving.stats["ticks"],
+             serving.stats["prefill_calls"]), before))
+        serve_ticks += d_tick
+        if d_at != G * d_tick or d_sg != per_call * (d_tick + d_pre):
+            raise AssertionError(f"[phase 16c] a tick launched {d_at} paged "
+                                 f"and {d_sg} SGMV kernels for {d_tick} "
+                                 f"decode ticks, {d_pre} prefills")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for i, r in enumerate(reqs):
+        if first_diff(r.generated, streams[i]) is not None:
+            raise AssertionError(f"[phase 16c] request {i}'s stream differs "
+                                 "from 15a's")
+    alone = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()),
+                           base, device=DEV)
+    solo = p16_jobs(cfg, 2, 3, 60)
+    for j in solo:
+        alone.submit(j)
+    alone.run()
+    for a, b in zip(jobs, solo):
+        if a.losses != b.losses or not trees_equal(
+                (a.result.adapter, a.result.opt),
+                (b.result.adapter, b.result.opt)):
+            raise AssertionError(f"[phase 16c] {a.name} differs from its "
+                                 "FinetuneEngine run alone")
+    st = sym.stats
+    log(f"[phase 16c] SymbiosisEngine over phase 15's base: 8 requests (4 "
+        f"LoRA tenants on q, v, router, bf16 pages) beside 2 LoRA jobs in "
+        f"{st['ticks']} ticks ({st['decode_ticks']} serving, "
+        f"{st['train_ticks']} train): every stream equals 15a's bit for bit;"
+        f" paged {G} and sgmv {per_call} per decode tick and {per_call} per "
+        f"prefill, checked on each of the {serve_ticks} decode ticks "
+        f"(launches {counts}); the jobs' losses, adapters and AdamW states "
+        f"equal their FinetuneEngine run alone bit for bit: "
+        f"{[[round(x, 4) for x in j.losses] for j in jobs]}")
+    del sym, alone
+    gc.collect()
+
+
+def phase16d(cfg, base):
+    """16d: a jamba FinetuneEngine of 2 jobs killed after 1 of 3 ticks and
+    resumed by a fresh engine from its blob ends bit for bit as the
+    uninterrupted run."""
+    spec = EngineSpec(cfg=cfg, finetune=FinetuneConfig())
+    ref = FinetuneEngine(spec, base, device=DEV)
+    ref_jobs = p16_jobs(cfg, 2, 3, 70)
+    for j in ref_jobs:
+        ref.submit(j)
+    ref.run()
+    with tempfile.TemporaryDirectory() as d:
+        eng = FinetuneEngine(spec, base, device=DEV)
+        for j in p16_jobs(cfg, 2, 3, 70):
+            eng.submit(j)
+        eng.train_tick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_engine_state(d, eng.engine_state())
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del eng                                          # the crash
+        t0 = time.perf_counter()
+        _, state = load_engine_state(d)
+        fresh = FinetuneEngine(spec, base, device=DEV)
+        fresh.load_engine_state(state)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        done = {j.name: j for j in fresh.run()}
+    for want in ref_jobs:
+        got = done[want.name]
+        if got.losses != want.losses or not trees_equal(
+                (got.result.adapter, got.result.opt),
+                (want.result.adapter, want.result.opt)):
+            raise AssertionError(f"[phase 16d] {want.name} resumed differs "
+                                 f"from the uninterrupted run")
+    keys = sorted(state["active"][0]["init_adapter"])
+    log(f"[phase 16d] {cfg.name} FinetuneEngine of 2 LoRA jobs (q, v, "
+        f"router) killed after 1 of 3 ticks: blob of {size} B written in "
+        f"{t_save * 1e3:.1f} ms, loaded by a fresh engine in "
+        f"{t_load * 1e3:.1f} ms; adapter trees under {keys}; both jobs' "
+        f"losses, adapters and AdamW states equal the uninterrupted run bit "
+        f"for bit")
+    del ref, fresh
+    gc.collect()
+
+
+def phase16(cfg, base, bank, streams):
+    """16b, 16c and 16d on phase 15's bf16 base (16a runs on phase 15c's
+    fp32 one)."""
+    for name, run in (("16b", lambda: phase16b(cfg, base)),
+                      ("16c", lambda: phase16c(cfg, base, bank, streams)),
+                      ("16d", lambda: phase16d(cfg, base))):
+        t = time.perf_counter()
+        run()
+        free_device("phase 16")
+        log(f"[phase {name}] done ({time.perf_counter() - t:.1f} s)")
 
 
 def main() -> int:

@@ -2,11 +2,11 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-serving paths (the dense, MoE, VLM and hybrid families) and its
-fine-tuning service (the dense, MoE and VLM families; LoRA, IA3 and prefix
-banks) read. The port keeps its own copy so that it imports nothing of the JAX
-package; the fields it keeps have the same names and defaults, so a config
-describes the same model in both.
+serving paths and its fine-tuning service (the dense, MoE, VLM and
+hybrid families; LoRA, IA3 and prefix banks) read. The port keeps its own
+copy so that it imports nothing of the JAX package; the fields it keeps
+have the same names and defaults, so a config describes the same model in
+both.
 """
 from __future__ import annotations
 
@@ -15,15 +15,15 @@ from dataclasses import dataclass
 from typing import Sequence
 
 
-# Architecture families. The port serves the pure-KV ones and the hybrid,
-# and fine-tunes the pure-KV ones; a config of any other family (recurrent,
-# encoder-decoder) is refused where a model or engine is built.
+# Architecture families. The port serves and fine-tunes the pure-KV ones
+# and the hybrid; a config of any other family (recurrent, encoder-decoder)
+# is refused where a model or engine is built.
 DENSE = "dense"
 MOE = "moe"
 VLM = "vlm"        # LLaVA backbone (dense + patch-embedding frontend stub)
 HYBRID = "hybrid"  # Jamba: Mamba + attention interleave + MoE
 FAMILIES = (DENSE, MOE, VLM, HYBRID)
-TRAIN_FAMILIES = (DENSE, MOE, VLM)
+TRAIN_FAMILIES = (DENSE, MOE, VLM, HYBRID)
 
 
 def check_family(cfg: "ModelConfig", families=FAMILIES, what="serves"):
@@ -181,6 +181,8 @@ class ServeConfig:
     * ``pool_pages`` — pages per client pool; 0 sizes the pool for full
       provisioning (``max_batch_per_client * ceil(max_seq/page_block)``).
     * ``kv_quant`` — int8 KV entries with per-head f32 scales.
+    * ``wait_fraction`` — the simulated opportunistic policy's wait, as a
+      fraction of a request's cost (``ServingEngine.simulate_policy``).
     """
     n_clients: int = 8
     max_seq: int = 2048
@@ -189,3 +191,4 @@ class ServeConfig:
     pool_pages: int = 0
     kv_quant: bool = False
     seed: int = 0
+    wait_fraction: float = 0.1

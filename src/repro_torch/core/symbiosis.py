@@ -588,7 +588,9 @@ def _value_and_grad(loss_fn, differentiate_base: bool):
     rows share no adapter, so each row gets its own). With
     ``differentiate_base`` the base enters as tensors that require grad, so
     autograd holds every base linear's input for a weight gradient, as a
-    torch trainer does; that gradient is never asked for."""
+    torch trainer does; that gradient is never asked for. A leaf the loss
+    does not reach (a prefix adapter on the hybrid, which reads none) gets
+    zeros, as ``jax.grad`` gives it."""
 
     def fn(adapter, base, batch):
         ad = _requiring_grad(adapter)
@@ -596,7 +598,12 @@ def _value_and_grad(loss_fn, differentiate_base: bool):
             base = _requiring_grad(base)
         with torch.enable_grad():
             loss = loss_fn(ad, base, batch)
-            grads = torch.autograd.grad(loss.sum(), tree_leaves(ad))
+            leaves = tree_leaves(ad)
+            grads = torch.autograd.grad(loss.sum(), leaves,
+                                        allow_unused=True) \
+                if loss.requires_grad else [None] * len(leaves)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
         return loss.detach(), tree_unflatten(adapter, grads)
 
     return fn

@@ -26,8 +26,10 @@ fits no single 80 GB card.
 plain versions. Weights are random, drawn from ``--seed``. ``--obs DIR``
 attaches telemetry and writes ``telemetry.jsonl`` and ``metrics.prom``
 into DIR after the run (check them with ``python -m repro_torch.obs
---check``). ``--privacy`` and ``--mesh`` are declared as in JAX and exit
-"not ported yet".
+--check``). After the run it prints the scheduler-simulated timeline of
+the finished requests under ``--policy`` (``simulate_policy``).
+``--privacy`` and ``--mesh`` are declared as in JAX and exit "not ported
+yet".
 """
 from __future__ import annotations
 
@@ -120,6 +122,8 @@ def main(argv=None):
     total = sum(r.generated.size for r in done)
     print(f"[serve] {len(done)} requests, {total} tokens in {dt:.2f}s "
           f"({total / dt:,.0f} tok/s) | engine stats: {eng.stats}")
+    sim = eng.simulate_policy(done)
+    print(f"[serve] policy timeline ({args.policy}): {sim.summary()}")
     if obs is not None:
         from repro_torch.obs import write_files
         print("[serve] telemetry written to %s and %s"

@@ -17,13 +17,16 @@ state carried from block to block: the same recurrence, its sums in
 another order, and temporaries of ``SCAN_BLOCK`` steps whatever the chunk.
 The readout over N is a fixed tree of elementwise adds (``_sum_last``):
 unlike a batched product (JAX's ``einsum``), its per-row result cannot
-depend on how many rows the batch holds. Plain PyTorch throughout: JAX
-computes all of this outside any Pallas kernel.
+depend on how many rows the batch holds. Under autograd each block is
+checkpointed, as JAX checkpoints its chunk body, so training keeps one
+[B, ED, N] state per block, not the block's temporaries. Plain PyTorch
+throughout: JAX computes all of this outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.blocks import LinearFns, dense_init
 
@@ -65,33 +68,61 @@ def _sum_last(t):
     return t[..., 0]
 
 
+def _scan_block(h, x, dt, Bc, Cc, A):
+    """One block of the scan from state ``h`` [B,ED,N]: x, dt [B,c,ED] and
+    Bc, Cc [B,c,N] fp32. Returns (y [B,c,ED] without the skip term, the
+    last state [B,ED,N], a view of the block's states)."""
+    dtc = dt[..., None]                                            # [B,c,ED,1]
+    a = torch.exp(dtc * A)                                         # [B,c,ED,N]
+    b = dtc * Bc[:, :, None, :] * x[..., None]                     # [B,c,ED,N]
+    c, s = a.shape[1], 1
+    while s < c:                    # inclusive scan: (a, b)[t] o= (a, b)[t-s]
+        b = torch.cat([b[:, :s], b[:, :-s] * a[:, s:] + b[:, s:]], dim=1)
+        a = torch.cat([a[:, :s], a[:, :-s] * a[:, s:]], dim=1)
+        s *= 2
+    hs = a * h[:, None] + b                                        # [B,c,ED,N]
+    return _sum_last(hs * Cc[:, :, None, :]), hs[:, -1]
+
+
+def _scan_block_saved(h, x, dt, Bc, Cc, A):
+    """``_scan_block`` for the backward: the last state copied out of the
+    block's states, so that nothing kept for the backward pins them."""
+    y, h = _scan_block(h, x, dt, Bc, Cc, A)
+    return y, h.clone()
+
+
 def selective_scan(x, dt, Bc, Cc, A, D, h0, chunk: int = 256):
     """Selective SSM. x [B,S,ED]; dt [B,S,ED] (softplus'd); Bc, Cc [B,S,N];
     A [ED,N] (negative); D [ED]; h0 [B,ED,N]. Returns (y [B,S,ED] fp32,
     h_final [B,ED,N] fp32).
 
     Discretization (ZOH): a_t = exp(dt_t * A); b_t = dt_t * B_t * x_t;
-    h_t = a_t * h_{t-1} + b_t; y_t = C_t . h_t + D * x_t."""
+    h_t = a_t * h_{t-1} + b_t; y_t = C_t . h_t + D * x_t.
+
+    Under autograd each block runs under ``torch.utils.checkpoint`` (JAX
+    checkpoints its chunk body): the backward keeps each block's inputs
+    and the [B,ED,N] state carried into it, and recomputes the block's
+    [B,c,ED,N] temporaries one block at a time. The values are those of
+    the unrecorded scan."""
     S = x.shape[1]
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"seq {S} % chunk {chunk} != 0")
     x, dt, Bc, Cc = (t.float() for t in (x, dt, Bc, Cc))
     h = h0.float()
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, Bc, Cc, h, A))
     ys = []
     for t0 in range(0, S, SCAN_BLOCK):
         blk = slice(t0, t0 + SCAN_BLOCK)
-        dtc = dt[:, blk, :, None]                                  # [B,c,ED,1]
-        a = torch.exp(dtc * A)                                     # [B,c,ED,N]
-        b = dtc * Bc[:, blk, None, :] * x[:, blk, :, None]         # [B,c,ED,N]
-        c, s = a.shape[1], 1
-        while s < c:                # inclusive scan: (a, b)[t] o= (a, b)[t-s]
-            b = torch.cat([b[:, :s], b[:, :-s] * a[:, s:] + b[:, s:]], dim=1)
-            a = torch.cat([a[:, :s], a[:, :-s] * a[:, s:]], dim=1)
-            s *= 2
-        hs = a * h[:, None] + b                                    # [B,c,ED,N]
-        ys.append(_sum_last(hs * Cc[:, blk, None, :]))             # [B,c,ED]
-        h = hs[:, -1]
+        args = (h, x[:, blk], dt[:, blk], Bc[:, blk], Cc[:, blk], A)
+        if train:
+            y, h = torch.utils.checkpoint.checkpoint(
+                _scan_block_saved, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            y, h = _scan_block(*args)
+        ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     return y + x * D, h
 

@@ -160,7 +160,7 @@ from repro_torch.config import DENSE, MOE, VLM
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
-from repro_torch.core.scheduler import TickPolicy
+from repro_torch.core.scheduler import ClientSpec, TickPolicy, simulate
 from repro_torch.faults.audit import serving_conservation
 from repro_torch.faults.health import (HealthPolicy, HealthRecord,
                                        HealthState, TransientFault, classify)
@@ -203,6 +203,7 @@ class Request:
     client_id: int
     prompt: Optional[np.ndarray]            # [B, S] int32 (B sequence slots)
     max_new_tokens: int = 16
+    latency_sensitive: bool = True          # to the router and the simulation
     sampling: Optional[SamplingParams] = None   # None -> greedy
     arrive_tick: int = 0                    # earliest tick admission may see it
     # a prompt delivered by a stream: submit with prompt=None and an object
@@ -717,8 +718,8 @@ class ServingEngine:
                             else self.scfg.max_seq)
             try:
                 placement = self.router.route(
-                    ctx_tokens, B, alloc_tokens=alloc_tokens,
-                    quant=self._quant)
+                    ctx_tokens, B, latency_sensitive=req.latency_sensitive,
+                    alloc_tokens=alloc_tokens, quant=self._quant)
             except NoCapacity:
                 return None                  # stays queued until memory frees
         slots = free[:B]
@@ -1436,6 +1437,7 @@ class ServingEngine:
                            else np.asarray(req.prompt)),
                 "prompt_stream": req.prompt_stream,   # picklable by contract
                 "max_new_tokens": req.max_new_tokens,
+                "latency_sensitive": req.latency_sensitive,
                 "sampling": None if sp is None else dataclasses.asdict(sp),
                 "arrive_tick": req.arrive_tick,
                 "generated": (None if req.generated is None
@@ -1508,6 +1510,7 @@ class ServingEngine:
             sp = rec["sampling"]
             req = Request(client_id=rec["client_id"], prompt=rec["prompt"],
                           max_new_tokens=rec["max_new_tokens"],
+                          latency_sensitive=rec["latency_sensitive"],
                           sampling=(None if sp is None
                                     else SamplingParams(**sp)),
                           arrive_tick=rec["arrive_tick"],
@@ -1669,3 +1672,24 @@ class ServingEngine:
             self._obs.event("bank_retire", engine="serving", tick=self._tick,
                             bank=admission.bank_id,
                             clients=len(admission.client_ids))
+
+    def simulate_policy(self, requests: List[Request], *, policy: str = None,
+                        exec_overhead: float = 1e-4,
+                        per_token_cost: float = 1e-6,
+                        client_side_time: float = 5e-5):
+        """The scheduler-simulated timeline of these requests under a
+        policy (default: the engine's), ``core.scheduler.simulate`` with
+        one client per request: a base request of the prompt's row count
+        per layer, ``max_new_tokens`` iterations, the request's
+        ``latency_sensitive``, and ``ServeConfig.wait_fraction`` (paper
+        Tables 4/5; the engine's own outputs do not depend on the
+        policy)."""
+        clients = [ClientSpec(client_id=r.client_id,
+                              n_tokens=int(r.prompt.shape[0]),
+                              client_side_time=client_side_time,
+                              n_iterations=r.max_new_tokens,
+                              latency_sensitive=r.latency_sensitive)
+                   for r in requests]
+        return simulate(clients, self.cfg.n_layers,
+                        policy or self.policy.name, exec_overhead,
+                        per_token_cost, wait_fraction=self.scfg.wait_fraction)

@@ -74,12 +74,16 @@ class PlacementRouter:
         self._committed: List[Placement] = []
 
     def route(self, context_len: int, batch: int = 1, *,
-              alloc_tokens: int = 0, quant: bool = False) -> Placement:
+              latency_sensitive: bool = True, alloc_tokens: int = 0,
+              quant: bool = False) -> Placement:
         """Commit the request's cache to the first slot it fits.
         ``context_len`` drives the latency estimate; ``alloc_tokens``
         (0: ``context_len``) the memory charge, i.e. the tokens the cache
         layout pins; ``quant`` prices int8 entries. Raises NoCapacity
-        when no slot fits."""
+        when no slot fits. ``latency_sensitive`` is accepted and has no
+        effect: it only steers the reference's off-card placements, which
+        this router does not offer."""
+        del latency_sensitive
         need = cache_bytes(self.cfg, alloc_tokens or context_len, batch,
                            quant=quant)
         cost = decode_token_cost(self.cfg, context_len, chip=self.chip)
@@ -92,12 +96,16 @@ class PlacementRouter:
             f"no slot fits {need / 1e9:.1f} GB cache "
             f"(context {context_len} x batch {batch})")
 
-    def route_train(self, nbytes: float) -> Placement:
+    def route_train(self, nbytes: float, *,
+                    latency_sensitive: bool = False) -> Placement:
         """Commit one FINE-TUNING job's client-side state (adapter + AdamW
         moments + activations, ``training.job_charge_bytes``) to
         the first slot it fits. Training state is touched every step, so it
         is placed on the card only; the FinetuneEngine releases the charge
-        when the job retires. Raises NoCapacity when no slot fits."""
+        when the job retires. Raises NoCapacity when no slot fits.
+        ``latency_sensitive`` is accepted for symmetry with ``route`` and
+        ignored, as the reference's is."""
+        del latency_sensitive
         for s in self.slots.values():
             if s.fits(nbytes):
                 p = Placement(s.slot_id, 0.0, int(nbytes), "train")

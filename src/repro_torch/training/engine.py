@@ -60,8 +60,11 @@ JAX's engine. ``obs=None`` costs a shared null context per phase.
 
 The MoE family's jobs route each job's tokens alone in the merged step
 (drop-free, as JAX's engine) and recompute each MoE body in the backward;
-a VLM job's batches lead with its image prefix. Not ported yet, and
-refused with ``ValueError``: a ``mesh`` and the hybrid, recurrent and
+a VLM job's batches lead with its image prefix; a hybrid job's Mamba
+state starts at zero for every sequence, its selective scan recomputed
+block by block in the backward, and its group-shared adapter leaves
+take the grads of every sublayer of their group. Not ported yet, and
+refused with ``ValueError``: a ``mesh`` and the recurrent and
 encoder-decoder families.
 """
 from __future__ import annotations
@@ -76,7 +79,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save_job_state
 from repro_torch.common.tree import tree_map
-from repro_torch.config import (VLM, AdapterConfig, FinetuneConfig,
+from repro_torch.config import (HYBRID, VLM, AdapterConfig, FinetuneConfig,
                                 ModelConfig, TRAIN_FAMILIES, check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
@@ -193,7 +196,7 @@ _LORA_INPUTS = {"q": "ln1", "k": "ln1", "v": "ln1", "o": "attn",
 
 def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
                        S: int, memory_optimized: bool,
-                       moe: bool = False) -> int:
+                       moe: bool = False, mamba: bool = False) -> int:
     """Bytes one layer of one job's §3.6 step saves for its backward, when
     its input requires grad, over ``seqs`` sequences of ``S`` tokens (a
     VLM's count its image prefix). Frozen linears save only their
@@ -217,7 +220,11 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
       dtype;
     * without ``memory_optimized`` (the torch-like baseline) also every
       base linear's input and each norm's normalized product, which the
-      base's weight gradients would read."""
+      base's weight gradients would read.
+
+    A hybrid model's sublayer (``mamba=True``: a Mamba mixer in place of
+    the attention, ``_mamba_saved_bytes``) has no q/k/v/o path, and no
+    sublayer of the hybrid reads a prefix adapter."""
     a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
     narrow = a != 4                         # adapters are fp32
     p_cast = cfg.param_dtype != "float32"   # norm scales cast to fp32
@@ -225,14 +232,19 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
     d, H, K, hd, F = cfg.d_model, cfg.hp, cfg.n_kv_heads, cfg.hd, cfg.d_ff
     n_chunks = S // _pick_chunk(S, seqs, H, S, 1024, budget_bytes=1e9)
     b = 2 * (T * d * 4 + T * 4) + (2 * d * 4 if p_cast else 0)
-    if cfg.qk_norm:
-        b += (H + K) * (T * hd * 4 + T * 4) + (2 * hd * 4 if p_cast else 0)
-    if cfg.rope_theta > 0:
-        b += 4 * T * (hd // 2) * 4
-    b += T * H * hd * a                                  # q
-    b += 2 * n_chunks * seqs * H * S * hd * a            # repeated K, V
-    b += seqs * H * S * S * (4 + (a if narrow else 0))   # softmax (+ cast)
-    b += seqs * S * S                                    # causal mask
+    prefix = acfg.method == "prefix" and cfg.arch != HYBRID
+    if mamba:
+        b += _mamba_saved_bytes(cfg, seqs, S, memory_optimized)
+    else:
+        if cfg.qk_norm:
+            b += (H + K) * (T * hd * 4 + T * 4) + (2 * hd * 4 if p_cast
+                                                   else 0)
+        if cfg.rope_theta > 0:
+            b += 4 * T * (hd // 2) * 4
+        b += T * H * hd * a                                  # q
+        b += 2 * n_chunks * seqs * H * S * hd * a            # repeated K, V
+        b += seqs * H * S * S * (4 + (a if narrow else 0))   # softmax (+ cast)
+        b += seqs * S * S                                    # causal mask
     swiglu = not moe or cfg.dense_residual
     if swiglu:
         b += 3 * T * F * a                               # SwiGLU
@@ -242,14 +254,17 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
         del widths["ln2"]                # ... which LoRA's gate/up read too
         if not cfg.dense_residual:
             del widths["mlp"]
-    paths = {"q", "k", "v", "o"} | ({"gate", "up", "down"} if swiglu
-                                    else set())
+    if mamba:
+        del widths["attn"]               # in_proj reads ln1's product
+    paths = (set() if mamba else {"q", "k", "v", "o"}) | (
+        {"gate", "up", "down"} if swiglu else set())
     targets = [(p, dims) for p, dims in
                adapters_lib.resolve_targets(cfg, acfg) if p in paths]
     inputs = set() if memory_optimized else set(widths)
     if not memory_optimized:
-        b += 2 * T * d * 4 + (T * (H + K) * hd * 4 if cfg.qk_norm else 0)
-        if acfg.method == "prefix":
+        b += 2 * T * d * 4 + (T * (H + K) * hd * 4 if cfg.qk_norm
+                              and not mamba else 0)
+        if prefix:
             b += T * H * hd * a          # the prefix branch's own o input
     if acfg.method == "lora":
         inputs |= {_LORA_INPUTS[p] for p, _ in targets} & set(widths)
@@ -260,7 +275,7 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
         for p, (din, dout) in targets:
             n = din if p == "down" else dout
             b += T * n * a + (n * a if narrow else 0)
-    elif acfg.method == "prefix":
+    elif prefix:
         P = acfg.n_prefix
         # q, the fp32 softmax and the probabilities as the einsum lays
         # them out (a cast, or a permuted copy), and K/V cast
@@ -268,6 +283,60 @@ def _layer_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
         if narrow:
             b += 2 * K * P * hd * a
     return b + sum(T * widths[g] * a for g in inputs)
+
+
+def _mamba_saved_bytes(cfg: ModelConfig, seqs: int, S: int,
+                       memory_optimized: bool) -> int:
+    """Bytes one Mamba mixer (``models.mamba.mamba_forward``) saves for its
+    backward when its input requires grad, over ``seqs`` sequences of
+    ``S`` tokens, op by op: the conv's output (the silu's input); in fp32
+    the softplus's input and output, the scan's input, the scan's output
+    before the gate, and the gate's silu input and output (z itself the
+    in_proj product's half in an fp32 model, whose whole product is kept);
+    B and C as the scan reads them (fp32 copies, or the x_proj product);
+    the state carried into each checkpointed scan block and A. Without
+    ``memory_optimized`` also the conv's padded input, the x_proj,
+    dt_proj and out_proj inputs and exp(A_log). The checkpointed blocks'
+    temporaries are ``_scan_block_saved_bytes``."""
+    from repro_torch.models.mamba import SCAN_BLOCK
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    narrow = a != 4
+    T = seqs * S
+    ed, N = cfg.mamba_expand * cfg.d_model, cfg.d_state
+    dbc = max(1, cfg.d_model // 16) + 2 * N
+    b = T * ed * (a + 5 * 4)
+    b += T * ed * 4 + 2 * T * N * 4 if narrow else 2 * T * ed * 4 + T * dbc * 4
+    b += -(-S // SCAN_BLOCK) * seqs * ed * N * 4 + ed * N * 4
+    if not memory_optimized:
+        b += seqs * (S + cfg.d_conv - 1) * ed * a + T * ed * a + ed * N * 4
+        if narrow:
+            b += T * ed * a + T * dbc * a
+    return b
+
+
+def _scan_block_saved_bytes(cfg: ModelConfig, seqs: int, S: int) -> int:
+    """Bytes ONE checkpointed scan block saves when the backward
+    recomputes it (``mamba._scan_block``): exp(dt * A), dt * B * x and the
+    states, and the two products of each of the ceil(log2 c) doubling
+    rounds, all [seqs, c, ED, N] fp32 over its c = min(S, SCAN_BLOCK)
+    steps."""
+    from repro_torch.models.mamba import SCAN_BLOCK
+    c = min(S, SCAN_BLOCK)
+    rounds = (c - 1).bit_length()
+    return ((3 + 2 * rounds) * seqs * c * cfg.mamba_expand * cfg.d_model
+            * cfg.d_state * 4)
+
+
+def _layer_kinds(cfg: ModelConfig):
+    """[(moe, mamba)] for each layer of ``cfg`` (a hybrid's sublayers in
+    order, group by group)."""
+    if cfg.arch == HYBRID:
+        from repro_torch.models.hybrid import sub_is_attn, sub_is_moe
+        period = [(sub_is_moe(cfg, j), not sub_is_attn(cfg, j))
+                  for j in range(cfg.attn_every)]
+        return period * (cfg.n_layers // cfg.attn_every)
+    from repro_torch.models.transformer import _is_moe
+    return [(_is_moe(cfg, i), False) for i in range(cfg.n_layers)]
 
 
 def _moe_body_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
@@ -320,10 +389,13 @@ def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     the lm_head's input, the final norm's product and the embedding's
     ids). A VLM job runs its ``n_frontend_tokens`` image positions before
     its ``seq_len`` text positions through every layer and the final
-    norm; the loss reads the text. Jobs merged in one bank step hold the
+    norm; the loss reads the text. A hybrid counts by group: every group's
+    sublayers (Mamba, attention, MoE and dense FFNs each by their kind),
+    or with ``remat`` each group's input plus ONE group's sublayers, then
+    one MoE body's and one scan block's recomputed tensors
+    (``_scan_block_saved_bytes``). Jobs merged in one bank step hold the
     sum of their terms, up to their adapters' casts and per-sequence
     prefix copies."""
-    from repro_torch.models.transformer import _is_moe
     nmb = max(1, job.microbatch)
     if job.batch_size % nmb or job.batch_size == nmb:
         nmb = 1
@@ -331,25 +403,33 @@ def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     S = job.seq_len + (cfg.n_frontend_tokens if cfg.arch == VLM else 0)
     T, T_text = seqs * S, seqs * job.seq_len
     a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    L, n_moe = cfg.n_layers, sum(_is_moe(cfg, i) for i in range(cfg.n_layers))
-    dense = _layer_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized)
-    moe = recompute = 0
-    if n_moe:
-        moe = _layer_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized,
-                                 moe=True)
-        recompute = _moe_body_saved_bytes(cfg, job.acfg, seqs, S,
-                                          memory_optimized)
-    if remat:
-        body = L * T * cfg.d_model * a + max(dense if n_moe < L else 0,
-                                             moe + recompute)
+    kinds = _layer_kinds(cfg)
+    per = {k: _layer_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized,
+                                 moe=k[0], mamba=k[1]) for k in set(kinds)}
+    recompute = _moe_body_saved_bytes(cfg, job.acfg, seqs, S,
+                                      memory_optimized) \
+        if any(m for m, _ in kinds) else 0
+    if cfg.arch == HYBRID:
+        G = cfg.n_layers // cfg.attn_every
+        group = sum(per[k] for k in kinds[:cfg.attn_every])
+        recompute += _scan_block_saved_bytes(cfg, seqs, S)
+        body = (G * T * cfg.d_model * a + group if remat
+                else G * group) + recompute
+    elif remat:
+        body = len(kinds) * T * cfg.d_model * a + max(
+            per.get((False, False), 0), per.get((True, False), 0) + recompute)
     else:
-        body = (L - n_moe) * dense + n_moe * moe + recompute
+        body = sum(per[k] for k in kinds) + recompute
     head = (T * cfg.d_model * 4 + T * 4
             + (cfg.d_model * 4 if cfg.param_dtype != "float32" else 0)
             + T_text * cfg.vocab * 4 + T_text * 8 + T_text * 4)
     if not memory_optimized:
         head += T * cfg.d_model * (a + 4) + T_text * 8
     return body + head
+
+
+# [seqs, c, ED, N] fp32 gradients live at once in a scan block's backward
+SCAN_WORKING = 6
 
 
 def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
@@ -365,15 +445,17 @@ def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
       FFN's three [T, d_ff] gradients (its down product's input grad and
       both halves of the SwiGLU's), or an MoE body's expert-hidden and
       expert-output gradients at the job's capacity buffer, E x cap x
-      (fe + d) (drop-free: cap = T), whichever is larger;
+      (fe + d) (drop-free: cap = T), or a hybrid's scan block's gradients,
+      SCAN_WORKING [seqs, c, ED, N] fp32 tensors at once (c the block's
+      steps), whichever is larger;
     * the step's copies of the job's adapter state: the gathered params
       and AdamW moments, the grads, and the updated params and moments
       (seven fp32 trees at the update; six were live at llava's peak);
     * the job's batch: token and label ids, and a VLM's image prefix.
 
     ``remat`` and ``memory_optimized`` change none of these."""
+    from repro_torch.models.mamba import SCAN_BLOCK
     from repro_torch.models.moe import _capacity
-    from repro_torch.models.transformer import _is_moe
     nmb = max(1, job.microbatch)
     if job.batch_size % nmb or job.batch_size == nmb:
         nmb = 1
@@ -381,14 +463,17 @@ def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     Ti = cfg.n_frontend_tokens if cfg.arch == VLM else 0
     T = seqs * (job.seq_len + Ti)
     a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    kinds = _layer_kinds(cfg)
     grads = 0
-    if any(not _is_moe(cfg, i) or cfg.dense_residual
-           for i in range(cfg.n_layers)):
+    if any(not m or cfg.dense_residual for m, _ in kinds):
         grads = 3 * T * cfg.d_ff * a
-    if any(_is_moe(cfg, i) for i in range(cfg.n_layers)):
+    if any(m for m, _ in kinds):
         cap = _capacity(T, cfg.n_experts, cfg.top_k, None)
         grads = max(grads, cfg.n_experts * cap
                     * (cfg.ffn_hidden + cfg.d_model) * a)
+    if any(m for _, m in kinds):
+        grads = max(grads, SCAN_WORKING * seqs * min(job.seq_len, SCAN_BLOCK)
+                    * cfg.mamba_expand * cfg.d_model * cfg.d_state * 4)
     state = 7 * adapters_lib.adapter_bytes(cfg, job.acfg)[1]
     batch = job.batch_size * (job.seq_len * 8 + Ti * cfg.d_model * a)
     return grads + state + batch
@@ -409,8 +494,8 @@ def job_charge_bytes(cfg: ModelConfig, job: FinetuneJob, *,
 
 def _not_ported(what: str):
     return ValueError(f"{what}: not ported yet; the port's FinetuneEngine "
-                      "trains jobs of the dense, MoE and VLM families on "
-                      "one device")
+                      "trains jobs of the dense, MoE, VLM and hybrid "
+                      "families on one device")
 
 
 def _to_host(tree):
@@ -518,9 +603,11 @@ class FinetuneEngine:
         placement = None
         if self.router is not None:
             try:
-                placement = self.router.route_train(job_charge_bytes(
-                    self.cfg, job, remat=self.fcfg.remat,
-                    memory_optimized=self.fcfg.memory_optimized))
+                placement = self.router.route_train(
+                    job_charge_bytes(self.cfg, job, remat=self.fcfg.remat,
+                                     memory_optimized=self.fcfg
+                                     .memory_optimized),
+                    latency_sensitive=job.latency_sensitive)
             except NoCapacity:
                 return False                      # queued until capacity frees
         # transactional from here: any failure releases the router charge
@@ -867,7 +954,8 @@ class FinetuneEngine:
     # ------------------------------------------------------------------
     _JOB_FIELDS = ("acfg", "data", "batch_size", "seq_len", "steps", "lr",
                    "weight_decay", "warmup_steps", "total_steps",
-                   "max_grad_norm", "microbatch", "name", "seed")
+                   "max_grad_norm", "microbatch", "name", "seed",
+                   "latency_sensitive")
 
     def _record(self, job: FinetuneJob, **state) -> dict:
         rec = {k: getattr(job, k) for k in self._JOB_FIELDS}

@@ -45,6 +45,7 @@ class FinetuneJob:
     microbatch: int = 0                   # grad-accum factor (0/1 -> off)
     name: str = ""
     seed: int = 0                         # adapter init seed (fresh jobs)
+    latency_sensitive: bool = False       # handed to route_train (ignored)
     # --- resumption (all three or none) ---
     init_adapter: Any = None
     init_opt: Any = None

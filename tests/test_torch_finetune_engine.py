@@ -362,9 +362,9 @@ def test_engine_refuses_what_is_not_ported():
     pb = port_base(pc, base)
     with pytest.raises(ValueError, match="not ported yet"):
         FinetuneEngine(spec, pb, device="cpu", mesh=object())
-    hybrid = dataclasses.replace(pc, arch="hybrid")
-    with pytest.raises(ValueError, match="'hybrid' family: not ported"):
-        FinetuneEngine(EngineSpec(cfg=hybrid, finetune=pcfg.FinetuneConfig()),
+    rwkv = dataclasses.replace(pc, arch="rwkv")
+    with pytest.raises(ValueError, match="'rwkv' family: not ported"):
+        FinetuneEngine(EngineSpec(cfg=rwkv, finetune=pcfg.FinetuneConfig()),
                        pb, device="cpu")
     odd = pcfg.AdapterConfig(method="adapterfusion", targets=("q",))
     with pytest.raises(ValueError, match="unknown PEFT method"):

@@ -24,7 +24,8 @@ through ``convert``:
   JAX's, the compacted decode equal to the masked one bit for bit;
 * ``convert`` round trips, the jamba config and its ``reduced()``,
   ``adapter_bytes`` and ``make_cache_spec`` / ``cache_bytes`` equal to
-  JAX's exactly; fine-tuning of the family still refused.
+  JAX's exactly; the family fine-tunes (``test_torch_hybrid_train.py``
+  holds that against JAX) and a mesh is still refused.
 
 The dense layout's model-level prefill / decode and inactive-row cases run
 under ``-m tier2`` (the bank steps and the engine cover that layout in
@@ -622,15 +623,29 @@ def test_jamba_config_sizing_and_adapter_bytes_match_reference():
 
 
 def test_fine_tuning_still_refuses_hybrid():
-    """The hybrid family serves but does not fine-tune yet: the engine and
-    the train CLI refuse it ("not ported yet")."""
+    """The successor of the refusal: the hybrid family now fine-tunes
+    (``HYBRID`` in ``TRAIN_FAMILIES``; a ``FinetuneEngine`` over its base
+    and the train CLI on jamba each run a step), and what is still
+    refused stays so: a ``mesh`` in both, "not ported yet"."""
     from repro_torch.launch import train
+    from repro_torch.training import FinetuneJob, make_job_stream
     pc = port_config(tiny(HYBRID))
     base = get_model(pc).init_params(torch.Generator(), "cpu")
     assert pcfg.HYBRID in pcfg.FAMILIES
-    assert pcfg.HYBRID not in pcfg.TRAIN_FAMILIES
-    with pytest.raises(ValueError, match="family: not ported yet"):
-        FinetuneEngine(EngineSpec(cfg=pc, finetune=pcfg.FinetuneConfig()),
-                       base, device="cpu")
+    assert pcfg.HYBRID in pcfg.TRAIN_FAMILIES
+    spec = EngineSpec(cfg=pc, finetune=pcfg.FinetuneConfig())
+    eng = FinetuneEngine(spec, base, device="cpu")
+    eng.submit(FinetuneJob(acfg=port_acfg(GROUP_LORA), batch_size=2,
+                           seq_len=8, steps=1,
+                           data=make_job_stream(pc, 2, 8, device="cpu")))
+    eng.train_tick()
+    assert eng.stats["train_steps"] == 1 and len(eng.finished) == 1
+    first, last = train.main(["--arch", "jamba-v0.1-52b", "--device", "cpu",
+                              "--steps", "1", "--clients", "1", "--seq", "8",
+                              "--d-model", "64"])
+    assert np.isfinite(first) and first == last
+    with pytest.raises(ValueError, match="mesh=: not ported yet"):
+        FinetuneEngine(spec, base, device="cpu", mesh=object())
     with pytest.raises(SystemExit, match="not ported yet"):
-        train.main(["--arch", "jamba-v0.1-52b", "--device", "cpu"])
+        train.main(["--arch", "jamba-v0.1-52b", "--device", "cpu",
+                    "--mesh", "1", "1"])

@@ -239,10 +239,11 @@ def test_compact_decode_equals_masked_decode_bitwise(arch):
     "deepseek-moe-16b",
     pytest.param("llava-next-mistral-7b", marks=TIER2)])
 def test_serve_cli_serves_moe_and_vlm(arch, capsys):
-    """The serving CLI takes both families' configs (reduced on the CPU)."""
+    """The serving CLI takes both families' configs (reduced on the CPU):
+    its header, results and simulated-timeline lines."""
     from repro_torch.launch import serve
     done = serve.main(["--arch", arch, "--device", "cpu", "--clients", "2",
                        "--requests", "2", "--prompt-len", "8", "--max-new",
                        "3", "--page-block", "8"])
     assert len(done) == 2 and all(r.status == "ok" for r in done)
-    assert capsys.readouterr().out.count("[serve]") == 2
+    assert capsys.readouterr().out.count("[serve]") == 3

@@ -24,7 +24,10 @@ exits non-zero and prints no result. Phases, each raising on failure:
    a row at pos -1) and SGMV at din 2048, the router's dout 64 at decode
    and over a compacted prefill's flattened tokens, q/v at dout 2048;
    phase 15's: jamba-v0.1-52b's router LoRA at din 4096, dout 16, at
-   decode and over a per-client prefill's 2 rows of a 256-token prompt),
+   decode and over a per-client prefill's 2 rows of a 256-token prompt;
+   phase 17's: rwkv6-7b's channel-mix LoRA, cm_k at din 4096, dout 14336
+   and cm_v at din 14336, dout 4096, at decode (8 rows) and over a
+   per-client prefill's 4 rows of a 256-token prompt),
    fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
    fp32 on the same bf16 inputs; dense decode attention (split-KV and a
@@ -340,7 +343,41 @@ exits non-zero and prints no result. Phases, each raising on failure:
    paged attention 2 and ``sgmv`` 12 per decode tick and 12 per prefill,
    tick by tick, every stream bit for bit 15a's, the jobs bit for bit
    their ``FinetuneEngine`` run alone; 16d a 2-job engine killed after 1
-   of 3 ticks resumes from its blob bit for bit.
+   of 3 ticks resumes from its blob bit for bit;
+17. the RWKV family serves and fine-tunes, after phase 15's bases are
+   freed: rwkv6-7b at full width and full depth (32 layers, 64 heads of
+   64, d_ff 14336, vocab 65,536; 7.53 B params, ~15 GB bf16), random
+   weights, 8 LoRA r8 tenants on q (as r), v and cm_k. Its path runs one
+   kernel, ``sgmv`` (the wkv6 recurrence is plain PyTorch, as JAX's is
+   plain ``lax.scan``). 17a a per-client prefill per client (64-256
+   tokens) and a masked decode tick of the dense bank with the kernels (no
+   host sync) and under ``plain_kernels()``, at 2 and 32 layers, bf16 and
+   fp32 (TF32 off), the gaps printed in bf16 ulps of the logits: each pair
+   held at twice its control (c), the same pair with ``sgmv`` on a plain
+   version that sums din in two halves (another exact order), plus 4 bf16
+   ulps of its largest logit (fp32: 1e-5); the 2-layer fp32 pair also at
+   1e-5; at 32 layers bf16 control (a), ``sgmv`` alone on its plain
+   version, bit for bit (the model amplifies a rounding difference with
+   depth, JAX's as much). 17b 8 clients x 4 slots, 16 requests of 64, 128
+   and 256 tokens, 32 new tokens each, the second wave taking freed slots:
+   ``sgmv`` 96 launches per decode tick and per per-request prefill,
+   checked tick by tick; every stream bit for bit its run alone on a fresh
+   engine, the requests in a reused slot named; a 300-token prompt refused
+   with the reference's chunk error; an 8-row decode tick timed and
+   traced; the 128- and 256-token prefills beside the recurrence alone at
+   their shapes; the state's bytes on the card against the router's charge
+   per slot (34,078,720 B). 17c at 2 layers fp32, a 2-row LoRA and IA3 (k,
+   v) bank's compact step against each row's one-row run (losses within
+   ``P12_DRIFT_TOL``, states within 16x the drift of that one-row run with
+   every base weight nudged one fp32 ulp); at full depth a
+   ``FinetuneEngine`` of 4 LoRA jobs of 1 x 256 tokens behind a router
+   that holds a fifth back (tick ms, one tick traced, the recurrence's
+   share from its time alone, peaks at 1 and 4 jobs below
+   ``job_charge_bytes``); a ``SymbiosisEngine`` serving 17b's first 8
+   requests beside 2 jobs (streams 17b's, jobs their runs alone, bit for
+   bit); a 2-job engine killed after 1 of 3 ticks resumed bit for bit. 17d
+   ``sgmv`` at the channel mix's shapes timed beside its plain version, a
+   gather + ``bmm`` and its bound.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -389,6 +426,7 @@ from repro_torch.models import blocks, get_model  # noqa: E402
 from repro_torch.models import hybrid as hybrid_lib  # noqa: E402
 from repro_torch.models import mamba as mamba_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import rwkv as rwkv_lib  # noqa: E402
 from repro_torch.optim import AdamWState, adamw_init  # noqa: E402
 from repro_torch.serving import kvcache  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -611,6 +649,14 @@ SGMV_CASES = {    # (T, block_t, dout, rank, ids[, din]), din 4096 if absent
     # prefill's 2 slot rows of a 256-token prompt, one block per row
     "jamba_router_decode": (8, 1, 16, 8, [0, 1, 2, 3, -1, 1, 2, 0]),
     "jamba_router_prefill": (512, 256, 16, 8, [2, 2]),
+    # rwkv6-7b (phase 17): d 4096, d_ff 14336; the channel mix's LoRA on
+    # cm_k (4096 -> 14336) and cm_v (14336 -> 4096) at decode (8 rows) and
+    # over a per-client prefill's 4 slot rows of a 256-token prompt, one
+    # block per row
+    "rwkv_cm_k_decode": (8, 1, 14336, 8, [0, 1, 2, 3, -1, 1, 2, 0]),
+    "rwkv_cm_k_prefill": (1024, 256, 14336, 8, [3, 3, 3, 3]),
+    "rwkv_cm_v_decode": (8, 1, 4096, 8, [3, 2, 1, 0, 0, -1, 2, 1], 14336),
+    "rwkv_cm_v_prefill": (1024, 256, 4096, 8, [1, 1, 1, 1], 14336),
 }
 
 
@@ -1222,9 +1268,11 @@ def device_profile(prof):
     return busy / 1e3, len(kern), by_name
 
 
-def profile_tick(cfg, base, banks, spec, label, n_req=8, **engine_kw):
+def profile_tick(cfg, base, banks, spec, label, n_req=8, prompt_len=192,
+                 **engine_kw):
     """A decode tick of ``n_req`` one-row requests (8: every slot of phase
-    4's bank) over ``banks``' clients in turn: its median over 5
+    4's bank) of ``prompt_len`` tokens over ``banks``' clients in turn: its
+    median over 5
     unprofiled ticks on the host clock, then one tick traced by
     torch.profiler with device activity only.
     The device's busy share is the union of the traced kernel intervals
@@ -1235,7 +1283,7 @@ def profile_tick(cfg, base, banks, spec, label, n_req=8, **engine_kw):
     rng = np.random.default_rng(5)
     for i in range(n_req):
         eng.submit(Request(i % eng.n_clients, rng.integers(
-            0, cfg.vocab, (1, 192)).astype(np.int32), 16))
+            0, cfg.vocab, (1, prompt_len)).astype(np.int32), 16))
     eng.service_tick()               # admission, prefill, first decode tick
     eng.service_tick()
     ticks = []
@@ -5555,7 +5603,8 @@ def p15_serve(cfg, base, bank, spec, label, attn_name, reqs):
     return eng, launches, dec_t, pre_t, peak
 
 
-def p15_alone(cfg, base, bank, spec, reqs, label):
+def p15_alone(cfg, base, bank, spec, reqs, label,
+              note=f", the {P15_LONG}-token one included"):
     """Every stream bit for bit equal to it served alone by a fresh engine
     of ``spec``."""
     for i, r in enumerate(reqs):
@@ -5563,25 +5612,25 @@ def p15_alone(cfg, base, bank, spec, reqs, label):
         if d is not None:
             raise AssertionError(f"[{label}] request {i}'s stream differs "
                                  f"from it served alone at step {d}")
-    log(f"[{label}] every stream ({len(reqs)}, the {P15_LONG}-token one "
-        "included) equals its run alone on a fresh engine, bit for bit")
+    log(f"[{label}] every stream ({len(reqs)}{note}) equals its run alone "
+        "on a fresh engine, bit for bit")
 
 
-def p15_refused(cfg, base, bank, spec):
-    """A prompt of ``P15_REFUSED`` tokens (no multiple of the 256-token
-    chunk) is refused at its prefill with JAX's message."""
+def p15_refused(cfg, base, bank, spec, n=P15_REFUSED, chunk=256,
+                label="phase 15a"):
+    """A prompt of ``n`` tokens (no multiple of the scan's ``chunk``) is
+    refused at its prefill with JAX's message."""
     eng = ServingEngine(spec, base, [bank], device=DEV)
-    eng.submit(Request(0, np.zeros((1, P15_REFUSED), np.int32), 4))
-    want = f"seq {P15_REFUSED} % chunk 256 != 0"
+    eng.submit(Request(0, np.zeros((1, n), np.int32), 4))
+    want = f"seq {n} % chunk {chunk} != 0"
     try:
         eng.service_tick()
     except ValueError as e:
         if want not in str(e):
             raise
-        log(f"[phase 15a] a {P15_REFUSED}-token prompt refused: {e}")
+        log(f"[{label}] a {n}-token prompt refused: {e}")
         return
-    raise AssertionError(f"[phase 15a] a {P15_REFUSED}-token prompt was "
-                         "served")
+    raise AssertionError(f"[{label}] a {n}-token prompt was served")
 
 
 def phase15a(cfg, base, bank):
@@ -5624,17 +5673,31 @@ def phase15b(cfg, base, bank, streams):
     p13_vs("phase 15b", reqs, streams, "the pages' stream")
 
 
+def sgmv_plain_split(x, A, B, block_adapter, *, block_t, scale=1.0):
+    """``sgmv_plain`` with its sum over din in another order: the two
+    halves of din each through both fp32 products, added in fp32 (phase
+    17a's control (c): an equally exact SGMV, rounded otherwise)."""
+    m = x.shape[1] // 2
+    halves = [sg.sgmv_plain(x[:, sl].float(), A[:, sl], B, block_adapter,
+                            block_t=block_t, scale=scale)
+              for sl in (slice(0, m), slice(m, None))]
+    return (halves[0] + halves[1]).to(x.dtype)
+
+
 @contextlib.contextmanager
-def sgmv_plain_only():
-    """Route the SGMV op alone to its plain version: every other kernel
-    still launches (phase 15c's control of the SGMV kernel's sums)."""
+def sgmv_plain_only(split=False):
+    """Route the SGMV op alone to its plain version (with ``split``,
+    ``sgmv_plain_split``): every other kernel still launches (phase 15c's
+    and 17a's controls of the SGMV kernel's sums)."""
     ops = importlib.import_module("repro_torch.kernels.sgmv.ops")
-    orig = ops.launches_kernel
+    orig = ops.launches_kernel, ops.sgmv_plain
     ops.launches_kernel = lambda t: False
+    if split:
+        ops.sgmv_plain = sgmv_plain_split
     try:
         yield
     finally:
-        ops.launches_kernel = orig
+        ops.launches_kernel, ops.sgmv_plain = orig
 
 
 def p15_wiring(cfg, base, bank, tol, label, sgmv_plain=False):
@@ -5786,7 +5849,7 @@ def _block_slack(tensors):
     return slack if found == len(ptrs) else None
 
 
-def p15_cache_held(make, label):
+def p15_cache_held(make, label, phase="phase 15d"):
     """Allocator bytes held (allocated) and asked for (requested) beside
     the tree's ``nbytes``, over ``make()``'s construction and again after
     ``gc.collect()`` and ``empty_cache()``; the surplus of held over the
@@ -5808,22 +5871,22 @@ def p15_cache_held(make, label):
     tree = sum(t.nbytes for t in leaves)
     slack = _block_slack(leaves)
     req = "not measured" if r0 is None else f"{r1 - r0:,} / {r2 - r0:,}"
-    log(f"[phase 15d] {label}: {len(leaves)} leaves of {tree:,} B; "
+    log(f"[{phase}] {label}: {len(leaves)} leaves of {tree:,} B; "
         f"allocator held {a1 - a0:,} B after construction, {a2 - a0:,} B "
         f"after gc.collect + empty_cache (peak {peak:,} B), requested "
         f"{req} B; held beyond the tree {a2 - a0 - tree:,} B, the leaves' "
         f"blocks beyond their requests "
         f"{'not measured' if slack is None else f'{slack:,}'} B")
     if r0 is not None and not r1 - r0 == r2 - r0 == tree:
-        raise AssertionError(f"[phase 15d] {label}: {r1 - r0} / {r2 - r0} "
+        raise AssertionError(f"[{phase}] {label}: {r1 - r0} / {r2 - r0} "
                              f"B requested, the tree is {tree} B")
     if a1 != a2 or (slack is not None and a2 - a0 - tree != slack):
-        raise AssertionError(f"[phase 15d] {label}: the surplus "
+        raise AssertionError(f"[{phase}] {label}: the surplus "
                              f"{a2 - a0 - tree} B is not the leaves' "
                              f"blocks' {slack} B (held {a1 - a0} then "
                              f"{a2 - a0})")
     if not 0 <= a2 - a0 - tree <= len(leaves) * P15_SPLIT_SLACK:
-        raise AssertionError(f"[phase 15d] {label}: {a2 - a0 - tree} B "
+        raise AssertionError(f"[{phase}] {label}: {a2 - a0 - tree} B "
                              f"beyond the tree, past {len(leaves)} x "
                              f"{P15_SPLIT_SLACK} B")
     return made, leaves, a2 - a0
@@ -5953,11 +6016,11 @@ P16_SEQ = 256            # one sequence of one scan chunk per job
 P16_STEPS = 6            # 16b: 4 jobs, a warm tick, 4 timed, 1 traced
 
 
-def p16_jobs(cfg, n, steps, first_seed, acfg=P15_LORA):
+def p16_jobs(cfg, n, steps, first_seed, acfg=P15_LORA, name="jamba"):
     """``n`` jobs of ``acfg`` over 1 x ``P16_SEQ`` tokens."""
     return [FinetuneJob(acfg=acfg, batch_size=1, seq_len=P16_SEQ,
                         steps=steps, lr=1e-3, warmup_steps=1,
-                        seed=first_seed + i, name=f"jamba-{first_seed + i}",
+                        seed=first_seed + i, name=f"{name}-{first_seed + i}",
                         data=make_job_stream(cfg, 1, P16_SEQ,
                                              seed=first_seed + i, device=DEV))
             for i in range(n)]
@@ -6063,16 +6126,18 @@ def p16_scan_ms(cfg, base, rows):
     return fwd, time_ms(fwd_bwd, n=5)
 
 
-def p16_memory(cfg, base, job):
+def p16_memory(cfg, base, job, phase="phase 16b",
+               unchecked=mamba_lib._scan_block_saved):
     """Peak device memory beyond base and bank of one bank step at 1 and 4
     jobs (1 x 256 tokens each, remat off, drop-free), against
-    ``job_charge_bytes``; then 1 job with the scan not checkpointed (its
-    blocks' temporaries kept for the backward, as before this slice)."""
+    ``job_charge_bytes``; then, given the recurrence's checkpointed block
+    function ``unchecked``, 1 job with those blocks not checkpointed (their
+    temporaries kept for the backward)."""
     charge = job_charge_bytes(cfg, job)
-    step = symbiosis.make_compact_train_step(cfg, P15_LORA, remat=False)
+    step = symbiosis.make_compact_train_step(cfg, job.acfg, remat=False)
 
     def peak(R):
-        bank = random_lora(cfg, R, 164, P15_LORA)
+        bank = random_lora(cfg, R, 164, job.acfg)
         opt = AdamWState(step=torch.zeros(R, dtype=torch.int32, device=DEV),
                          m=tree_map(torch.zeros_like, bank),
                          v=tree_map(torch.zeros_like, bank))
@@ -6088,27 +6153,27 @@ def p16_memory(cfg, base, job):
         return torch.cuda.max_memory_allocated() - before
 
     peaks = {R: peak(R) for R in (1, 4)}
-    orig = torch.utils.checkpoint.checkpoint
-    try:      # the scan's blocks alone run unchecked: other checkpoints stay
-        torch.utils.checkpoint.checkpoint = lambda fn, *a, **kw: (
-            fn(*a) if fn is mamba_lib._scan_block_saved else
-            orig(fn, *a, **kw))
-        kept = peak(1)
-    except torch.cuda.OutOfMemoryError:
-        kept = None
-    finally:
-        torch.utils.checkpoint.checkpoint = orig
+    kept = "not run"
+    if unchecked is not None:
+        orig = torch.utils.checkpoint.checkpoint
+        try:  # the scan's blocks alone run unchecked: other checkpoints stay
+            torch.utils.checkpoint.checkpoint = lambda fn, *a, **kw: (
+                fn(*a) if fn is unchecked else orig(fn, *a, **kw))
+            kept = peak(1)
+            kept = f"{kept / 1e9:.3f} (+{(kept - peaks[1]) / 1e9:.3f})"
+        except torch.cuda.OutOfMemoryError:
+            kept = "out of memory"
+        finally:
+            torch.utils.checkpoint.checkpoint = orig
     torch.cuda.empty_cache()
-    log(f"[phase 16b] peak device memory beyond base and bank, one bank "
+    log(f"[{phase}] peak device memory beyond base and bank, one bank "
         f"step (1 x {P16_SEQ} tokens a job, drop-free, remat off), GB: 1 job "
         f"{peaks[1] / 1e9:.3f}, 4 jobs {peaks[4] / 1e9:.3f}; charge per job "
         f"{charge / 1e9:.3f} (job_hbm_bytes {job_hbm_bytes(cfg, job) / 1e9:.3f}"
-        f"); 1 job with the scan's blocks not checkpointed: "
-        + ("out of memory" if kept is None else
-           f"{kept / 1e9:.3f} (+{(kept - peaks[1]) / 1e9:.3f})"))
+        f"); 1 job with the scan's blocks not checkpointed: {kept}")
     for R, p in peaks.items():
         if p > R * charge:
-            raise AssertionError(f"[phase 16b] {R} job(s) peak at {p} B, "
+            raise AssertionError(f"[{phase}] {R} job(s) peak at {p} B, "
                                  f"above the charge {R * charge} B")
     return peaks
 
@@ -6261,19 +6326,21 @@ def phase16c(cfg, base, bank, streams):
     gc.collect()
 
 
-def phase16d(cfg, base):
+def phase16d(cfg, base, jobs=None, phase="phase 16d",
+             what="LoRA jobs (q, v, router)"):
     """16d: a jamba FinetuneEngine of 2 jobs killed after 1 of 3 ticks and
     resumed by a fresh engine from its blob ends bit for bit as the
-    uninterrupted run."""
+    uninterrupted run (``jobs()`` makes them; 17c's are RWKV's)."""
+    jobs = jobs or (lambda: p16_jobs(cfg, 2, 3, 70))
     spec = EngineSpec(cfg=cfg, finetune=FinetuneConfig())
     ref = FinetuneEngine(spec, base, device=DEV)
-    ref_jobs = p16_jobs(cfg, 2, 3, 70)
+    ref_jobs = jobs()
     for j in ref_jobs:
         ref.submit(j)
     ref.run()
     with tempfile.TemporaryDirectory() as d:
         eng = FinetuneEngine(spec, base, device=DEV)
-        for j in p16_jobs(cfg, 2, 3, 70):
+        for j in jobs():
             eng.submit(j)
         eng.train_tick()
         torch.cuda.synchronize()
@@ -6294,11 +6361,11 @@ def phase16d(cfg, base):
         if got.losses != want.losses or not trees_equal(
                 (got.result.adapter, got.result.opt),
                 (want.result.adapter, want.result.opt)):
-            raise AssertionError(f"[phase 16d] {want.name} resumed differs "
+            raise AssertionError(f"[{phase}] {want.name} resumed differs "
                                  f"from the uninterrupted run")
     keys = sorted(state["active"][0]["init_adapter"])
-    log(f"[phase 16d] {cfg.name} FinetuneEngine of 2 LoRA jobs (q, v, "
-        f"router) killed after 1 of 3 ticks: blob of {size} B written in "
+    log(f"[{phase}] {cfg.name} FinetuneEngine of 2 {what} "
+        f"killed after 1 of 3 ticks: blob of {size} B written in "
         f"{t_save * 1e3:.1f} ms, loaded by a fresh engine in "
         f"{t_load * 1e3:.1f} ms; adapter trees under {keys}; both jobs' "
         f"losses, adapters and AdamW states equal the uninterrupted run bit "
@@ -6317,6 +6384,657 @@ def phase16(cfg, base, bank, streams):
         run()
         free_device("phase 16")
         log(f"[phase {name}] done ({time.perf_counter() - t:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the RWKV family serves and fine-tunes on the shared base
+# ---------------------------------------------------------------------------
+
+P17_LORA = AdapterConfig(method="lora", rank=8, alpha=16.0,
+                         targets=("q", "v", "cm_k"))
+P17_CLIENTS, P17_SLOTS = 8, 4
+P17_NEW = 32             # new tokens per request
+P17_LENGTHS = (64, 128, 256)
+P17_MAX_SEQ = 512        # the engine's bound on prompt + new tokens
+P17_REFUSED = 300        # no multiple of the recurrence's 128-step chunk
+P17_STEPS = 5            # 17c: 4 jobs, a warm tick, 3 timed, 1 traced
+# 17a: a pair of kernels against plain is held at P17_CONTROL times the gap
+# of control (c), the same pair with the SGMV op on ``sgmv_plain_split``
+# (another exact fp32 sum order), plus 4 bf16 ulps of the largest logit
+# (bf16) or 1e-5 (fp32). rwkv6-7b amplifies a rounding difference with
+# depth: in bf16 at 32 layers both pairs decorrelate to ~2 (my dev calls
+# 2-3, PR 27: kernel 1.953 / 1.877, control (c) 1.891 / 1.883; at 2
+# layers both 2.344e-02), in fp32 at 32 layers 6.1e-03 / 5.3e-03 against
+# 5.0e-03 / 5.9e-03, while control (a), the SGMV op alone on its plain
+# version, is bit for bit: the gap is the SGMV kernel's sum order, which
+# the model carries as it carries any other.
+P17_CONTROL = 2.0
+# 17c: a row's state drift from its one-row run is held at P17_NUDGE times
+# the drift of that one-row run with every base weight moved by one fp32
+# ulp (or P12_DRIFT_TOL's, whichever is larger): my dev calls 3b-3c, PR 27,
+# read 2.0e-03 / 3.3e-03 (LoRA / IA3) beside nudges of 6.1e-04 / 3.7e-04
+# on the sensitive row
+P17_NUDGE = 16.0
+
+
+def p17_config(n_layers=32, dtype="bfloat16"):
+    """rwkv6-7b at full width, ``n_layers`` of its 32 layers."""
+    cfg = get_config("rwkv6-7b")
+    return dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype,
+                               param_dtype=dtype)
+
+
+def p17_per_call(cfg, acfg=P17_LORA):
+    """SGMV launches per decode tick and per per-client prefill: one per
+    LoRA target (q as r, v, cm_k) per layer; RWKV has no other kernel."""
+    return len(adapters.resolve_targets(cfg, acfg)) * cfg.n_layers
+
+
+def p17_spec(cfg, max_b=P17_SLOTS, finetune=None):
+    """8 LoRA tenants x ``max_b`` slots, opportunistic, the dense layout
+    (RWKV has no pages)."""
+    scfg = ServeConfig(n_clients=P17_CLIENTS, max_seq=P17_MAX_SEQ,
+                       policy="opportunistic")
+    return EngineSpec(cfg=cfg, banks=(BankSpec("tenants", P17_LORA,
+                                               P17_CLIENTS),),
+                      serve=scfg, max_batch_per_client=max_b,
+                      finetune=finetune)
+
+
+def p17_requests(cfg, n=16):
+    """``n`` one-row requests of 64, 128 and 256 tokens in turn, 32 new
+    tokens each: one per client at ticks 0-7, then one per client again
+    at ticks 36-43, after each client's first has finished, so the second
+    wave takes freed slots."""
+    rng = np.random.default_rng(17)
+    return [Request(client_id=i % P17_CLIENTS, max_new_tokens=P17_NEW,
+                    arrive_tick=i if i < P17_CLIENTS else 28 + i,
+                    prompt=rng.integers(0, cfg.vocab,
+                                        (1, P17_LENGTHS[i % 3]))
+                    .astype(np.int32)) for i in range(n)]
+
+
+def p17_serve(cfg, base, bank, spec, reqs, label):
+    """Serve ``reqs`` with every launch count set to 0 just before and read
+    just after, checked tick by tick: SGMV ``p17_per_call`` times per decode
+    tick and per per-request prefill, every other kernel never. Returns
+    (engine, launches, decode-step s, prefill s by prompt length, the
+    (client, slot) each request held)."""
+    per_call = p17_per_call(cfg)
+    eng = ServingEngine(spec, base, [bank], device=DEV)
+    for r in reqs:
+        eng.submit(r)
+    dec_t, pre_t, held = [], {}, {}
+    eng._decode_step = _timed(eng._decode_step, dec_t)
+    prefill = eng._client_prefill
+
+    def timed_prefill(m, *args):           # args[5]: the [max_b, S] tokens
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prefill(m, *args)
+        torch.cuda.synchronize()
+        pre_t.setdefault(args[5].shape[1], []).append(time.perf_counter() - t)
+        return out
+
+    eng._client_prefill = timed_prefill
+    torch.cuda.synchronize()
+    reset_counts()
+    more = True
+    while more:
+        before = (read_counts(), eng.stats["ticks"],
+                  eng.stats["prefill_calls"])
+        more = eng.service_tick()
+        now = read_counts()
+        d = {n: now[n] - before[0][n] for n in now}
+        want = {n: 0 for n in d}
+        want["sgmv"] = per_call * (eng.stats["ticks"] - before[1]
+                                   + eng.stats["prefill_calls"] - before[2])
+        if d != want:
+            raise AssertionError(f"[{label}] tick {eng._tick}: launches {d},"
+                                 f" want {want}")
+        for i, r in enumerate(reqs):
+            slots = eng._slots_of.get(id(r))
+            if slots is not None:
+                held.setdefault(i, (r.client_id, tuple(slots)))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    done = eng.drain_done()
+    for r in reqs:
+        g = r.generated
+        if r.status != "ok" or g.shape != (1, P17_NEW) or g.min() < 0 \
+                or g.max() >= cfg.vocab:
+            raise AssertionError(f"[{label}] client {r.client_id}: status "
+                                 f"{r.status}, tokens {g}")
+    if len(done) != len(reqs):
+        raise AssertionError(f"[{label}] {len(done)} of {len(reqs)} done")
+    st = eng.stats
+    log(f"[{label}] served {len(done)} requests ({st['prefill_tokens']} "
+        f"prompt + {st['decode_tokens'] + len(done)} generated tokens): "
+        f"{st['ticks']} decode ticks, {st['prefill_calls']} per-request "
+        f"prefills, launches {launches} (checked tick by tick: sgmv "
+        f"{per_call} per decode tick and per prefill); decode-step ms "
+        f"{statistics.median(dec_t) * 1e3:.3f} (median of {len(dec_t)}); "
+        f"prefill ms by prompt length " + ", ".join(
+            f"{n}: {statistics.median(t) * 1e3:.2f} (median of {len(t)})"
+            for n, t in sorted(pre_t.items())))
+    return eng, launches, dec_t, pre_t, held
+
+
+def p17_reused(held, label):
+    """The requests that took a (client, slot) an earlier one held."""
+    seen, reused = set(), []
+    for i in sorted(held):
+        c, slots = held[i]
+        if any((c, s) in seen for s in slots):
+            reused.append(i)
+        seen.update((c, s) for s in slots)
+    log(f"[{label}] requests {reused} took a slot an earlier request of "
+        "their client held (its state zeroed at admission)")
+    if not reused:
+        raise AssertionError(f"[{label}] no slot was reused")
+    return reused
+
+
+def p17_wiring(cfg, base, bank, tol, label, control=None):
+    """A per-client prefill of one prompt per client (64-256 tokens, slot
+    0; slot 1 a dummy of length 0) into a dense bank, then one masked
+    decode tick of the 8 slot rows (the admitted 4 active), with the
+    kernels (no host sync) and under ``plain_kernels()``: SGMV
+    ``p17_per_call`` launches per call (none plain), logits at ``tol`` or,
+    with ``tol`` None, their gap printed in bf16 ulps. ``control`` runs the
+    first pass with the SGMV op on its plain version instead ("plain") or
+    on ``sgmv_plain_split`` ("split"). Returns the two max errors."""
+    sgmv_plain = control is not None
+    C, max_b = 4, 2
+    per_call = p17_per_call(cfg)
+    scfg = ServeConfig(n_clients=C, max_seq=P17_MAX_SEQ)
+    lengths = [64, 256, 100, 128]
+    rng = np.random.default_rng(3)
+    toks = [torch.tensor(np.stack([rng.integers(0, cfg.vocab, n),
+                                   np.zeros(n, np.int64)]),
+                         dtype=torch.int32, device=DEV) for n in lengths]
+    lens = [torch.tensor([n, 0], dtype=torch.int32, device=DEV)
+            for n in lengths]
+    mask = torch.tensor([True, False], device=DEV)
+    active = torch.tensor([[True, False]] * C, device=DEV)
+    prefill = symbiosis.make_client_prefill(cfg, P17_LORA, scfg)
+    decode = symbiosis.make_masked_decode_step(cfg, P17_LORA, scfg)
+    out, nxt = [], None
+    for plain in (False, True):
+        caches = symbiosis.init_client_caches(cfg, C, max_b, P17_MAX_SEQ,
+                                              device=DEV)
+        torch.cuda.synchronize()
+        reset_counts()
+        with blocks.plain_kernels() if plain else (
+                sgmv_plain_only(split=control == "split") if sgmv_plain
+                else no_host_sync()):
+            lg1 = []
+            for c in range(C):
+                lg, caches = prefill(base, bank, caches, c, c, toks[c],
+                                     lens[c], mask)
+                lg1.append(lg[0])
+            lg1 = torch.stack(lg1)
+            if nxt is None:
+                nxt = torch.stack([lg1.argmax(-1).to(torch.int32),
+                                   torch.zeros(C, dtype=torch.int32,
+                                               device=DEV)], dim=1)
+            lg2, caches = decode(base, bank, caches, nxt, active)
+        torch.cuda.synchronize()
+        want = {n: 0 for n in KERNELS}
+        if not (plain or sgmv_plain):
+            want["sgmv"] = per_call * (C + 1)
+        if read_counts() != want:
+            raise AssertionError(f"[{label}] launches {read_counts()}, want "
+                                 f"{want}")
+        out.append((lg1, lg2[:, 0]))
+    gaps = []
+    for what, (got, want) in (("prefill", (out[0][0], out[1][0])),
+                              ("decode", (out[0][1], out[1][1]))):
+        gap, ulps = (got.float() - want.float()).abs(), bf16_ulps(got, want)
+        at = int(gap.argmax())
+        gaps.append(float(gap.max()))
+        if cfg.dtype == "bfloat16":
+            log(f"[{label}] {cfg.n_layers} layers {cfg.dtype} {what} logits, "
+                f"kernels{f' (sgmv {control})' if sgmv_plain else ''} vs "
+                "plain: "
+                f"max_abs_err {gaps[-1]:.3e} at a logit of "
+                f"{float(want.flatten()[at]):.3f} "
+                f"({float(ulps.flatten()[at]):.0f} bf16 ulps there); at most "
+                f"{float(ulps.max()):.1f} ulps, "
+                f"{float((ulps > 1).float().mean()):.2e} of logits more than "
+                f"1 ulp apart; |logits| <= "
+                f"{float(want.float().abs().max()):.2f}")
+        if tol is not None:
+            compare(f"[{label}] {cfg.n_layers} layers {cfg.dtype} {what} "
+                    "logits", got, want, tol)
+    log(f"[{label}] {cfg.n_layers} layers {cfg.dtype}: per-client prefill "
+        f"(prompts {lengths}) logits max_abs_err={gaps[0]:.3e}, masked "
+        f"decode logits max_abs_err={gaps[1]:.3e}, kernels"
+        f"{f' (sgmv {control})' if sgmv_plain else ''} vs plain"
+        f"{'' if tol is None else f' at {tol}'}; sgmv "
+        f"{0 if sgmv_plain else per_call * (C + 1)} launches in the kernel "
+        f"pass{'' if sgmv_plain else ', no host sync'}")
+    return gaps, max(float(t.float().abs().max()) for t in out[1])
+
+
+def p17_pair(cfg, base, bank, label, tol=None, plain_control=False):
+    """17a's pair, kernels against plain (``p17_wiring``), beside control
+    (c) and, with ``plain_control``, control (a) (held bit for bit): each
+    gap held at ``P17_CONTROL`` x control (c)'s plus 4 bf16 ulps of the
+    largest logit (bf16) or 1e-5 (fp32), and at ``tol`` when given."""
+    gaps, top = p17_wiring(cfg, base, bank, tol, label)
+    if plain_control:
+        same, _ = p17_wiring(cfg, base, bank, None, f"{label} control (a)",
+                             control="plain")
+        if any(same):
+            raise AssertionError(f"[{label}] control (a): {same}, not bit "
+                                 "for bit")
+    ctl, _ = p17_wiring(cfg, base, bank, None, f"{label} control (c)",
+                        control="split")
+    floor = 4 * 2.0 ** (int(np.frexp(top)[1]) - 8) \
+        if cfg.dtype == "bfloat16" else F32_TOL["atol"]
+    bound = [P17_CONTROL * c + floor for c in ctl]
+    log(f"[{label}] {cfg.n_layers} layers {cfg.dtype}: kernel gaps {gaps} "
+        f"against control (c)'s {ctl}; held at {P17_CONTROL} x control (c) "
+        f"+ {floor:.3e} = {[round(b, 6) for b in bound]}")
+    if any(g > b for g, b in zip(gaps, bound)):
+        raise AssertionError(f"[{label}] gaps {gaps} past {bound}")
+
+
+def p17_rows(cfg, base, acfg, bank, label):
+    """17c: one compact train step over a 2-row bank against each row's
+    one-row run from the same state (losses within ``P12_DRIFT_TOL``; the
+    updated adapters and AdamW moments, each leaf's gap over its own
+    largest magnitude), beside each one-row run against itself with every
+    base weight moved by one fp32 ulp in a random direction (the step's
+    own conditioning): the state drift held at ``P17_NUDGE`` x the nudge's,
+    or ``P12_DRIFT_TOL``'s, whichever is larger."""
+    step = symbiosis.make_compact_train_step(cfg, acfg, remat=False)
+    batch = p16_batches(cfg, 2, 162)
+    opt = p10_opt(bank, P10_STEP)
+    hyper = step7a_hyper(2)
+    mask = torch.ones(2, dtype=torch.bool, device=DEV)
+    slots = torch.arange(2, dtype=torch.int32, device=DEV)
+
+    def run(b, r=None):
+        if r is None:
+            return step(b, tree_clone(bank), tree_clone(opt), batch, slots,
+                        mask, hyper)
+        return step(b, tree_clone(bank), tree_clone(opt),
+                    {k: v[r:r + 1] for k, v in batch.items()}, slots[r:r + 1],
+                    mask[:1], {k: v[r:r + 1] for k, v in hyper.items()})
+
+    def drift(x, y, r):
+        d = 0.0
+        for a, c in zip(tree_leaves((x[0], x[1].m, x[1].v)),
+                        tree_leaves((y[0], y[1].m, y[1].v))):
+            scale = float(c[r].abs().max()) or 1.0
+            d = max(d, float((a[r] - c[r]).abs().max()) / scale)
+        return abs(float(x[2]["loss"][r if x[2]["loss"].numel() > 1 else 0])
+                   - float(y[2]["loss"][0])), d
+
+    g = gen(175)
+
+    def nudge(w):
+        up = torch.rand(w.shape, generator=g, device=DEV) < 0.5
+        return torch.where(up, torch.nextafter(w, torch.full_like(w, np.inf)),
+                           torch.nextafter(w, torch.full_like(w, -np.inf)))
+
+    two = run(base)
+    nudged_base = tree_map(nudge, base)
+    rows = []
+    for r in range(2):
+        one = run(base, r)
+        rows.append((drift(two, one, r), drift(run(nudged_base, r), one, r)))
+    del nudged_base
+    log(f"[phase 17c] {label}: 2-row step losses "
+        f"{[round(float(x), 5) for x in two[2]['loss']]}; each row against "
+        f"its one-row run (loss, state of a leaf's max): "
+        f"{[(f'{a:.3e}', f'{b:.3e}') for (a, b), _ in rows]}; the one-row "
+        f"run with the base nudged one ulp: "
+        f"{[(f'{a:.3e}', f'{b:.3e}') for _, (a, b) in rows]}")
+    for (loss_d, state_d), (_, nudge_d) in rows:
+        bound = max(P12_DRIFT_TOL["state"], P17_NUDGE * nudge_d)
+        if loss_d > P12_DRIFT_TOL["loss"] or state_d > bound:
+            raise AssertionError(
+                f"[phase 17c] {label}: drift {loss_d:.3e} / {state_d:.3e} "
+                f"past {P12_DRIFT_TOL['loss']} / {bound:.3e}")
+    if not two[2]["finite"].all():
+        raise AssertionError(f"[phase 17c] {label}: a row is not finite")
+
+
+def p17_sgmv_times(cfg, label="phase 17d"):
+    """SGMV at the channel mix's shapes, 8 bf16 rank-8 adapters (the
+    serving path's dtype): cm_k (d 4096 -> d_ff 14336) and cm_v (14336 ->
+    4096), at decode (8 rows, block_t 1) and over a per-client prefill's 4
+    slot rows of 256 tokens (block_t 256), each held against its plain
+    version at 2e-2 and timed beside it, a gather + ``bmm`` and its bound.
+    Returns {case: (ms, plain ms, bound ms, by, library ms)}."""
+    scale = P17_LORA.alpha / P17_LORA.rank
+    n, r = P17_CLIENTS, P17_LORA.rank
+    out = {}
+    for name, (T, bt, ids) in (("decode", (8, 1, [0, 1, 2, 3, 4, 5, 6, 7])),
+                               ("prefill", (1024, 256, [3, 3, 3, 3]))):
+        for path, (din, dout) in (("cm_k", (cfg.d_model, cfg.d_ff)),
+                                  ("cm_v", (cfg.d_ff, cfg.d_model))):
+            g = gen(171)
+            A = (torch.randn((n, din, r), generator=g, device=DEV)
+                 / din ** 0.5).to(torch.bfloat16)
+            Bw = (torch.randn((n, r, dout), generator=g, device=DEV)
+                  * 0.05).to(torch.bfloat16)
+            x = torch.randn((T, din), generator=g, device=DEV) \
+                .to(torch.bfloat16)
+            ids_t = torch.tensor(ids, dtype=torch.int32, device=DEV)
+
+            def kernel():
+                return sg.sgmv_cuda(x, A, Bw, ids_t, block_t=bt, scale=scale)
+
+            row = ids_t.long().repeat_interleave(bt)
+
+            def library():
+                h = torch.bmm(x[:, None, :], A[row])
+                return torch.bmm(h, Bw[row])[:, 0] * scale
+
+            err = compare(f"sgmv {path} {name} (kernel vs plain)", kernel(),
+                          sg.sgmv_plain(x.float(), A.float(), Bw.float(),
+                                        ids_t, block_t=bt, scale=scale),
+                          BF16_TOL)
+            ms, dev_ms = time_ms(kernel), device_ms(kernel)
+            plain_ms = time_ms(lambda: sg.sgmv_plain(
+                x, A, Bw, ids_t, block_t=bt, scale=scale), n=10)
+            lib_ms = time_ms(library, n=10)
+            nb = len(set(ids))
+            nbytes = 2 * (T * din + nb * r * (din + dout) + T * dout) \
+                + 4 * len(ids)
+            b_ms, by = bound(nbytes, 2 * T * r * (din + dout))
+            out[f"{path}_{name}"] = (ms, plain_ms, b_ms, by, lib_ms)
+            log(f"[{label}] sgmv {path} {name} T={T} block_t={bt} din={din} "
+                f"r={r} dout={dout} bf16 (max_abs_err {err:.3e} vs plain): "
+                f"kernel {ms:.4f} ms L2-cold (device time, enqueue hidden, "
+                f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, gather+bmm "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}, {nbytes} B)")
+    return out
+
+
+def p17_scan_ms(cfg, rows, S, backward=False):
+    """Device ms of one layer's wkv6 recurrence at ``rows`` x ``S`` tokens
+    of rwkv6-7b's heads (bf16 r, k, v; fp32 w, bonus and state), CUDA
+    events, L2-cold; with ``backward``, forward plus backward through the
+    checkpointed blocks."""
+    H, hd = cfg.d_model // cfg.hd, cfg.hd
+    g = gen(172)
+    act = getattr(torch, cfg.dtype)
+    r, k, v = (torch.randn((rows, S, H, hd), generator=g, device=DEV)
+               .to(act) for _ in range(3))
+    w = torch.rand((rows, S, H, hd), generator=g, device=DEV) * 0.5 + 0.5
+    bonus = torch.randn((H, hd), generator=g, device=DEV) * 0.1
+    st = torch.zeros((rows, H, hd, hd), device=DEV)
+    if not backward:
+        return time_ms(lambda: rwkv_lib.wkv6_scan(r, k, v, w, bonus, st),
+                       n=5)
+    ins = [t.detach().requires_grad_(True) for t in (r, k, v, w)]
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            out, _ = rwkv_lib.wkv6_scan(*ins, bonus, st)
+            torch.autograd.grad(out.sum(), ins)
+    return time_ms(fwd_bwd, n=5)
+
+
+def p17_prefill_share(cfg, pre_t):
+    """Each prompt length's per-client prefill (17b's median, host clock)
+    beside the recurrence alone at its shapes (the client's 4 slot rows)
+    times the layers."""
+    out = {}
+    for S in (128, 256):
+        pre_ms = statistics.median(pre_t[S]) * 1e3
+        scan = p17_scan_ms(cfg, P17_SLOTS, S)
+        out[S] = (pre_ms, scan)
+        log(f"[phase 17b] a {S}-token prompt's per-client prefill "
+            f"({P17_SLOTS} slot rows): {pre_ms:.2f} ms on the host clock; the "
+            f"wkv6 recurrence alone at its shapes {scan:.3f} ms x "
+            f"{cfg.n_layers} layers = {cfg.n_layers * scan:.2f} ms, "
+            f"{100 * cfg.n_layers * scan / pre_ms:.1f}% of the prefill")
+    return out
+
+
+def p17_state_bytes(cfg, base, bank):
+    """The state's bytes on the card, built by ``init_client_caches`` and
+    by an engine (``p15_cache_held``), per slot beside the router's charge
+    for a slot (``cache_bytes``: the fixed state, no bytes per token)."""
+    spec = p17_spec(cfg)
+    slots = P17_CLIENTS * P17_SLOTS
+    charge = kvcache.cache_bytes(cfg, P17_MAX_SEQ, 1)
+    for what, make in (
+            ("init_client_caches", lambda: symbiosis.init_client_caches(
+                cfg, P17_CLIENTS, P17_SLOTS, P17_MAX_SEQ, device=DEV)),
+            ("ServingEngine", lambda: ServingEngine(spec, base, [bank],
+                                                    device=DEV))):
+        made, leaves, held = p15_cache_held(make, what, phase="phase 17b")
+        caches = made.caches if what == "ServingEngine" else made
+        tree = sum(t.nbytes for t in leaves)
+        log(f"[phase 17b] {what}: {held / slots:,.0f} B per slot held; the "
+            f"router charges {charge:,} B a slot (predicted 34,078,720); "
+            f"tree = {slots} charges + {caches['pos'].nbytes} B of pos")
+        if tree != slots * charge + caches["pos"].nbytes:
+            raise AssertionError(f"[phase 17b] {what}: tree {tree} B, "
+                                 f"{slots} charges of {charge} B")
+        del made, caches, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase17b(cfg, base, bank):
+    """17b: 16 requests over 8 clients x 4 slots (slots reused), launches
+    tick by tick, every stream bit for bit its run alone, a 300-token
+    prompt refused; the tick, the prefills and the state's bytes."""
+    spec = p17_spec(cfg)
+    warm_up(spec, base, bank)
+    reqs = p17_requests(cfg)
+    eng, launches, dec_t, pre_t, held = p17_serve(cfg, base, bank, spec,
+                                                  reqs, "phase 17b")
+    del eng
+    reused = p17_reused(held, "phase 17b")
+    p15_alone(cfg, base, bank, spec, reqs, "phase 17b",
+              note=f"; those in a reused slot, {reused}, included")
+    p15_refused(cfg, base, bank, spec, n=P17_REFUSED, chunk=128,
+                label="phase 17b")
+    times = profile_tick(cfg, base, [bank], spec, "phase 17b",
+                         prompt_len=64)
+    shares = p17_prefill_share(cfg, pre_t)
+    p17_state_bytes(cfg, base, bank)
+    return [r.generated.copy() for r in reqs], launches, dec_t, times, shares
+
+
+def phase17c_engine(cfg, base):
+    """17c: a FinetuneEngine of 4 rwkv LoRA jobs (q, v, cm_k; 1 x 256
+    tokens) behind a router that holds the fifth back: the tick on the
+    host clock, one tick traced (busy share, kernels, the recurrence's
+    share from its time alone), memory against the charge."""
+    jobs = (p16_jobs(cfg, 4, P17_STEPS, 80, P17_LORA, "rwkv")
+            + p16_jobs(cfg, 1, 2, 84, P17_LORA, "rwkv"))
+    charge = job_charge_bytes(cfg, jobs[0])
+    router = PlacementRouter(cfg, [Slot(0, free_hbm=4.5 * charge)])
+    eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()), base,
+                         device=DEV, router=router)
+    for j in jobs:
+        eng.submit(j)
+    ticks = []
+    for _ in range(P17_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    with traced() as prof:
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        traced_tick = (time.perf_counter() - t0) * 1e3
+    if eng.stats["peak_jobs"] != 4 or jobs[4].status != "queued":
+        raise AssertionError(f"[phase 17c] peak {eng.stats['peak_jobs']}, "
+                             f"job 4 {jobs[4].status}")
+    eng.run()
+    if any(j.status != "finished" for j in jobs) or not all(
+            np.isfinite(j.losses).all() for j in jobs):
+        raise AssertionError(f"[phase 17c] {[j.status for j in jobs]} "
+                             f"{[j.losses for j in jobs]}")
+    used = router.utilization()
+    if router.conservation_errors() or used["committed_bytes"]:
+        raise AssertionError(f"[phase 17c] router after the drain: {used}")
+    med = statistics.median(ticks[1:])
+    log(f"[phase 17c] {cfg.name} ({cfg.n_layers} layers): 5 LoRA r8 jobs (q, "
+        f"v, cm_k; 1 x {P16_SEQ} tokens), router slot {4.5 * charge:.0f} B "
+        f"for charges of {charge} B: 4 rows for {P17_STEPS} ticks, job 4 "
+        f"after; stats {eng.stats}; losses "
+        f"{[[round(x, 4) for x in j.losses] for j in jobs]}")
+    log(f"[phase 17c] 4-row train tick (host clock, synchronised): "
+        f"{[round(t * 1e3, 3) for t in ticks]} ms; median of "
+        f"{len(ticks) - 1} after the first {med * 1e3:.3f} ms, "
+        f"{4 * P16_SEQ / med:.0f} tokens/s")
+    busy_ms, n_kern, by_name = device_profile(prof)
+    fwd_bwd = p17_scan_ms(cfg, 4, P16_SEQ, backward=True)
+    # the first layer's recurrence records too: its r path carries the LoRA
+    scan = cfg.n_layers * fwd_bwd
+    log(f"[phase 17c] the wkv6 recurrence alone at the tick's shapes (4 x "
+        f"{P16_SEQ} steps, CUDA events, L2-cold): {fwd_bwd:.3f} ms forward +"
+        f" backward (blocks recomputed) x {cfg.n_layers} layers = "
+        f"{scan:.2f} ms a tick")
+    if n_kern:
+        log(f"[phase 17c] one traced 4-row tick: {traced_tick:.3f} ms on the "
+            f"host clock, device busy {busy_ms:.3f} ms = "
+            f"{100 * busy_ms / (med * 1e3):.1f}% of the unprofiled median; "
+            f"{n_kern} kernels; the recurrence {scan:.2f} ms = "
+            f"{100 * scan / busy_ms:.1f}% of the busy time; top kernels:")
+        for name, (n, d) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+            log(f"[phase 17c]   {d / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+    else:
+        log("[phase 17c] the profiler saw no device events: device busy not "
+            "measured")
+    del eng, prof
+    gc.collect()
+    return p16_memory(cfg, base, jobs[0], phase="phase 17c", unchecked=None)
+
+
+def phase17c_symbiosis(cfg, base, bank, streams):
+    """17c: a SymbiosisEngine serving 17b's first 8 requests beside 2 rwkv
+    jobs on the same base: SGMV launches checked tick by tick, every
+    stream bit for bit 17b's (each its run alone), the jobs bit for bit
+    their FinetuneEngine run alone."""
+    per_call = p17_per_call(cfg)
+    spec = p17_spec(cfg, finetune=FinetuneConfig())
+    sym = SymbiosisEngine.from_spec(spec, base, serving_banks=[bank],
+                                    device=DEV)
+    reqs = p17_requests(cfg, 8)
+    jobs = p16_jobs(cfg, 2, 3, 90, P17_LORA, "rwkv")
+    for item in reqs + jobs:
+        sym.submit(item)
+    serving = sym.serving
+    torch.cuda.synchronize()
+    reset_counts()
+    more, serve_ticks = True, 0
+    while more:
+        before = (read_counts(), serving.stats["ticks"],
+                  serving.stats["prefill_calls"])
+        more = sym.tick()
+        now = read_counts()
+        d_tick = serving.stats["ticks"] - before[1]
+        d_pre = serving.stats["prefill_calls"] - before[2]
+        serve_ticks += d_tick
+        want = {n: 0 for n in now}
+        want["sgmv"] = per_call * (d_tick + d_pre)
+        if {n: now[n] - before[0][n] for n in now} != want:
+            raise AssertionError(f"[phase 17c] a tick launched "
+                                 f"{now} - {before[0]}, want {want}")
+    torch.cuda.synchronize()
+    for i, r in enumerate(reqs):
+        if first_diff(r.generated, streams[i]) is not None:
+            raise AssertionError(f"[phase 17c] request {i}'s stream differs "
+                                 "from 17b's")
+    alone = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()),
+                           base, device=DEV)
+    solo = p16_jobs(cfg, 2, 3, 90, P17_LORA, "rwkv")
+    for j in solo:
+        alone.submit(j)
+    alone.run()
+    for a, b in zip(jobs, solo):
+        if a.losses != b.losses or not trees_equal(
+                (a.result.adapter, a.result.opt),
+                (b.result.adapter, b.result.opt)):
+            raise AssertionError(f"[phase 17c] {a.name} differs from its "
+                                 "FinetuneEngine run alone")
+    st = sym.stats
+    log(f"[phase 17c] SymbiosisEngine: 17b's first 8 requests (8 LoRA "
+        f"tenants on q, v, cm_k) beside 2 LoRA jobs in {st['ticks']} ticks "
+        f"({st['decode_ticks']} serving, {st['train_ticks']} train): every "
+        f"stream equals 17b's bit for bit; sgmv {per_call} per decode tick "
+        f"and per prefill, checked on each of the {serve_ticks} decode ticks;"
+        f" the jobs' losses, adapters and AdamW states equal their "
+        f"FinetuneEngine run alone bit for bit: "
+        f"{[[round(x, 4) for x in j.losses] for j in jobs]}")
+    del sym, alone
+    gc.collect()
+
+
+def phase17():
+    """The RWKV family serves and fine-tunes: rwkv6-7b at full width and
+    full depth (32 layers, 7.53 B params, ~15 GB bf16), 8 LoRA r8 tenants
+    on q (r), v and cm_k. 17a kernels against plain at 2 and 32 layers,
+    bf16 then fp32, each beside its controls; 17b serving; 17c
+    fine-tuning (full depth, then 2-layer fp32 rows); 17d the new SGMV
+    shapes timed."""
+    cfg = p17_config()
+    t0 = time.perf_counter()
+    base, bank = make_system(cfg, P17_CLIENTS, seed=17, acfg=P17_LORA)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(base))
+    log(f"[phase 17] {cfg.name}: {cfg.n_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.d_model // cfg.hd} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff}), {n_params / 1e9:.3f} B params bf16 "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+        f"{time.perf_counter() - t0:.1f} s; LoRA r8 on q (r), v and cm_k")
+    t = time.perf_counter()
+    p17_pair(p17_config(n_layers=2), dict(base, layers=base["layers"][:2]),
+             tree_map(lambda x: x[:, :2], bank), "phase 17a")
+    p17_pair(cfg, base, bank, "phase 17a", plain_control=True)
+    log(f"[phase 17a] bf16 done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    streams, launches, dec_t, times, shares = phase17b(cfg, base, bank)
+    log(f"[phase 17b] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    peaks = phase17c_engine(cfg, base)
+    free_device("phase 17")
+    phase17c_symbiosis(cfg, base, bank, streams[:8])
+    free_device("phase 17")
+    phase16d(cfg, base, jobs=lambda: p16_jobs(cfg, 2, 3, 95, P17_LORA,
+                                              "rwkv"),
+             phase="phase 17c", what="LoRA jobs (q, v, cm_k)")
+    log(f"[phase 17c] full depth done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    sgmv_times = p17_sgmv_times(cfg)
+    log(f"[phase 17d] done ({time.perf_counter() - t:.1f} s)")
+    del base, bank
+    free_device("phase 17")
+    t = time.perf_counter()
+    cfg32 = p17_config(dtype="float32")
+    base32, bank32 = make_system(cfg32, 4, seed=17, acfg=P17_LORA)
+    bank32 = tree_map(lambda x: x.float(), bank32)
+    p17_pair(cfg32, base32, bank32, "phase 17a")
+    two32 = p17_config(n_layers=2, dtype="float32")
+    base2 = dict(base32, layers=base32["layers"][:2])
+    p17_pair(two32, base2, tree_map(lambda x: x[:, :2], bank32), "phase 17a",
+             tol=F32_TOL)
+    del bank32
+    for label, acfg, b in (
+            ("LoRA r8 q/v/cm_k", P17_LORA, random_lora(two32, 2, 173,
+                                                        P17_LORA)),
+            ("IA3 k/v", P16_IA3, random_bank(two32, P16_IA3, 2, 174))):
+        p17_rows(two32, base2, acfg, b, label)
+    del base32, base2
+    free_device("phase 17")
+    log(f"[phase 17a/c] fp32 done ({time.perf_counter() - t:.1f} s)")
+    return launches, sgmv_times, peaks, dec_t, times, shares
 
 
 def main() -> int:
@@ -6426,7 +7144,12 @@ def main() -> int:
 
     t = time.perf_counter()
     phase15()
-    log(f"[phase 15] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 15] done ({time.perf_counter() - t:.1f} s)")
+    free_device("phase 15")
+
+    t = time.perf_counter()
+    phase17()
+    log(f"[phase 17] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's

@@ -2,8 +2,8 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-serving paths and its fine-tuning service (the dense, MoE, VLM and
-hybrid families; LoRA, IA3 and prefix banks) read. The port keeps its own
+serving paths and its fine-tuning service (the dense, MoE, VLM, hybrid
+and RWKV families; LoRA, IA3 and prefix banks) read. The port keeps its own
 copy so that it imports nothing of the JAX package; the fields it keeps
 have the same names and defaults, so a config describes the same model in
 both.
@@ -15,15 +15,16 @@ from dataclasses import dataclass
 from typing import Sequence
 
 
-# Architecture families. The port serves and fine-tunes the pure-KV ones
-# and the hybrid; a config of any other family (recurrent, encoder-decoder)
-# is refused where a model or engine is built.
+# Architecture families. The port serves and fine-tunes the pure-KV ones,
+# the hybrid and RWKV; a config of the encoder-decoder family is refused
+# where a model or engine is built.
 DENSE = "dense"
 MOE = "moe"
 VLM = "vlm"        # LLaVA backbone (dense + patch-embedding frontend stub)
 HYBRID = "hybrid"  # Jamba: Mamba + attention interleave + MoE
-FAMILIES = (DENSE, MOE, VLM, HYBRID)
-TRAIN_FAMILIES = (DENSE, MOE, VLM, HYBRID)
+RWKV = "rwkv"      # attention-free, data-dependent decay (RWKV6)
+FAMILIES = (DENSE, MOE, VLM, HYBRID, RWKV)
+TRAIN_FAMILIES = (DENSE, MOE, VLM, HYBRID, RWKV)
 
 
 def check_family(cfg: "ModelConfig", families=FAMILIES, what="serves"):

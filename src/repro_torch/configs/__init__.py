@@ -2,10 +2,11 @@
 
 ``get_config(arch_id)`` resolves the ``--arch`` CLI flag, as
 ``repro.configs.get_config`` does, limited to the families the port serves
-(dense, MoE, VLM and hybrid); every config cites its source in
+(dense, MoE, VLM, hybrid and RWKV); every config cites its source in
 ``CONFIG.source``. arctic-480b (about 960 GB in bf16) fits no single card:
 it is registered for its ``reduced()`` variant; jamba-v0.1-52b (about 103
-GB in bf16) fits one card only cut in depth.
+GB in bf16) fits one card only cut in depth; rwkv6-7b (about 15 GB)
+fits whole.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import importlib
 
 from repro_torch.config import ModelConfig
 
-# arch-id -> module name (dense, MoE, VLM and hybrid configs)
+# arch-id -> module name (dense, MoE, VLM, hybrid and RWKV configs)
 ARCHS = {
     "granite-3-8b": "granite_3_8b",
     "command-r-35b": "command_r_35b",
@@ -26,6 +27,7 @@ ARCHS = {
     "gemma2-27b": "gemma2_27b",
     "starcoder2-15b": "starcoder2_15b",
     "jamba-v0.1-52b": "jamba_v01_52b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

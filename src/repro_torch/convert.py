@@ -36,6 +36,12 @@ nothing here imports JAX. Layouts:
   state, dense K/V rows) client-major, [C, G, B, ...]; the port puts the
   client axis after the group axis, [G, C, B, ...], as it lays out dense
   KV rows (paged pools [G, C*P, ...] alike in both).
+* RWKV caches: JAX keeps its state flat, ``{"wkv" [L, B, H, hd, hd],
+  "tm_x", "cm_x" [L, B, 1, d], "pos"}``; the port puts the three leaves
+  under ``layers`` (``models.rwkv_model``), [L, B, ...] at model level and
+  layer-major [L, C, B, ...] in a bank (JAX: client-major [C, L, B, ...]),
+  as dense KV rows. RWKV params are the ``layers`` stack of any family
+  (``decay`` and ``bonus`` fp32 leaves in both).
 
 bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) cross as their 16-bit
 patterns, so no value is rounded on the way.
@@ -186,11 +192,18 @@ def _pre_axis(tree) -> int:
     return 1 if dense_bank else 0
 
 
+_RWKV_STATE = ("wkv", "tm_x", "cm_x")
+
+
 def caches_from_numpy(tree, device):
     """JAX caches (numpy leaves) -> torch: JAX's ``pre_layers`` first on
-    the layer axis, and a bank's per-slot leaves (dense KV rows, a
-    hybrid's Mamba state) from client-major [C, L, ...] to [L, C, ...]
+    the layer axis, an RWKV cache's flat state under ``layers``, and a
+    bank's per-slot leaves (dense KV rows, a hybrid's Mamba state, the
+    RWKV state) from client-major [C, L, ...] to [L, C, ...]
     (contiguous); anything else in the same layout."""
+    if isinstance(tree, dict) and "wkv" in tree:
+        tree = {"layers": {n: tree[n] for n in _RWKV_STATE},
+                **{k: v for k, v in tree.items() if k not in _RWKV_STATE}}
     out = _map(lambda a: tensor_from_numpy(a, device),
                _fold_pre(tree, _pre_axis(tree)))
     return _bank_slot_leaves(lambda t: t.transpose(0, 1).contiguous(), out)
@@ -202,4 +215,6 @@ def caches_to_numpy(caches, cfg=None):
     off an MoE model's first dense layers as ``pre_layers``)."""
     out = _bank_slot_leaves(lambda a: np.ascontiguousarray(
         np.swapaxes(a, 0, 1)), _map(tensor_to_numpy, caches))
+    if "wkv" in out.get("layers", {}):
+        out = {**out.pop("layers"), **out}
     return _split_pre(out, _pre_axis(caches), _n_pre(cfg))

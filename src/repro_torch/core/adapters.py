@@ -1,5 +1,5 @@
-"""PEFT adapters: LoRA, IA3 and prefix tuning — the pure-KV and hybrid
-families' branches of ``repro.core.adapters``.
+"""PEFT adapters: LoRA, IA3 and prefix tuning — the pure-KV, hybrid and
+RWKV families' branches of ``repro.core.adapters``.
 
 An adapter tree mirrors the model's layer container, one client's leaves
 carrying a leading [L] axis: LoRA ``{"layers": {path: {"A": [L, din, r],
@@ -12,6 +12,10 @@ The hybrid family's container is ``groups``, one leaf per period of
 ``attn_every`` sublayers ([G, ...], G = n_layers / attn_every), which
 every sublayer of the group that calls the target path shares
 (``models.hybrid``): ``adapter_bytes`` counts G leaves, as JAX does.
+An RWKV model's targets are its own linears (``r k v g o cm_k cm_v
+cm_r``, ``_rwkv_target_dims``); the conventional ``q`` names ``r``, and a
+target it lacks (``down``, ``up``) resolves to nothing, as in JAX. Its
+prefix leaves are built as JAX builds them and read by no layer.
 
 An MoE model adds the ``router`` target [d, n_experts] (its input is the
 fp32 hidden state). Every layer carries the same leaves, as JAX's
@@ -45,7 +49,7 @@ from typing import Dict
 import torch
 
 from repro_torch.common.tree import tree_map
-from repro_torch.config import (HYBRID, AdapterConfig, ModelConfig,
+from repro_torch.config import (HYBRID, RWKV, AdapterConfig, ModelConfig,
                                 check_family)
 from repro_torch.kernels.sgmv import sgmv
 
@@ -64,6 +68,17 @@ def _dense_target_dims(cfg: ModelConfig) -> Dict[str, tuple]:
     if cfg.n_experts:
         dims["router"] = (d, cfg.n_experts)
     return dims
+
+
+def _rwkv_target_dims(cfg: ModelConfig) -> Dict[str, tuple]:
+    d = cfg.d_model
+    return {"r": (d, d), "k": (d, d), "v": (d, d), "g": (d, d),
+            "o": (d, d), "cm_k": (d, cfg.d_ff), "cm_v": (cfg.d_ff, d),
+            "cm_r": (d, d)}
+
+
+# RWKV has no q projection: the conventional q target names r
+_RWKV_ALIAS = {"q": "r"}
 
 
 # Default target sets per PEFT method (what the CLI hands to jobs that do
@@ -86,10 +101,15 @@ def adapter_layout(cfg: ModelConfig) -> tuple:
 
 
 def resolve_targets(cfg: ModelConfig, acfg: AdapterConfig):
-    """[(path, (din, dout))] of the adapter's targets this model has."""
+    """[(path, (din, dout))] of the adapter's targets this model has (on
+    RWKV, ``q`` as ``r``)."""
     check_family(cfg)
-    dims = _dense_target_dims(cfg)
-    return [(t, dims[t]) for t in acfg.targets if t in dims]
+    if cfg.arch == RWKV:
+        dims = _rwkv_target_dims(cfg)
+        targets = [_RWKV_ALIAS.get(t, t) for t in acfg.targets]
+    else:
+        dims, targets = _dense_target_dims(cfg), acfg.targets
+    return [(t, dims[t]) for t in targets if t in dims]
 
 
 def init_adapter(cfg: ModelConfig, acfg: AdapterConfig, generator, *,

@@ -18,7 +18,9 @@ into one batch, run the model once, and scatter the per-slot results back
 under the row mask; the masked steps run every slot of the bank as one
 batch of C*B rows in (client, slot) order, each row's adapter its
 client's. Every cache write is in place (the JAX steps donated the cache
-buffers).
+buffers). An RWKV model has no pages (``serve_cache_kwargs`` drops them):
+its bank caches hold its per-slot state alone, layer-major, and it takes
+the masked steps and the per-client prefill.
 
 Fine-tuning (LoRA, IA3 and prefix): ``make_row_grad_fn`` is one job's
 loss and adapter grads, ``make_baseline_train_step`` the dedicated
@@ -44,7 +46,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.config import (HYBRID, AdapterConfig, ModelConfig,
+from repro_torch.config import (HYBRID, RWKV, AdapterConfig, ModelConfig,
                                 ServeConfig, TrainConfig, check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core.virtlayer import (make_bank_ctx, make_client_ctx,
@@ -72,22 +74,23 @@ def serve_cache_kwargs(cfg: ModelConfig, scfg: ServeConfig):
     per-head scales. No ``page_block`` means the dense layout. The pure-KV
     families (dense, MoE, VLM) take both; the hybrid pages its attention
     sublayers' K/V and, as in JAX, drops ``kv_quant`` (its Mamba state is
-    never quantized, and JAX quantizes pure-KV caches only). Any other
-    family is refused."""
+    never quantized, and JAX quantizes pure-KV caches only); RWKV, whose
+    state is O(1) per slot, drops both, as in JAX: it has no KV to page.
+    Any other family is refused."""
     check_family(cfg)
     kw = {}
-    if scfg.page_block:
+    if scfg.page_block and cfg.arch != RWKV:
         kw["page_block"] = scfg.page_block
         if scfg.pool_pages:
             kw["pool_pages"] = scfg.pool_pages
-    if scfg.kv_quant and cfg.arch != HYBRID:
+    if scfg.kv_quant and cfg.arch not in (HYBRID, RWKV):
         kw["quant"] = True
     return kw
 
 
 def _container(caches) -> str:
-    """The layer container of a cache tree: ``layers``, or a hybrid
-    model's ``groups``."""
+    """The layer container of a cache tree: ``layers`` (an RWKV model's
+    state too), or a hybrid model's ``groups``."""
     return "groups" if "groups" in caches else "layers"
 
 
@@ -99,7 +102,8 @@ def init_client_caches(cfg: ModelConfig, n_clients: int, batch: int,
     axis inserted in each per-slot leaf at its slot axis
     (``cache_slot_axes``): ``pos`` [C, B], dense KV rows layer-major [L, C,
     B, T, K, hd] (T = max_seq, or a ring of ``min(window, max_seq)``), a
-    hybrid model's Mamba state [G, C, B, ...]. Paged, the pools are GLOBAL
+    hybrid model's Mamba state [G, C, B, ...], an RWKV model's state [L, C,
+    B, ...]. Paged, the pools are GLOBAL
     and FLAT, [L, C*P, blk, K, hd] (client c owns pages [c*P, (c+1)*P)),
     and ``block_tbl`` is [C, B, n_blocks], every client's the one-client
     default. With ``quant``: int8 {"k","v"} and f32 {"k_s","v_s"} scales
@@ -119,8 +123,9 @@ def _kv_names(cache_kw):
 
 def cache_slot_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
     """Per-leaf slot axis of ONE client's cache (``init_cache``'s tree):
-    ``pos`` 0; dense KV leaves ([L, B, T, ...], a hybrid's [G, B, T, ...])
-    and a hybrid's Mamba state ([G, B, ...]) 1; paged pools (no slot axis:
+    ``pos`` 0; dense KV leaves ([L, B, T, ...], a hybrid's [G, B, T, ...]),
+    a hybrid's Mamba state ([G, B, ...]) and an RWKV model's ``wkv``,
+    ``tm_x`` and ``cm_x`` ([L, B, ...]) 1; paged pools (no slot axis:
     their writes are gated inside the model) and ``block_tbl``
     (engine-managed) None. The JAX function derives this map by building
     the cache at two batch sizes; the port knows its trees and writes it
@@ -133,6 +138,8 @@ def cache_slot_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
             f"sub{j}": ({"k": kv, "v": kv} if sub_is_attn(cfg, j)
                         else {"h": 1, "conv": 1})
             for j in range(cfg.attn_every)}, "pos": 0}
+    elif cfg.arch == RWKV:
+        axes = {"layers": {"wkv": 1, "tm_x": 1, "cm_x": 1}, "pos": 0}
     else:
         axes = {"layers": {n: kv for n in _kv_names(cache_kw)}, "pos": 0}
     if paged:
@@ -200,9 +207,11 @@ def stack_client_caches(cfg: ModelConfig, max_seq: int, per_client, *,
 
 
 def _check_paged(cfg, scfg, what):
+    """Refuse ``what`` without pages, in JAX's words (an RWKV model has
+    none whatever ``page_block`` says: ``serve_cache_kwargs``)."""
     if "page_block" not in serve_cache_kwargs(cfg, scfg):
         raise ValueError(f"{what} requires the paged KV layout (ServeConfig."
-                         "page_block > 0)")
+                         "page_block > 0 on an attention-bearing family)")
 
 
 def _gather_rows(caches, axes, clients, slots):
@@ -414,8 +423,9 @@ def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
     gives other rows 0); ``slot_mask`` [max_b] bool the admitted slots.
     Every per-slot leaf of the admitted slots is zeroed first, as JAX's
     ``zero_slots`` leaves it (dense KV rows over all T lanes, a hybrid's
-    Mamba state), and the prefill writes those leaves on the admitted rows
-    only (dense KV: lanes [0, S_pad)). Paged pools are written only where
+    Mamba state, an RWKV model's state; ``pos`` as the prefill reads it),
+    and the prefill writes those leaves on the admitted rows only (dense
+    KV: lanes [0, S_pad)). Paged pools are written only where
     lengths > 0. Other slots and clients keep their bits; ``pos`` takes
     the new value on the admitted slots. LoRA goes through SGMV (one
     S_pad-token block per row), IA3 and prefix through the row hooks, every
@@ -432,7 +442,7 @@ def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
         key = _container(caches)
         cache = {key: tree_map(lambda t, ax: t if ax is None
                                else t.select(ax, c), caches[key], axes[key]),
-                 "pos": caches["pos"][c]}
+                 "pos": torch.where(slot_mask, 0, caches["pos"][c])}
         if "block_tbl" in caches:
             cache["block_tbl"] = caches["block_tbl"][c]
         kw = {}

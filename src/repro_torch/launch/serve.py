@@ -1,5 +1,5 @@
 """Multi-tenant serving CLI of the port (``repro.launch.serve``'s, for the
-dense, MoE, VLM and hybrid families).
+dense, MoE, VLM, hybrid and RWKV families).
 
 Serves a bank of LoRA clients against one shared base with the port's
 ServingEngine, on the card by default. With no ``--page-block`` (0, as in
@@ -13,6 +13,7 @@ pages through the compacted step:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full-size --page-block 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-mistral-7b --full-size --page-block 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --full-size --page-block 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --full-size
 
 An MoE model routes drop-free (exact); a VLM is served as its text
 backbone, as JAX's engine serves it (no image prefix). A hybrid (Jamba)
@@ -20,7 +21,11 @@ prefills one request per call at its true length, within JAX's chunk
 contract (a prompt of at most 256 tokens, or a multiple of 256), and its
 layout line says what the engine runs (``--kv-quant`` is dropped, as in
 JAX). jamba-v0.1-52b at full size is about 103 GB in bf16: its full depth
-fits no single 80 GB card.
+fits no single 80 GB card. RWKV (rwkv6-7b, about 15 GB in bf16 at full
+depth) keeps an O(1) state per slot and no K/V: its prompts prefill one
+request per call at their true length (at most 128 tokens, or a multiple
+of 128), and ``--page-block`` and ``--kv-quant`` are dropped, as in JAX,
+so the layout line reports ``dense``.
 
 ``--device cpu`` runs the reduced config on the CPU through the kernels'
 plain versions. Weights are random, drawn from ``--seed``. ``--obs DIR``

@@ -14,10 +14,14 @@ package's format):
       --arch deepseek-moe-16b --clients 4 --steps 10 --seq 256
   PYTHONPATH=src python -m repro_torch.launch.train --full-size \
       --arch llava-next-mistral-7b --clients 2 --batch 1 --remat
+  PYTHONPATH=src python -m repro_torch.launch.train --full-size \
+      --arch rwkv6-7b --clients 4 --steps 10 --seq 256 --batch 1
 
 Every ``--arch`` of the port trains: the dense, MoE and VLM families (an
 MoE model's experts drop-free, as the JAX engine's; a VLM job's batches
-lead with the stubbed image prefix, ``n_frontend_tokens`` positions).
+lead with the stubbed image prefix, ``n_frontend_tokens`` positions), the
+hybrid and RWKV (``--seq`` within the recurrence's chunk contract: at
+most 256 tokens or a multiple of 256 on the hybrid, 128 on RWKV).
 Without ``--full-size`` the model is a reduced config (``--layers``,
 ``--d-model``). ``--remat`` recomputes each layer in the backward.
 ``--obs DIR`` attaches telemetry and writes ``telemetry.jsonl`` and

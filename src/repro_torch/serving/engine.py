@@ -1,5 +1,5 @@
 """Continuous-batching multi-client serving engine — the pure-KV families'
-(dense, MoE, VLM) and the hybrid's scope of
+(dense, MoE, VLM), the hybrid's and RWKV's scope of
 ``repro.serving.engine.ServingEngine``: paged or dense KV, the compacted or
 the masked bank-wide decode, and every prefill path. The pure-KV families
 take every path alike, as in JAX (an MoE dispatches drop-free, so
@@ -9,7 +9,11 @@ per-slot Mamba state beside its attention sublayers' K/V: as in JAX its
 prompts prefill one request per call at their true length (no ragged or
 compacted prefill, so no shared-prefix pages), the admitted slots' state
 zeroed first, and ``kv_quant`` is dropped; its decode takes the compacted
-and the masked steps like the others.
+and the masked steps like the others. RWKV keeps only per-slot state (no
+K/V): as in JAX ``page_block`` and ``kv_quant`` are dropped, so its engine
+runs the dense layout's masked decode, and its admissions prefill one
+request per call at their true length, the admitted slot's state zeroed
+first.
 
 One frozen base serves one or more banks of adapter clients on one device:
 
@@ -132,8 +136,8 @@ imports ``repro_torch.obs``. Every request carries its timeline whether or
 not ``obs`` is attached (``submit_t`` / ``admit_t`` / ``first_token_t`` /
 ``finish_t``, and ``queue_wait`` / ``ttft`` / ``e2e_latency``).
 
-Not ported yet, and refused with ``ValueError``: the recurrent and
-encoder-decoder families, and a ``mesh``. Refused as in JAX: mixed banks on the
+Not ported yet, and refused with ``ValueError``: the encoder-decoder
+family, and a ``mesh``. Refused as in JAX: mixed banks on the
 dense layout or with ``compact_decode=False``, ``compact_decode=True``
 without pages, ``bank_prefill`` on pages or with
 ``max_inflight_per_client`` other than 1, ``ragged_prefill=True`` on the
@@ -310,7 +314,7 @@ class ServingEngine:
             raise ValueError("compact_decode requires the paged KV layout "
                              "(ServeConfig.page_block > 0)")
         # right-padding rows to a shared bucket is exact for the pure-KV
-        # families only: pads would run through a hybrid's recurrent state,
+        # families only: pads would run through a recurrent state,
         # so its admissions take one call per request, unpadded (JAX's rule)
         can_ragged = cfg.arch in KV_FAMILIES and not bank_prefill
         if ragged_prefill and not can_ragged:
@@ -1161,8 +1165,8 @@ class ServingEngine:
 
     def _bucket(self, S: int) -> int:
         """Bucketed prompt length: right-padding is exact for the pure-KV
-        families; a hybrid prefills at the true length (pads would run
-        through its recurrent state)."""
+        families; a hybrid or RWKV model prefills at the true length (pads
+        would run through its recurrent state)."""
         if self.cfg.arch not in KV_FAMILIES:
             return S
         b = 8

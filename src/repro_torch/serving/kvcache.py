@@ -1,14 +1,14 @@
 """KV-cache sizing and the analytic placement cost (the ``"kv"`` kind of
 ``repro.serving.kvcache``, the pure-KV families: dense, MoE and VLM; and
-its ``"hybrid"`` kind).
+its ``"hybrid"`` and ``"rwkv"`` kinds).
 
 ``cache_bytes`` is what the engine's ``PlacementRouter`` charges against
 device memory for a request's lifetime: ``quant=True`` prices int8 entries
 plus one f32 scale per head per token for K and V each, and
 ``page_block > 0`` rounds the context up to whole pages (what the paged
 allocator pins). ``decode_token_cost`` is the router's per-token latency
-model of the on-card placement. The recurrent and encoder-decoder kinds
-are not ported and raise. The ring-buffer helpers
+model of the on-card placement. The encoder-decoder kind is not ported
+and raises. The ring-buffer helpers
 (``ring_cache_init``, ``ring_write``, and ``ring_valid_mask`` from
 ``models.blocks``, which decodes over rings with it) are the
 sliding-window cache of depth ``window``.
@@ -20,7 +20,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.hardware import H100, Chip
-from repro_torch.config import HYBRID, ModelConfig, check_family
+from repro_torch.config import HYBRID, RWKV, ModelConfig, check_family
 from repro_torch.models.blocks import dense_write, dense_write_index
 from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 
@@ -28,7 +28,7 @@ from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
     """Shape/bytes description of one client's decode state."""
-    kind: str                    # "kv" | "hybrid"
+    kind: str                    # "kv" | "hybrid" | "rwkv"
     bytes_per_token: int         # marginal device bytes per context token
     fixed_bytes: int             # state independent of the sequence length
 
@@ -47,12 +47,20 @@ def make_cache_spec(cfg: ModelConfig, *, quant: bool = False) -> CacheSpec:
     plus a f32 scale per head. For a hybrid, K and V of its attention
     layers (one per ``attn_every``) per token, and a fixed per-slot state
     of every Mamba layer: ``h`` [ED, d_state] and ``conv`` [d_conv - 1,
-    ED], both f32 (JAX's formula, its ``quant`` row too)."""
+    ED], both f32 (JAX's formula, its ``quant`` row too). For RWKV, no
+    bytes per token and a fixed per-slot state of every layer: the f32
+    wkv state [H, hd, hd] and the two token-shift rows [d] in the
+    activation dtype (JAX's formula)."""
     check_family(cfg)
     if quant:
         kv_row = cfg.n_kv_heads * (cfg.hd * 1 + 4) * 2
     else:
         kv_row = cfg.n_kv_heads * cfg.hd * _dt_bytes(cfg) * 2
+    if cfg.arch == RWKV:
+        H = cfg.d_model // cfg.hd
+        fixed = cfg.n_layers * (H * cfg.hd * cfg.hd * 4
+                                + 2 * cfg.d_model * _dt_bytes(cfg))
+        return CacheSpec("rwkv", 0, fixed)
     if cfg.arch == HYBRID:
         n_attn = cfg.n_layers // cfg.attn_every
         n_mamba = cfg.n_layers - n_attn

@@ -63,9 +63,11 @@ The MoE family's jobs route each job's tokens alone in the merged step
 a VLM job's batches lead with its image prefix; a hybrid job's Mamba
 state starts at zero for every sequence, its selective scan recomputed
 block by block in the backward, and its group-shared adapter leaves
-take the grads of every sublayer of their group. Not ported yet, and
-refused with ``ValueError``: a ``mesh`` and the recurrent and
-encoder-decoder families.
+take the grads of every sublayer of their group; an RWKV job's state
+starts at zero for every sequence, its wkv recurrence recomputed block
+by block in the backward (a prefix job, which no layer reads, moves by
+weight decay alone). Not ported yet, and refused with ``ValueError``: a
+``mesh`` and the encoder-decoder family.
 """
 from __future__ import annotations
 
@@ -79,8 +81,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save_job_state
 from repro_torch.common.tree import tree_map
-from repro_torch.config import (HYBRID, VLM, AdapterConfig, FinetuneConfig,
-                                ModelConfig, TRAIN_FAMILIES, check_family)
+from repro_torch.config import (HYBRID, RWKV, VLM, AdapterConfig,
+                                FinetuneConfig, ModelConfig, TRAIN_FAMILIES,
+                                check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
@@ -327,9 +330,93 @@ def _scan_block_saved_bytes(cfg: ModelConfig, seqs: int, S: int) -> int:
             * cfg.d_state * 4)
 
 
+_RWKV_INPUTS = {"r": "xr", "k": "xk", "v": "xv", "g": "xg", "o": "gated",
+                "cm_k": "cm_xk", "cm_v": "k2", "cm_r": "cm_xr"}
+
+
+def _rwkv_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
+                      S: int, memory_optimized: bool) -> int:
+    """Bytes one RWKV layer (``rwkv_model._layer``) of one job's §3.6 step
+    saves for its backward when its input requires grad, over ``seqs``
+    sequences of ``S`` tokens, op by op:
+
+    * each RMSNorm its fp32 input and rsqrt (and an fp32 copy of a
+      non-fp32 scale); each of the seven token-shift mixes its ``1 - m``;
+    * the decay: tanh's output, both exps' outputs, in fp32 (and fp32
+      copies of a non-fp32 ``w1`` / ``w2``);
+    * the recurrence's inputs as the checkpointed blocks read them: r, k,
+      v and w in fp32 (in a narrower model w's fp32 copy beside exp's
+      output) and the state carried into each block;
+    * the head norm's fp32 input and rsqrt (and ``ln_x``'s fp32 copy), the
+      normed output, silu(g) and g;
+    * the channel mix's relu output, sigmoid output and value product;
+    * the adapter on the paths the layer has: LoRA's inputs and ``x @ A``
+      per target (and the A and B casts in a narrower model), IA3's
+      unscaled outputs (and the scales' casts);
+    * without ``memory_optimized`` (the torch-like baseline) also every
+      base linear's input, each norm's normalized product, both mixes'
+      inputs, the decay's fp32 input and the head norm's product, which
+      the base's weight gradients would read.
+
+    No layer reads a prefix adapter, so under ``memory_optimized`` a
+    prefix job records nothing. The checkpointed blocks' temporaries are
+    ``_wkv_block_saved_bytes``."""
+    from repro_torch.models.rwkv import WKV_BLOCK
+    if memory_optimized and acfg.method == "prefix":
+        return 0
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    narrow = a != 4
+    p_cast = cfg.param_dtype != "float32"
+    T = seqs * S
+    d, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    H = d // hd
+    b = 2 * (T * d * 4 + T * 4) + (2 * d * 4 if p_cast else 0)   # norms
+    b += 7 * d * a                                                # 1 - m
+    b += T * 64 * 4 + 2 * T * d * 4 + (2 * d * 64 * 4 if p_cast else 0)
+    b += 3 * T * d * 4 + (T * d * 4 if narrow else 0)             # r k v w
+    b += -(-S // WKV_BLOCK) * seqs * H * hd * hd * 4              # states
+    b += T * d * 4 + T * H * 4 + (d * 4 if p_cast else 0)         # head norm
+    b += 3 * T * d * a                                            # out, gate
+    b += T * F * a + 2 * T * d * a                                # channel
+    targets = adapters_lib.resolve_targets(cfg, acfg)
+    inputs = set() if memory_optimized else set(_RWKV_INPUTS.values())
+    if acfg.method == "lora":
+        inputs |= {_RWKV_INPUTS[p] for p, _ in targets}
+        r = acfg.rank
+        for p, (din, dout) in targets:
+            b += T * r * a + (r * (din + dout) * a if narrow else 0)
+    elif acfg.method == "ia3":
+        for p, (din, dout) in targets:
+            b += T * dout * a + (dout * a if narrow else 0)
+    b += sum(T * (F if n == "k2" else d) * a for n in inputs)
+    if not memory_optimized:
+        # the norms' and the head norm's products and the decay's input in
+        # fp32; both mixes' inputs (the normed input and its shift)
+        b += 4 * T * d * 4 + 4 * T * d * a
+    return b
+
+
+def _wkv_block_saved_bytes(cfg: ModelConfig, seqs: int, S: int) -> int:
+    """Bytes ONE checkpointed wkv block saves when the backward recomputes
+    it (``rwkv._wkv_block``), over its c = min(S, WKV_BLOCK) steps: the b
+    of each doubling round but the last (k_tᵀv_t the first) and the
+    previous states the readout reads, [seqs, c, H, dv, dk] fp32 each; the
+    a of each round and r * bonus, [seqs, c, H, dk] fp32; the bonus term's
+    sum over dk, [seqs, c, H]."""
+    from repro_torch.models.rwkv import WKV_BLOCK
+    c = min(S, WKV_BLOCK)
+    rounds = (c - 1).bit_length()
+    H, hd = cfg.d_model // cfg.hd, cfg.hd
+    return (rounds + min(rounds, 1)) * seqs * c * H * hd * hd * 4 \
+        + (rounds + 1) * seqs * c * H * hd * 4 + seqs * c * H * 4
+
+
 def _layer_kinds(cfg: ModelConfig):
     """[(moe, mamba)] for each layer of ``cfg`` (a hybrid's sublayers in
-    order, group by group)."""
+    order, group by group); none for RWKV, whose layers are neither
+    (``_rwkv_saved_bytes`` counts them)."""
+    if cfg.arch == RWKV:
+        return []
     if cfg.arch == HYBRID:
         from repro_torch.models.hybrid import sub_is_attn, sub_is_moe
         period = [(sub_is_moe(cfg, j), not sub_is_attn(cfg, j))
@@ -393,9 +480,13 @@ def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     sublayers (Mamba, attention, MoE and dense FFNs each by their kind),
     or with ``remat`` each group's input plus ONE group's sublayers, then
     one MoE body's and one scan block's recomputed tensors
-    (``_scan_block_saved_bytes``). Jobs merged in one bank step hold the
-    sum of their terms, up to their adapters' casts and per-sequence
-    prefix copies."""
+    (``_scan_block_saved_bytes``). An RWKV model counts every layer by
+    ``_rwkv_saved_bytes`` (or with ``remat`` each layer's input plus one
+    layer's tensors), then one wkv block's recomputed tensors
+    (``_wkv_block_saved_bytes``); a prefix job, which no layer reads,
+    records nothing under ``memory_optimized``. Jobs merged in one bank
+    step hold the sum of their terms, up to their adapters' casts and
+    per-sequence prefix copies."""
     nmb = max(1, job.microbatch)
     if job.batch_size % nmb or job.batch_size == nmb:
         nmb = 1
@@ -409,7 +500,14 @@ def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     recompute = _moe_body_saved_bytes(cfg, job.acfg, seqs, S,
                                       memory_optimized) \
         if any(m for m, _ in kinds) else 0
-    if cfg.arch == HYBRID:
+    if cfg.arch == RWKV:
+        one = _rwkv_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized)
+        L = cfg.n_layers
+        body = 0
+        if one:
+            body = (L * T * cfg.d_model * a + one if remat else L * one) \
+                + _wkv_block_saved_bytes(cfg, seqs, S)
+    elif cfg.arch == HYBRID:
         G = cfg.n_layers // cfg.attn_every
         group = sum(per[k] for k in kinds[:cfg.attn_every])
         recompute += _scan_block_saved_bytes(cfg, seqs, S)
@@ -430,6 +528,8 @@ def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
 
 # [seqs, c, ED, N] fp32 gradients live at once in a scan block's backward
 SCAN_WORKING = 6
+# [seqs, c, H, dv, dk] fp32 gradients live at once in a wkv block's backward
+WKV_WORKING = 6
 
 
 def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
@@ -447,7 +547,9 @@ def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
       expert-output gradients at the job's capacity buffer, E x cap x
       (fe + d) (drop-free: cap = T), or a hybrid's scan block's gradients,
       SCAN_WORKING [seqs, c, ED, N] fp32 tensors at once (c the block's
-      steps), whichever is larger;
+      steps), or an RWKV layer's channel mix (three [T, d_ff]) or wkv
+      block, WKV_WORKING [seqs, c, H, hd, hd] fp32 tensors at once,
+      whichever is larger;
     * the step's copies of the job's adapter state: the gathered params
       and AdamW moments, the grads, and the updated params and moments
       (seven fp32 trees at the update; six were live at llava's peak);
@@ -474,6 +576,10 @@ def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     if any(m for _, m in kinds):
         grads = max(grads, SCAN_WORKING * seqs * min(job.seq_len, SCAN_BLOCK)
                     * cfg.mamba_expand * cfg.d_model * cfg.d_state * 4)
+    if cfg.arch == RWKV:
+        from repro_torch.models.rwkv import WKV_BLOCK
+        grads = max(3 * T * cfg.d_ff * a, WKV_WORKING * seqs
+                    * min(job.seq_len, WKV_BLOCK) * cfg.d_model * cfg.hd * 4)
     state = 7 * adapters_lib.adapter_bytes(cfg, job.acfg)[1]
     batch = job.batch_size * (job.seq_len * 8 + Ti * cfg.d_model * a)
     return grads + state + batch
@@ -494,7 +600,7 @@ def job_charge_bytes(cfg: ModelConfig, job: FinetuneJob, *,
 
 def _not_ported(what: str):
     return ValueError(f"{what}: not ported yet; the port's FinetuneEngine "
-                      "trains jobs of the dense, MoE, VLM and hybrid "
+                      "trains jobs of the dense, MoE, VLM, hybrid and RWKV "
                       "families on one device")
 
 

@@ -362,9 +362,9 @@ def test_engine_refuses_what_is_not_ported():
     pb = port_base(pc, base)
     with pytest.raises(ValueError, match="not ported yet"):
         FinetuneEngine(spec, pb, device="cpu", mesh=object())
-    rwkv = dataclasses.replace(pc, arch="rwkv")
-    with pytest.raises(ValueError, match="'rwkv' family: not ported"):
-        FinetuneEngine(EngineSpec(cfg=rwkv, finetune=pcfg.FinetuneConfig()),
+    encdec = dataclasses.replace(pc, arch="encdec")
+    with pytest.raises(ValueError, match="'encdec' family: not ported"):
+        FinetuneEngine(EngineSpec(cfg=encdec, finetune=pcfg.FinetuneConfig()),
                        pb, device="cpu")
     odd = pcfg.AdapterConfig(method="adapterfusion", targets=("q",))
     with pytest.raises(ValueError, match="unknown PEFT method"):

@@ -79,13 +79,12 @@ def test_serving_engine_defaults_to_cuda():
 
 
 def test_non_dense_configs_are_refused():
-    """The families the port does not serve yet (recurrent,
-    encoder-decoder) have no config; the MoE, VLM and hybrid ones do."""
+    """The family the port does not serve yet (encoder-decoder) has no
+    config; the MoE, VLM, hybrid and RWKV ones do."""
     from repro_torch.configs import get_config
-    for arch in ("rwkv6-7b", "whisper-small"):
-        with pytest.raises(KeyError):
-            get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("whisper-small")
     assert [get_config(a).arch for a in ("deepseek-moe-16b", "arctic-480b",
                                          "llava-next-mistral-7b",
-                                         "jamba-v0.1-52b")] \
-        == ["moe", "moe", "vlm", "hybrid"]
+                                         "jamba-v0.1-52b", "rwkv6-7b")] \
+        == ["moe", "moe", "vlm", "hybrid", "rwkv"]

@@ -467,28 +467,26 @@ def test_frontend_stub():
 def test_fine_tuning_refuses_moe_and_vlm():
     """Both families now fine-tune: the engine takes them and the train
     CLI trains reduced deepseek-moe-16b and llava-next-mistral-7b on the
-    CPU (finite losses). What is still refused: the recurrent and
-    encoder-decoder families, by the engine ("not ported yet"), by the CLI
-    (no such ``--arch``) and by the model registry. (The hybrid fine-tunes
-    too: ``test_torch_hybrid_train.py``.)"""
+    CPU (finite losses). What is still refused: the encoder-decoder
+    family, by the engine ("not ported yet"), by the CLI (no such
+    ``--arch``) and by the model registry. (The hybrid and RWKV fine-tune
+    too: ``test_torch_hybrid_train.py``, ``test_torch_rwkv_train.py``.)"""
     from repro_torch.launch import train
     for cfg in (tiny(MOE), tiny(VLM)):
         pc = port_config(cfg)
         base = get_model(pc).init_params(torch.Generator(), "cpu")
         FinetuneEngine(EngineSpec(cfg=pc, finetune=pcfg.FinetuneConfig()),
                        base, device="cpu")
-        for arch in ("rwkv", "encdec"):
-            with pytest.raises(ValueError, match="family: not ported yet"):
-                FinetuneEngine(EngineSpec(cfg=dataclasses.replace(
-                    pc, arch=arch), finetune=pcfg.FinetuneConfig()),
-                    base, device="cpu")
+        with pytest.raises(ValueError, match="family: not ported yet"):
+            FinetuneEngine(EngineSpec(cfg=dataclasses.replace(
+                pc, arch="encdec"), finetune=pcfg.FinetuneConfig()),
+                base, device="cpu")
     for arch in ("deepseek-moe-16b", "llava-next-mistral-7b"):
         first, last = train.main(["--arch", arch, "--device", "cpu",
                                   "--steps", "2", "--clients", "2",
                                   "--seq", "8", "--d-model", "64"])
         assert np.isfinite(first) and np.isfinite(last)
-    for arch in ("rwkv6-7b", "whisper-small"):
-        with pytest.raises(SystemExit):
-            train.main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "whisper-small", "--device", "cpu"])
     with pytest.raises(ValueError, match="families"):
-        get_model(dataclasses.replace(port_config(tiny(MOE)), arch="rwkv"))
+        get_model(dataclasses.replace(port_config(tiny(MOE)), arch="encdec"))

@@ -27,7 +27,11 @@ exits non-zero and prints no result. Phases, each raising on failure:
    decode and over a per-client prefill's 2 rows of a 256-token prompt;
    phase 17's: rwkv6-7b's channel-mix LoRA, cm_k at din 4096, dout 14336
    and cm_v at din 14336, dout 4096, at decode (8 rows) and over a
-   per-client prefill's 4 rows of a 256-token prompt),
+   per-client prefill's 4 rows of a 256-token prompt; phase 18's:
+   whisper-small's paged attention at K=12, G=1, hd=64 (rows at pos -1),
+   its dense slab [8, 512, 12, 64] (an idle row) and SGMV at din = dout =
+   768 at decode and over an encoder's 2 x 1,500-frame and a decoder's 2 x
+   64-token prefill blocks),
    fp32 at atol = rtol
    = 1e-5 (TF32 off) and bf16 at 2e-2 against the plain version run in
    fp32 on the same bf16 inputs; dense decode attention (split-KV and a
@@ -377,7 +381,47 @@ exits non-zero and prints no result. Phases, each raising on failure:
    requests beside 2 jobs (streams 17b's, jobs their runs alone, bit for
    bit); a 2-job engine killed after 1 of 3 ticks resumed bit for bit. 17d
    ``sgmv`` at the channel mix's shapes timed beside its plain version, a
-   gather + ``bmm`` and its bound.
+   gather + ``bmm`` and its bound;
+18. the encoder-decoder family on the serving steps and in fine-tuning,
+   after phase 17's base is freed: whisper-small at full width and depth
+   (12 encoder + 12 decoder layers, d_model 768, 12 heads of 64, MHA, d_ff
+   3072, 1,500 stub frames a row, vocab 51,865; 304.3 M params, ~0.6 GB
+   bf16), random weights, 4 LoRA r8 tenants on q and v x 2 slots. JAX's
+   serving engine passes no frames, so no engine admission serves it (the
+   port refuses it, a stated departure): the per-client prefill here is
+   the model's prefill of a client's 2 slot rows with their frames, every
+   row's LoRA through SGMV, and the decode steps are the bank steps. Its
+   path runs three kernels: the paged decode kernel (K 12, G 1, hd 64),
+   the dense one and ``sgmv`` (din = dout = 768); the encoder's attention
+   and cross-attention are plain PyTorch, as JAX's are plain einsums. 18a
+   the per-client prefills and one 8-row decode tick on pages (the
+   compacted step) and on dense rows (the masked step), with the kernels
+   (no host sync) and under ``plain_kernels()``, launches checked: at 1 +
+   1 layers bf16 at 2e-2 and fp32 at 1e-5; at 12 + 12 layers bf16 and fp32
+   each gap held at ``P18_CONTROL`` x control (c)'s (the same pair with
+   ``sgmv`` on ``sgmv_plain_split``) plus 4 bf16 ulps of the largest logit
+   (bf16) or 1e-5 (fp32). 18b 8 decoder prompts of 4-64 tokens, each with
+   its own frames, prefilled per client on pages (48 ``sgmv`` launches a
+   client, nothing else), then compacted decode ticks until every row has
+   its 6-16 new tokens (12 paged and 24 ``sgmv`` launches per tick, checked
+   tick by tick); every client's streams bit for bit its rows decoded
+   alone, the masked step bit for bit the compacted one, every cache
+   tensor keeping its ``data_ptr``; the dense layout's streams (the dense
+   kernel, 24 launches a tick) printed against the pages';
+   ``make_multi_client_prefill`` with frames [4, 2, 1500, 768] over the
+   dense bank and a multi-client decode tick, launches checked; an 8-row
+   tick timed and traced; the tick's gather of the rows' cross caches
+   (bytes and ms); the caches' allocator bytes per slot against the
+   router's charge (55,296,000 + 36,864 x 128 B). 18c a ``FinetuneEngine``
+   of 4 LoRA jobs of 2 x 128 decoder tokens (1,500 frames a row) behind a
+   router sized by ``job_charge_bytes`` that holds a fifth back: tick ms,
+   one tick traced, the encoder's share (its time alone at the tick's
+   shapes), peaks at 1 and 4 jobs under the charge; 2-row IA3 and prefix
+   banks at 1 + 1 layers fp32 against one-row runs (17c's rule). 18d a
+   2-job engine killed after 1 of 3 ticks resumes bit for bit. 18e the
+   paged kernel over 18b's pool, the dense kernel at [8, 512, 12, 64] and
+   ``sgmv`` at decode and at an encoder and a decoder prefill's blocks,
+   each timed beside its plain version, a library call and its bound.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -436,8 +480,9 @@ from repro_torch.faults.plan import (AllocHook,  # noqa: E402
                                      FaultyRequestStream, corrupt_flip)
 from repro_torch.obs import Obs, write_files  # noqa: E402
 from repro_torch.training import (FinetuneEngine, FinetuneJob,  # noqa: E402
-                                  SymbiosisEngine, job_charge_bytes,
-                                  job_hbm_bytes, make_job_stream)
+                                  SymbiosisEngine, job_activation_bytes,
+                                  job_charge_bytes, job_hbm_bytes,
+                                  make_job_stream)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -547,6 +592,11 @@ PAGED_CASES = {   # (B, K, G, hd, blk, nb, window, pos)
                           [79, 100, 159, 200, 255, 271, 64, 511]),
     "deepseek_g1_pos_minus_one": (5, 16, 1, 128, 16, 32, 0,
                                   [-1, 15, 16, 300, -1]),
+    # whisper-small (phase 18): MHA, K=12, G=1, hd 64 over 18b's tables
+    # (max_seq 128 in pages of 16), 15 past its 8 prompts, and rows at -1
+    "whisper_k12_g1_hd64": (8, 12, 1, 64, 16, 8, 0,
+                            [19, 79, 32, 55, 24, 48, 67, 40]),
+    "whisper_pos_minus_one": (4, 12, 1, 64, 16, 8, 0, [-1, 3, 100, -1]),
 }
 
 
@@ -657,6 +707,13 @@ SGMV_CASES = {    # (T, block_t, dout, rank, ids[, din]), din 4096 if absent
     "rwkv_cm_k_prefill": (1024, 256, 14336, 8, [3, 3, 3, 3]),
     "rwkv_cm_v_decode": (8, 1, 4096, 8, [3, 2, 1, 0, 0, -1, 2, 1], 14336),
     "rwkv_cm_v_prefill": (1024, 256, 4096, 8, [1, 1, 1, 1], 14336),
+    # whisper-small (phase 18): d 768, q and v (768 -> 768) at decode (8
+    # rows, one dead), over a per-client prefill's 2 slot rows of 1,500
+    # encoder frames (one 1,500-token block a row) and of a 64-token
+    # decoder prompt
+    "whisper_qv_decode": (8, 1, 768, 8, [0, 0, 1, -1, 2, 2, 3, 3], 768),
+    "whisper_encoder_prefill": (3000, 1500, 768, 8, [2, 2], 768),
+    "whisper_decoder_prefill": (128, 64, 768, 8, [1, 1], 768),
 }
 
 
@@ -709,7 +766,8 @@ def plain_op(op, *args, **kw):
                       **kw)
 
 
-GRANITE, DEEPSEEK = "granite-3-8b", "deepseek-moe-16b"
+GRANITE, DEEPSEEK, WHISPER = "granite-3-8b", "deepseek-moe-16b", \
+    "whisper-small"
 DENSE_CASES = {   # (B, T, window, pos, arch whose K, G, hd the case takes)
     # phase 9's layer slab (4 clients x 2 slots, max_seq 512) at its decode
     # positions (None: ``slab_positions``), and a window cutting the rows
@@ -724,6 +782,12 @@ DENSE_CASES = {   # (B, T, window, pos, arch whose K, G, hd the case takes)
     # positions and with its first row idle (position -1)
     "deepseek_slab_T512": (8, 512, 0, None, DEEPSEEK),
     "deepseek_slab_T512_idle_row": (8, 512, 0, "idle", DEEPSEEK),
+    # whisper-small's slab [8, 512, 12, 64] (K 12, G 1, hd 64) at 18b's
+    # decode positions, and with its first row idle
+    "whisper_slab_T512": (8, 512, 0, [19, 79, 32, 55, 24, 48, 67, 40],
+                          WHISPER),
+    "whisper_slab_T512_idle_row": (8, 512, 0,
+                                   [-1, 79, 32, 55, 24, 48, 67, 40], WHISPER),
 }
 
 
@@ -894,10 +958,18 @@ def make_system(cfg, n_clients, seed, acfg=LORA):
     g = gen(seed)
     base, bank = symbiosis.init_system(cfg, acfg, n_clients, g, device=DEV,
                                        adapter_dtype=torch.bfloat16)
-    for leaf in next(iter(bank.values())).values():    # layers / groups
+    for leaf in _adapter_leaves(bank):
         leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g, device=DEV)
                         * 0.05)
     return base, bank
+
+
+def _adapter_leaves(bank):
+    """The per-path leaves of every container of a bank (``layers`` /
+    ``groups``, or an encoder-decoder's ``enc_layers`` then
+    ``dec_layers``), in order; prefix tensors are not per-path dicts."""
+    return [leaf for container in bank.values()
+            for leaf in container.values() if isinstance(leaf, dict)]
 
 
 @contextlib.contextmanager
@@ -1672,7 +1744,7 @@ def sdpa_gqa(q, k, v, **kw):
 
 
 def timing_fields(label, kernel, plain, library, nbytes, flops, shape,
-                  rows=None):
+                  rows=None, phase="phase 5"):
     """Kernel L2-cold and L2-warm, its device time with the host's enqueue
     hidden (``device_ms``), plain version, one library call (L2-cold, and
     its device time the same way), and the bound; the library call's
@@ -1687,7 +1759,7 @@ def timing_fields(label, kernel, plain, library, nbytes, flops, shape,
     lib_ms = time_ms(library)
     lib_dev_ms = device_ms(library, n=10)
     bound_ms, by = bound(nbytes, flops)
-    log(f"[phase 5] {label} {shape}, L2-cold: kernel {ms:.4f} ms (L2-warm "
+    log(f"[{phase}] {label} {shape}, L2-cold: kernel {ms:.4f} ms (L2-warm "
         f"{warm_ms:.4f}; device time, enqueue hidden, {dev_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (device {lib_dev_ms:.4f};"
         f" differs by {lib_err:.2e}), bound {bound_ms:.4f} ms ({by}, {nbytes}"
@@ -1712,18 +1784,18 @@ def serving_dense_inputs(lengths, seed):
     return q, k, v, pos
 
 
-def time_dense_decode(q, k, v, pos, label, errs):
+def time_dense_decode(q, k, v, pos, label, errs, phase="phase 5"):
     """Dense decode over q [B, K, G, hd] and a cache [B, T, K, hd], first
     held against its plain version on the same inputs (bf16 tolerance; the
     error appended to ``errs``); library: SDPA with a position mask and
     GQA."""
     B, K, G, hd = q.shape
     T = k.shape[1]
-    e = compare(f"[phase 5] {label} against plain",
+    e = compare(f"[{phase}] {label} against plain",
                 da.decode_attn_cuda(q, k, v, pos),
                 plain_op(kernels.decode_attn, q, k, v, pos), BF16_TOL)
     errs.append(e)
-    log(f"[phase 5] {label}: kernel against plain max_abs_err={e:.3e} "
+    log(f"[{phase}] {label}: kernel against plain max_abs_err={e:.3e} "
         f"({BF16_TOL})")
     mask = (torch.arange(T, device=DEV)[None, :] <= pos[:, None].long())
     mask = mask[:, None, None, :]
@@ -1738,7 +1810,8 @@ def time_dense_decode(q, k, v, pos, label, errs):
         label, lambda: da.decode_attn_cuda(q, k, v, pos),
         lambda: plain_call(kernels.decode_attn, q, k, v, pos), library,
         nbytes, 4 * tokens * K * G * hd,
-        f"q {list(q.shape)} cache {list(k.shape)}, {tokens} live tokens")
+        f"q {list(q.shape)} cache {list(k.shape)}, {tokens} live tokens",
+        phase=phase)
 
 
 def visible_pairs(S, T, window):
@@ -2034,7 +2107,7 @@ def random_lora(cfg, n, seed, acfg=LORA):
     alone)."""
     g = gen(seed)
     bank = adapters.init_client_bank(cfg, acfg, n, g, device=DEV)
-    for leaf in next(iter(bank.values())).values():    # layers / groups
+    for leaf in _adapter_leaves(bank):
         leaf["B"].copy_(torch.randn(leaf["B"].shape, generator=g, device=DEV)
                         * 0.02)
     return bank
@@ -3275,10 +3348,9 @@ def random_bank(cfg, acfg, n, seed):
         return random_lora(cfg, n, seed)
     g = gen(seed)
     bank = adapters.init_client_bank(cfg, acfg, n, g, device=DEV)
-    for leaf in next(iter(bank.values())).values():    # layers / groups
-        if isinstance(leaf, dict):
-            leaf["scale"].add_(torch.randn(leaf["scale"].shape, generator=g,
-                                           device=DEV) * 0.1)
+    for leaf in _adapter_leaves(bank):
+        leaf["scale"].add_(torch.randn(leaf["scale"].shape, generator=g,
+                                       device=DEV) * 0.1)
     return bank
 
 
@@ -6026,12 +6098,17 @@ def p16_jobs(cfg, n, steps, first_seed, acfg=P15_LORA, name="jamba"):
             for i in range(n)]
 
 
-def p16_batches(cfg, n_rows, seed):
-    """One step's batch for ``n_rows`` jobs, [R, 1, P16_SEQ]."""
-    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=P16_SEQ,
-                            n_clients=n_rows, batch_per_client=1, seed=seed,
-                            device=DEV)
-    return ds.batch(0)
+def p16_batches(cfg, n_rows, seed, seq=P16_SEQ, batch=1):
+    """One step's batch for ``n_rows`` jobs, [R, ``batch``, ``seq``] (an
+    encoder-decoder's with its stub frames [R, batch, Te, d])."""
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq,
+                            n_clients=n_rows, batch_per_client=batch,
+                            seed=seed, device=DEV)
+    out = ds.batch(0)
+    if cfg.arch == "encdec":
+        out.update(frontend_stub(cfg, n_rows, batch, generator=gen(seed),
+                                 device=DEV))
+    return out
 
 
 def p16_rows(cfg, base, acfg, bank, label):
@@ -6641,7 +6718,7 @@ def p17_pair(cfg, base, bank, label, tol=None, plain_control=False):
         raise AssertionError(f"[{label}] gaps {gaps} past {bound}")
 
 
-def p17_rows(cfg, base, acfg, bank, label):
+def p17_rows(cfg, base, acfg, bank, label, phase="phase 17c"):
     """17c: one compact train step over a 2-row bank against each row's
     one-row run from the same state (losses within ``P12_DRIFT_TOL``; the
     updated adapters and AdamW moments, each leaf's gap over its own
@@ -6687,7 +6764,7 @@ def p17_rows(cfg, base, acfg, bank, label):
         one = run(base, r)
         rows.append((drift(two, one, r), drift(run(nudged_base, r), one, r)))
     del nudged_base
-    log(f"[phase 17c] {label}: 2-row step losses "
+    log(f"[{phase}] {label}: 2-row step losses "
         f"{[round(float(x), 5) for x in two[2]['loss']]}; each row against "
         f"its one-row run (loss, state of a leaf's max): "
         f"{[(f'{a:.3e}', f'{b:.3e}') for (a, b), _ in rows]}; the one-row "
@@ -6697,10 +6774,10 @@ def p17_rows(cfg, base, acfg, bank, label):
         bound = max(P12_DRIFT_TOL["state"], P17_NUDGE * nudge_d)
         if loss_d > P12_DRIFT_TOL["loss"] or state_d > bound:
             raise AssertionError(
-                f"[phase 17c] {label}: drift {loss_d:.3e} / {state_d:.3e} "
+                f"[{phase}] {label}: drift {loss_d:.3e} / {state_d:.3e} "
                 f"past {P12_DRIFT_TOL['loss']} / {bound:.3e}")
     if not two[2]["finite"].all():
-        raise AssertionError(f"[phase 17c] {label}: a row is not finite")
+        raise AssertionError(f"[{phase}] {label}: a row is not finite")
 
 
 def p17_sgmv_times(cfg, label="phase 17d"):
@@ -7037,6 +7114,696 @@ def phase17():
     return launches, sgmv_times, peaks, dec_t, times, shares
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the encoder-decoder family (whisper-small) on the serving steps
+# and in fine-tuning
+# ---------------------------------------------------------------------------
+
+P18_LORA = AdapterConfig(method="lora", rank=8, alpha=16.0,
+                         targets=("q", "v"))
+P18_CLIENTS, P18_SLOTS = 4, 2
+# the 8 decoder prompts (client c's slot s is row 2c + s), 4-64 tokens, and
+# each row's new tokens: rows finish at different lengths
+P18_LENGTHS = (4, 64, 17, 40, 9, 33, 52, 25)
+P18_NEW = (6, 16, 9, 12, 7, 14, 11, 8)
+P18_MAX_SEQ, P18_BLK = 128, 16
+P18_TRAIN_S = 128        # 18c: 2 x 128 decoder tokens a job, 1,500 frames a row
+P18_STEPS = 4            # 18c: 4 jobs, a warm tick, 2 timed, 1 traced
+# 18a: a 24-layer pair of kernels against plain is held at P18_CONTROL times
+# the gap of control (c), the same pair with the SGMV op on
+# ``sgmv_plain_split`` (another exact fp32 sum order), plus 4 bf16 ulps of
+# the largest logit (bf16) or 1e-5 (fp32), as 17a holds rwkv6-7b's
+P18_CONTROL = 2.0
+
+
+def p18_config(n_layers=12, n_enc_layers=12, dtype="bfloat16"):
+    """whisper-small at full width (d_model 768, 12 heads of 64, MHA, d_ff
+    3072, 1,500 frames, vocab 51,865), ``n_enc_layers`` + ``n_layers`` of
+    its 12 + 12 layers."""
+    cfg = get_config("whisper-small")
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               n_enc_layers=n_enc_layers, dtype=dtype,
+                               param_dtype=dtype)
+
+
+def p18_per_call(cfg, prefill=False):
+    """SGMV launches of a decode tick (q and v on every decoder layer) or of
+    a prefill (the encoder's layers too)."""
+    n = cfg.n_layers + (cfg.n_enc_layers if prefill else 0)
+    return len(adapters.resolve_targets(cfg, P18_LORA)) * n
+
+
+def p18_prompts(cfg, seed=18):
+    """Each client's 2 decoder prompts, right-padded ([2, S_c] tokens, [2]
+    lengths), and every slot's stub frames [C, 2, Te, d]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for c in range(P18_CLIENTS):
+        n = P18_LENGTHS[2 * c:2 * c + 2]
+        toks = np.zeros((P18_SLOTS, max(n)), np.int32)
+        for s, L in enumerate(n):
+            toks[s, :L] = rng.integers(0, cfg.vocab, L)
+        out.append((torch.tensor(toks, device=DEV),
+                    torch.tensor(n, dtype=torch.int32, device=DEV)))
+    frames = frontend_stub(cfg, P18_CLIENTS, P18_SLOTS, generator=gen(seed),
+                           device=DEV)["frames"]
+    return out, frames
+
+
+def p18_scfg(paged):
+    return ServeConfig(n_clients=P18_CLIENTS, max_seq=P18_MAX_SEQ,
+                       page_block=P18_BLK if paged else 0)
+
+
+def p18_prefill(cfg, base, bank, prompts, frames, paged):
+    """Each client's 2 slot rows through the model's prefill with their
+    frames on a one-client cache (pages of 16, or dense rows), every row
+    its client's LoRA through SGMV (one block per row: the encoder's 1,500
+    frames, the decoder's padded prompt), as the port's per-client prefill
+    runs them; the caches stacked into the bank. JAX's engine passes no
+    frames, so no engine admission serves enc-dec (a stated refusal):
+    this is the per-client prefill of ``make_client_prefill`` with the
+    frames the model needs. Returns (logits [8, V], bank caches)."""
+    model = get_model(cfg)
+    kw = {"page_block": P18_BLK} if paged else {}
+    logits, per = [], []
+    for c, (toks, lens) in enumerate(prompts):
+        rows = torch.full((P18_SLOTS,), c, dtype=torch.int32, device=DEV)
+        cache = model.init_cache(P18_SLOTS, P18_MAX_SEQ, device=DEV, **kw)
+        lg, cache = model.prefill(
+            base, {"tokens": toks, "frames": frames[c]}, cache,
+            make_compact_ctx(cfg, P18_LORA, rows),
+            adapters.compact_adapter_bank(bank, rows), lengths=lens)
+        logits.append(lg)
+        per.append(cache)
+    return torch.cat(logits), symbiosis.stack_client_caches(
+        cfg, P18_MAX_SEQ, per, **kw)
+
+
+def p18_rows():
+    """Every (client, slot) row in (client, slot) order."""
+    clients = torch.arange(P18_CLIENTS, dtype=torch.int32, device=DEV) \
+        .repeat_interleave(P18_SLOTS)
+    slots = torch.arange(P18_SLOTS, dtype=torch.int32, device=DEV) \
+        .repeat(P18_CLIENTS)
+    return clients, slots
+
+
+def p18_wiring(cfg, base, bank, tol, label, control=None):
+    """18a: the per-client prefill of every client (``p18_prefill``) and one
+    decode tick of the 8 rows, on pages (the compacted step: the paged
+    kernel) and on dense rows (the masked step: the dense kernel), with the
+    kernels (no host sync) and under ``plain_kernels()``: the launches of
+    each pass checked, logits held at ``tol`` or, with ``tol`` None, their
+    gap printed in bf16 ulps. ``control="split"`` runs the first pass with
+    the SGMV op on ``sgmv_plain_split``. Returns the max gaps [prefill,
+    paged decode, dense decode] and the largest plain logit."""
+    prompts, frames = p18_prompts(cfg)
+    clients, slots = p18_rows()
+    live = torch.ones(P18_CLIENTS * P18_SLOTS, dtype=torch.bool, device=DEV)
+    act = live.reshape(P18_CLIENTS, P18_SLOTS)
+    steps = {True: symbiosis.make_compact_decode_step(cfg, P18_LORA,
+                                                      p18_scfg(True)),
+             False: symbiosis.make_masked_decode_step(cfg, P18_LORA,
+                                                      p18_scfg(False))}
+    n_pre = p18_per_call(cfg, prefill=True) * P18_CLIENTS
+    out, nxt = {}, None
+    for plain in (False, True):
+        for paged in (True, False):
+            torch.cuda.synchronize()
+            reset_counts()
+            with blocks.plain_kernels() if plain else (
+                    sgmv_plain_only(split=True) if control else
+                    no_host_sync()):
+                lg1, caches = p18_prefill(cfg, base, bank, prompts, frames,
+                                          paged)
+                if nxt is None:
+                    nxt = lg1.argmax(-1).to(torch.int32)
+                if paged:
+                    lg2, _, caches = steps[True](base, bank, caches, nxt,
+                                                 clients, slots, live)
+                else:
+                    lg2, caches = steps[False](
+                        base, bank, caches,
+                        nxt.reshape(P18_CLIENTS, P18_SLOTS), act)
+                    lg2 = lg2.reshape(P18_CLIENTS * P18_SLOTS, -1)
+            torch.cuda.synchronize()
+            want = {n: 0 for n in KERNELS}
+            if not plain:
+                want["paged_decode_attn" if paged else "decode_attn"] = \
+                    cfg.n_layers * (1 if paged else 2)
+                if not control:
+                    want["sgmv"] = n_pre + p18_per_call(cfg)
+            if read_counts() != want:
+                raise AssertionError(f"[{label}] launches {read_counts()}, "
+                                     f"want {want}")
+            out[plain, paged] = (lg1, lg2)
+            del caches
+    gaps = []
+    for what, got, want in (
+            ("prefill", out[False, True][0], out[True, True][0]),
+            ("paged decode", out[False, True][1], out[True, True][1]),
+            ("dense decode", out[False, False][1], out[True, False][1])):
+        gap, ulps = (got.float() - want.float()).abs(), bf16_ulps(got, want)
+        gaps.append(float(gap.max()))
+        if cfg.dtype == "bfloat16":
+            log(f"[{label}] {cfg.n_enc_layers}+{cfg.n_layers} layers "
+                f"{cfg.dtype} {what} logits, kernels"
+                f"{' (sgmv split)' if control else ''} vs plain: max_abs_err "
+                f"{gaps[-1]:.3e}, at most {float(ulps.max()):.1f} bf16 ulps; "
+                f"|logits| <= {float(want.float().abs().max()):.2f}")
+        if tol is not None:
+            compare(f"[{label}] {cfg.n_enc_layers}+{cfg.n_layers} layers "
+                    f"{cfg.dtype} {what} logits", got, want, tol)
+    for paged in (True, False):
+        if not torch.equal(out[False, paged][0], out[False, True][0]):
+            raise AssertionError(f"[{label}] the prefill logits differ "
+                                 "between the layouts")
+    log(f"[{label}] {cfg.n_enc_layers}+{cfg.n_layers} layers {cfg.dtype}: "
+        f"per-client prefill (prompts {list(P18_LENGTHS)}, 1,500 frames a "
+        f"row) max_abs_err={gaps[0]:.3e}; 8-row decode tick on pages "
+        f"{gaps[1]:.3e}, on dense rows {gaps[2]:.3e}; kernels"
+        f"{' (sgmv split)' if control else ''} vs plain"
+        f"{'' if tol is None else f' at {tol}'}")
+    top = max(float(t.float().abs().max()) for k, ts in out.items() if k[0]
+              for t in ts)
+    return gaps, top
+
+
+def p18_pair(cfg, base, bank, label, tol=None):
+    """18a's pair, kernels against plain, at ``tol``; at full depth (``tol``
+    None) beside control (c), each gap held at ``P18_CONTROL`` x control
+    (c)'s plus 4 bf16 ulps of the largest logit (bf16) or 1e-5 (fp32)."""
+    gaps, top = p18_wiring(cfg, base, bank, tol, label)
+    if tol is not None:
+        return
+    ctl, _ = p18_wiring(cfg, base, bank, None, f"{label} control (c)",
+                        control="split")
+    floor = 4 * 2.0 ** (int(np.frexp(top)[1]) - 8) \
+        if cfg.dtype == "bfloat16" else F32_TOL["atol"]
+    bound_ = [P18_CONTROL * c + floor for c in ctl]
+    log(f"[{label}] {cfg.n_enc_layers}+{cfg.n_layers} layers {cfg.dtype}: "
+        f"kernel gaps {gaps} against control (c)'s {ctl}; held at "
+        f"{P18_CONTROL} x control (c) + {floor:.3e} = "
+        f"{[round(b, 6) for b in bound_]}")
+    if any(g > b for g, b in zip(gaps, bound_)):
+        raise AssertionError(f"[{label}] gaps {gaps} past {bound_}")
+
+
+def p18_decode(cfg, base, bank, caches, first, paged, live_of, label,
+               check=True):
+    """Decode the 8 rows from their prefill's greedy ``first`` tokens until
+    each has its ``P18_NEW`` tokens: on pages the compacted step over all 8
+    rows, finished rows and rows ``live_of`` leaves out masked; on dense
+    rows the masked step. Every tick's launches are checked (the paged
+    kernel 1 or the dense kernel 2 per decoder layer, SGMV q and v per
+    decoder layer). Returns (streams [8][n], decode ms per tick)."""
+    clients, slots = p18_rows()
+    step = (symbiosis.make_compact_decode_step if paged else
+            symbiosis.make_masked_decode_step)(cfg, P18_LORA,
+                                               p18_scfg(paged))
+    n = P18_CLIENTS * P18_SLOTS
+    streams = [[int(first[i])] for i in range(n)]
+    tok, times = first.to(torch.int32), []
+    attn = "paged_decode_attn" if paged else "decode_attn"
+    want = {k: 0 for k in KERNELS}
+    want.update({attn: cfg.n_layers * (1 if paged else 2),
+                 "sgmv": p18_per_call(cfg)})
+    while True:
+        live = [live_of(i) and len(streams[i]) < P18_NEW[i] for i in range(n)]
+        if not any(live):
+            break
+        mask = torch.tensor(live, device=DEV)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        if paged:
+            lg, _, caches = step(base, bank, caches, tok, clients, slots,
+                                 mask)
+        else:
+            lg, caches = step(base, bank, caches,
+                              tok.reshape(P18_CLIENTS, P18_SLOTS),
+                              mask.reshape(P18_CLIENTS, P18_SLOTS))
+            lg = lg.reshape(n, -1)
+        tok = lg.argmax(-1).to(torch.int32)
+        host = tok.cpu()
+        times.append(time.perf_counter() - t0)
+        if check and read_counts() != want:
+            raise AssertionError(f"[{label}] a decode tick launched "
+                                 f"{read_counts()}, want {want}")
+        for i in range(n):
+            if live[i]:
+                streams[i].append(int(host[i]))
+    return streams, times
+
+
+def p18_gather_ms(cfg, caches):
+    """The compacted decode's gather of 8 rows' per-slot leaves (the cross
+    caches, ``symbiosis._gather_rows``): device ms (CUDA events, L2-cold)
+    and the bytes it moves (each row's cross K and V read and written)."""
+    clients, slots = p18_rows()
+    axes = symbiosis.cache_slot_axes(cfg, P18_MAX_SEQ, page_block=P18_BLK)
+    ms = time_ms(lambda: symbiosis._gather_rows(caches, axes, clients,
+                                                slots), n=10)
+    nbytes = 2 * sum(caches["layers"][n].nbytes for n in ("cross_k",
+                                                            "cross_v"))
+    return ms, nbytes
+
+
+def phase18b(cfg, base, bank):
+    """18b: the 8 prompts with their own frames prefilled per client on
+    pages, compacted decode ticks until every row has its new tokens (12
+    paged and 24 SGMV launches per tick, 48 SGMV per client prefill); every
+    client's streams bit for bit its rows decoded alone (the other rows
+    masked out: the same 8-row batch), the masked step bit for bit the
+    compacted one; the dense layout's streams (the dense kernel) printed
+    against the pages'; ``make_multi_client_prefill`` with frames over the
+    dense bank; a traced tick, the cross-cache gather, and the caches'
+    bytes against the router's charge per slot. Returns (streams, times,
+    the kernels' timing fields at whisper's shapes)."""
+    prompts, frames = p18_prompts(cfg)
+    n = P18_CLIENTS * P18_SLOTS
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lg, caches = p18_prefill(cfg, base, bank, prompts, frames, True)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    want = {k: 0 for k in KERNELS}
+    want["sgmv"] = p18_per_call(cfg, prefill=True) * P18_CLIENTS
+    if read_counts() != want:
+        raise AssertionError(f"[phase 18b] the prefills launched "
+                             f"{read_counts()}, want {want}")
+    first = lg.argmax(-1)
+    fresh = tree_clone(caches)
+    ptrs = [t.data_ptr() for t in tree_leaves(caches)]
+    streams, dec_t = p18_decode(cfg, base, bank, caches, first, True,
+                                lambda i: True, "phase 18b")
+    if [t.data_ptr() for t in tree_leaves(caches)] != ptrs:
+        raise AssertionError("[phase 18b] a cache tensor moved")
+    for c in range(P18_CLIENTS):
+        alone, _ = p18_decode(cfg, base, bank, tree_clone(fresh), first,
+                              True, lambda i, c=c: i // P18_SLOTS == c,
+                              "phase 18b")
+        for s in range(P18_SLOTS):
+            i = c * P18_SLOTS + s
+            if alone[i] != streams[i]:
+                raise AssertionError(f"[phase 18b] row {i}'s stream differs "
+                                     "from its client decoded alone")
+    # the masked step is the compacted one over every row: bit for bit
+    clients, slots = p18_rows()
+    live = torch.tensor([i % 3 != 1 for i in range(n)], device=DEV)
+    a, b = tree_clone(fresh), tree_clone(fresh)
+    lm, a = symbiosis.make_masked_decode_step(cfg, P18_LORA, p18_scfg(True))(
+        base, bank, a, first.to(torch.int32).reshape(P18_CLIENTS, P18_SLOTS),
+        live.reshape(P18_CLIENTS, P18_SLOTS))
+    lc, _, b = symbiosis.make_compact_decode_step(cfg, P18_LORA,
+                                                  p18_scfg(True))(
+        base, bank, b, first.to(torch.int32), clients, slots, live)
+    if not (torch.equal(lm.reshape(n, -1)[live], lc[live])
+            and trees_equal(a, b)):
+        raise AssertionError("[phase 18b] the masked step differs from the "
+                             "compacted one")
+    log(f"[phase 18b] {cfg.name}: 4 LoRA r8 tenants (q, v) x 2 slots, 8 "
+        f"decoder prompts of {list(P18_LENGTHS)} tokens, each with its own "
+        f"1,500 stub frames: per-client prefills {pre_s * 1e3:.1f} ms "
+        f"(sgmv {want['sgmv']} launches, nothing else), then "
+        f"{len(dec_t)} compacted decode ticks on pages of {P18_BLK} (rows "
+        f"finish after {list(P18_NEW)} tokens; paged_decode_attn "
+        f"{cfg.n_layers} and sgmv {p18_per_call(cfg)} launches per tick, "
+        f"checked tick by tick); median tick "
+        f"{statistics.median(dec_t) * 1e3:.3f} ms (host clock); every "
+        f"client's streams equal its rows decoded alone, bit for bit; the "
+        f"masked step equals the compacted one (logits and caches) bit for "
+        f"bit; every cache tensor kept its data_ptr")
+    del a, b
+    # the dense layout: the same prefills on dense rows, the dense kernel
+    lg_d, dense = p18_prefill(cfg, base, bank, prompts, frames, False)
+    if not torch.equal(lg_d, lg):
+        raise AssertionError("[phase 18b] dense prefill logits differ")
+    dstreams, _ = p18_decode(cfg, base, bank, dense, first, False,
+                             lambda i: True, "phase 18b dense")
+    same = sum(x == y for s, t in zip(streams, dstreams)
+               for x, y in zip(s, t))
+    total = sum(len(s) for s in streams)
+    diverge = [next((k for k, (x, y) in enumerate(zip(s, t)) if x != y),
+                    None) for s, t in zip(streams, dstreams)]
+    log(f"[phase 18b] the dense layout (the dense kernel, decode_attn "
+        f"{2 * cfg.n_layers} and sgmv {p18_per_call(cfg)} launches per tick,"
+        f" checked): {same} of {total} greedy tokens equal the pages'; the "
+        f"first step each row differs: {diverge}")
+    # the bank-wide prefill with frames over the dense bank (JAX's
+    # make_multi_client_prefill): every row's first 4 tokens
+    mc = symbiosis.init_client_caches(cfg, P18_CLIENTS, P18_SLOTS,
+                                      P18_MAX_SEQ, device=DEV)
+    toks4 = torch.stack([t[:, :4] for t, _ in prompts])
+    torch.cuda.synchronize()
+    reset_counts()
+    lg4, mc = symbiosis.make_multi_client_prefill(cfg, P18_LORA,
+                                                  p18_scfg(False))(
+        base, bank, mc, {"tokens": toks4, "frames": frames})
+    lg5, mc = symbiosis.make_multi_client_decode_step(cfg, P18_LORA,
+                                                      p18_scfg(False))(
+        base, bank, mc, lg4.argmax(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    want = {k: 0 for k in KERNELS}
+    want.update(sgmv=p18_per_call(cfg, prefill=True) + p18_per_call(cfg),
+                decode_attn=2 * cfg.n_layers)
+    if read_counts() != want or not (torch.isfinite(lg4).all()
+                                     and torch.isfinite(lg5).all()):
+        raise AssertionError(f"[phase 18b] multi-client prefill + decode: "
+                             f"{read_counts()}, want {want}")
+    log(f"[phase 18b] make_multi_client_prefill over the dense bank's 8 "
+        f"rows (4-token prompts, frames [4, 2, 1500, 768]) and one "
+        f"multi-client decode tick: {read_counts()}")
+    del dense, mc
+    # a traced tick (8 live rows) and the cross caches' gather
+    a = tree_clone(fresh)
+    step = symbiosis.make_compact_decode_step(cfg, P18_LORA, p18_scfg(True))
+    all_live = torch.ones(n, dtype=torch.bool, device=DEV)
+    tok = first.to(torch.int32)
+    ticks = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(base, bank, a, tok, clients, slots, all_live)
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    med = statistics.median(ticks)
+    with traced() as prof:
+        step(base, bank, a, tok, clients, slots, all_live)
+        torch.cuda.synchronize()
+    busy_ms, n_kern, by_name = device_profile(prof)
+    g_ms, g_bytes = p18_gather_ms(cfg, fresh)
+    out = {"tick8_ms": med * 1e3, "gather_ms": g_ms, "gather_bytes": g_bytes}
+    if n_kern:
+        out.update(busy_ms=busy_ms, kernels=n_kern)
+        log(f"[phase 18b] an 8-row compacted decode tick: {med * 1e3:.3f} ms "
+            f"median of 5 (host clock), device busy {busy_ms:.3f} ms = "
+            f"{100 * busy_ms / (med * 1e3):.1f}%; {n_kern} kernels; top:")
+        for name, (k, d) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+            log(f"[phase 18b]   {d / 1e3:8.3f} ms  {k:5d}x  {name[:90]}")
+    else:
+        log(f"[phase 18b] an 8-row compacted decode tick: {med * 1e3:.3f} ms "
+            "median; the profiler saw no device events: busy share not "
+            "measured")
+    log(f"[phase 18b] the tick's gather of the 8 rows' cross caches "
+        f"(read only: gathered, never written back): {g_bytes:,} B moved "
+        f"(read and written) in {g_ms:.3f} ms (CUDA events, L2-cold) = "
+        f"{100 * g_ms / (med * 1e3):.1f}% of the tick; bound "
+        f"{bound(g_bytes, 0)[0]:.3f} ms")
+    fields = p18_kernel_times(cfg, fresh)
+    del a, fresh, caches
+    # the caches' bytes against the router's charge per slot
+    charge = kvcache.cache_bytes(cfg, P18_MAX_SEQ, 1, page_block=P18_BLK)
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    row = cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * a    # K + V a token
+    made, leaves, held = p15_cache_held(
+        lambda: symbiosis.init_client_caches(
+            cfg, P18_CLIENTS, P18_SLOTS, P18_MAX_SEQ, page_block=P18_BLK,
+            device=DEV), "init_client_caches (pages)", phase="phase 18b")
+    tree = sum(t.nbytes for t in leaves)
+    extra = made["pos"].nbytes + made["block_tbl"].nbytes
+    log(f"[phase 18b] {held / n:,.0f} B held per slot; the router charges "
+        f"{charge:,} B a slot = {cfg.n_frontend_tokens * row:,} (the cross "
+        f"caches; predicted 55,296,000 at full size) + {row:,} (predicted "
+        f"36,864) x {P18_MAX_SEQ} tokens; tree = {n} charges + {extra} B of "
+        f"pos and block_tbl")
+    if charge != (cfg.n_frontend_tokens + P18_MAX_SEQ) * row \
+            or tree != n * charge + extra:
+        raise AssertionError(f"[phase 18b] tree {tree} B, {n} charges of "
+                             f"{charge} B")
+    del made, leaves
+    return streams, dec_t, out, fields
+
+
+def p18_kernel_times(cfg, caches):
+    """The three kernels at whisper's shapes, each held against its plain
+    version and timed beside it, a library call and its bound: the paged
+    kernel over 18b's pool (8 rows, K 12, G 1, hd 64), the dense kernel at
+    [8, 512, 12, 64], and SGMV at din = dout = 768, rank 8 (decode, and an
+    encoder and a decoder prefill's blocks)."""
+    out = {}
+    q, pools, tbl, pos = attn_rows(cfg, {
+        "layers": {n: caches["layers"][n] for n in ("k", "v")},
+        "block_tbl": caches["block_tbl"]}, P18_LENGTHS)
+    pk, pv = pools["k"], pools["v"]
+    B, K, _, hd = q.shape
+    g = gen(181)
+    compare("[phase 18e] paged_decode_attn whisper (kernel vs plain)",
+            da.paged_decode_attn_cuda(q, pk, pv, tbl, pos),
+            da.paged_decode_attn_plain(q.float(), pk.float(), pv.float(),
+                                       tbl, pos), BF16_TOL)
+    out["paged_decode_attn"] = time_attention(
+        "paged_decode_attn whisper", lambda: da.paged_decode_attn_cuda(
+            q, pk, pv, tbl, pos),
+        lambda: da.paged_decode_attn_plain(q, pk, pv, tbl, pos),
+        lambda: sdpa_over_pages(q, pk, pv, tbl, pos), q, tbl, pos,
+        lambda tokens: 2 * tokens * K * hd * 2, phase="phase 18e")
+    T = 512
+    k = torch.randn((B, T, K, hd), generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn((B, T, K, hd), generator=g, device=DEV).to(torch.bfloat16)
+    out["decode_attn"] = time_dense_decode(q, k, v, pos,
+                                           "decode_attn whisper slab", [],
+                                           phase="phase 18e")
+    scale = P18_LORA.alpha / P18_LORA.rank
+    r, d = P18_LORA.rank, cfg.d_model
+    for name, (T, bt, ids) in (
+            ("decode", (8, 1, [0, 0, 1, 1, 2, 2, 3, 3])),
+            ("encoder prefill", (2 * cfg.n_frontend_tokens,
+                                 cfg.n_frontend_tokens, [2, 2])),
+            ("decoder prefill", (2 * 64, 64, [1, 1]))):
+        A = (torch.randn((P18_CLIENTS, d, r), generator=g, device=DEV)
+             / d ** 0.5).to(torch.bfloat16)
+        Bw = (torch.randn((P18_CLIENTS, r, d), generator=g, device=DEV)
+              * 0.05).to(torch.bfloat16)
+        x = torch.randn((T, d), generator=g, device=DEV).to(torch.bfloat16)
+        ids_t = torch.tensor(ids, dtype=torch.int32, device=DEV)
+        row = ids_t.long().repeat_interleave(bt)
+
+        def kernel():
+            return sg.sgmv_cuda(x, A, Bw, ids_t, block_t=bt, scale=scale)
+
+        def library():
+            h = torch.bmm(x[:, None, :], A[row])
+            return torch.bmm(h, Bw[row])[:, 0] * scale
+
+        err = compare(f"[phase 18e] sgmv {name} (kernel vs plain)", kernel(),
+                      sg.sgmv_plain(x.float(), A.float(), Bw.float(), ids_t,
+                                    block_t=bt, scale=scale), BF16_TOL)
+        nbytes = 2 * (T * d + len(set(ids)) * r * 2 * d + T * d) \
+            + 4 * len(ids)
+        out[f"sgmv {name}"] = timing_fields(
+            f"sgmv whisper {name} T={T} block_t={bt} din=dout={d} r={r} "
+            f"(max_abs_err {err:.3e} vs plain)", kernel,
+            lambda: sg.sgmv_plain(x, A, Bw, ids_t, block_t=bt, scale=scale),
+            library, nbytes, 4 * T * r * d, f"[{T}, {d}]", phase="phase 18e")
+    return out
+
+
+def p18_jobs(cfg, n, steps, first_seed, acfg=P18_LORA):
+    """``n`` jobs of ``acfg`` over 2 x ``P18_TRAIN_S`` decoder tokens, each
+    row with its 1,500 stub frames."""
+    return [FinetuneJob(acfg=acfg, batch_size=2, seq_len=P18_TRAIN_S,
+                        steps=steps, lr=1e-3, warmup_steps=1,
+                        seed=first_seed + i,
+                        name=f"whisper-{first_seed + i}",
+                        data=make_job_stream(cfg, 2, P18_TRAIN_S,
+                                             seed=first_seed + i, device=DEV))
+            for i in range(n)]
+
+
+def p18_encoder_ms(cfg, base, rows):
+    """Device ms of the encoder alone over ``rows`` x 1,500 frames with a
+    LoRA on q and v requiring grad: forward, and forward plus backward
+    (every layer recomputed), CUDA events, L2-cold."""
+    from repro_torch.models import encdec
+    frames = frontend_stub(cfg, 1, rows, generator=gen(183),
+                           device=DEV)["frames"][0]
+    ad = tree_map(lambda t: t[0].detach().requires_grad_(True),
+                  random_lora(cfg, 1, 184, P18_LORA))
+    ctx = make_client_ctx(cfg, P18_LORA)
+    leaves = tree_leaves(ad["enc_layers"])
+
+    def fwd():
+        with torch.no_grad():
+            encdec.encode(cfg, base, frames, ctx, ad)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            out = encdec.encode(cfg, base, frames, ctx, ad)
+            torch.autograd.grad(out.float().sum(), leaves)
+    return time_ms(fwd, n=3), time_ms(fwd_bwd, n=3)
+
+
+def p18_memory(cfg, base, job):
+    """Peak device memory beyond base and bank of one bank step at 1 and 4
+    jobs (2 x 128 tokens and 1,500 frames a row, remat off), each under
+    ``job_charge_bytes``."""
+    charge = job_charge_bytes(cfg, job)
+    step = symbiosis.make_compact_train_step(cfg, job.acfg, remat=False)
+
+    def peak(R):
+        bank = random_lora(cfg, R, 185, job.acfg)
+        opt = AdamWState(step=torch.zeros(R, dtype=torch.int32, device=DEV),
+                         m=tree_map(torch.zeros_like, bank),
+                         v=tree_map(torch.zeros_like, bank))
+        batch = p16_batches(cfg, R, 186, seq=P18_TRAIN_S, batch=2)
+        args = (torch.arange(R, dtype=torch.int32, device=DEV),
+                torch.ones(R, dtype=torch.bool, device=DEV), step7a_hyper(R))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(base, bank, opt, batch, *args)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    peaks = {R: peak(R) for R in (1, 4)}
+    torch.cuda.empty_cache()
+    log(f"[phase 18c] peak device memory beyond base and bank, one bank "
+        f"step (2 x {P18_TRAIN_S} tokens and 2 x 1,500 frames a job, remat "
+        f"off), GB: 1 job {peaks[1] / 1e9:.3f}, 4 jobs {peaks[4] / 1e9:.3f}; "
+        f"charge per job {charge / 1e9:.3f} (job_hbm_bytes "
+        f"{job_hbm_bytes(cfg, job) / 1e9:.3f}, activations "
+        f"{job_activation_bytes(cfg, job) / 1e9:.3f})")
+    for R, p in peaks.items():
+        if p > R * charge:
+            raise AssertionError(f"[phase 18c] {R} job(s) peak at {p} B, "
+                                 f"above the charge {R * charge} B")
+    return peaks
+
+
+def phase18c(cfg, base):
+    """18c: a FinetuneEngine of 4 LoRA jobs (q, v; 2 x 128 tokens, 1,500
+    frames a row) behind a router sized by ``job_charge_bytes`` that holds
+    a fifth back: tick times, one tick traced, the encoder's share of it,
+    the peaks at 1 and 4 jobs under the charge."""
+    jobs = p18_jobs(cfg, 4, P18_STEPS, 80) + p18_jobs(cfg, 1, 2, 84)
+    charge = job_charge_bytes(cfg, jobs[0])
+    router = PlacementRouter(cfg, [Slot(0, free_hbm=4.5 * charge)])
+    eng = FinetuneEngine(EngineSpec(cfg=cfg, finetune=FinetuneConfig()), base,
+                         device=DEV, router=router)
+    for j in jobs:
+        eng.submit(j)
+    ticks = []
+    for _ in range(P18_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.train_tick()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    with traced() as prof:
+        eng.train_tick()
+        torch.cuda.synchronize()
+    if eng.stats["peak_jobs"] != 4 or jobs[4].status != "queued":
+        raise AssertionError(f"[phase 18c] peak {eng.stats['peak_jobs']}, "
+                             f"job 4 {jobs[4].status}")
+    eng.run()
+    if any(j.status != "finished" for j in jobs) or not all(
+            np.isfinite(j.losses).all() for j in jobs):
+        raise AssertionError(f"[phase 18c] {[j.status for j in jobs]} "
+                             f"{[j.losses for j in jobs]}")
+    used = router.utilization()
+    if router.conservation_errors() or used["committed_bytes"]:
+        raise AssertionError(f"[phase 18c] router after the drain: {used}")
+    med = statistics.median(ticks[1:])
+    log(f"[phase 18c] {cfg.name}: 5 LoRA r8 jobs (q, v; 2 x {P18_TRAIN_S} "
+        f"tokens, 1,500 frames a row), router slot {4.5 * charge:.0f} B for "
+        f"charges of {charge} B: 4 rows for {P18_STEPS} ticks, job 4 after; "
+        f"stats {eng.stats}; losses "
+        f"{[[round(x, 4) for x in j.losses] for j in jobs]}")
+    log(f"[phase 18c] 4-row train tick (host clock, synchronised): "
+        f"{[round(t * 1e3, 3) for t in ticks]} ms; median of "
+        f"{len(ticks) - 1} after the first {med * 1e3:.3f} ms, "
+        f"{8 * P18_TRAIN_S / med:.0f} decoder tokens/s")
+    busy_ms, n_kern, by_name = device_profile(prof)
+    enc_f, enc_fb = p18_encoder_ms(cfg, base, 8)
+    log(f"[phase 18c] the encoder alone at the tick's shapes (8 rows x "
+        f"1,500 frames, 12 layers, CUDA events, L2-cold): forward "
+        f"{enc_f:.2f} ms, forward + backward (layers recomputed) "
+        f"{enc_fb:.2f} ms = {100 * enc_fb / (med * 1e3):.1f}% of the "
+        f"unprofiled tick")
+    if n_kern:
+        log(f"[phase 18c] one traced 4-row tick: device busy {busy_ms:.3f} "
+            f"ms = {100 * busy_ms / (med * 1e3):.1f}% of the unprofiled "
+            f"median; {n_kern} kernels; top kernels:")
+        for name, (k, d) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+            log(f"[phase 18c]   {d / 1e3:8.3f} ms  {k:5d}x  {name[:90]}")
+    else:
+        log("[phase 18c] the profiler saw no device events: device busy not "
+            "measured")
+    del eng, prof
+    gc.collect()
+    peaks = p18_memory(cfg, base, jobs[0])
+    return {"tick_ms": med * 1e3, "encoder_fwd_ms": enc_f,
+            "encoder_fwd_bwd_ms": enc_fb, "busy_ms": busy_ms,
+            "kernels": n_kern, "peaks": peaks, "charge": charge}
+
+
+def phase18():
+    """The encoder-decoder family on the serving steps and in fine-tuning:
+    whisper-small at full width and depth (12 + 12 layers, d 768, 1,500
+    stub frames, vocab 51,865; 304.3 M params, ~0.6 GB bf16), 4 LoRA r8
+    tenants on q and v. 18a kernels against plain at 1 + 1 layers (bf16
+    and fp32) and 12 + 12 (bf16 and fp32, beside control (c)); 18b serving;
+    18c fine-tuning, then 2-row IA3 and prefix banks at 1 + 1 layers fp32;
+    18d a killed engine resumed; 18e the kernels at whisper's shapes."""
+    cfg = p18_config()
+    t0 = time.perf_counter()
+    base, bank = make_system(cfg, P18_CLIENTS, seed=18, acfg=P18_LORA)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(base))
+    log(f"[phase 18] {cfg.name}: {cfg.n_enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_frontend_tokens} frames, vocab {cfg.vocab}), "
+        f"{n_params / 1e6:.1f} M params bf16 initialised in "
+        f"{time.perf_counter() - t0:.1f} s; LoRA r8 on q and v")
+    t = time.perf_counter()
+    two = p18_config(1, 1)
+    base2 = dict(base, enc_layers=base["enc_layers"][:1],
+                 dec_layers=base["dec_layers"][:1])
+    bank2 = {k: tree_map(lambda x: x[:, :1], v) for k, v in bank.items()}
+    p18_pair(two, base2, bank2, "phase 18a", tol=BF16_TOL)
+    p18_pair(cfg, base, bank, "phase 18a")
+    log(f"[phase 18a] bf16 done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    streams, dec_t, tick, fields = phase18b(cfg, base, bank)
+    free_device("phase 18")
+    log(f"[phase 18b/e] done ({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    train = phase18c(cfg, base)
+    free_device("phase 18")
+    phase16d(cfg, base, jobs=lambda: p18_jobs(cfg, 2, 3, 95),
+             phase="phase 18d", what="LoRA jobs (q, v)")
+    log(f"[phase 18c/d] full depth done ({time.perf_counter() - t:.1f} s)")
+    del base, bank, base2, bank2
+    free_device("phase 18")
+    t = time.perf_counter()
+    cfg32 = p18_config(dtype="float32")
+    base32, bank32 = make_system(cfg32, P18_CLIENTS, seed=18, acfg=P18_LORA)
+    bank32 = tree_map(lambda x: x.float(), bank32)
+    p18_pair(cfg32, base32, bank32, "phase 18a")
+    two32 = p18_config(1, 1, dtype="float32")
+    base2 = dict(base32, enc_layers=base32["enc_layers"][:1],
+                 dec_layers=base32["dec_layers"][:1])
+    p18_pair(two32, base2, {k: tree_map(lambda x: x[:, :1], v)
+                            for k, v in bank32.items()}, "phase 18a",
+             tol=F32_TOL)
+    del bank32
+    for label, acfg in (("IA3 k/v/down", P16_IA3),
+                        ("prefix (16 tokens)", P10_ACFGS["prefix"])):
+        p17_rows(two32, base2, acfg, random_bank(two32, acfg, 2, 187), label,
+                 phase="phase 18c")
+    del base32, base2
+    free_device("phase 18")
+    log(f"[phase 18a/c] fp32 done ({time.perf_counter() - t:.1f} s)")
+    return fields, tick, train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -7149,7 +7916,12 @@ def main() -> int:
 
     t = time.perf_counter()
     phase17()
-    log(f"[phase 17] done ({time.perf_counter() - t:.1f} s); total "
+    log(f"[phase 17] done ({time.perf_counter() - t:.1f} s)")
+    free_device("phase 17")
+
+    t = time.perf_counter()
+    phase18()
+    log(f"[phase 18] done ({time.perf_counter() - t:.1f} s); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # launches: phase 4's counts, phase 4b's for the int8 kernel, phase 9a's

@@ -2,8 +2,8 @@
 fine-tuning / serve.
 
 A copy of the JAX package's ``repro.config`` limited to what the port's
-serving paths and its fine-tuning service (the dense, MoE, VLM, hybrid
-and RWKV families; LoRA, IA3 and prefix banks) read. The port keeps its own
+serving paths and its fine-tuning service (the dense, MoE, VLM, hybrid,
+RWKV and encoder-decoder families; LoRA, IA3 and prefix banks) read. The port keeps its own
 copy so that it imports nothing of the JAX package; the fields it keeps
 have the same names and defaults, so a config describes the same model in
 both.
@@ -15,25 +15,38 @@ from dataclasses import dataclass
 from typing import Sequence
 
 
-# Architecture families. The port serves and fine-tunes the pure-KV ones,
-# the hybrid and RWKV; a config of the encoder-decoder family is refused
-# where a model or engine is built.
+# Architecture families. The port runs every family's model, serving
+# steps and fine-tuning; the encoder-decoder family's requests are refused
+# by the serving engine, whose requests carry tokens only (``check_family``
+# with ``frameless=``).
 DENSE = "dense"
 MOE = "moe"
 VLM = "vlm"        # LLaVA backbone (dense + patch-embedding frontend stub)
 HYBRID = "hybrid"  # Jamba: Mamba + attention interleave + MoE
 RWKV = "rwkv"      # attention-free, data-dependent decay (RWKV6)
-FAMILIES = (DENSE, MOE, VLM, HYBRID, RWKV)
-TRAIN_FAMILIES = (DENSE, MOE, VLM, HYBRID, RWKV)
+ENCDEC = "encdec"  # Whisper backbone (audio frontend stubbed: frames)
+FAMILIES = (DENSE, MOE, VLM, HYBRID, RWKV, ENCDEC)
+TRAIN_FAMILIES = (DENSE, MOE, VLM, HYBRID, RWKV, ENCDEC)
 
 
-def check_family(cfg: "ModelConfig", families=FAMILIES, what="serves"):
+def check_family(cfg: "ModelConfig", families=FAMILIES, what="serves", *,
+                 frameless: str = ""):
     """Refuse ``cfg`` unless its family is one of ``families``, which the
-    port ``what`` (serves, fine-tunes)."""
+    port ``what`` (serves, fine-tunes). ``frameless`` names a caller that
+    hands the model tokens only (the serving engine's ``submit``, the
+    per-client prefill, the serve CLI): an encoder-decoder
+    model needs its ``frames`` there, and JAX's engine passes none (its
+    prefill raises ``KeyError: 'frames'``), so the port refuses the call
+    before it changes any state."""
     if cfg.arch not in families:
         raise ValueError(f"{cfg.name} is of the {cfg.arch!r} family: not "
                          f"ported yet; the port {what} the "
                          f"{'/'.join(families)} families")
+    if frameless and cfg.arch == ENCDEC:
+        raise ValueError(f"{frameless} refuses {cfg.name}: an 'encdec' "
+                         "prefill needs frames, and JAX's serving engine "
+                         "passes no frames (tokens only: its prefill raises "
+                         "KeyError: 'frames')")
 
 
 @dataclass(frozen=True)
@@ -65,8 +78,10 @@ class ModelConfig:
     d_state: int = 16                 # Mamba state dim
     d_conv: int = 4
     mamba_expand: int = 2
-    # --- VLM ---
-    n_frontend_tokens: int = 0        # image patch tokens (stubbed frontend)
+    # --- Encoder-decoder (Whisper) ---
+    n_enc_layers: int = 0
+    n_frontend_tokens: int = 0        # encoder frames (audio) / image patch
+                                      # tokens (VLM): stubbed frontends
     sliding_window: int = 0           # 0 -> full attention
     # --- dtypes ---
     dtype: str = "bfloat16"           # activations
@@ -125,6 +140,8 @@ class ModelConfig:
                 first_dense_layers=min(self.first_dense_layers, 1))
         if self.arch == HYBRID:
             changes.update(attn_every=2, n_layers=max(n_layers, 2))
+        if self.arch == ENCDEC:
+            changes.update(n_enc_layers=n_layers, n_frontend_tokens=16)
         if self.arch == VLM:
             changes.update(n_frontend_tokens=16)
         return dataclasses.replace(self, **changes)

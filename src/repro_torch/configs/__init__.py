@@ -1,12 +1,12 @@
 """Model configs served by the PyTorch port.
 
 ``get_config(arch_id)`` resolves the ``--arch`` CLI flag, as
-``repro.configs.get_config`` does, limited to the families the port serves
-(dense, MoE, VLM, hybrid and RWKV); every config cites its source in
+``repro.configs.get_config`` does, over the families the port runs
+(dense, MoE, VLM, hybrid, RWKV and encoder-decoder); every config cites its source in
 ``CONFIG.source``. arctic-480b (about 960 GB in bf16) fits no single card:
 it is registered for its ``reduced()`` variant; jamba-v0.1-52b (about 103
 GB in bf16) fits one card only cut in depth; rwkv6-7b (about 15 GB)
-fits whole.
+and whisper-small (about 0.6 GB) fit whole.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import importlib
 
 from repro_torch.config import ModelConfig
 
-# arch-id -> module name (dense, MoE, VLM, hybrid and RWKV configs)
+# arch-id -> module name (dense, MoE, VLM, hybrid, RWKV and enc-dec configs)
 ARCHS = {
     "granite-3-8b": "granite_3_8b",
     "command-r-35b": "command_r_35b",
@@ -28,6 +28,7 @@ ARCHS = {
     "starcoder2-15b": "starcoder2_15b",
     "jamba-v0.1-52b": "jamba_v01_52b",
     "rwkv6-7b": "rwkv6_7b",
+    "whisper-small": "whisper_small",
 }
 
 

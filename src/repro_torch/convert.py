@@ -42,6 +42,17 @@ nothing here imports JAX. Layouts:
   layer-major [L, C, B, ...] in a bank (JAX: client-major [C, L, B, ...]),
   as dense KV rows. RWKV params are the ``layers`` stack of any family
   (``decay`` and ``bonus`` fp32 leaves in both).
+* the encoder-decoder family: JAX stacks two layer containers,
+  ``enc_layers`` [L_enc, ...] and ``dec_layers`` [L, ...]; the port keeps
+  two per-layer lists. Its banks are ``{"enc_layers", "dec_layers"}``
+  with [C, L_enc, ...] and [C, L, ...] leaves in both packages. Its
+  caches: JAX's ``{"self_k", "self_v", "cross_k", "cross_v", "pos",
+  ("block_tbl")}`` are the port's ``{"layers": {"k", "v", "cross_k",
+  "cross_v"}, "pos", ("block_tbl")}`` (``models.encdec``): at model level
+  the same leaves ([L, ...]); in a bank the self-attention pools [L, C*P,
+  ...] alike, and the per-slot leaves (the cross caches, and dense K/V
+  rows) client-major [C, L, B, ...] in JAX, layer-major [L, C, B, ...] in
+  the port.
 
 bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) cross as their 16-bit
 patterns, so no value is rounded on the way.
@@ -91,33 +102,41 @@ def _n_pre(cfg) -> int:
     return 0 if cfg is None else cfg.first_dense_layers
 
 
+_STACKS = ("layers", "groups", "enc_layers", "dec_layers")
+
+
 def params_from_numpy(cfg, tree, device):
     """JAX base params (numpy leaves) -> the port's per-layer (or, for the
-    hybrid, per-group) structure, JAX's ``pre_layers`` first."""
-    stacked = "groups" if "groups" in tree else "layers"
+    hybrid, per-group) lists, JAX's ``pre_layers`` first in ``layers``;
+    an encoder-decoder's two stacks each become a list."""
+    stacks = [k for k in _STACKS if k in tree]
     out = {k: _map(lambda a: tensor_from_numpy(a, device), v)
-           for k, v in tree.items() if k not in (stacked, "pre_layers")}
-    pre = [_map(lambda a: tensor_from_numpy(a, device), layer)
-           for layer in tree.get("pre_layers", [])]
-    n = len(tree_leaves(tree[stacked])[0])
-    out[stacked] = pre + [
-        _map(lambda a, i=i: tensor_from_numpy(a[i], device), tree[stacked])
-        for i in range(n)]
+           for k, v in tree.items() if k not in stacks + ["pre_layers"]}
+    for stacked in stacks:
+        pre = [] if stacked != "layers" else [
+            _map(lambda a: tensor_from_numpy(a, device), layer)
+            for layer in tree.get("pre_layers", [])]
+        n = len(tree_leaves(tree[stacked])[0])
+        out[stacked] = pre + [
+            _map(lambda a, i=i: tensor_from_numpy(a[i], device),
+                 tree[stacked]) for i in range(n)]
     return out
 
 
 def params_to_numpy(params, cfg=None):
     """Inverse of ``params_from_numpy``: the layers after ``cfg``'s
     ``first_dense_layers`` stacked back on [L], those before it in
-    ``pre_layers``; a hybrid's groups on [G]."""
-    stacked = "groups" if "groups" in params else "layers"
+    ``pre_layers``; a hybrid's groups on [G]; an encoder-decoder's two
+    lists each on its own axis."""
+    stacks = [k for k in _STACKS if k in params]
     out = {k: _map(tensor_to_numpy, v) for k, v in params.items()
-           if k != stacked}
-    per = [_map(tensor_to_numpy, layer) for layer in params[stacked]]
-    n_pre = _n_pre(cfg)
-    if n_pre:
-        out["pre_layers"] = per[:n_pre]
-    out[stacked] = _zip(lambda *leaves: np.stack(leaves), per[n_pre:])
+           if k not in stacks}
+    for stacked in stacks:
+        per = [_map(tensor_to_numpy, layer) for layer in params[stacked]]
+        n_pre = _n_pre(cfg) if stacked == "layers" else 0
+        if n_pre:
+            out["pre_layers"] = per[:n_pre]
+        out[stacked] = _zip(lambda *leaves: np.stack(leaves), per[n_pre:])
     return out
 
 
@@ -193,6 +212,9 @@ def _pre_axis(tree) -> int:
 
 
 _RWKV_STATE = ("wkv", "tm_x", "cm_x")
+# JAX's encoder-decoder cache leaves -> the port's ``layers`` names
+_ENCDEC_LEAVES = {"self_k": "k", "self_v": "v", "cross_k": "cross_k",
+                  "cross_v": "cross_v"}
 
 
 def caches_from_numpy(tree, device):
@@ -200,10 +222,15 @@ def caches_from_numpy(tree, device):
     the layer axis, an RWKV cache's flat state under ``layers``, and a
     bank's per-slot leaves (dense KV rows, a hybrid's Mamba state, the
     RWKV state) from client-major [C, L, ...] to [L, C, ...]
-    (contiguous); anything else in the same layout."""
+    (contiguous); an encoder-decoder cache's four leaves under ``layers``
+    (``self_k`` / ``self_v`` as ``k`` / ``v``); anything else in the same
+    layout."""
     if isinstance(tree, dict) and "wkv" in tree:
         tree = {"layers": {n: tree[n] for n in _RWKV_STATE},
                 **{k: v for k, v in tree.items() if k not in _RWKV_STATE}}
+    if isinstance(tree, dict) and "cross_k" in tree:
+        tree = {"layers": {n: tree[j] for j, n in _ENCDEC_LEAVES.items()},
+                **{k: v for k, v in tree.items() if k not in _ENCDEC_LEAVES}}
     out = _map(lambda a: tensor_from_numpy(a, device),
                _fold_pre(tree, _pre_axis(tree)))
     return _bank_slot_leaves(lambda t: t.transpose(0, 1).contiguous(), out)
@@ -217,4 +244,7 @@ def caches_to_numpy(caches, cfg=None):
         np.swapaxes(a, 0, 1)), _map(tensor_to_numpy, caches))
     if "wkv" in out.get("layers", {}):
         out = {**out.pop("layers"), **out}
+    if "cross_k" in out.get("layers", {}):
+        layers = out.pop("layers")
+        out = {**{j: layers[n] for j, n in _ENCDEC_LEAVES.items()}, **out}
     return _split_pre(out, _pre_axis(caches), _n_pre(cfg))

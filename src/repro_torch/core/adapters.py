@@ -1,5 +1,5 @@
-"""PEFT adapters: LoRA, IA3 and prefix tuning — the pure-KV, hybrid and
-RWKV families' branches of ``repro.core.adapters``.
+"""PEFT adapters: LoRA, IA3 and prefix tuning — ``repro.core.adapters``
+for every family.
 
 An adapter tree mirrors the model's layer container, one client's leaves
 carrying a leading [L] axis: LoRA ``{"layers": {path: {"A": [L, din, r],
@@ -16,6 +16,13 @@ An RWKV model's targets are its own linears (``r k v g o cm_k cm_v
 cm_r``, ``_rwkv_target_dims``); the conventional ``q`` names ``r``, and a
 target it lacks (``down``, ``up``) resolves to nothing, as in JAX. Its
 prefix leaves are built as JAX builds them and read by no layer.
+An encoder-decoder model's tree has two containers, ``enc_layers``
+([L_enc, ...] leaves) and ``dec_layers`` ([L, ...]), each with the dense
+family's leaves (``adapter_layout``); its linears' paths are the
+self-attentions' ``q k v o``, cross-attention's ``xattn_*`` and the GELU
+MLP's ``fc1`` / ``fc2``, so LoRA and IA3 act on the self-attentions only,
+an IA3 ``down`` leaf is carried and never read, and the prefix leaves are
+read by no layer, as in JAX.
 
 An MoE model adds the ``router`` target [d, n_experts] (its input is the
 fp32 hidden state). Every layer carries the same leaves, as JAX's
@@ -49,8 +56,8 @@ from typing import Dict
 import torch
 
 from repro_torch.common.tree import tree_map
-from repro_torch.config import (HYBRID, RWKV, AdapterConfig, ModelConfig,
-                                check_family)
+from repro_torch.config import (ENCDEC, HYBRID, RWKV, AdapterConfig,
+                                ModelConfig, check_family)
 from repro_torch.kernels.sgmv import sgmv
 
 
@@ -93,11 +100,15 @@ DEFAULT_TARGETS = {
 
 
 def adapter_layout(cfg: ModelConfig) -> tuple:
-    """(container key, leaves per client) of ``cfg``'s adapter trees:
-    ``("groups", G)`` for the hybrid family, ``("layers", L)`` else."""
+    """((container key, leaves per client), ...) of ``cfg``'s adapter
+    trees: ``(("groups", G),)`` for the hybrid family, ``(("enc_layers",
+    L_enc), ("dec_layers", L))`` for the encoder-decoder, ``(("layers",
+    L),)`` else."""
     if cfg.arch == HYBRID:
-        return "groups", cfg.n_layers // cfg.attn_every
-    return "layers", cfg.n_layers
+        return (("groups", cfg.n_layers // cfg.attn_every),)
+    if cfg.arch == ENCDEC:
+        return (("enc_layers", cfg.n_enc_layers), ("dec_layers", cfg.n_layers))
+    return (("layers", cfg.n_layers),)
 
 
 def resolve_targets(cfg: ModelConfig, acfg: AdapterConfig):
@@ -118,8 +129,16 @@ def init_adapter(cfg: ModelConfig, acfg: AdapterConfig, generator, *,
     (a fresh adapter adds nothing); IA3 scales of 1 on the output dim (the
     input dim for ``down``); prefix K/V ~ normal * 0.02, [n_prefix, K,
     hd]. The JAX package's distributions. The hybrid family's tree holds
-    one leaf per group under ``groups`` (``adapter_layout``)."""
-    key, L = adapter_layout(cfg)
+    one leaf per group under ``groups``, the encoder-decoder's one per
+    layer under ``enc_layers`` then ``dec_layers`` (``adapter_layout``)."""
+    if acfg.method not in ("lora", "ia3", "prefix"):
+        raise ValueError(f"unknown PEFT method {acfg.method!r}")
+    return {key: _container_init(cfg, acfg, L, generator, dtype, device)
+            for key, L in adapter_layout(cfg)}
+
+
+def _container_init(cfg, acfg, L, generator, dtype, device):
+    """One container's leaves, [L, ...] each (``init_adapter``)."""
     tree = {}
     for path, (din, dout) in resolve_targets(cfg, acfg):
         if acfg.method == "lora":
@@ -138,9 +157,7 @@ def init_adapter(cfg: ModelConfig, acfg: AdapterConfig, generator, *,
             tree[name] = (torch.randn(shape, generator=generator,
                                       dtype=torch.float32, device=device)
                           * 0.02).to(dtype)
-    elif acfg.method not in ("lora", "ia3"):
-        raise ValueError(f"unknown PEFT method {acfg.method!r}")
-    return {key: tree}
+    return tree
 
 
 def init_client_bank(cfg: ModelConfig, acfg: AdapterConfig, n_clients: int,
@@ -157,8 +174,9 @@ def adapter_bytes(cfg: ModelConfig, acfg: AdapterConfig,
     (``init_adapter``'s default fp32): what a client pins beyond the shared
     base, and what ``PlacementRouter.route_bank`` charges per client (a
     fine-tuning job's AdamW moments add 2 x param_count x 4 bytes). A
-    hybrid model's adapter has one leaf per group (``adapter_layout``)."""
-    _, L = adapter_layout(cfg)
+    hybrid model's adapter has one leaf per group, an encoder-decoder's one
+    per layer of both stacks (``adapter_layout``)."""
+    L = sum(n for _, n in adapter_layout(cfg))
     if acfg.method == "lora":
         n = sum(L * acfg.rank * (din + dout)
                 for _, (din, dout) in resolve_targets(cfg, acfg))
@@ -374,14 +392,15 @@ def compact_mixed_bank(banks, rows_local, rows_method):
     single-method run computes, whatever its neighbours' methods. (The JAX
     function, through ``_mixed_stacked`` and ``_mixed_flat``, also re-lays
     list containers, ``pre_layers``; the port's trees keep those layers on
-    the [L] axis.) The banks share one container key (``layers``, or a
-    hybrid model's ``groups``)."""
-    key = next(iter(banks[0]))
-    out = {}
+    the [L] axis.) The banks share their container keys (``layers``, a
+    hybrid model's ``groups``, or an encoder-decoder's ``enc_layers`` and
+    ``dec_layers``), each re-laid alike."""
+    out = {key: {} for key in banks[0]}
     for m, bank in enumerate(banks):
-        res = _relay(bank[key], rows_local)
-        if "prefix_k" in res:
-            L, n = res["prefix_k"].shape[:2]
-            res["prefix_rows"] = (rows_method == m)[None].expand(L, n)
-        out[f"m{m}"] = res
-    return {key: out}
+        for key in out:
+            res = _relay(bank[key], rows_local)
+            if "prefix_k" in res:
+                L, n = res["prefix_k"].shape[:2]
+                res["prefix_rows"] = (rows_method == m)[None].expand(L, n)
+            out[key][f"m{m}"] = res
+    return out

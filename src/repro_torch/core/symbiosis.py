@@ -20,7 +20,13 @@ batch of C*B rows in (client, slot) order, each row's adapter its
 client's. Every cache write is in place (the JAX steps donated the cache
 buffers). An RWKV model has no pages (``serve_cache_kwargs`` drops them):
 its bank caches hold its per-slot state alone, layer-major, and it takes
-the masked steps and the per-client prefill.
+the masked steps and the per-client prefill. An encoder-decoder model
+pages its decoder's self-attention K/V and keeps each slot's cross cache
+([L, C, B, Te, K, hd] in a bank); its prefills need the batch's
+``frames``, so it takes the bank-wide ``make_multi_client_prefill``
+(frames beside the tokens) and the decode steps; the per-client prefill,
+whose caller passes tokens only, refuses it (JAX's raises ``KeyError:
+'frames'``), and the compacted prefill refuses it as JAX's does.
 
 Fine-tuning (LoRA, IA3 and prefix): ``make_row_grad_fn`` is one job's
 loss and adapter grads, ``make_baseline_train_step`` the dedicated
@@ -38,7 +44,8 @@ its row's prefix), and ``torch.autograd.grad`` of the sum of the per-row
 losses yields each row's own grads. An MoE model routes each row's
 tokens alone in that forward (``moe_forward(rows=R)``: the row's own
 capacity, dropped tokens and aux loss, as JAX's ``vmap`` gives a row), and
-a VLM batch's ``img_embed`` rides beside its tokens.
+a VLM batch's ``img_embed`` or an encoder-decoder batch's ``frames``
+rides beside its tokens, sliced as they are.
 """
 from __future__ import annotations
 
@@ -46,8 +53,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.config import (HYBRID, RWKV, AdapterConfig, ModelConfig,
-                                ServeConfig, TrainConfig, check_family)
+from repro_torch.config import (ENCDEC, HYBRID, RWKV, AdapterConfig,
+                                ModelConfig, ServeConfig, TrainConfig,
+                                check_family)
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core.virtlayer import (make_bank_ctx, make_client_ctx,
                                         make_compact_ctx, make_mixed_ctx)
@@ -75,15 +83,16 @@ def serve_cache_kwargs(cfg: ModelConfig, scfg: ServeConfig):
     families (dense, MoE, VLM) take both; the hybrid pages its attention
     sublayers' K/V and, as in JAX, drops ``kv_quant`` (its Mamba state is
     never quantized, and JAX quantizes pure-KV caches only); RWKV, whose
-    state is O(1) per slot, drops both, as in JAX: it has no KV to page.
-    Any other family is refused."""
+    state is O(1) per slot, drops both, as in JAX: it has no KV to page;
+    the encoder-decoder pages its decoder's self-attention K/V and drops
+    ``kv_quant``, as in JAX."""
     check_family(cfg)
     kw = {}
     if scfg.page_block and cfg.arch != RWKV:
         kw["page_block"] = scfg.page_block
         if scfg.pool_pages:
             kw["pool_pages"] = scfg.pool_pages
-    if scfg.kv_quant and cfg.arch not in (HYBRID, RWKV):
+    if scfg.kv_quant and cfg.arch not in (HYBRID, RWKV, ENCDEC):
         kw["quant"] = True
     return kw
 
@@ -103,7 +112,8 @@ def init_client_caches(cfg: ModelConfig, n_clients: int, batch: int,
     (``cache_slot_axes``): ``pos`` [C, B], dense KV rows layer-major [L, C,
     B, T, K, hd] (T = max_seq, or a ring of ``min(window, max_seq)``), a
     hybrid model's Mamba state [G, C, B, ...], an RWKV model's state [L, C,
-    B, ...]. Paged, the pools are GLOBAL
+    B, ...], an encoder-decoder's cross caches [L, C, B, Te, K, hd]. Paged,
+    the pools are GLOBAL
     and FLAT, [L, C*P, blk, K, hd] (client c owns pages [c*P, (c+1)*P)),
     and ``block_tbl`` is [C, B, n_blocks], every client's the one-client
     default. With ``quant``: int8 {"k","v"} and f32 {"k_s","v_s"} scales
@@ -124,8 +134,9 @@ def _kv_names(cache_kw):
 def cache_slot_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
     """Per-leaf slot axis of ONE client's cache (``init_cache``'s tree):
     ``pos`` 0; dense KV leaves ([L, B, T, ...], a hybrid's [G, B, T, ...]),
-    a hybrid's Mamba state ([G, B, ...]) and an RWKV model's ``wkv``,
-    ``tm_x`` and ``cm_x`` ([L, B, ...]) 1; paged pools (no slot axis:
+    a hybrid's Mamba state ([G, B, ...]), an RWKV model's ``wkv``,
+    ``tm_x`` and ``cm_x`` and an encoder-decoder's ``cross_k`` /
+    ``cross_v`` ([L, B, ...]) 1; paged pools (no slot axis:
     their writes are gated inside the model) and ``block_tbl``
     (engine-managed) None. The JAX function derives this map by building
     the cache at two batch sizes; the port knows its trees and writes it
@@ -140,6 +151,9 @@ def cache_slot_axes(cfg: ModelConfig, max_seq: int, **cache_kw):
             for j in range(cfg.attn_every)}, "pos": 0}
     elif cfg.arch == RWKV:
         axes = {"layers": {"wkv": 1, "tm_x": 1, "cm_x": 1}, "pos": 0}
+    elif cfg.arch == ENCDEC:
+        axes = {"layers": {"k": kv, "v": kv, "cross_k": 1, "cross_v": 1},
+                "pos": 0}
     else:
         axes = {"layers": {n: kv for n in _kv_names(cache_kw)}, "pos": 0}
     if paged:
@@ -212,6 +226,17 @@ def _check_paged(cfg, scfg, what):
     if "page_block" not in serve_cache_kwargs(cfg, scfg):
         raise ValueError(f"{what} requires the paged KV layout (ServeConfig."
                          "page_block > 0 on an attention-bearing family)")
+
+
+def _decode_written(cfg: ModelConfig, axes):
+    """``axes`` with the per-slot leaves a decode step only READS mapped to
+    None: an encoder-decoder's cross caches, written at prefill. The
+    compacted decode gathers them for its rows and scatters nothing back
+    (the bits it would write are the ones there: 2 x L x Te x K x hd
+    elements per row per tick)."""
+    if cfg.arch != ENCDEC:
+        return axes
+    return dict(axes, layers=dict(axes["layers"], cross_k=None, cross_v=None))
 
 
 def _gather_rows(caches, axes, clients, slots):
@@ -301,13 +326,15 @@ def make_compact_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig):
     engine quarantines on. Per-row LoRA goes through SGMV, attention
     through the paged decode kernel. A hybrid model's Mamba state is
     gathered per row and its live rows written back (padding rows
-    dropped). The caches are updated IN PLACE and returned; the step never
-    waits on the host."""
+    dropped); an encoder-decoder's cross caches are gathered and, read
+    only, not written back (``_decode_written``). The caches are updated
+    IN PLACE and returned; the step never waits on the host."""
     _check_paged(cfg, scfg, "compact decode")
     model = get_model(cfg)
     acfg = tuple(acfg) if isinstance(acfg, (tuple, list)) else acfg
     axes = cache_slot_axes(cfg, scfg.max_seq,
                            **serve_cache_kwargs(cfg, scfg))
+    written = _decode_written(cfg, axes)
 
     def run(base, bank, caches, tokens, clients, slots, row_mask,
             locals_=None, methods=None):
@@ -315,7 +342,7 @@ def make_compact_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig):
         ctx, adapter = _row_ctx(cfg, acfg, bank, clients, locals_, methods)
         logits, new = model.decode_step(base, cache, tokens, ctx, adapter,
                                         active=row_mask)
-        _scatter_rows(caches, new, axes, rows, row_mask)
+        _scatter_rows(caches, new, written, rows, row_mask)
         _scatter_pos(caches, rows, row_mask, new["pos"])
         return logits, torch.isfinite(logits).all(dim=-1), caches
 
@@ -350,11 +377,11 @@ def make_compact_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig, *,
     (``transformer.prefill``); rows with fewer cached blocks mask the rest
     by position, and 0 is the full prefill. Per-row LoRA goes through SGMV
     with one S_pad-token block per row. Caches are updated IN PLACE and
-    returned. The hybrid family is refused, as in JAX: its recurrent state
-    cannot take right-padded rows, and its admissions stay on
-    ``make_client_prefill``."""
+    returned. The hybrid and encoder-decoder families are refused, in
+    JAX's words: the hybrid's recurrent state cannot take right-padded
+    rows, and an encoder-decoder's rows carry no frames."""
     _check_paged(cfg, scfg, "compact prefill")
-    if cfg.arch == HYBRID:
+    if cfg.arch in (HYBRID, ENCDEC):
         raise ValueError(
             f"compact prefill serves the pure-KV families (dense/MoE/VLM); "
             f"{cfg.arch} admissions stay on the per-client prefill path")
@@ -429,7 +456,10 @@ def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
     lengths > 0. Other slots and clients keep their bits; ``pos`` takes
     the new value on the admitted slots. LoRA goes through SGMV (one
     S_pad-token block per row), IA3 and prefix through the row hooks, every
-    row the client's adapter. Caches are written IN PLACE and returned."""
+    row the client's adapter. Caches are written IN PLACE and returned.
+    The encoder-decoder family is refused: the call carries no frames
+    (JAX's raises ``KeyError: 'frames'``)."""
+    check_family(cfg, frameless="make_client_prefill")
     model = get_model(cfg)
     axes = cache_slot_axes(cfg, scfg.max_seq,
                            **serve_cache_kwargs(cfg, scfg))
@@ -515,9 +545,12 @@ def make_multi_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
 
     ``batch["tokens"]`` [C, B, S]: every client's B rows run as ONE batch
     of C*B rows, each with its client's adapter, writing lanes [0, S) of
-    every row and ``pos`` = S. ``write_clients`` [C] bool (the port's
-    in-place form of the JAX engine's merge) limits the writes to those
-    clients' rows. Caches are written IN PLACE and returned."""
+    every row and ``pos`` = S. Every other leaf of ``batch`` rides beside
+    the tokens, [C, B, ...] flattened alike (an encoder-decoder's
+    ``frames`` [C, B, Te, d], whose encoder states fill the rows' cross
+    caches). ``write_clients`` [C] bool (the port's in-place form of the
+    JAX engine's merge) limits the writes to those clients' rows. Caches
+    are written IN PLACE and returned."""
     _check_dense(scfg, "the multi-client prefill")
     model = get_model(cfg)
     axes = cache_slot_axes(cfg, scfg.max_seq,
@@ -531,7 +564,8 @@ def make_multi_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
         rows = _bank_rows(caches, axes)
         write_rows = (None if write_clients is None
                       else write_clients.repeat_interleave(B))
-        logits, new = model.prefill(base, {"tokens": tokens.reshape(C * B, S)},
+        logits, new = model.prefill(base, {k: v.flatten(0, 1)
+                                           for k, v in batch.items()},
                                     rows, ctx, adapter, write_rows=write_rows)
         rows["pos"].copy_(new["pos"] if write_rows is None else
                           torch.where(write_rows, new["pos"], rows["pos"]))

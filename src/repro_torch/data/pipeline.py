@@ -4,9 +4,10 @@ Deterministic per-(client, step) streams with a learnable order-1 Markov
 structure, so fine-tuning loss decreases. The tokens are drawn with numpy
 exactly as the JAX package draws them, so both give the same batches bit
 for bit; the port hands them over as torch tensors on the caller's device.
-A VLM's image frontend is stubbed (``frontend_stub``, the one allowed
-stub) and ``make_client_batches`` composes it into a VLM's batches, as
-JAX's does; its draw is the port's own (JAX draws it from ``jax.random``),
+A VLM's image frontend and an encoder-decoder's audio frontend are
+stubbed (``frontend_stub``, the one allowed stub) and
+``make_client_batches`` composes them into the family's batches, as
+JAX's does; their draw is the port's own (JAX draws it from ``jax.random``),
 so a test that holds the port against JAX hands JAX's draw over.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config import VLM, ModelConfig
+from repro_torch.config import ENCDEC, VLM, ModelConfig
 
 
 @dataclasses.dataclass
@@ -62,25 +63,28 @@ class SyntheticLMDataset:
 def frontend_stub(cfg: ModelConfig, n_clients: int, batch: int, *,
                   generator: torch.Generator,
                   device="cuda") -> Dict[str, torch.Tensor]:
-    """Precomputed image-frontend embeddings (the one allowed stub): a
-    VLM's ViT/projector anyres patch embeddings ``img_embed`` [C, B,
-    n_frontend_tokens, d] in ``cfg.dtype``, normal * 0.02 drawn from
-    ``generator`` (which must live on ``device``); other families get
-    none. JAX's ``frontend_stub`` draws from ``PRNGKey(seed)``; its draw
-    crosses over through ``convert.tensor_from_numpy``."""
-    if cfg.arch != VLM:
+    """Precomputed modality-frontend embeddings (the one allowed stub), [C,
+    B, n_frontend_tokens, d] in ``cfg.dtype``, normal * 0.02 drawn from
+    ``generator`` (which must live on ``device``): an encoder-decoder's
+    mel + conv frame embeddings ``frames``, a VLM's ViT/projector anyres
+    patch embeddings ``img_embed``; other families get none. JAX's
+    ``frontend_stub`` draws from ``PRNGKey(seed)``; its draw crosses over
+    through ``convert.tensor_from_numpy``."""
+    name = {ENCDEC: "frames", VLM: "img_embed"}.get(cfg.arch)
+    if name is None:
         return {}
     dev = resolve_device(device)
     emb = torch.randn((n_clients, batch, cfg.n_frontend_tokens, cfg.d_model),
                       generator=generator, dtype=torch.float32, device=dev)
-    return {"img_embed": (emb * 0.02).to(getattr(torch, cfg.dtype))}
+    return {name: (emb * 0.02).to(getattr(torch, cfg.dtype))}
 
 
 def make_client_batches(cfg: ModelConfig, n_clients: int,
                         batch_per_client: int, seq_len: int, *, seed: int = 0,
                         device="cuda") -> "ClientBatchStream":
-    """Dataset + frontend stub composed per model family: a VLM's batches
-    also carry ``img_embed`` [C, B, n_frontend_tokens, d], drawn once from
+    """Dataset + frontend stub composed per model family: an
+    encoder-decoder's batches also carry ``frames`` and a VLM's
+    ``img_embed``, [C, B, n_frontend_tokens, d], drawn once from
     ``seed`` on the host (the same bits on every device) and handed out
     with every step, as JAX's static stand-in."""
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq_len,

@@ -1,5 +1,5 @@
 """Multi-tenant serving CLI of the port (``repro.launch.serve``'s, for the
-dense, MoE, VLM, hybrid and RWKV families).
+dense, MoE, VLM, hybrid and RWKV families; whisper-small is refused).
 
 Serves a bank of LoRA clients against one shared base with the port's
 ServingEngine, on the card by default. With no ``--page-block`` (0, as in
@@ -25,7 +25,11 @@ fits no single 80 GB card. RWKV (rwkv6-7b, about 15 GB in bf16 at full
 depth) keeps an O(1) state per slot and no K/V: its prompts prefill one
 request per call at their true length (at most 128 tokens, or a multiple
 of 128), and ``--page-block`` and ``--kv-quant`` are dropped, as in JAX,
-so the layout line reports ``dense``.
+so the layout line reports ``dense``. The encoder-decoder family
+(``--arch whisper-small``) is refused with ``ValueError`` before anything
+is built: its prefill needs frames, and the engine's requests carry
+tokens only (JAX's CLI raises ``KeyError: 'frames'`` at its first
+admission).
 
 ``--device cpu`` runs the reduced config on the CPU through the kernels'
 plain versions. Weights are random, drawn from ``--seed``. ``--obs DIR``
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config import AdapterConfig, ServeConfig
+from repro_torch.config import AdapterConfig, ServeConfig, check_family
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import BankSpec, EngineSpec
@@ -85,8 +89,9 @@ def main(argv=None):
             raise SystemExit(f"{flag} is not ported yet: the port serves "
                              "on one device")
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    check_family(cfg, frameless="the serve CLI")
+    dev = resolve_device(args.device)
     if not args.full_size:
         cfg = cfg.reduced()
     acfg = AdapterConfig(method="lora", rank=8, targets=("q", "v"))

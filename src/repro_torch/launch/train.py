@@ -16,12 +16,18 @@ package's format):
       --arch llava-next-mistral-7b --clients 2 --batch 1 --remat
   PYTHONPATH=src python -m repro_torch.launch.train --full-size \
       --arch rwkv6-7b --clients 4 --steps 10 --seq 256 --batch 1
+  PYTHONPATH=src python -m repro_torch.launch.train --full-size \
+      --arch whisper-small --clients 4 --steps 10 --seq 128
 
 Every ``--arch`` of the port trains: the dense, MoE and VLM families (an
 MoE model's experts drop-free, as the JAX engine's; a VLM job's batches
 lead with the stubbed image prefix, ``n_frontend_tokens`` positions), the
 hybrid and RWKV (``--seq`` within the recurrence's chunk contract: at
-most 256 tokens or a multiple of 256 on the hybrid, 128 on RWKV).
+most 256 tokens or a multiple of 256 on the hybrid, 128 on RWKV), and
+the encoder-decoder (whisper-small: each job's batches carry the stubbed
+audio frames, ``n_frontend_tokens`` of them per row, beside ``--seq``
+decoder tokens; a reduced config has ``--layers`` layers in each stack
+and 16 frames).
 Without ``--full-size`` the model is a reduced config (``--layers``,
 ``--d-model``). ``--remat`` recomputes each layer in the backward.
 ``--obs DIR`` attaches telemetry and writes ``telemetry.jsonl`` and

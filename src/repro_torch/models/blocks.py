@@ -1,5 +1,6 @@
-"""Shared neural building blocks (PyTorch, functional) — the pure-KV
-families' paged and dense decode paths of ``repro.models.blocks``.
+"""Shared neural building blocks (PyTorch, functional) — the attention
+(self, encoder and cross), the paged and dense decode paths and the MLPs
+of ``repro.models.blocks``.
 
 Every frozen-base matmul goes through a ``LinearFns`` hook, the port's form
 of the paper's VirtLayer splice: the default hook runs the matmul inline;
@@ -145,13 +146,21 @@ def _pick_chunk(S: int, B: int, H: int, T: int, chunk_q: int,
     return max(c, 1)
 
 
-def mha_forward(params, cfg, x, positions, lin: LinearFns, *, ext_kv=None,
+def mha_forward(params, cfg, x, positions, lin: LinearFns, *,
+                causal: bool = True, kv_x=None, ext_kv=None,
                 path_prefix: str = "", chunk_q: int = 1024):
-    """Causal self-attention over a sequence (prefill), the plain chunked
-    branch of ``repro.models.blocks.mha_forward``. x [B,S,d]; positions
-    [B,S]. Returns (out [B,S,d], k, v) with k/v [B,S,K,hd] post-RoPE — the
-    values the cache stores, so the caller projects K/V once (the JAX
-    prefill projects them a second time to capture them).
+    """Attention over a sequence (training, prefill, the encoder and
+    cross-attention), the plain chunked branch of
+    ``repro.models.blocks.mha_forward``. x [B,S,d]; positions [B,S].
+    Returns (out [B,S,d], k, v) with k/v [B,T,K,hd] post-RoPE — the values
+    the cache stores, so the caller projects K/V once (the JAX prefill
+    projects them a second time to capture them).
+
+    Self-attention (``kv_x`` None) is causal by position, or with
+    ``causal=False`` (an encoder) attends every lane. ``kv_x`` [B,T,d]
+    makes the call cross-attention: K/V are projected from ``kv_x``, every
+    lane is attended and nothing is rotated (JAX rotates self-attention
+    only). RoPE applies where ``cfg.rope_theta > 0``.
 
     ``ext_kv`` — optional ``(k, v, positions)``: ALREADY-PROJECTED (post
     qk-norm, post-RoPE) external K/V lanes [B,E,K,hd] with positions [B,E],
@@ -163,18 +172,21 @@ def mha_forward(params, cfg, x, positions, lin: LinearFns, *, ext_kv=None,
     B, S, _ = x.shape
     hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
     G = H // K
+    src = x if kv_x is None else kv_x
+    Tk = src.shape[1]
     q = lin.dense(x, params["wq"], params.get("bq"), path_prefix + "q")
-    k = lin.dense(x, params["wk"], params.get("bk"), path_prefix + "k")
-    v = lin.dense(x, params["wv"], params.get("bv"), path_prefix + "v")
+    k = lin.dense(src, params["wk"], params.get("bk"), path_prefix + "k")
+    v = lin.dense(src, params["wv"], params.get("bv"), path_prefix + "v")
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    k = k.reshape(B, Tk, K, hd)
+    v = v.reshape(B, Tk, K, hd)
     if cfg.qk_norm:
         q = head_rmsnorm(params["q_norm"], q)
         k = head_rmsnorm(params["k_norm"], k)
-    if cfg.rope_theta > 0:
+    if kv_x is None and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    masked = causal and kv_x is None
     ka, va, kv_pos = k, v, positions
     if ext_kv is not None:
         ek, ev, epos = ext_kv
@@ -189,10 +201,12 @@ def mha_forward(params, cfg, x, positions, lin: LinearFns, *, ext_kv=None,
 
     def attend(qc, pc):
         s = torch.einsum("bshd,bthd->bhst", qc, kr).float() * scale
-        m = pc[:, None, :, None] >= kv_pos[:, None, None, :]
-        if window:
-            m &= (pc[:, None, :, None] - kv_pos[:, None, None, :]) < window
-        s = s.masked_fill(~m, -1e30)
+        if masked:
+            m = pc[:, None, :, None] >= kv_pos[:, None, None, :]
+            if window:
+                m &= (pc[:, None, :, None] - kv_pos[:, None, None, :]) \
+                    < window
+            s = s.masked_fill(~m, -1e30)
         p = torch.softmax(s, dim=-1).to(vr.dtype)
         return torch.einsum("bhst,bthd->bshd", p, vr)
 
@@ -505,18 +519,53 @@ def mha_decode_quant(params, cfg, x, cache_k, cache_ks, cache_v, cache_vs,
 
 
 # ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_decode(params, cfg, x, enc_k, enc_v, lin: LinearFns, *,
+                 path_prefix: str = "xattn_"):
+    """Cross-attention of one decoder token against its row's fixed
+    encoder cache (``repro.models.blocks.cross_decode``, a plain einsum
+    there too). x [B,1,d]; enc_k/v [B,Te,K,hd]. Returns out [B,1,d]."""
+    B = x.shape[0]
+    hd, K, H = cfg.hd, cfg.n_kv_heads, cfg.hp
+    q = lin.dense(x, params["wq"], params.get("bq"),
+                  path_prefix + "q").reshape(B, 1, K, H // K, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", q, enc_k).float() / math.sqrt(hd)
+    p = torch.softmax(s, dim=-1).to(enc_v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", p, enc_v).reshape(B, 1, H * hd)
+    return lin.dense(out, params["wo"], params.get("bo"), path_prefix + "o")
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, cfg, dtype, device, d_ff=None):
+def mlp_init(gen, cfg, dtype, device, d_ff=None, gelu: bool = False,
+             bias: bool = False):
+    """SwiGLU ``gate`` / ``up`` / ``down``, or with ``gelu`` the
+    whisper-style ``fc1`` / ``fc2`` (with ``bias``, zero ``b1`` / ``b2``)."""
     d_ff = d_ff or cfg.d_ff
+    if gelu:
+        p = {"fc1": dense_init(gen, cfg.d_model, d_ff, dtype, device),
+             "fc2": dense_init(gen, d_ff, cfg.d_model, dtype, device)}
+        if bias:
+            p["b1"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+            p["b2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+        return p
     return {"gate": dense_init(gen, cfg.d_model, d_ff, dtype, device),
             "up": dense_init(gen, cfg.d_model, d_ff, dtype, device),
             "down": dense_init(gen, d_ff, cfg.d_model, dtype, device)}
 
 
 def mlp_forward(params, x, lin: LinearFns, *, path_prefix: str = ""):
-    """SwiGLU MLP."""
+    """SwiGLU MLP, or the GELU MLP of a params tree with ``fc1`` (JAX's
+    ``jax.nn.gelu``, whose default is the tanh approximation)."""
+    if "fc1" in params:
+        h = lin.dense(x, params["fc1"], params.get("b1"), path_prefix + "fc1")
+        h = F.gelu(h, approximate="tanh")
+        return lin.dense(h, params["fc2"], params.get("b2"),
+                         path_prefix + "fc2")
     g = lin.dense(x, params["gate"], None, path_prefix + "gate")
     u = lin.dense(x, params["up"], None, path_prefix + "up")
     return lin.dense(F.silu(g) * u, params["down"], None, path_prefix + "down")

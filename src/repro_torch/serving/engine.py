@@ -13,7 +13,11 @@ and the masked steps like the others. RWKV keeps only per-slot state (no
 K/V): as in JAX ``page_block`` and ``kv_quant`` are dropped, so its engine
 runs the dense layout's masked decode, and its admissions prefill one
 request per call at their true length, the admitted slot's state zeroed
-first.
+first. An encoder-decoder model builds (its caches hold each slot's cross
+cache beside the decoder's K/V) and ``submit`` refuses its requests: a
+``Request`` carries tokens and no frames, and JAX's engine, which passes
+none to its prefill, raises ``KeyError: 'frames'`` at its first
+admission.
 
 One frozen base serves one or more banks of adapter clients on one device:
 
@@ -136,8 +140,8 @@ imports ``repro_torch.obs``. Every request carries its timeline whether or
 not ``obs`` is attached (``submit_t`` / ``admit_t`` / ``first_token_t`` /
 ``finish_t``, and ``queue_wait`` / ``ttft`` / ``e2e_latency``).
 
-Not ported yet, and refused with ``ValueError``: the encoder-decoder
-family, and a ``mesh``. Refused as in JAX: mixed banks on the
+Not ported yet, and refused with ``ValueError``: a ``mesh``, and an
+encoder-decoder request at ``submit`` (above). Refused as in JAX: mixed banks on the
 dense layout or with ``compact_decode=False``, ``compact_decode=True``
 without pages, ``bank_prefill`` on pages or with
 ``max_inflight_per_client`` other than 1, ``ragged_prefill=True`` on the
@@ -160,7 +164,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map
-from repro_torch.config import DENSE, MOE, VLM
+from repro_torch.config import DENSE, MOE, VLM, check_family
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import symbiosis
 from repro_torch.core.engine_spec import EngineSpec
@@ -537,6 +541,7 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        check_family(self.cfg, frameless="ServingEngine.submit")
         if not 0 <= req.client_id < self.n_clients:
             raise ValueError(f"client {req.client_id} outside the banks")
         if req.client_id in self._dead_clients:

@@ -1,14 +1,13 @@
 """KV-cache sizing and the analytic placement cost (the ``"kv"`` kind of
 ``repro.serving.kvcache``, the pure-KV families: dense, MoE and VLM; and
-its ``"hybrid"`` and ``"rwkv"`` kinds).
+its ``"hybrid"``, ``"rwkv"`` and ``"encdec"`` kinds).
 
 ``cache_bytes`` is what the engine's ``PlacementRouter`` charges against
 device memory for a request's lifetime: ``quant=True`` prices int8 entries
 plus one f32 scale per head per token for K and V each, and
 ``page_block > 0`` rounds the context up to whole pages (what the paged
 allocator pins). ``decode_token_cost`` is the router's per-token latency
-model of the on-card placement. The encoder-decoder kind is not ported
-and raises. The ring-buffer helpers
+model of the on-card placement. The ring-buffer helpers
 (``ring_cache_init``, ``ring_write``, and ``ring_valid_mask`` from
 ``models.blocks``, which decodes over rings with it) are the
 sliding-window cache of depth ``window``.
@@ -20,7 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.hardware import H100, Chip
-from repro_torch.config import HYBRID, RWKV, ModelConfig, check_family
+from repro_torch.config import ENCDEC, HYBRID, RWKV, ModelConfig, check_family
 from repro_torch.models.blocks import dense_write, dense_write_index
 from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 
@@ -28,7 +27,7 @@ from repro_torch.models.blocks import ring_valid_mask  # noqa: F401 (as JAX's)
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
     """Shape/bytes description of one client's decode state."""
-    kind: str                    # "kv" | "hybrid" | "rwkv"
+    kind: str                    # "kv" | "hybrid" | "rwkv" | "encdec"
     bytes_per_token: int         # marginal device bytes per context token
     fixed_bytes: int             # state independent of the sequence length
 
@@ -50,7 +49,10 @@ def make_cache_spec(cfg: ModelConfig, *, quant: bool = False) -> CacheSpec:
     ED], both f32 (JAX's formula, its ``quant`` row too). For RWKV, no
     bytes per token and a fixed per-slot state of every layer: the f32
     wkv state [H, hd, hd] and the two token-shift rows [d] in the
-    activation dtype (JAX's formula)."""
+    activation dtype (JAX's formula). For the encoder-decoder, the
+    decoder's K and V per token and a fixed per-slot cross cache of
+    ``n_frontend_tokens`` K/V rows per decoder layer (JAX's formula, its
+    ``quant`` row too)."""
     check_family(cfg)
     if quant:
         kv_row = cfg.n_kv_heads * (cfg.hd * 1 + 4) * 2
@@ -67,6 +69,9 @@ def make_cache_spec(cfg: ModelConfig, *, quant: bool = False) -> CacheSpec:
         ed = cfg.mamba_expand * cfg.d_model
         fixed = n_mamba * (ed * cfg.d_state * 4 + (cfg.d_conv - 1) * ed * 4)
         return CacheSpec("hybrid", n_attn * kv_row, fixed)
+    if cfg.arch == ENCDEC:
+        fixed = cfg.n_layers * cfg.n_frontend_tokens * kv_row
+        return CacheSpec("encdec", cfg.n_layers * kv_row, fixed)
     return CacheSpec("kv", cfg.n_layers * kv_row, 0)
 
 

@@ -66,8 +66,11 @@ block by block in the backward, and its group-shared adapter leaves
 take the grads of every sublayer of their group; an RWKV job's state
 starts at zero for every sequence, its wkv recurrence recomputed block
 by block in the backward (a prefix job, which no layer reads, moves by
-weight decay alone). Not ported yet, and refused with ``ValueError``: a
-``mesh`` and the encoder-decoder family.
+weight decay alone); an encoder-decoder job's batches carry its stubbed
+audio ``frames`` beside its decoder tokens, every encoder layer recomputed
+in the backward (its LoRA or IA3 acts on both stacks' self-attentions; a
+prefix job, which no layer reads, moves by weight decay alone). Not
+ported yet, and refused with ``ValueError``: a ``mesh``.
 """
 from __future__ import annotations
 
@@ -81,7 +84,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save_job_state
 from repro_torch.common.tree import tree_map
-from repro_torch.config import (HYBRID, RWKV, VLM, AdapterConfig,
+from repro_torch.config import (ENCDEC, HYBRID, RWKV, VLM, AdapterConfig,
                                 FinetuneConfig, ModelConfig, TRAIN_FAMILIES,
                                 check_family)
 from repro_torch.core import adapters as adapters_lib
@@ -411,11 +414,81 @@ def _wkv_block_saved_bytes(cfg: ModelConfig, seqs: int, S: int) -> int:
         + (rounds + 1) * seqs * c * H * hd * 4 + seqs * c * H * 4
 
 
+_ENCDEC_INPUTS = {"q": "ln1", "k": "ln1", "v": "ln1", "o": "attn"}
+
+
+def _encdec_saved_bytes(cfg: ModelConfig, acfg: AdapterConfig, seqs: int,
+                        S: int, memory_optimized: bool, Te: int = 0) -> int:
+    """Bytes one encoder-decoder layer of one job's §3.6 step saves for its
+    backward when its input requires grad, over ``seqs`` sequences of
+    ``S`` positions: an encoder layer (``encdec._enc_layer``, ``Te`` 0:
+    S frames, non-causal) or, with ``Te`` the frame count, a decoder layer
+    (``encdec._dec_layer``: S decoder tokens, causal, cross-attending
+    ``Te`` encoder states). Op by op:
+
+    * each RMSNorm (two, a decoder's three) its fp32 input and rsqrt (and
+      an fp32 copy of a non-fp32 scale);
+    * each attention's q, its K and V as the einsums lay them out, once
+      per query chunk (``blocks._pick_chunk``: 15-row chunks over 1,500
+      frames), the fp32 softmax and its copy in the activation dtype, and
+      a causal self-attention's mask; cross-attention's K and V are the
+      encoder states' projections, seqs x Te rows;
+    * the GELU's input, [T, d_ff];
+    * the adapter on the self-attentions' ``q k v o`` (cross-attention and
+      the MLP have no adapter path): LoRA's inputs and ``x @ A`` per
+      target (and the A and B casts in a narrower model), IA3's scaled
+      tensors;
+    * without ``memory_optimized`` (the torch-like baseline) also every
+      base linear's input and each norm's normalized product. The
+      encoder states the decoder's cross K/V read are one tensor shared
+      by every decoder layer, counted once by ``job_activation_bytes``.
+
+    No layer reads a prefix adapter, so under ``memory_optimized`` a
+    prefix job records nothing."""
+    if memory_optimized and acfg.method == "prefix":
+        return 0
+    a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    narrow = a != 4
+    p_cast = cfg.param_dtype != "float32"
+    T = seqs * S
+    d, H, hd, F = cfg.d_model, cfg.hp, cfg.hd, cfg.d_ff
+    n_norms = 3 if Te else 2
+
+    def attention(Tk, causal):
+        n_chunks = S // _pick_chunk(S, seqs, H, Tk, 1024, budget_bytes=1e9)
+        b = T * H * hd * a                                   # q
+        b += 2 * n_chunks * seqs * H * Tk * hd * a           # K, V
+        b += seqs * H * S * Tk * (4 + (a if narrow else 0))  # softmax
+        return b + (seqs * S * Tk if causal else 0)          # causal mask
+
+    b = n_norms * (T * d * 4 + T * 4) + (n_norms * d * 4 if p_cast else 0)
+    b += attention(S, bool(Te)) + (attention(Te, False) if Te else 0)
+    b += T * F * a                                           # GELU input
+    widths = {"ln1": d, "attn": H * hd, "ln2": d, "mlp": F}
+    if Te:
+        widths.update(ln_x=d, xattn=H * hd)
+    targets = [(p, dims) for p, dims in
+               adapters_lib.resolve_targets(cfg, acfg) if p in _ENCDEC_INPUTS]
+    inputs = set() if memory_optimized else set(widths)
+    if not memory_optimized:
+        b += n_norms * T * d * 4                 # the norms' products
+    if acfg.method == "lora":
+        inputs |= {_ENCDEC_INPUTS[p] for p, _ in targets}
+        r = acfg.rank
+        for p, (din, dout) in targets:
+            b += T * r * a + (r * (din + dout) * a if narrow else 0)
+    elif acfg.method == "ia3":
+        for p, (din, dout) in targets:
+            b += T * dout * a + (dout * a if narrow else 0)
+    return b + sum(T * widths[g] * a for g in inputs)
+
+
 def _layer_kinds(cfg: ModelConfig):
     """[(moe, mamba)] for each layer of ``cfg`` (a hybrid's sublayers in
-    order, group by group); none for RWKV, whose layers are neither
-    (``_rwkv_saved_bytes`` counts them)."""
-    if cfg.arch == RWKV:
+    order, group by group); none for RWKV and the encoder-decoder, whose
+    layers are neither (``_rwkv_saved_bytes`` and ``_encdec_saved_bytes``
+    count them)."""
+    if cfg.arch in (RWKV, ENCDEC):
         return []
     if cfg.arch == HYBRID:
         from repro_torch.models.hybrid import sub_is_attn, sub_is_moe
@@ -484,7 +557,14 @@ def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     ``_rwkv_saved_bytes`` (or with ``remat`` each layer's input plus one
     layer's tensors), then one wkv block's recomputed tensors
     (``_wkv_block_saved_bytes``); a prefix job, which no layer reads,
-    records nothing under ``memory_optimized``. Jobs merged in one bank
+    records nothing under ``memory_optimized``. An encoder-decoder counts,
+    per row, each encoder layer's input over ``n_frontend_tokens`` frames
+    (every encoder layer is recomputed in the backward), ONE recomputed
+    encoder layer's tensors (its attention over the frames in the chunks
+    the code uses), the encoder's final norm, and every decoder layer's
+    tensors (``_encdec_saved_bytes``: its self-attention, its cross K/V
+    and softmax over the frames, its GELU; or with ``remat`` each decoder
+    layer's input plus one layer's). Jobs merged in one bank
     step hold the sum of their terms, up to their adapters' casts and
     per-sequence prefix copies."""
     nmb = max(1, job.microbatch)
@@ -500,7 +580,19 @@ def job_activation_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     recompute = _moe_body_saved_bytes(cfg, job.acfg, seqs, S,
                                       memory_optimized) \
         if any(m for m, _ in kinds) else 0
-    if cfg.arch == RWKV:
+    if cfg.arch == ENCDEC:
+        d, Te, L = cfg.d_model, cfg.n_frontend_tokens, cfg.n_layers
+        dec = _encdec_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized,
+                                  Te=Te)
+        body = 0
+        if dec:
+            TE = seqs * Te
+            enc = (cfg.n_enc_layers * TE * d * a + TE * (d * 4 + 4)
+                   + (d * 4 if cfg.param_dtype != "float32" else 0)
+                   + _encdec_saved_bytes(cfg, job.acfg, seqs, Te,
+                                         memory_optimized))
+            body = enc + (L * T * d * a + dec if remat else L * dec)
+    elif cfg.arch == RWKV:
         one = _rwkv_saved_bytes(cfg, job.acfg, seqs, S, memory_optimized)
         L = cfg.n_layers
         body = 0
@@ -549,11 +641,13 @@ def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
       SCAN_WORKING [seqs, c, ED, N] fp32 tensors at once (c the block's
       steps), or an RWKV layer's channel mix (three [T, d_ff]) or wkv
       block, WKV_WORKING [seqs, c, H, hd, hd] fp32 tensors at once,
-      whichever is larger;
+      or an encoder-decoder's GELU MLP over its longer stack (three [T,
+      d_ff] over the frames or the tokens), whichever is larger;
     * the step's copies of the job's adapter state: the gathered params
       and AdamW moments, the grads, and the updated params and moments
       (seven fp32 trees at the update; six were live at llava's peak);
-    * the job's batch: token and label ids, and a VLM's image prefix.
+    * the job's batch: token and label ids, and a VLM's image prefix or an
+      encoder-decoder's frames.
 
     ``remat`` and ``memory_optimized`` change none of these."""
     from repro_torch.models.mamba import SCAN_BLOCK
@@ -564,6 +658,9 @@ def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     seqs = job.batch_size // nmb
     Ti = cfg.n_frontend_tokens if cfg.arch == VLM else 0
     T = seqs * (job.seq_len + Ti)
+    if cfg.arch == ENCDEC:
+        Ti = cfg.n_frontend_tokens      # the batch's frames
+        T = seqs * max(job.seq_len, Ti)
     a = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
     kinds = _layer_kinds(cfg)
     grads = 0
@@ -576,6 +673,8 @@ def job_working_bytes(cfg: ModelConfig, job: FinetuneJob, *,
     if any(m for _, m in kinds):
         grads = max(grads, SCAN_WORKING * seqs * min(job.seq_len, SCAN_BLOCK)
                     * cfg.mamba_expand * cfg.d_model * cfg.d_state * 4)
+    if cfg.arch == ENCDEC:
+        grads = 3 * T * cfg.d_ff * a
     if cfg.arch == RWKV:
         from repro_torch.models.rwkv import WKV_BLOCK
         grads = max(3 * T * cfg.d_ff * a, WKV_WORKING * seqs
@@ -600,8 +699,7 @@ def job_charge_bytes(cfg: ModelConfig, job: FinetuneJob, *,
 
 def _not_ported(what: str):
     return ValueError(f"{what}: not ported yet; the port's FinetuneEngine "
-                      "trains jobs of the dense, MoE, VLM, hybrid and RWKV "
-                      "families on one device")
+                      "trains jobs of every family on one device")
 
 
 def _to_host(tree):

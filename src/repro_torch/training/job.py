@@ -91,7 +91,8 @@ class _ClientSliceStream:
 def make_job_stream(cfg: ModelConfig, batch: int, seq_len: int, *,
                     seed: int = 0, device="cuda"):
     """Deterministic per-job data stream: one client slice of the synthetic
-    Markov pipeline (plus the family's frontend extras, a VLM's
-    ``img_embed``), leaves [B, ...] on ``device``."""
+    Markov pipeline (plus the family's frontend extras, an
+    encoder-decoder's ``frames`` or a VLM's ``img_embed``), leaves [B,
+    ...] on ``device``."""
     return _ClientSliceStream(make_client_batches(cfg, 1, batch, seq_len,
                                                   seed=seed, device=device))

@@ -353,19 +353,24 @@ def test_fresh_jobs_and_job_state():
 # what the port's FinetuneEngine does not take yet
 
 def test_engine_refuses_what_is_not_ported():
-    """A mesh and other families are refused; so is a PEFT method the
-    engine does not know, in a bank spec or a job (it is never trained as
-    something else). (``obs`` telemetry is ported:
-    ``tests/test_torch_obs.py``.)"""
+    """A mesh is refused; so is a PEFT method the engine does not know, in
+    a bank spec or a job (it is never trained as something else). Every
+    family is taken: an encoder-decoder engine builds
+    (``tests/test_torch_encdec_train.py`` trains it). (``obs`` telemetry
+    is ported: ``tests/test_torch_obs.py``.)"""
+    from repro_torch.models import get_model
     _, pc, base = system()
     spec = EngineSpec(cfg=pc, finetune=pcfg.FinetuneConfig())
     pb = port_base(pc, base)
     with pytest.raises(ValueError, match="not ported yet"):
         FinetuneEngine(spec, pb, device="cpu", mesh=object())
-    encdec = dataclasses.replace(pc, arch="encdec")
-    with pytest.raises(ValueError, match="'encdec' family: not ported"):
-        FinetuneEngine(EngineSpec(cfg=encdec, finetune=pcfg.FinetuneConfig()),
-                       pb, device="cpu")
+    encdec = dataclasses.replace(pc, arch="encdec", n_enc_layers=1,
+                                 n_frontend_tokens=4, rope_theta=0.0)
+    eng = FinetuneEngine(
+        EngineSpec(cfg=encdec, finetune=pcfg.FinetuneConfig()),
+        get_model(encdec).init_params(torch.Generator(), "cpu"),
+        device="cpu")
+    assert eng.cfg.arch == "encdec" and not eng.pending()
     odd = pcfg.AdapterConfig(method="adapterfusion", targets=("q",))
     with pytest.raises(ValueError, match="unknown PEFT method"):
         FinetuneEngine(EngineSpec(cfg=pc, banks=(BankSpec("odd", odd, 2),),

@@ -21,6 +21,7 @@ assert {"repro_torch.serving.prefix_cache", "repro_torch.faults.audit",
         "repro_torch.obs.events", "repro_torch.obs.export",
         "repro_torch.obs.trace", "repro_torch.obs.__main__",
         "repro_torch.faults.chaos", "repro_torch.models.moe",
+        "repro_torch.models.encdec", "repro_torch.configs.whisper_small",
         "repro_torch.configs.deepseek_moe_16b",
         "repro_torch.configs.llava_next_mistral_7b"} \
     <= set(names), names       # the port's own copies of pure-Python modules
@@ -79,12 +80,13 @@ def test_serving_engine_defaults_to_cuda():
 
 
 def test_non_dense_configs_are_refused():
-    """The family the port does not serve yet (encoder-decoder) has no
-    config; the MoE, VLM, hybrid and RWKV ones do."""
+    """An arch the port does not know is refused; every family has its
+    configs now: the MoE, VLM, hybrid, RWKV and encoder-decoder ones."""
     from repro_torch.configs import get_config
     with pytest.raises(KeyError):
-        get_config("whisper-small")
+        get_config("no-such-model")
     assert [get_config(a).arch for a in ("deepseek-moe-16b", "arctic-480b",
                                          "llava-next-mistral-7b",
-                                         "jamba-v0.1-52b", "rwkv6-7b")] \
-        == ["moe", "moe", "vlm", "hybrid", "rwkv"]
+                                         "jamba-v0.1-52b", "rwkv6-7b",
+                                         "whisper-small")] \
+        == ["moe", "moe", "vlm", "hybrid", "rwkv", "encdec"]

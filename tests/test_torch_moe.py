@@ -28,7 +28,6 @@ Tier-1 runs the tiny configs and one cache layout per family; the reduced
 deepseek, arctic and llava forwards and the other layouts run under
 ``-m tier2``.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.config import AdapterConfig, MOE, VLM
+from repro.config import AdapterConfig, ENCDEC, MOE, VLM
 from repro.configs import get_config as jax_get_config
 from repro.core import adapters as jax_adapters
 from repro.core import symbiosis as jax_sym
@@ -467,26 +466,29 @@ def test_frontend_stub():
 def test_fine_tuning_refuses_moe_and_vlm():
     """Both families now fine-tune: the engine takes them and the train
     CLI trains reduced deepseek-moe-16b and llava-next-mistral-7b on the
-    CPU (finite losses). What is still refused: the encoder-decoder
-    family, by the engine ("not ported yet"), by the CLI (no such
-    ``--arch``) and by the model registry. (The hybrid and RWKV fine-tune
-    too: ``test_torch_hybrid_train.py``, ``test_torch_rwkv_train.py``.)"""
+    CPU (finite losses). The encoder-decoder family, once refused here,
+    is taken too: the engine builds over it, the CLI trains whisper-small
+    (reduced) and the model registry hands out ``models.encdec``. (The
+    hybrid, RWKV and enc-dec fine-tune: ``test_torch_hybrid_train.py``,
+    ``test_torch_rwkv_train.py``, ``test_torch_encdec_train.py``.)"""
     from repro_torch.launch import train
     for cfg in (tiny(MOE), tiny(VLM)):
         pc = port_config(cfg)
         base = get_model(pc).init_params(torch.Generator(), "cpu")
         FinetuneEngine(EngineSpec(cfg=pc, finetune=pcfg.FinetuneConfig()),
                        base, device="cpu")
-        with pytest.raises(ValueError, match="family: not ported yet"):
-            FinetuneEngine(EngineSpec(cfg=dataclasses.replace(
-                pc, arch="encdec"), finetune=pcfg.FinetuneConfig()),
-                base, device="cpu")
+    pe = port_config(tiny(ENCDEC))
+    FinetuneEngine(EngineSpec(cfg=pe, finetune=pcfg.FinetuneConfig()),
+                   get_model(pe).init_params(torch.Generator(), "cpu"),
+                   device="cpu")
     for arch in ("deepseek-moe-16b", "llava-next-mistral-7b"):
         first, last = train.main(["--arch", arch, "--device", "cpu",
                                   "--steps", "2", "--clients", "2",
                                   "--seq", "8", "--d-model", "64"])
         assert np.isfinite(first) and np.isfinite(last)
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "whisper-small", "--device", "cpu"])
-    with pytest.raises(ValueError, match="families"):
-        get_model(dataclasses.replace(port_config(tiny(MOE)), arch="encdec"))
+    first, last = train.main(["--arch", "whisper-small", "--device", "cpu",
+                              "--steps", "2", "--clients", "2", "--seq", "8",
+                              "--d-model", "64"])
+    assert np.isfinite(first) and np.isfinite(last)
+    assert set(get_model(pe).init_params(torch.Generator(), "cpu")) >= \
+        {"enc_layers", "dec_layers", "enc_pos", "dec_pos"}

@@ -422,6 +422,31 @@ exits non-zero and prints no result. Phases, each raising on failure:
    paged kernel over 18b's pool, the dense kernel at [8, 512, 12, 64] and
    ``sgmv`` at decode and at an encoder and a decoder prefill's blocks,
    each timed beside its plain version, a library call and its bound.
+19. activation privacy (§3.8) and the hot-path contracts
+   (``repro_torch.analysis``) on phase 4's granite-3-8b base and bank,
+   run after phase 12 (no new kernel: the private product is an add, the
+   base product and a subtraction; the passes are host code). 19a client
+   0's LoRA r8 (q, v) through ``make_client_ctx(privacy_noise=...)`` over
+   ``attach_privacy``'s tree, 2 noise variants at scale 3.0 on q and v
+   from a ``torch.Generator``: the ``_priv`` bytes per client against
+   40 x 2 x (4,096 + 1,024) x 2 B, ``noise_effect``'s precompute ms, a
+   [2, 128] forward's ms plain and private in turns, and the bf16 logits'
+   gap private against plain held at ``P19_CONTROL`` x the plain bf16
+   logits' gap from fp32 plus 4 bf16 ulps; a paged prefill of phase 4's
+   first prompt and 16 greedy decode steps through the private context
+   (40 paged launches a step, nothing else), held the same way against
+   the plain run fed its tokens; at 2 layers fp32, private against plain
+   at JAX's 2e-3. 19b phase 4's 8 requests, an ``admit_bank`` of one more
+   LoRA client with one request and ``retire_bank`` under
+   ``tracecount.guard`` with telemetry: 0 violations, every compile's
+   (family, key) in ``trace_domain()``, ``jit_compiles_total`` equal to
+   the guard's count, streams and launches per tick phase 4's; the
+   compile events and the host us of one ``dispatch`` (a decode tick's).
+   19c ``runner.run_all`` over ``all_targets()`` on the card (tiny
+   configs, the kernels), then at full width with the kernels: client
+   isolation on the compacted decode step (8 rows, 4 clients, victim 0),
+   row isolation on phase 7a's 2-layer compact train step, and the
+   in-place and frozen-base checks across one decode and one train step.
 
 The second-to-last line is the JSON kernel summary, the last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from seeds.
@@ -463,8 +488,12 @@ from repro_torch.core.base_executor import BaseExecutor, _bucket  # noqa: E402
 from repro_torch.core.frozen_linear import frozen_dense  # noqa: E402
 from repro_torch.core.engine_spec import BankSpec, EngineSpec  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.core.virtlayer import (make_bank_ctx,  # noqa: E402
-                                        make_client_ctx, make_compact_ctx)
+from repro_torch.core.virtlayer import (attach_privacy,  # noqa: E402
+                                        make_bank_ctx, make_client_ctx,
+                                        make_compact_ctx)
+from repro_torch.core import privacy  # noqa: E402
+from repro_torch.analysis import (aliasing, runner, taint,  # noqa: E402
+                                  tracecount)
 from repro_torch.data import SyntheticLMDataset, frontend_stub  # noqa: E402
 from repro_torch.models import blocks, get_model  # noqa: E402
 from repro_torch.models import hybrid as hybrid_lib  # noqa: E402
@@ -2734,7 +2763,9 @@ def p8_serve(cfg, base, banks, late_bank, *, prefix_cache=None, label,
         page_copy = eng._page_copy
 
         def watch_copy(caches, src, dst):
-            cow.append((src, dst, tails[src]))
+            # the engine passes page ids as one-element index tensors
+            s, d = int(src), int(dst)
+            cow.append((s, d, tails[s]))
             return page_copy(caches, src, dst)
         eng._page_copy = watch_copy
 
@@ -4400,11 +4431,15 @@ def p12_serving(cfg, base, bank, streams4, streams4b):
         raise AssertionError(f"[phase 12a] synchronising calls per tick, "
                              f"off / on / on / off: {syncs}")
     obs = obs_on[0]
-    ev = obs.events.peek()
+    # the steps' compile events (one per new call signature, from
+    # ``analysis.tracecount.dispatch``) beside the requests' events
+    compiles = [e for e in obs.events.peek() if e.kind == "compile"]
+    ev = [e for e in obs.events.peek() if e.kind != "compile"]
     kinds = {e.kind for e in ev}
-    if kinds != {"admit", "retire"} or len(ev) != 16:
+    if kinds != {"admit", "retire"} or len(ev) != 16 or not compiles:
         raise AssertionError(f"[phase 12a] events {sorted(kinds)} x "
-                             f"{len(ev)}, want 8 admit and 8 retire")
+                             f"{len(ev)} and {len(compiles)} compiles, want "
+                             "8 admit, 8 retire and the steps' compiles")
     for k in ("_prefill_steps", "_client_prefills"):
         if set(getattr(engs[True], k)) != set(getattr(engs[False], k)):
             raise AssertionError(f"[phase 12a] {k} differs with telemetry")
@@ -4414,8 +4449,8 @@ def p12_serving(cfg, base, bank, streams4, streams4b):
         f"bit and the launches phase 4's tick by tick "
         f"({len(TICK_LAUNCHES['phase 4'])} ticks); synchronising calls per "
         f"tick (sync debug mode 'warn') equal in all four: {syncs[0]}; "
-        f"{len(ev)} events (8 admit, 8 retire); built steps and buckets "
-        "equal with and without telemetry")
+        f"{len(ev)} events (8 admit, 8 retire) and {len(compiles)} compile "
+        "events; built steps and buckets equal with and without telemetry")
     log(f"[phase 12a] service tick without admission, median ms over "
         f"{len(ticks)} ticks (unprofiled, sync debug mode 'warn', in turns "
         f"off / on / on / off): {med[0]:.3f} / {med[1]:.3f} / {med[2]:.3f} / "
@@ -7804,6 +7839,344 @@ def phase18():
     return fields, tick, train
 
 
+# ---------------------------------------------------------------------------
+# phase 19: activation privacy (§3.8) and the hot-path contracts
+# ---------------------------------------------------------------------------
+
+P19_SCALE, P19_VARIANTS, P19_VARIANT = 3.0, 2, 1   # bench_privacy's noise
+P19_SHAPE = (2, 128)     # 19a's forward: [batch, tokens]
+P19_DECODE = 16          # 19a's greedy decode steps after a paged prefill
+# 19a: in bf16 at 40 layers the private forward's cancellation rounds. The
+# gap of the private bf16 logits from the plain bf16 logits is held at
+# P19_CONTROL times the control, the plain bf16 logits' gap from the same
+# path run in fp32 (the rounding of the whole bf16 path at this depth),
+# plus 4 bf16 ulps of the largest logit. The noise (scale 3, against
+# unit-RMS normed activations) makes the q and v products' noisy input,
+# noisy output and noise effect each ~3x the plain values, so their bf16
+# roundings add ~sqrt(1 + 3 x 3^2) = 5.3 plain roundings on 2 of 7
+# products a layer; the CPU rehearsal (3 layers, d 256, bf16) read 5.0x
+# and 6.4x the control. 8x is the margin, stated before the first run on
+# the card.
+P19_CONTROL = 8.0
+P19_F32_TOL = dict(atol=2e-3, rtol=2e-3)    # JAX's tests/test_privacy.py:65
+
+
+def p19_forward(cfg, base, adapter, tokens, noise=None):
+    """The model's forward with client 0's adapter, through the private
+    context when ``noise`` is given (variant ``P19_VARIANT``)."""
+    ctx = make_client_ctx(cfg, LORA, privacy_noise=noise,
+                          privacy_variant=P19_VARIANT)
+    with torch.inference_mode():
+        return get_model(cfg).forward(base, {"tokens": tokens}, ctx, adapter)
+
+
+def p19_decode(cfg, base, adapter, prompt, noise=None, feed=None):
+    """A paged prefill of ``prompt`` and ``P19_DECODE`` greedy decode steps
+    (``feed``: the tokens to decode instead), the private context when
+    ``noise`` is given. One client: its LoRA is the context's ``bmm`` pair,
+    so each decode step launches the paged attention kernel once per layer
+    and nothing else. Returns (logits [steps + 1, 1, V], fed tokens)."""
+    L, model = cfg.n_layers, get_model(cfg)
+    ctx = make_client_ctx(cfg, LORA, privacy_noise=noise,
+                          privacy_variant=P19_VARIANT)
+    cache = model.init_cache(1, prompt.shape[1] + P19_DECODE + 8,
+                             page_block=16, device=DEV)
+    fed = [] if feed is None else [torch.tensor([t], dtype=torch.int32,
+                                                device=DEV) for t in feed]
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.inference_mode():
+        lg, cache = model.prefill(base, {"tokens": torch.tensor(
+            prompt, dtype=torch.int32, device=DEV)}, cache, ctx, adapter)
+        lgs = [lg]
+        for step in range(P19_DECODE):
+            if feed is None:
+                fed.append(lg.argmax(-1).to(torch.int32))
+            lg, cache = model.decode_step(base, cache, fed[step], ctx,
+                                          adapter)
+            lgs.append(lg)
+    torch.cuda.synchronize()
+    want = {n: 0 for n in KERNELS}
+    want["paged_decode_attn"] = L * P19_DECODE
+    if read_counts() != want:
+        raise AssertionError(f"[phase 19a] launches {read_counts()}, want "
+                             f"{want}")
+    out = torch.stack(lgs)
+    if not torch.isfinite(out).all():
+        raise AssertionError("[phase 19a] non-finite logits")
+    return out, [int(t[0]) for t in fed]
+
+
+def p19_bound(what, private, plain, control):
+    """The private bf16 logits against the plain bf16 ones, held at
+    ``P19_CONTROL`` x the plain ones' gap from fp32 ``control`` plus 4 bf16
+    ulps of the largest logit; returns the gap and its bound."""
+    gap = float((private.float() - plain.float()).abs().max())
+    ctl = float((plain.float() - control.float()).abs().max())
+    big = float(plain.float().abs().max())
+    ulp = float(torch.ldexp(torch.tensor(1.0),
+                            torch.frexp(torch.tensor(big))[1] - 8))
+    bound = P19_CONTROL * ctl + 4 * ulp
+    if not (torch.isfinite(private).all() and gap <= bound):
+        raise AssertionError(f"[phase 19a] {what}: private vs plain bf16 gap "
+                             f"{gap:.4e} past {P19_CONTROL} x control "
+                             f"{ctl:.4e} + 4 ulps ({4 * ulp:.4e}) = "
+                             f"{bound:.4e}")
+    log(f"[phase 19a] {what}: private vs plain logits max_abs_err {gap:.4e} "
+        f"({gap / ulp:.1f} bf16 ulps of the largest logit {big:.3f}); control "
+        f"(plain bf16 vs fp32) {ctl:.4e}; bound {P19_CONTROL} x control + 4 "
+        f"ulps = {bound:.4e}: held")
+    return gap, bound
+
+
+def p19_privacy(cfg, base, bank):
+    """19a: client 0's LoRA r8 (q, v) through the §3.8 protocol at full
+    width: 2 noise variants at scale 3.0 on q and v."""
+    L, d = cfg.n_layers, cfg.d_model
+    adapter = tree_map(lambda x: x[0], bank)
+    dims = {"q": (d, cfg.hp * cfg.hd), "v": (d, cfg.n_kv_heads * cfg.hd)}
+    noise = privacy.make_noise(gen(190), dims, P19_VARIANTS, P19_SCALE)
+    pre_ms = time_ms(lambda: attach_privacy(adapter, cfg, base, noise), n=10,
+                     l2_cold=False)
+    priv_ad = attach_privacy(adapter, cfg, base, noise)
+    entries = priv_ad["layers"]["_priv"]
+    nbytes = sum(t.numel() * t.element_size() for e in entries
+                 for t in e.values())
+    want_bytes = (L * P19_VARIANTS * sum(o for _, o in dims.values())
+                  * base["layers"][0]["attn"]["wq"].element_size())
+    if len(entries) != L or nbytes != want_bytes:
+        raise AssertionError(f"[phase 19a] _priv: {len(entries)} layers, "
+                             f"{nbytes} B, predicted {want_bytes} B")
+    rng = np.random.default_rng(190)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, P19_SHAPE),
+                          dtype=torch.int32, device=DEV)
+    plain = p19_forward(cfg, base, adapter, tokens)
+    priv = p19_forward(cfg, base, priv_ad, tokens, noise)
+    ms = [time_ms(lambda: p19_forward(cfg, base, *a), n=10, l2_cold=False)
+          for a in ((adapter, tokens), (priv_ad, tokens, noise),
+                    (priv_ad, tokens, noise), (adapter, tokens))]
+    log(f"[phase 19a] {cfg.name}, {L} layers bf16, client 0's LoRA r8 (q, "
+        f"v), {P19_VARIANTS} noise variants at scale {P19_SCALE} on q and v: "
+        f"noise_effect precompute {pre_ms:.3f} ms; _priv {nbytes:,} B per "
+        f"client (predicted {want_bytes:,}); forward {list(P19_SHAPE)} ms "
+        f"plain / private / private / plain {ms[0]:.3f} / {ms[1]:.3f} / "
+        f"{ms[2]:.3f} / {ms[3]:.3f} (overhead "
+        f"{((ms[1] + ms[2]) / (ms[0] + ms[3]) - 1) * 100:.1f}%)")
+    prompt = make_requests(cfg, 4)[0].prompt
+    priv_lg, toks = p19_decode(cfg, base, priv_ad, prompt, noise)
+    alone, toks_plain = p19_decode(cfg, base, adapter, prompt)
+    plain_lg, _ = p19_decode(cfg, base, adapter, prompt, feed=toks)
+    same = next((i for i, (a, b) in enumerate(zip(toks, toks_plain))
+                 if a != b), len(toks))
+    log(f"[phase 19a] a paged prefill of phase 4's first prompt "
+        f"({prompt.shape[1]} tokens) and {P19_DECODE} greedy decode steps "
+        f"through the private context: paged attention {L} launches a step, "
+        f"nothing else; the greedy stream equals the plain run's for "
+        f"{same} of {P19_DECODE} tokens")
+    del alone
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    base32 = tree_map(lambda t: t.float(), base)
+    ad32 = tree_map(lambda t: t.float(), adapter)
+    p19_bound(f"forward {list(P19_SHAPE)}", priv, plain,
+              p19_forward(cfg32, base32, ad32, tokens))
+    ctl_lg, _ = p19_decode(cfg32, base32, ad32, prompt, feed=toks)
+    p19_bound(f"prefill + {P19_DECODE} decode steps (fed the private run's "
+              "tokens)", priv_lg, plain_lg, ctl_lg)
+    del base32, ad32, priv, plain, priv_lg, plain_lg, ctl_lg
+    torch.cuda.empty_cache()
+
+    cfg2 = f32_granite(2)
+    base2 = get_model(cfg2).init_params(gen(191), DEV)
+    ad2 = tree_map(lambda x: x[0], random_lora(cfg2, 1, 192))
+    noise2 = privacy.make_noise(gen(193), dims, P19_VARIANTS, P19_SCALE)
+    e = compare("[phase 19a] fp32 2 layers private vs plain",
+                p19_forward(cfg2, base2, attach_privacy(ad2, cfg2, base2,
+                                                        noise2), tokens,
+                            noise2),
+                p19_forward(cfg2, base2, ad2, tokens), P19_F32_TOL)
+    log(f"[phase 19a] {cfg.name} width, 2 layers, fp32 (TF32 off): private "
+        f"vs plain logits max_abs_err {e:.3e} at {P19_F32_TOL} (JAX's bound)")
+    del base2
+    torch.cuda.empty_cache()
+
+
+def p19_dispatch_cost(eng, n=2000):
+    """Host microseconds of one ``tracecount.dispatch`` of an 8-row
+    compacted decode's arguments (base, bank, caches and the row tensors)
+    to a step that does nothing, under a guard, beyond the plain call
+    (one dispatch per decode tick; attached telemetry computes the same
+    signature)."""
+    nb = 8
+    args = (eng.base, eng._bank_arg(), eng.caches, *eng._on_device(
+        np.zeros(nb, np.int32), np.zeros(nb, np.int32),
+        np.zeros(nb, np.int32), np.ones(nb, bool)))
+
+    def noop(*a):
+        return None
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        noop(*args)
+    plain = (time.perf_counter() - t0) / n * 1e6
+    with tracecount.guard("phase 19b cost"):
+        tracecount.dispatch(eng, "compact_decode", nb, noop, *args)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tracecount.dispatch(eng, "compact_decode", nb, noop, *args)
+        cost = (time.perf_counter() - t0) / n * 1e6 - plain
+    return cost, len(tree_leaves(args))
+
+
+def p19_guard(cfg, base, bank, streams4):
+    """19b: phase 4's 8 requests under ``tracecount.guard`` with telemetry,
+    then an ``admit_bank`` of one more LoRA client with one request, then
+    ``retire_bank``."""
+    spec = serve_spec(cfg, quant=False)
+    paged = ("paged_decode_attn", "paged_decode_attn_quant", "sgmv")
+    obs = Obs()
+    with tracecount.guard("phase 19b") as g:
+        reqs, eng, launches, _, ticks, _ = p12_run(cfg, base, bank, spec, obs)
+        same_streams("phase 19b", reqs, streams4, "phase 4's")
+        same_launches("phase 19b", launches, "phase 4", paged)
+        adm = eng.admit_bank(LORA, random_lora(cfg, 1, 194))
+        rng = np.random.default_rng(194)
+        late = Request(client_id=adm.client_ids[0], max_new_tokens=16,
+                       prompt=rng.integers(0, cfg.vocab, (1, 100))
+                       .astype(np.int32))
+        eng.submit(late)
+        eng.run()
+        eng.retire_bank(adm)
+    torch.cuda.synchronize()
+    res = g.result()
+    if late.status != "ok" or late.generated.shape != (1, 16):
+        raise AssertionError(f"[phase 19b] the admitted bank's request: "
+                             f"{late.status}")
+    if not res.ok:
+        raise AssertionError("[phase 19b] guard violations: " + "; ".join(
+            v.message for v in res.violations))
+    domain = eng.trace_domain()
+    outside = [(f, k) for (_, _, f, k) in g._compiled
+               if domain.check(f, k) != tracecount.OK]
+    events = [e for e in obs.events.peek()
+              if e.kind in ("compile", "recompile")]
+    counted = sum(r["value"] for r in obs.metrics.samples()
+                  if r["metric"] == "jit_compiles_total")
+    if outside or any(e.kind != "compile" for e in events) \
+            or counted != res.checked["compiles"] or eng._trace_epoch != 1:
+        raise AssertionError(f"[phase 19b] outside the domain {outside}; "
+                             f"events {[e.kind for e in events]}; "
+                             f"jit_compiles_total {counted} against the "
+                             f"guard's {res.checked['compiles']}; epoch "
+                             f"{eng._trace_epoch}")
+    log(f"[phase 19b] phase 4's 8 requests, an admit_bank of 1 LoRA client "
+        f"with 1 request, retire_bank, under tracecount.guard with "
+        f"telemetry: 0 violations; {res.checked['calls']} step calls, "
+        f"{res.checked['compiles']} compiles (= jit_compiles_total), each "
+        f"(family, key) in trace_domain(); every stream phase 4's bit for "
+        f"bit and the launches phase 4's tick by tick; median service tick "
+        f"without admission {statistics.median(ticks) * 1e3:.3f} ms")
+    log("[phase 19b] compile events (family key, epoch by bank_growth): "
+        + ", ".join(f"{dict(e.data)['family']} {dict(e.data)['key']}"
+                    for e in events))
+    cost, n_leaves = p19_dispatch_cost(eng)
+    log(f"[phase 19b] dispatch's host cost on this host under a guard, over "
+        f"an 8-row compacted decode's {n_leaves} argument leaves (one "
+        f"dispatch per decode tick), beyond the plain call: {cost:.1f} us")
+
+
+def p19_contracts(cfg, base, bank):
+    """19c: ``runner.run_all`` over ``all_targets()`` on the card, then the
+    isolation, in-place and frozen-base checks at full width."""
+    t0 = time.perf_counter()
+    results = runner.run_all(device=DEV)
+    bad = [(r.pass_name, r.target, [v.message for v in r.violations])
+           for r in results if not r.ok]
+    if bad:
+        raise AssertionError(f"[phase 19c] run_all: {bad}")
+    log(f"[phase 19c] repro_torch.analysis run_all on the card: "
+        f"{len(results)} pass runs over {len({r.target for r in results})} "
+        f"targets "
+        f"(dense, hybrid, RWKV, enc-dec serving; dense, MoE, hybrid, RWKV, "
+        f"enc-dec training), all ok ({time.perf_counter() - t0:.1f} s)")
+
+    C, B, max_seq, blk = 4, 2, 512, 16
+    scfg = ServeConfig(n_clients=C, max_seq=max_seq, page_block=blk)
+    kw = symbiosis.serve_cache_kwargs(cfg, scfg)
+    caches = symbiosis.init_client_caches(cfg, C, B, max_seq, device=DEV,
+                                          **kw)
+    n_blocks = max_seq // blk
+    P = B * n_blocks
+    caches["block_tbl"] = (torch.arange(C * B * n_blocks, dtype=torch.int32,
+                                        device=DEV)
+                           .reshape(C, B, n_blocks))  # client c: [c*P, ...)
+    step = symbiosis.make_compact_decode_step(cfg, LORA, scfg)
+    clients = torch.arange(C, dtype=torch.int32, device=DEV) \
+        .repeat_interleave(B)
+    slots = torch.arange(B, dtype=torch.int32, device=DEV).repeat(C)
+    toks = torch.tensor(np.random.default_rng(195).integers(
+        0, cfg.vocab, C * B), dtype=torch.int32, device=DEV)
+    extra = (toks, clients, slots, torch.ones(C * B, dtype=torch.bool,
+                                              device=DEV))
+    reset_counts()
+    iso = taint.check_client_isolation(
+        lambda *a: (lambda o: (o[0], o[-1]))(step(*a)), base, bank, caches,
+        extra, clients=clients.tolist(), victim=0, pool_pages=P,
+        page_axes=symbiosis.cache_page_axes(cfg, max_seq, **kw),
+        slot_axes=dict(symbiosis.cache_slot_axes(cfg, max_seq, **kw),
+                       block_tbl=0), target="granite compact decode")
+    args = (base, bank, caches) + extra
+    checks = [iso,
+              aliasing.check_in_place(step, args, state={2: 2},
+                                      target="granite compact decode"),
+              taint.check_frozen_base(step, args, update_argnums=(2,),
+                                      target="granite compact decode")]
+    n = read_counts()
+    if n["paged_decode_attn"] != 4 * cfg.n_layers or \
+            n["sgmv"] != 4 * 2 * cfg.n_layers:
+        raise AssertionError(f"[phase 19c] the decode checks launched {n}")
+
+    cfg2 = f32_granite()
+    base2 = get_model(cfg2).init_params(gen(196), DEV)
+    cap, R = 8, 4
+    bank2 = random_lora(cfg2, cap, 197)
+    opt2 = AdamWState(step=torch.arange(cap, dtype=torch.int32, device=DEV),
+                      m=tree_map(lambda x: torch.randn_like(x) * 1e-3, bank2),
+                      v=tree_map(lambda x: torch.rand_like(x) * 1e-6, bank2))
+    targs = (base2, bank2, opt2, train_batches(cfg2, R, 198),
+             torch.tensor([5, 2, 7, 0], dtype=torch.int32, device=DEV),
+             torch.ones(R, dtype=torch.bool, device=DEV), step7a_hyper(R))
+    tstep = symbiosis.make_compact_train_step(cfg2, LORA, remat=False)
+    checks += [
+        taint.check_row_isolation(tstep, targs, perturb_row=1,
+                                  victim_slot=2, perturb_argnums=(3, 6),
+                                  target="granite 2-layer compact train"),
+        aliasing.check_in_place(tstep, targs, state={1: 0, 2: 1},
+                                target="granite 2-layer compact train"),
+        taint.check_frozen_base(tstep, targs, update_argnums=(1, 2),
+                                target="granite 2-layer compact train")]
+    bad = [(r.pass_name, r.target, [v.message for v in r.violations])
+           for r in checks if not r.ok]
+    if bad:
+        raise AssertionError(f"[phase 19c] full width: {bad}")
+    log("[phase 19c] full width, with the kernels: " + "; ".join(
+        f"{r.pass_name} @ {r.target} ok "
+        f"({', '.join(f'{k}={v}' for k, v in r.checked.items())})"
+        for r in checks))
+    del base2, bank2, opt2, targs, caches
+    torch.cuda.empty_cache()
+
+
+def phase19(cfg, base, bank, streams4):
+    """Activation privacy (19a), the bucket guard (19b) and the contracts
+    (19c), on phase 4's base and bank."""
+    for label, fn, args in (("19a", p19_privacy, (cfg, base, bank)),
+                            ("19b", p19_guard, (cfg, base, bank, streams4)),
+                            ("19c", p19_contracts, (cfg, base, bank))):
+        t = time.perf_counter()
+        fn(*args)
+        log(f"[phase {label}] done ({time.perf_counter() - t:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -7901,6 +8274,11 @@ def main() -> int:
     t = time.perf_counter()
     phase12(cfg, base, bank, streams4, streams4b)
     log(f"[phase 12] done ({time.perf_counter() - t:.1f} s)")
+    free_device("phase 12")
+
+    t = time.perf_counter()
+    phase19(cfg, base, bank, streams4)
+    log(f"[phase 19] done ({time.perf_counter() - t:.1f} s)")
     del base, bank
     free_device()
 

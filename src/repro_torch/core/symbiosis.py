@@ -435,6 +435,24 @@ def _check_dense(scfg, what):
                          "away (ServeConfig.page_block = 0)")
 
 
+def _slot_zeroer(slots, slot_mask):
+    """``zero(rows, ax)``: zero the admitted ``slots`` of a bank rows view
+    (row axis ``ax``) in place, reading one row: each slot that is not
+    admitted writes the first admitted slot's zeros again, or, with none
+    admitted, slot 0's own bits back."""
+    # slots are consecutive: the first admitted one without a host read
+    tgt = torch.where(slot_mask, slots,
+                      slots[:1] + slot_mask.to(torch.int32).argmax())
+    none = ~slot_mask.any()
+
+    def zero(rows, ax):
+        one = torch.where(none, rows.index_select(ax, tgt[:1]), 0)
+        rows.index_copy_(ax, tgt, one.expand(
+            [tgt.shape[0] if d == ax else -1 for d in range(one.ndim)]))
+
+    return zero
+
+
 def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
     """Masked single-client prefill — the engine's per-request admission:
     the model runs ONCE over one client's ``max_b`` slot rows and only the
@@ -444,7 +462,10 @@ def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
         -> (logits [max_b, V], caches)
 
     ``c`` is the client's index into the CACHES, ``a`` its adapter's index
-    into ``bank`` (a single-bank engine passes ``a == c``), both host ints;
+    into ``bank`` (a single-bank engine passes ``a == c``): host ints or
+    one-element index tensors, as JAX's are traced scalars, so one program
+    serves every client (the engine passes tensors: its prefill's call
+    signature is the same for every client, a closed set);
     ``tokens`` [max_b, S_pad] right-padded prompts on the admitted rows,
     dummies elsewhere; ``lengths`` [max_b] their true lengths (the engine
     gives other rows 0); ``slot_mask`` [max_b] bool the admitted slots.
@@ -456,7 +477,12 @@ def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
     lengths > 0. Other slots and clients keep their bits; ``pos`` takes
     the new value on the admitted slots. LoRA goes through SGMV (one
     S_pad-token block per row), IA3 and prefix through the row hooks, every
-    row the client's adapter. Caches are written IN PLACE and returned.
+    row the client's adapter. The model reads and writes the client's slot
+    rows of the bank in place, by index (``slots``), layer by layer: a
+    layer's rows are gathered where the model reads them, and written by
+    ``index_copy_``, so nothing of the client's state is copied whole and
+    the bank's tensors keep their storage. Caches are written IN PLACE and
+    returned.
     The encoder-decoder family is refused: the call carries no frames
     (JAX's raises ``KeyError: 'frames'``)."""
     check_family(cfg, frameless="make_client_prefill")
@@ -465,24 +491,26 @@ def make_client_prefill(cfg: ModelConfig, acfg, scfg: ServeConfig):
                            **serve_cache_kwargs(cfg, scfg))
 
     def prefill_one(base, bank, caches, c, a, tokens, lengths, slot_mask):
-        c, a = int(c), int(a)
-        rows = torch.full((tokens.shape[0],), a, dtype=torch.int32,
-                          device=tokens.device)
-        ctx, adapter = _row_ctx(cfg, acfg, bank, rows)
+        B = tokens.shape[0]
+        c, a = as_index(c, tokens.device), as_index(a, tokens.device)
+        ctx, adapter = _row_ctx(cfg, acfg, bank, a.to(torch.int32).repeat(B))
         key = _container(caches)
-        cache = {key: tree_map(lambda t, ax: t if ax is None
-                               else t.select(ax, c), caches[key], axes[key]),
-                 "pos": torch.where(slot_mask, 0, caches["pos"][c])}
+        slots = c * B + torch.arange(B, device=tokens.device)   # bank rows
+        pos_c = caches["pos"].view(-1).index_select(0, slots)
+        cache = {key: tree_map(lambda t, ax: t if ax is None else t.view(
+                     t.shape[:ax] + (-1,) + t.shape[ax + 2:]),
+                     caches[key], axes[key]),          # [.., C*B, ..] views
+                 "pos": torch.where(slot_mask, 0, pos_c)}
         if "block_tbl" in caches:
-            cache["block_tbl"] = caches["block_tbl"][c]
-        kw = {}
-        for leaf, ax in _slot_leaves(cache, axes):     # zero_slots
-            leaf.masked_fill_(_slot_mask(slot_mask, ax, leaf.ndim), 0)
-            kw = {"write_rows": slot_mask}
+            cache["block_tbl"] = caches["block_tbl"].index_select(0, c)[0]
+        kw, zero = {}, _slot_zeroer(slots, slot_mask)
+        for rows, ax in _slot_leaves(cache, axes):     # zero_slots
+            zero(rows, ax)
+            kw = {"write_rows": slot_mask, "slots": slots}
         logits, new = model.prefill(base, {"tokens": tokens}, cache, ctx,
                                     adapter, lengths=lengths, **kw)
-        caches["pos"][c] = torch.where(slot_mask, new["pos"],
-                                       caches["pos"][c])
+        caches["pos"].view(-1).index_copy_(
+            0, slots, torch.where(slot_mask, new["pos"], pos_c))
         return logits, caches
 
     return prefill_one
@@ -592,25 +620,39 @@ def make_multi_client_decode_step(cfg: ModelConfig, acfg, scfg: ServeConfig,
     return decode
 
 
+def as_index(i, device):
+    """A host int or a one-element index tensor as a [1] long tensor on
+    ``device`` (a host int by a fill: no copy from the host, no wait)."""
+    if isinstance(i, torch.Tensor):
+        return i.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(i), dtype=torch.long, device=device)
+
+
 def make_page_copy(cfg: ModelConfig, scfg: ServeConfig):
     """Copy-on-write of a shared-prefix tail page:
 
       fn(caches, src, dst) -> caches
 
     page ``dst`` of every pool leaf becomes a bitwise copy of page ``src``
-    across every layer: one in-place ``copy_`` per leaf between two views
-    of the pool, so the pools keep their ``data_ptr`` and the host never
-    waits. ``src``/``dst`` are global page ids (host ints)."""
+    across every layer: per leaf, the source page gathered by index and
+    written into the destination by an in-place ``index_copy_``, so the
+    pools keep their ``data_ptr`` and the host never waits. ``src``/``dst``
+    are global page ids: host ints or one-element index tensors (JAX's are
+    traced scalars; the engine passes tensors, so one program serves every
+    copy)."""
     _check_paged(cfg, scfg, "page copy")
     page_axes = cache_page_axes(cfg, scfg.max_seq,
                                 **serve_cache_kwargs(cfg, scfg))
 
     def copy_page(caches, src, dst):
         key = _container(caches)
-        for leaf, pax in zip(tree_leaves(caches[key]),
-                             tree_leaves(page_axes[key])):
-            if pax is not None:
-                leaf.select(pax, dst).copy_(leaf.select(pax, src))
+        pools = [(leaf, pax) for leaf, pax in zip(
+            tree_leaves(caches[key]), tree_leaves(page_axes[key]))
+            if pax is not None]
+        dev = pools[0][0].device
+        src, dst = as_index(src, dev), as_index(dst, dev)
+        for leaf, pax in pools:
+            leaf.index_copy_(pax, dst, leaf.index_select(pax, src))
         return caches
 
     return copy_page

@@ -37,7 +37,11 @@ attaches telemetry and writes ``telemetry.jsonl`` and ``metrics.prom``
 into DIR after the run (check them with ``python -m repro_torch.obs
 --check``). After the run it prints the scheduler-simulated timeline of
 the finished requests under ``--policy`` (``simulate_policy``).
-``--privacy`` and ``--mesh`` are declared as in JAX and exit "not ported
+``--privacy`` is refused: JAX's CLI declares it and reads it nowhere,
+and a client turns §3.8 on through its own context
+(``virtlayer.make_client_ctx(privacy_noise=...)`` over an adapter tree
+from ``attach_privacy``), so a switch that did nothing would serve without
+noise silently. ``--mesh`` is declared as in JAX and exits "not ported
 yet".
 """
 from __future__ import annotations
@@ -75,7 +79,8 @@ def main(argv=None):
                     help="pages per client pool (0 = full provisioning)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV entries with per-head f32 scales")
-    ap.add_argument("--privacy", action="store_true")
+    ap.add_argument("--privacy", action="store_true",
+                    help="refused: privacy is a client context")
     ap.add_argument("--mesh", nargs=2, type=int, default=None,
                     metavar=("DATA", "MODEL"))
     ap.add_argument("--obs", default=None, metavar="DIR",
@@ -84,10 +89,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, val in (("--privacy", args.privacy), ("--mesh", args.mesh)):
-        if val:
-            raise SystemExit(f"{flag} is not ported yet: the port serves "
-                             "on one device")
+    if args.privacy:
+        raise SystemExit("--privacy is not an engine switch: a client turns "
+                         "privacy on through its context, "
+                         "repro_torch.core.virtlayer.make_client_ctx("
+                         "privacy_noise=...) over an adapter tree from "
+                         "attach_privacy")
+    if args.mesh:
+        raise SystemExit("--mesh is not ported yet: the port serves on one "
+                         "device")
 
     cfg = get_config(args.arch)
     check_family(cfg, frameless="the serve CLI")

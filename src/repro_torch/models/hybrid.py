@@ -161,14 +161,25 @@ def _adapter_group(adapter, g):
     return _tree_index(adapter["groups"], g)
 
 
-def _write_rows(leaf, val, rows):
+def _write_rows(leaf, val, rows, slots=None, old=None):
     """leaf [B, ...] <- val IN PLACE, only the rows where ``rows`` [B] is
-    True (all of them for None)."""
+    True (all of them for None). With ``slots`` [B] the leaf holds more
+    rows (a bank's) and batch row b is leaf row ``slots[b]``; ``old``, the
+    batch rows as ``_read_rows`` read them, spares a second read."""
     val = val.to(leaf.dtype)
     if rows is not None:
         val = torch.where(rows.reshape((-1,) + (1,) * (val.ndim - 1)), val,
-                          leaf)
-    leaf.copy_(val)
+                          _read_rows(leaf, slots) if old is None else old)
+    if slots is None:
+        leaf.copy_(val)
+    else:
+        leaf.index_copy_(0, slots, val)
+
+
+def _read_rows(leaf, slots=None):
+    """A per-slot leaf's batch rows: itself, or its rows ``slots`` [B] (a
+    copy)."""
+    return leaf if slots is None else leaf.index_select(0, slots)
 
 
 def _group_seq(gp, cfg, x, positions, lin, *, states=None, on_kv=None,
@@ -255,13 +266,15 @@ def _fused(leaf):
 
 def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
             adapter=None, *, lengths=None, write_rows=None, starts=None,
-            ext_blocks: int = 0):
+            ext_blocks: int = 0, slots=None):
     """Prefill over prompts at their true length, filling the cache IN
     PLACE. Each Mamba sublayer starts from the state the cache holds (the
     caller zeroes an admitted slot first) and its final state is written
     back; ``write_rows`` [B] bool keeps the bits of the rows where it is
     False, in the per-slot leaves (Mamba state; dense K/V rows, of which
-    lanes [0, S) are written). Paged pools take positions < ``lengths``
+    lanes [0, S) are written). ``slots`` [B] long reads the per-slot leaves
+    as a bank's rows [G, C*B, ...]: batch row b reads and writes row
+    ``slots[b]``, group by group. Paged pools take positions < ``lengths``
     only (a row of length 0 writes nothing). ``lengths`` [B] also picks
     each row's logits at its last real position and starts ``pos`` there.
     The shared-prefix suffix prefill (``starts``, ``ext_blocks``) is for
@@ -285,19 +298,21 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
             for name, val in (("k", k), ("v", v)):
                 leaf = grp[f"sub{j}"][name]
                 if tbl is None:
-                    _dense_prefill_write(leaf[g], val, write_rows)
+                    _dense_prefill_write(leaf[g], val, write_rows, slots)
                 else:
                     blocks.paged_write(_fused(leaf), index, val.flatten(0, 1),
                                        page_offset=g * P)
 
-        states = {j: {n: t[g] for n, t in grp[f"sub{j}"].items()}
+        states = {j: {n: _read_rows(t[g], slots)
+                      for n, t in grp[f"sub{j}"].items()}
                   for j in range(cfg.attn_every) if "h" in grp[f"sub{j}"]}
         x, _, new = _group_seq(gp, cfg, x, positions,
                                ctx.for_layer(_adapter_group(adapter, g)),
                                states=states, on_kv=on_kv)
         for j, st in new.items():
             for n, val in st.items():
-                _write_rows(grp[f"sub{j}"][n][g], val, write_rows)
+                _write_rows(grp[f"sub{j}"][n][g], val, write_rows, slots,
+                            states[j][n])
     x = blocks.rmsnorm(params["final_norm"], x)
     if lengths is None:
         logits = lm_head(cfg, params, x[:, -1:], ctx.top)[:, 0]

@@ -29,7 +29,7 @@ import torch.utils.checkpoint
 from repro_torch import resolve_device
 from repro_torch.config import RWKV, ModelConfig
 from repro_torch.models import blocks, rwkv as rwkv_lib
-from repro_torch.models.hybrid import _write_rows
+from repro_torch.models.hybrid import _read_rows, _write_rows
 from repro_torch.models.transformer import (DEFAULT_CTX, LinCtx, _dtype,
                                             _adapter_layer, embed_tokens,
                                             lm_head)
@@ -135,27 +135,32 @@ def forward(cfg: ModelConfig, params, batch, ctx: LinCtx = DEFAULT_CTX,
                                dtype=torch.float32, device=x.device)
 
 
-def _run_with_state(cfg, params, x, cache, ctx, adapter, rows):
+def _run_with_state(cfg, params, x, cache, ctx, adapter, rows, slots=None):
     """Every layer from the cache's state, each layer's new state written
-    back IN PLACE on ``rows`` (None: every row) as soon as it is made."""
+    back IN PLACE on ``rows`` (None: every row) as soon as it is made;
+    ``slots`` [B]: the state leaves are a bank's rows, batch row b row
+    ``slots[b]``."""
     leaves = cache["layers"]
     for i, p in enumerate(params["layers"]):
         lin = ctx.for_layer(_adapter_layer(adapter, i))
-        x, new = _layer(p, cfg, x, lin, tuple(leaves[n][i] for n in STATE))
-        for n, val in zip(STATE, new):
-            _write_rows(leaves[n][i], val, rows)
+        old = tuple(_read_rows(leaves[n][i], slots) for n in STATE)
+        x, new = _layer(p, cfg, x, lin, old)
+        for n, val, o in zip(STATE, new, old):
+            _write_rows(leaves[n][i], val, rows, slots, o)
     return blocks.rmsnorm(params["final_norm"], x)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
             adapter=None, *, lengths=None, write_rows=None, starts=None,
-            ext_blocks: int = 0):
+            ext_blocks: int = 0, slots=None):
     """Prefill over prompts at their true length, from the state the cache
     holds (the caller zeroes an admitted slot first), writing each layer's
     state IN PLACE on the rows where ``write_rows`` [B] is True (all for
-    None). ``lengths`` [B] picks each row's logits at its last real
-    position and advances ``pos`` by it (by S without); the tails are
-    taken at position S - 1, as in JAX, so pads would run into the state.
+    None); ``slots`` [B] long reads the state leaves as a bank's rows [L,
+    C*B, ...], batch row b row ``slots[b]``. ``lengths`` [B] picks each
+    row's logits at its last real position and advances ``pos`` by it (by
+    S without); the tails are taken at position S - 1, as in JAX, so pads
+    would run into the state.
     The shared-prefix suffix prefill (``starts``, ``ext_blocks``) is for
     the pure-KV families, as in JAX."""
     if starts is not None or ext_blocks:
@@ -164,7 +169,8 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens, ctx.top)
-    x = _run_with_state(cfg, params, x, cache, ctx, adapter, write_rows)
+    x = _run_with_state(cfg, params, x, cache, ctx, adapter, write_rows,
+                        slots)
     if lengths is None:
         logits = lm_head(cfg, params, x[:, -1:], ctx.top)[:, 0]
         pos = cache["pos"] + S

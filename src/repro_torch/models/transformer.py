@@ -416,22 +416,29 @@ def decode_step(cfg: ModelConfig, params, cache, token, ctx: LinCtx = DEFAULT_CT
     return logits, dict(cache, pos=pos + 1)
 
 
-def _dense_prefill_write(leaf, val, write_rows):
+def _dense_prefill_write(leaf, val, write_rows, slots=None):
     """Write a prefill's K/V (or scales) val [B, S, ...] into one layer's
     dense slab [B, T, ...] at lanes [0, S) IN PLACE, every position of the
     row (pads included, as JAX's ``dynamic_update_slice``); rows where
-    ``write_rows`` [B] is False keep their bits."""
+    ``write_rows`` [B] is False keep their bits. With ``slots`` [B] the
+    slab holds more rows (a bank's) and batch row b is slab row
+    ``slots[b]``."""
     S = val.shape[1]
     val = val.to(leaf.dtype)
+    head = leaf[:, :S]
     if write_rows is not None:
         keep = write_rows.reshape((-1,) + (1,) * (val.ndim - 1))
-        val = torch.where(keep, val, leaf[:, :S])
-    leaf[:, :S] = val
+        val = torch.where(keep, val, head if slots is None
+                          else head.index_select(0, slots))
+    if slots is None:
+        head.copy_(val)
+    else:
+        head.index_copy_(0, slots, val)
 
 
 def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
             adapter=None, *, lengths=None, starts=None, ext_blocks: int = 0,
-            write_rows=None):
+            write_rows=None, slots=None):
     """Prefill over right-padded prompts, filling the cache IN PLACE.
 
     ``lengths`` [B] (optional) are the true prompt lengths: logits are taken
@@ -446,7 +453,10 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
     lanes [0, S) — pads past a row's length are harmless, as in JAX: decode
     writes lane ``pos`` before it reads it — and ``write_rows`` [B] bool
     (dense only; the port's in-place form of its JAX callers' merge) keeps
-    the bits of the rows where it is False.
+    the bits of the rows where it is False. ``slots`` [B] long (dense
+    only) reads the dense leaves as a bank's rows [L, C*B, T, ...]: batch
+    row b writes row ``slots[b]``, layer by layer (the per-client prefill
+    writes its client's rows in place).
 
     A VLM batch's ``img_embed`` [B, Ti, d] leads every row: positions run
     over the Ti + S tokens, all Ti image tokens and the row's ``lengths``
@@ -480,9 +490,9 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
             raise ValueError("suffix prefill (starts=) needs a paged cache")
         layers = cache["layers"]
     else:
-        if write_rows is not None:
-            raise ValueError("write_rows is for dense caches: a paged row "
-                             "of length 0 writes nothing")
+        if write_rows is not None or slots is not None:
+            raise ValueError("write_rows and slots are for dense caches: a "
+                             "paged row of length 0 writes nothing")
         if starts is not None:
             starts = starts.to(torch.int32)
             positions = starts[:, None] + positions
@@ -514,7 +524,7 @@ def prefill(cfg: ModelConfig, params, batch, cache, ctx: LinCtx = DEFAULT_CTX,
             parts = (("k", k), ("v", v))
         for name, val in parts:
             if tbl is None:
-                _dense_prefill_write(layers[name][i], val, write_rows)
+                _dense_prefill_write(layers[name][i], val, write_rows, slots)
             else:
                 blocks.paged_write(layers[name], index, val.flatten(0, 1),
                                    page_offset=i * Pl)

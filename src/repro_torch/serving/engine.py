@@ -140,6 +140,13 @@ imports ``repro_torch.obs``. Every request carries its timeline whether or
 not ``obs`` is attached (``submit_t`` / ``admit_t`` / ``first_token_t`` /
 ``finish_t``, and ``queue_wait`` / ``ttft`` / ``e2e_latency``).
 
+Bucket contract: every step call goes through
+``analysis.tracecount.dispatch`` under JAX's family and key, and
+``trace_domain()`` declares JAX's closed key sets (``admit_bank`` opens a
+new ``_trace_epoch``); under a ``tracecount.guard`` a step signature
+outside them is a violation, and with ``obs`` attached each new one is a
+``compile`` event (``python -m repro_torch.analysis --buckets``).
+
 Not ported yet, and refused with ``ValueError``: a ``mesh``, and an
 encoder-decoder request at ``submit`` (above). Refused as in JAX: mixed banks on the
 dense layout or with ``compact_decode=False``, ``compact_decode=True``
@@ -163,6 +170,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import tracecount
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.config import DENSE, MOE, VLM, check_family
 from repro_torch.core import adapters as adapters_lib
@@ -428,6 +436,7 @@ class ServingEngine:
         self._obs = obs
         self._span = _null_span if obs is None else obs.span
         self._last_tok_t: Dict[int, float] = {}
+        self._trace_epoch = 0
         if obs is not None:
             obs.attach("serving", self)
 
@@ -1005,9 +1014,11 @@ class ServingEngine:
         returns the [max_b, V] logits on the host."""
         self._sync_tbl()
         m = int(self._method_of[c])
-        logits, self.caches = self._client_prefill(
-            m, self.base, self.banks[m], self.caches, c,
-            int(self._local_of[c]), *self._on_device(toks, lengths, mask))
+        logits, self.caches = tracecount.dispatch(
+            self, "prefill", (m, toks.shape[1]), self._client_prefill, m,
+            self.base, self.banks[m], self.caches, self._id(c),
+            self._id(self._local_of[c]),
+            *self._on_device(toks, lengths, mask))
         self.stats["prefill_calls"] += 1
         return logits.float().cpu().numpy()
 
@@ -1058,9 +1069,9 @@ class ServingEngine:
         sel = np.zeros((self.n_clients,), bool)
         sel[c] = True
         tok_t, sel_t = self._on_device(toks, sel)
-        logits, self.caches = self._bank_prefill(
-            self.base, self.banks[0], self.caches, {"tokens": tok_t},
-            write_clients=sel_t)
+        logits, self.caches = tracecount.dispatch(
+            self, "bank_prefill", (S,), self._bank_prefill, self.base,
+            self.banks[0], self.caches, {"tokens": tok_t}, sel_t)
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += B * S
         return logits[c].float().cpu().numpy()[slots]
@@ -1101,7 +1112,8 @@ class ServingEngine:
         self._flush_page_copies()
         self._sync_tbl()
         with self._span("jit_dispatch"):
-            logits, _, self.caches = self._prefill_step(
+            logits, _, self.caches = tracecount.dispatch(
+                self, "compact_prefill", (nb, S_pad, ext), self._prefill_step,
                 ext, self.base, self._bank_arg(), self.caches,
                 *self._on_device(toks, lengths, starts, clients, slot_ids,
                                  *self._rows_arg(clients), rmask))
@@ -1163,10 +1175,18 @@ class ServingEngine:
         """Run the admission-queued copy-on-write copies, in order."""
         copies, self._pending_copies = self._pending_copies, []
         for src, dst in copies:
-            self.caches = self._page_copy(self.caches, src, dst)
+            self.caches = tracecount.dispatch(
+                self, "page_copy", (), self._page_copy, self.caches,
+                self._id(src), self._id(dst))
 
     def _on_device(self, *arrays):
         return [torch.tensor(a, device=self.device) for a in arrays]
+
+    def _id(self, i):
+        """A client, adapter or page id as the steps take it: a one-element
+        index tensor, as JAX passes a traced scalar, so a step's call
+        signature does not depend on which one."""
+        return symbiosis.as_index(i, self.device)
 
     def _bucket(self, S: int) -> int:
         """Bucketed prompt length: right-padding is exact for the pure-KV
@@ -1233,8 +1253,9 @@ class ServingEngine:
             serve_sel[sorted(serve)] = True
             active = self._active_mask & serve_sel
             with self._span("jit_dispatch"):
-                logits, self.caches = self._decode_step(
-                    self.base, self._bank_arg(), self.caches,
+                logits, self.caches = tracecount.dispatch(
+                    self, "decode", (), self._decode_step, self.base,
+                    self._bank_arg(), self.caches,
                     *self._on_device(self._last_tok, active))
             with self._span("device_sync"):
                 lg = logits.float().cpu().numpy()
@@ -1285,8 +1306,9 @@ class ServingEngine:
                 clients[i], slots[i], mask[i] = c, s, True
             toks = self._last_tok[clients, slots]
         with self._span("jit_dispatch"):
-            logits, finite, self.caches = self._decode_step(
-                self.base, self._bank_arg(), self.caches,
+            logits, finite, self.caches = tracecount.dispatch(
+                self, "compact_decode", nb, self._decode_step, self.base,
+                self._bank_arg(), self.caches,
                 *self._on_device(toks, clients, slots,
                                  *self._rows_arg(clients), mask))
         with self._span("device_sync"):
@@ -1656,6 +1678,7 @@ class ServingEngine:
             [self._active_mask, np.zeros((k, self.max_b), bool)])
         self._active_slots.extend([[] for _ in range(k)])
         self._set_buckets()
+        self._trace_epoch += 1
         if self._obs is not None:
             self._obs.event("bank_growth", engine="serving", tick=self._tick,
                             bank=m, clients=k, method=acfg.method)
@@ -1681,6 +1704,53 @@ class ServingEngine:
             self._obs.event("bank_retire", engine="serving", tick=self._tick,
                             bank=admission.bank_id,
                             clients=len(admission.client_ids))
+
+    def _prompt_buckets(self) -> set:
+        """The power-of-two prompt buckets ``_bucket`` gives, capped at
+        ``max_seq``."""
+        out, b = set(), 8
+        while True:
+            out.add(min(b, self.scfg.max_seq))
+            if b >= self.scfg.max_seq:
+                return out
+            b *= 2
+
+    def trace_domain(self) -> tracecount.TraceDomain:
+        """The closed set of legal step keys (the analysis 'buckets' pass),
+        JAX's for the same spec. Computed live, so ``admit_bank`` growth
+        re-declares itself: the per-client prefill runs (bank, prompt
+        bucket) pairs, a closed power-of-two set for the pure-KV families
+        and unbounded for the recurrent ones (true lengths); the masked
+        decode one shape (declared while the registry is single-bank, as
+        JAX builds it); the compacted decode exactly the row buckets; the
+        compacted prefill (row bucket, suffix bucket, shared-prefix
+        bucket) triples; the ``bank_prefill`` ablation is unbounded."""
+        d = tracecount.TraceDomain()
+        if self.cfg.arch in KV_FAMILIES:
+            d.declare("prefill", {(m, s) for m in range(len(self.bank_cfgs))
+                                  for s in self._prompt_buckets()})
+        else:
+            d.declare("prefill", unbounded=True)
+        if self._bank_prefill is not None:
+            d.declare("bank_prefill", unbounded=True)
+        if not self._mixed:
+            d.declare("decode", {()})
+        if self._compact:
+            d.declare("compact_decode", set(self._buckets))
+        if self._compact_prefill:
+            ebuckets = {0}
+            if self._share_prefix:
+                e = 1
+                while e < self._n_blocks:
+                    ebuckets.add(e)
+                    e *= 2
+                ebuckets.add(self._n_blocks)
+            d.declare("compact_prefill", {(nb, s, e) for nb in self._buckets
+                                          for s in self._prompt_buckets()
+                                          for e in ebuckets})
+            if self._share_prefix:
+                d.declare("page_copy", {()})
+        return d
 
     def simulate_policy(self, requests: List[Request], *, policy: str = None,
                         exec_overhead: float = 1e-4,

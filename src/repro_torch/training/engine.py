@@ -71,6 +71,11 @@ audio ``frames`` beside its decoder tokens, every encoder layer recomputed
 in the backward (its LoRA or IA3 acts on both stacks' self-attentions; a
 prefix job, which no layer reads, moves by weight decay alone). Not
 ported yet, and refused with ``ValueError``: a ``mesh``.
+
+Bucket contract: the merged train call goes through
+``analysis.tracecount.dispatch`` as family ``compact_train`` with key
+(bank key, row bucket), and ``trace_domain()`` admits power-of-two row
+buckets only, as JAX's does.
 """
 from __future__ import annotations
 
@@ -82,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import tracecount
 from repro_torch.checkpoint import save_job_state
 from repro_torch.common.tree import tree_map
 from repro_torch.config import (ENCDEC, HYBRID, RWKV, VLM, AdapterConfig,
@@ -896,6 +902,18 @@ class FinetuneEngine:
                 remat=self.fcfg.remat)
         return self._steps[key]
 
+    def trace_domain(self) -> tracecount.TraceDomain:
+        """Legal step keys (the analysis 'buckets' pass), JAX's: one
+        program per (bank key, row bucket), the bucket a power of two
+        (capacity doubles, and rows gather into power-of-two buckets), so
+        any other row count running is a hot-path recompile."""
+        d = tracecount.TraceDomain()
+        d.declare("compact_train",
+                  predicate=lambda key: (isinstance(key, tuple) and
+                                         len(key) == 2 and key[1] >= 1 and
+                                         key[1] & (key[1] - 1) == 0))
+        return d
+
     def _bank_tick(self, bank: _Bank):
         tick = self.stats["train_ticks"]
         # this tick's runnable rows: skip tenants backing off, and contain
@@ -941,7 +959,8 @@ class FinetuneEngine:
                 for k in rows[0][2]}
         dev = lambda a: torch.tensor(a, device=self.device)
         with self._span("train_step"):
-            bank.params, bank.opt, metrics = self._step_fn(bank.key)(
+            bank.params, bank.opt, metrics = tracecount.dispatch(
+                self, "compact_train", (bank.key, R), self._step_fn(bank.key),
                 self.base, bank.params, bank.opt, batch, dev(slots),
                 dev(mask), {k: dev(v) for k, v in hyper.items()})
         with self._span("device_sync"):

@@ -19,6 +19,7 @@ from repro_torch.core import packing
 from repro_torch.core.base_executor import (BaseExecutor, _bucket,
                                             calibrate_layer_cost)
 from repro_torch.kernels.ragged_linear import ragged_linear_cuda
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

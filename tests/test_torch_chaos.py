@@ -29,6 +29,7 @@ import pytest
 from repro.faults import chaos as jax_chaos
 from repro_torch.config import AdapterConfig
 from repro_torch.faults import chaos
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 
 def test_serving_scenario_matches_reference():

@@ -50,6 +50,7 @@ from repro_torch.training import FinetuneEngine, FinetuneJob, make_job_stream
 from test_torch_mixed_serving import numpy_adapter_bank
 from test_torch_peft_train import ACFGS, acfgs
 from test_torch_train import port_base, system
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 
 def _state(seed=0):

@@ -54,6 +54,7 @@ from test_torch_model import (LOGIT_TOL, POOL_TOL, QUANT_LOGIT_TOL, SCALE_TOL,
 from test_torch_mixed_serving import (IA3, LORA, PREFIX, STATS, _routers,
                                       make_engines, numpy_adapter_bank,
                                       port_acfg, port_scfg, router_state)
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 C, B_SLOTS, MAX_SEQ, BLK = 3, 2, 32, 8

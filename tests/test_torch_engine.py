@@ -30,6 +30,7 @@ from repro_torch.core.engine_spec import BankSpec, EngineSpec
 from repro_torch.serving.engine import Request, ServingEngine
 from conftest import tiny
 from test_torch_model import numpy_bank, numpy_base, port_config
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 N_CLIENTS, MAX_B = 3, 2
 SHARED_STATS = ("admitted", "prefill_tokens", "decode_tokens", "compact_rows",

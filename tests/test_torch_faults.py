@@ -68,6 +68,7 @@ from test_torch_finetune_engine import LORA4, Pair
 from test_torch_mixed_serving import (make_engines, numpy_adapter_bank,
                                       router_state)
 from test_torch_dense_serving import engine_state as dense_state
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 LORA = AdapterConfig(method="lora", rank=4, alpha=8.0, targets=("q", "v"))
 C, MAX_SEQ, BLK = 4, 32, 8
@@ -401,10 +402,14 @@ def test_policy_override_matches_reference(policy):
 
 
 def test_serve_cli_refuses_what_is_not_ported():
+    """``--mesh`` is refused as not ported; ``--privacy``, which JAX's CLI
+    declares and never reads, is refused with a pointer to the client
+    context that turns privacy on."""
     from repro_torch.launch import serve
-    for flag in (["--privacy"], ["--mesh", "1", "1"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            serve.main(["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        serve.main(["--device", "cpu", "--mesh", "1", "1"])
+    with pytest.raises(SystemExit, match="make_client_ctx"):
+        serve.main(["--device", "cpu", "--privacy"])
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,7 @@ from repro_torch.training import (FinetuneEngine, FinetuneJob,
 from test_torch_model import numpy_bank
 from test_torch_train import (TOL, assert_state_close, numpy_adapter, port_base,
                               system)
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 LORA4 = dict(method="lora", rank=4, alpha=8.0, targets=("q", "v"))
 LORA8 = dict(method="lora", rank=8, alpha=16.0, targets=("q", "k", "v", "o"))

@@ -18,6 +18,7 @@ from repro_torch import convert
 from repro_torch.kernels import flash_attn, flash_attn_ref
 from repro_torch.kernels.flash_attn import flash_attn_cuda, flash_attn_plain
 from repro_torch.kernels.flash_attn.flash_attn import SIMT, WGMMA, entry_point
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)

@@ -22,6 +22,7 @@ from repro_torch.core.virtlayer import make_client_ctx
 from repro_torch.models import get_model
 from conftest import tiny
 from test_torch_model import port_config
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

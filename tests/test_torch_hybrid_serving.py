@@ -50,6 +50,7 @@ from test_torch_dense_serving import serve_both
 from test_torch_hybrid import numpy_bank, numpy_params
 from test_torch_mixed_serving import _routers, port_acfg, port_scfg
 from test_torch_model import port_config
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 C, MAX_SEQ, BLK = 3, 40, 8
 ROUTER = AdapterConfig(method="lora", rank=4, alpha=8.0,

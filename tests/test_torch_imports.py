@@ -23,7 +23,12 @@ assert {"repro_torch.serving.prefix_cache", "repro_torch.faults.audit",
         "repro_torch.faults.chaos", "repro_torch.models.moe",
         "repro_torch.models.encdec", "repro_torch.configs.whisper_small",
         "repro_torch.configs.deepseek_moe_16b",
-        "repro_torch.configs.llava_next_mistral_7b"} \
+        "repro_torch.configs.llava_next_mistral_7b",
+        "repro_torch.core.privacy", "repro_torch.analysis.report",
+        "repro_torch.analysis.tracecount", "repro_torch.analysis.aliasing",
+        "repro_torch.analysis.taint", "repro_torch.analysis.audit",
+        "repro_torch.analysis.targets", "repro_torch.analysis.runner",
+        "repro_torch.analysis.__main__"} \
     <= set(names), names       # the port's own copies of pure-Python modules
 for name in names:
     importlib.import_module(name)

@@ -27,6 +27,7 @@ from repro.models.blocks import quantize_head as jax_quantize_head
 import repro_torch.kernels as port_kernels
 from repro_torch import convert
 from repro_torch.models.blocks import quantize_head
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 # the subpackages (``repro_torch.kernels.decode_attn`` as an attribute is
 # the op, as in the JAX package)

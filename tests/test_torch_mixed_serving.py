@@ -51,6 +51,7 @@ from repro_torch.serving.router import NoCapacity, PlacementRouter, Slot
 from conftest import tiny
 from test_torch_model import (LOGIT_TOL, _assert_pools, _named_pages,
                               numpy_base, port_config)
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 LORA = AdapterConfig(method="lora", rank=4, alpha=8.0, targets=("q", "v"))

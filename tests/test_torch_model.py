@@ -26,6 +26,20 @@ from repro_torch.models import get_model
 from repro_torch.models import blocks as port_blocks
 from conftest import tiny
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: these tensors are tiny, and the
+    suite's workers share the machine's cores, where torch's thread pool
+    would spend its time waiting. Every port test file imports it (this
+    module is the root of their imports; ``test_torch_rwkv`` re-exports
+    it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C, B_SLOTS, MAX_SEQ, BLK = 3, 2, 32, 8
 SENTINEL = 1 << 30
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -61,6 +61,7 @@ from repro_torch.training import FinetuneEngine
 from conftest import tiny
 from test_torch_mixed_serving import port_acfg
 from test_torch_model import LOGIT_TOL, POOL_TOL, port_config
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ARCHS = ("deepseek-moe-16b", "arctic-480b", "llava-next-mistral-7b")

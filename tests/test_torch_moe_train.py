@@ -63,6 +63,7 @@ from test_torch_mixed_serving import port_acfg
 from test_torch_model import port_config
 from test_torch_moe import _moe_inputs, jax_bank, numpy_bank, numpy_params
 from test_torch_train import assert_state_close
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ACFGS = {

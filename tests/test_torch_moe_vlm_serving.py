@@ -53,6 +53,7 @@ from test_torch_mixed_serving import (host_state, port_acfg, port_scfg,
                                       serve_lockstep)
 from test_torch_model import port_config
 from test_torch_moe import TIER2, jax_bank, numpy_bank, numpy_params
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 C, MAX_SEQ, BLK = 3, 32, 8
 LORA = AdapterConfig(method="lora", rank=4, alpha=8.0, targets=("q", "v"))

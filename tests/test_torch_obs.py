@@ -18,10 +18,11 @@ On tiny fp32 configs with weights made by numpy from seeds:
 * the feed against JAX's on the same workloads, both engines
   ``debug=True``: the events (kind, engine, tick, tenant, data) in sequence
   order, the metric names and labels, every counter and gauge value and
-  every histogram's count (timings are not compared). The JAX engines
-  also report jit compiles (``compile`` events, ``jit_*`` counters) from
-  their dispatch choke point, which has no caller in the port yet, so
-  those are left out; ``train_loss`` is held to the train tests'
+  every histogram's count (timings are not compared). Both engines also
+  report compiles (``compile`` events, ``jit_*`` counters) from their
+  dispatch choke point; JAX's depend on its process-wide jit caches, so
+  they are left out here and compared in tests/test_torch_analysis.py
+  over a workload from cold caches; ``train_loss`` is held to the train tests'
   tolerance (the packages' losses agree to it, not bit for bit) and the
   fine-tuning ``router_committed_bytes`` to the port's activation terms
   (a stated departure of the port's charge). Both packages' engines are
@@ -81,6 +82,7 @@ from test_torch_train import TOL
 from repro.serving import kvcache as jax_kvcache
 from repro.serving.router import PlacementRouter as JaxRouter
 from repro.serving.router import Slot as JaxSlot
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 PLORA = pcfg.AdapterConfig(method="lora", rank=4, alpha=8.0, targets=("q", "v"))
@@ -809,7 +811,11 @@ def test_symbiosis_shared_obs_merged_feed():
     ev = psym.drain_events()
     assert {e.engine for e in ev} == {"serving", "finetune"}
     assert [e.seq for e in ev] == sorted(e.seq for e in ev)
-    jev = [e for e in jsym.drain_events() if e.kind != "compile"]
+    # compile events depend on JAX's process-wide jit caches (a step
+    # another test compiled is not compiled again); tests/test_torch_
+    # analysis.py compares them over a workload from cold caches
+    ev, jev = ([e for e in feed if e.kind not in ("compile", "recompile")]
+               for feed in (ev, jsym.drain_events()))
     assert [(e.kind, e.engine, e.tick, e.tenant, e.data) for e in ev] == \
         [(e.kind, e.engine, e.tick, e.tenant, e.data) for e in jev]
     assert psym.drain_events() == []

@@ -21,6 +21,7 @@ from repro.optim.schedules import warmup_cosine as jax_warmup_cosine
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                adamw_update_hyper, warmup_cosine)
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -57,6 +57,7 @@ from test_torch_model import LOGIT_TOL, POOL_TOL
 from test_torch_train import (CAP, MASK, R, SLOTS, TOL, assert_state_close,
                               batches, hyper_rows, jax_tree, port_base,
                               port_tree, system)
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 ACFGS = {   # the JAX package's field values, one per method
     "lora": dict(method="lora", rank=4, alpha=8.0, targets=("q", "v")),

@@ -47,6 +47,7 @@ from test_torch_mixed_serving import (LORA, host_state, make_engines,
                                       port_scfg, serve_lockstep)
 from test_torch_model import (LOGIT_TOL, POOL_TOL, _assert_pools,
                               numpy_base, port_config)
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the phase-8 schedule; imports no JAX)

@@ -23,6 +23,7 @@ from repro_torch.kernels.ragged_linear import (ragged_linear_cuda,
                                                ragged_linear_plain)
 from repro_torch.kernels.ragged_linear.ragged_linear import (SIMT, WGMMA,
                                                              entry_point)
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)

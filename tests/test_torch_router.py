@@ -27,6 +27,7 @@ from repro_torch.serving.engine import Request
 from test_torch_engine import (_port_engine, _system, _workload,
                                serve_tick_by_tick)
 from test_torch_model import port_config
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 REF_CHIP = Chip(**{f: getattr(V5E, f) for f in Chip.__dataclass_fields__})
 CONFIGS = {"granite-3-8b": lambda: jax_get_config("granite-3-8b"),

@@ -65,20 +65,12 @@ from conftest import tiny
 from test_torch_hybrid import _np, _t
 from test_torch_mixed_serving import port_acfg, port_scfg
 from test_torch_model import LOGIT_TOL, port_config
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module: these tensors are tiny, and the
-    suite's workers share the machine's cores, where torch's thread pool
-    would spend its time waiting. The other RWKV test files import it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 LORA = AdapterConfig(method="lora", rank=4, alpha=8.0,
                      targets=("q", "v", "cm_k"))
 IA3 = AdapterConfig(method="ia3", targets=("k", "v", "down"))

@@ -20,6 +20,7 @@ from repro.serving.engine import Request as JaxRequest
 from repro_torch.core import scheduler as port_scheduler
 from repro_torch.serving.engine import Request
 from test_torch_engine import _jax_engine, _port_engine, _system, _workload
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 MIXES = {"none": lambda i: False, "all": lambda i: True,
          "odd": lambda i: i % 2 == 1}

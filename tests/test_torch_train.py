@@ -40,6 +40,7 @@ from repro_torch.models.losses import lm_loss
 from repro_torch.optim import AdamWState, adamw_init
 from conftest import tiny
 from test_torch_model import numpy_base, port_config
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ACFG = JaxAdapterConfig(method="lora", rank=4, alpha=8.0, targets=("q", "v"))

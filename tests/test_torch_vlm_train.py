@@ -45,6 +45,7 @@ from test_torch_model import port_config
 from test_torch_moe import numpy_bank, numpy_params
 from test_torch_moe_train import _saved_bytes
 from test_torch_train import assert_state_close
+from test_torch_model import one_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 LORA = dict(method="lora", rank=4, alpha=8.0, targets=("q", "v"))

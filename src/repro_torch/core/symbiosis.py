@@ -52,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.common.nullspan import null_span
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.config import (ENCDEC, HYBRID, RWKV, AdapterConfig,
                                 ModelConfig, ServeConfig, TrainConfig,
@@ -668,7 +669,7 @@ def _requiring_grad(tree):
     return tree_map(lambda x: x.detach().requires_grad_(True), tree)
 
 
-def _value_and_grad(loss_fn, differentiate_base: bool):
+def _value_and_grad(loss_fn, differentiate_base: bool, span=null_span):
     """fn(adapter, base, batch) -> (loss, adapter grads) for a ``loss_fn``
     that returns one loss or per-row losses [R] (the grads of their sum:
     rows share no adapter, so each row gets its own). With
@@ -676,18 +677,21 @@ def _value_and_grad(loss_fn, differentiate_base: bool):
     autograd holds every base linear's input for a weight gradient, as a
     torch trainer does; that gradient is never asked for. A leaf the loss
     does not reach (a prefix adapter on the hybrid, which reads none) gets
-    zeros, as ``jax.grad`` gives it."""
+    zeros, as ``jax.grad`` gives it. The loss runs in ``span("forward")``,
+    ``torch.autograd.grad`` in ``span("backward")``."""
 
     def fn(adapter, base, batch):
         ad = _requiring_grad(adapter)
         if differentiate_base:
             base = _requiring_grad(base)
         with torch.enable_grad():
-            loss = loss_fn(ad, base, batch)
+            with span("forward"):
+                loss = loss_fn(ad, base, batch)
             leaves = tree_leaves(ad)
-            grads = torch.autograd.grad(loss.sum(), leaves,
-                                        allow_unused=True) \
-                if loss.requires_grad else [None] * len(leaves)
+            with span("backward"):
+                grads = torch.autograd.grad(loss.sum(), leaves,
+                                            allow_unused=True) \
+                    if loss.requires_grad else [None] * len(leaves)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
         return loss.detach(), tree_unflatten(adapter, grads)
@@ -725,7 +729,8 @@ def _accumulate(grad_fn, nmb: int, axis: int):
 def make_row_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
                      remat: bool = True, memory_optimized: bool = True,
                      microbatch: int = 0, moe_dispatch: str = "scatter",
-                     capacity_factor=None, differentiate_base: bool = False):
+                     capacity_factor=None, differentiate_base: bool = False,
+                     span=null_span):
     """One JOB's loss-and-grads closure: ``fn(adapter, base, batch[B, ...])
     -> (loss, adapter_grads)``; ``microbatch > 1`` accumulates grads over
     B/microbatch-sized slices (mean of per-microbatch means, fp32). The
@@ -733,9 +738,11 @@ def make_row_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
     None: drop-free, as JAX's default here); a VLM batch's ``img_embed``
     leads its text. ``differentiate_base=True`` makes the base's linears
     hold their inputs for the backward: the torch-like memory baseline of
-    Fig 9/10."""
+    Fig 9/10. ``span`` is the span factory of the forward, the backward
+    and the MoE body (``_value_and_grad``, ``LinearFns.span``)."""
     model = get_model(cfg)
-    ctx = make_client_ctx(cfg, acfg, memory_optimized=memory_optimized)
+    ctx = make_client_ctx(cfg, acfg, memory_optimized=memory_optimized,
+                          span=span)
 
     def client_loss(adapter, base, batch):
         logits, aux = model.forward(base, batch, ctx, adapter, remat=remat,
@@ -744,13 +751,13 @@ def make_row_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
                                     moe_dispatch=moe_dispatch)
         return lm_loss(logits, batch["labels"], batch.get("mask"), aux)
 
-    return _accumulate(_value_and_grad(client_loss, differentiate_base),
+    return _accumulate(_value_and_grad(client_loss, differentiate_base, span),
                        microbatch, axis=0)
 
 
 def _make_rows_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
                        remat: bool, memory_optimized: bool, microbatch: int,
-                       moe_dispatch: str, capacity_factor):
+                       moe_dispatch: str, capacity_factor, span=null_span):
     """R bank rows at once: ``fn(params[R, ...], base, batch[R, B, ...]) ->
     (losses [R], grads [R, ...])``. One forward over the rows' R*B
     sequences, every leaf of the batch (a VLM's ``img_embed`` too)
@@ -761,7 +768,8 @@ def _make_rows_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
 
     def rows_loss(params, base, batch):
         R, B = batch["tokens"].shape[:2]
-        ctx = make_bank_ctx(cfg, acfg, R, memory_optimized=memory_optimized)
+        ctx = make_bank_ctx(cfg, acfg, R, memory_optimized=memory_optimized,
+                            span=span)
         logits, aux = model.forward(
             base, {k: v.flatten(0, 1) for k, v in batch.items()}, ctx,
             adapters_lib.compact_adapter_bank(params, per_row=B),
@@ -773,7 +781,7 @@ def _make_rows_grad_fn(cfg: ModelConfig, acfg: AdapterConfig, *,
                                     None if mask is None else mask[i], aux[i])
                             for i in range(R)])
 
-    return _accumulate(_value_and_grad(rows_loss, not memory_optimized),
+    return _accumulate(_value_and_grad(rows_loss, not memory_optimized, span),
                        microbatch, axis=1)
 
 
@@ -908,7 +916,7 @@ def make_compact_train_step(cfg: ModelConfig, acfg: AdapterConfig, *,
                             microbatch: int = 0, remat: bool = True,
                             memory_optimized: bool = True,
                             moe_dispatch: str = "scatter",
-                            capacity_factor=None):
+                            capacity_factor=None, span=null_span):
     """Job-masked, slot-compacted multi-job train step — the FinetuneEngine's
     tick over ONE bank (jobs sharing an AdapterConfig, batch shape and
     microbatching, each with its OWN AdamW state, schedule position and
@@ -936,8 +944,12 @@ def make_compact_train_step(cfg: ModelConfig, acfg: AdapterConfig, *,
     (base linears hold their inputs), as ``make_baseline_train_step``
     does. An MoE model routes each row alone (``capacity_factor`` None:
     drop-free, JAX's default here), so a row's loss and grads do not depend
-    on the rows beside it."""
-    moe_kw = dict(moe_dispatch=moe_dispatch, capacity_factor=capacity_factor)
+    on the rows beside it. ``span`` is the span factory of its parts:
+    ``forward`` and ``backward`` of each microbatch, the MoE body's, and
+    ``optimizer`` (schedule, clip, AdamW, finite probe and both commits);
+    the shared null span by default."""
+    moe_kw = dict(moe_dispatch=moe_dispatch, capacity_factor=capacity_factor,
+                  span=span)
     solo = make_row_grad_fn(cfg, acfg, remat=remat,
                             memory_optimized=memory_optimized,
                             microbatch=microbatch,
@@ -956,14 +968,15 @@ def make_compact_train_step(cfg: ModelConfig, acfg: AdapterConfig, *,
             losses, grads = l1[None], tree_map(lambda x: x[None], g1)
         else:
             losses, grads = merged(params, base, batch)
-        lr = warmup_cosine(hyper["step"], hyper["lr"], hyper["warmup"],
-                           hyper["total"])
-        new_p, new_o, gnorms = adamw_update_hyper(params, grads, ostate, lr,
-                                                  hyper["wd"], hyper["gnorm"])
-        finite = _rows_finite(losses, grads)
-        keep = row_mask & finite
-        _commit(bank, new_p, slots, keep)
-        _commit(opt, new_o, slots, keep)
+        with span("optimizer"):
+            lr = warmup_cosine(hyper["step"], hyper["lr"], hyper["warmup"],
+                               hyper["total"])
+            new_p, new_o, gnorms = adamw_update_hyper(
+                params, grads, ostate, lr, hyper["wd"], hyper["gnorm"])
+            finite = _rows_finite(losses, grads)
+            keep = row_mask & finite
+            _commit(bank, new_p, slots, keep)
+            _commit(opt, new_o, slots, keep)
         return bank, opt, {"loss": losses, "gnorm": gnorms, "lr": lr,
                            "finite": finite}
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.common.nullspan import null_span
 from repro_torch.config import DENSE, MOE, VLM, AdapterConfig, ModelConfig
 from repro_torch.core import adapters as adapters_lib
 from repro_torch.core import privacy as privacy_lib
@@ -31,14 +32,15 @@ from repro_torch.models.transformer import LinCtx
 PRIV_KEY = "_priv"
 
 
-def _ctx(base, hook, pre=None, core=None) -> LinCtx:
+def _ctx(base, hook, pre=None, core=None, span=null_span) -> LinCtx:
     """LinCtx whose layer linears run ``pre(x, path, ad_slice)`` on the
     input (IA3's ``down`` scaling), the base product (or ``core(x, w, b,
     path, ad_slice)`` in its place: the private product), then ``hook(y,
     x, path, ad_slice)`` on its output, x being the scaled input; embed
     and lm_head get the bare base. ``base`` is a (dense, expert) pair; the
     MoE experts' products run the bare base in every context: no adapter
-    hook sees them (JAX's contexts do the same)."""
+    hook sees them (JAX's contexts do the same). ``span`` is the layers'
+    span factory (``LinearFns.span``)."""
     base_dense, base_expert = base
 
     def expert(x, w, path):
@@ -52,10 +54,10 @@ def _ctx(base, hook, pre=None, core=None) -> LinCtx:
                  else core(x, w, b, path, ad_slice))
             return hook(y, x, path, ad_slice)
 
-        return LinearFns(dense=dense, expert=expert)
+        return LinearFns(dense=dense, expert=expert, span=span)
 
     return LinCtx(top=LinearFns(dense=lambda x, w, b, path: base_dense(x, w, b),
-                                expert=expert),
+                                expert=expert, span=span),
                   for_layer=for_layer)
 
 
@@ -82,23 +84,23 @@ def _private_core(base_dense, noise, variant: int):
 
 def make_client_ctx(cfg: ModelConfig, acfg: Optional[AdapterConfig] = None,
                     *, memory_optimized: bool = True, privacy_noise=None,
-                    privacy_variant: int = 0) -> LinCtx:
+                    privacy_variant: int = 0, span=null_span) -> LinCtx:
     """Context for ONE client's adapter (``for_layer`` binds its per-layer
     slice); ``acfg=None`` runs the bare base. ``privacy_noise`` (path ->
     [V, din], the client's secret) turns on §3.8 for the paths whose
     effects ``attach_privacy`` put into the adapter tree, with variant
-    ``privacy_variant``."""
+    ``privacy_variant``. ``span``: the layers' span factory."""
     base = _base(memory_optimized)
     core = (None if privacy_noise is None
             else _private_core(base[0], privacy_noise, privacy_variant))
     if acfg is None:
-        return _ctx(base, lambda y, x, path, ad: y, core=core)
+        return _ctx(base, lambda y, x, path, ad: y, core=core, span=span)
     return _ctx(base,
                 lambda y, x, path, ad: adapters_lib.apply_adapter(
                     y, x, path, ad, acfg, cfg),
                 lambda x, path, ad: adapters_lib.pre_scale(x, path, ad, acfg,
                                                            cfg),
-                core=core)
+                core=core, span=span)
 
 
 def make_compact_ctx(cfg: ModelConfig, acfg: AdapterConfig,
@@ -149,18 +151,19 @@ def make_mixed_ctx(cfg: ModelConfig, acfgs, rows_local,
 
 
 def make_bank_ctx(cfg: ModelConfig, acfg: AdapterConfig, n_rows: int, *,
-                  memory_optimized: bool = True) -> LinCtx:
+                  memory_optimized: bool = True, span=null_span) -> LinCtx:
     """Context for a merged multi-job training batch: ``n_rows`` bank rows'
     batches back to back on the batch axis, per-layer adapter slices
     row-stacked ([n_rows, ...]). The base linears see every row's tokens in
     one product (§3.7 batching); each row's LoRA delta or IA3 scale is
     applied by ``adapters.apply_adapter_bank``, the IA3 ``down`` input
-    scale by ``adapters.pre_scale_bank``."""
+    scale by ``adapters.pre_scale_bank``. ``span``: the layers' span
+    factory."""
     return _ctx(_base(memory_optimized),
                 lambda y, x, path, ad: adapters_lib.apply_adapter_bank(
                     y, x, path, ad, acfg, cfg, n_rows),
                 lambda x, path, ad: adapters_lib.pre_scale_bank(
-                    x, path, ad, acfg, cfg, n_rows))
+                    x, path, ad, acfg, cfg, n_rows), span=span)
 
 
 def attach_privacy(adapter_tree, cfg: ModelConfig, base_params, noise,

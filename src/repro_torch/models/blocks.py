@@ -35,6 +35,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.nullspan import null_span
 from repro_torch.kernels import plain_kernels  # noqa: F401 (test oracle)
 from repro_torch.kernels.decode_attn import decode_attn
 
@@ -55,9 +56,13 @@ class LinearFns(NamedTuple):
 
     dense(x, w, b, path): x [..., din] @ w [din, dout] (+ b) -> [..., dout]
     expert(x, w, path):   x [E, C, din] @ w [E, din, dout] -> [E, C, dout]
+    span(name):           a context manager around a part of a layer (the
+                          MoE body's); the shared null span unless a
+                          fine-tuning engine with telemetry passes its own
     """
     dense: Callable
     expert: Callable = _default_expert
+    span: Callable = null_span
 
 
 DEFAULT_LIN = LinearFns(dense=_default_dense)

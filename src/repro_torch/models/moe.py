@@ -141,7 +141,11 @@ def _expert_ffn(params, xe, lin: LinearFns, path_prefix: str):
 
 def _body(params, cfg, x, lin: LinearFns, path_prefix: str,
           capacity_factor, dispatch: str, with_aux: bool, rows: int):
-    """route -> dispatch -> experts -> combine (+ the shared experts)."""
+    """route -> dispatch -> experts -> combine (+ the shared experts), each
+    of the four in its ``lin.span`` (``moe_route``, ``moe_dispatch``,
+    ``moe_experts``, ``moe_combine``)."""
+    if dispatch not in ("scatter", "einsum"):
+        raise ValueError(f"unknown dispatch {dispatch}")
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -149,38 +153,45 @@ def _body(params, cfg, x, lin: LinearFns, path_prefix: str,
     xt = x.reshape(T, d)
     cap = _capacity(Tg, E, k, capacity_factor)
     C = rows * cap                                  # buffer rows per expert
+    span = lin.span
 
-    gate_vals, idx, aux = _route(params, cfg, x, lin, path_prefix, with_aux,
-                                 rows)
-    pos_in_e, keep = _slot_positions(idx, E, cap, rows)
-    weights = (gate_vals * keep).to(x.dtype)                        # [T,k]
+    with span("moe_route"):
+        gate_vals, idx, aux = _route(params, cfg, x, lin, path_prefix,
+                                     with_aux, rows)
+        pos_in_e, keep = _slot_positions(idx, E, cap, rows)
+        weights = (gate_vals * keep).to(x.dtype)                    # [T,k]
 
     if dispatch == "scatter":
-        group = torch.arange(rows, device=x.device) \
-            .repeat_interleave(Tg)[:, None]                         # [T,1]
-        dest = torch.where(keep, idx * C + group * cap + pos_in_e,
-                           E * C).reshape(-1)
-        src = xt.repeat_interleave(k, dim=0)                        # [T*k,d]
-        xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device) \
-            .index_add_(0, dest, src)[:E * C]
-        ye = _expert_ffn(params, xe.reshape(E, C, d), lin, path_prefix)
-        gathered = ye.reshape(E * C, d)[dest.clamp_max(E * C - 1)]
-        gathered = torch.where(keep.reshape(-1, 1), gathered, 0) \
-            .reshape(T, k, d)                                       # fill 0
-        yt = (gathered * weights[..., None]).sum(dim=1)
-    elif dispatch == "einsum":
-        disp = (_one_hot(idx, E).to(x.dtype)[..., :, None]
-                * _one_hot(pos_in_e, cap).to(x.dtype)[..., None, :]
-                * keep[..., None, None].to(x.dtype)) \
-            .reshape(rows, Tg, k, E, cap)                           # [R,Tg,k,E,cap]
-        xe = torch.einsum("rtd,rtkec->ercd", xt.reshape(rows, Tg, d), disp)
-        ye = _expert_ffn(params, xe.reshape(E, C, d), lin, path_prefix)
-        combine = disp * gate_vals.reshape(rows, Tg, k)[..., None, None] \
-            .to(x.dtype)
-        yt = torch.einsum("ercd,rtkec->rtd", ye.reshape(E, rows, cap, d),
-                          combine).reshape(T, d)
+        with span("moe_dispatch"):
+            group = torch.arange(rows, device=x.device) \
+                .repeat_interleave(Tg)[:, None]                     # [T,1]
+            dest = torch.where(keep, idx * C + group * cap + pos_in_e,
+                               E * C).reshape(-1)
+            src = xt.repeat_interleave(k, dim=0)                    # [T*k,d]
+            xe = torch.zeros((E * C + 1, d), dtype=x.dtype,
+                             device=x.device).index_add_(0, dest, src)[:E * C]
+        with span("moe_experts"):
+            ye = _expert_ffn(params, xe.reshape(E, C, d), lin, path_prefix)
+        with span("moe_combine"):
+            gathered = ye.reshape(E * C, d)[dest.clamp_max(E * C - 1)]
+            gathered = torch.where(keep.reshape(-1, 1), gathered, 0) \
+                .reshape(T, k, d)                                   # fill 0
+            yt = (gathered * weights[..., None]).sum(dim=1)
     else:
-        raise ValueError(f"unknown dispatch {dispatch}")
+        with span("moe_dispatch"):
+            disp = (_one_hot(idx, E).to(x.dtype)[..., :, None]
+                    * _one_hot(pos_in_e, cap).to(x.dtype)[..., None, :]
+                    * keep[..., None, None].to(x.dtype)) \
+                .reshape(rows, Tg, k, E, cap)                       # [R,Tg,k,E,cap]
+            xe = torch.einsum("rtd,rtkec->ercd", xt.reshape(rows, Tg, d),
+                              disp)
+        with span("moe_experts"):
+            ye = _expert_ffn(params, xe.reshape(E, C, d), lin, path_prefix)
+        with span("moe_combine"):
+            combine = disp * gate_vals.reshape(rows, Tg, k)[..., None, None] \
+                .to(x.dtype)
+            yt = torch.einsum("ercd,rtkec->rtd", ye.reshape(E, rows, cap, d),
+                              combine).reshape(T, d)
 
     if "shared" in params:
         yt = yt + blocks.mlp_forward(params["shared"], xt, lin,

@@ -11,7 +11,16 @@ engines as ``obs=`` (``ServingEngine`` / ``FinetuneEngine`` /
   as gauges at snapshot time, ``stats`` staying the compatibility view).
 - ``obs.span(name)``: reusable tick-phase spans that open a
   ``torch.profiler.record_function`` range and feed per-phase latency
-  histograms.
+  histograms; ``obs.trace_span(name)`` the trace-only spans inside a
+  phase (the train step's forward, backward and optimizer, the MoE
+  body's parts), which feed no histogram.
+- ``obs.span_log``: every span's occurrences (name, parent, start, end,
+  thread, engine and tick) in a bounded buffer, with the count of those
+  dropped and a ``(perf_counter_ns, time_ns)`` anchor;
+  ``span_log.between(t0_ns, t1_ns)`` returns those of a stretch;
+  ``latest_span_log()`` the log of the ``Obs`` made last, which outlives
+  it, so an in-process reader (a benchmark) takes a run's records after
+  the run's engines are gone.
 - ``obs.events`` / ``obs.event(...)``: the structured, drainable event log
   (client-visible through ``engine.drain_events(client=...)``).
 
@@ -26,6 +35,8 @@ Contracts (``tests/test_torch_obs.py``, ``chip_smoke.py`` phase 12):
   outputs bit for bit unchanged.
 - The feed is JAX's: the same workload gives the same events and the same
   counter and gauge values, and the exports are byte for byte JAX's files.
+  Trace-only spans and the span log are outside it: they add no metric
+  series and nothing exported.
 
 ``obs.request_capture(log_dir, ticks=N)`` arms a ``torch.profiler``
 capture of the next N engine ticks (a Chrome trace in ``log_dir``).
@@ -40,12 +51,23 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.obs.events import UNSET, Event, EventLog
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, Metrics
-from repro_torch.obs.trace import CaptureWindow, Span
+from repro_torch.obs.trace import CaptureWindow, Span, SpanLog, SpanRecord
 
 __all__ = [
     "Obs", "Metrics", "Counter", "Gauge", "Histogram",
-    "Event", "EventLog", "Span", "CaptureWindow", "UNSET", "write_files",
+    "Event", "EventLog", "Span", "SpanLog", "SpanRecord", "CaptureWindow",
+    "UNSET", "write_files", "latest_span_log",
 ]
+
+MAX_SPANS = 65536   # span occurrences the span log keeps
+_LATEST: List[SpanLog] = []   # the span log of the Obs made last
+
+
+def latest_span_log() -> Optional[SpanLog]:
+    """The span log of the ``Obs`` made last in this process (kept after
+    that ``Obs`` and its engines are gone, until the next ``Obs``), None
+    before any."""
+    return _LATEST[-1] if _LATEST else None
 
 
 def write_files(obs: "Obs", out_dir: str) -> Tuple[str, str]:
@@ -64,7 +86,10 @@ class Obs:
     def __init__(self, *, max_events: int = 10000) -> None:
         self.metrics = Metrics()
         self.events = EventLog(maxlen=max_events)
+        self.span_log = SpanLog(maxlen=MAX_SPANS)
+        _LATEST[:] = [self.span_log]
         self._spans: Dict[str, Span] = {}
+        self._trace_spans: Dict[str, Span] = {}
         self._engines: Dict[str, object] = {}
         self._capture = CaptureWindow()
         self._compiled: set = set()
@@ -89,13 +114,27 @@ class Obs:
 
     # -- spans / tick boundaries -----------------------------------------
     def span(self, name: str) -> Span:
+        """The span of tick phase ``name``: its occurrences go to the span
+        log, its durations to ``span_seconds{phase=name}``."""
         sp = self._spans.get(name)
         if sp is None:
             sp = self._spans[name] = Span(
-                name, self.metrics.histogram("span_seconds", phase=name))
+                name, self.metrics.histogram("span_seconds", phase=name),
+                self.span_log)
         return sp
 
-    def tick_start(self, engine: str) -> float:
+    def trace_span(self, name: str) -> Span:
+        """A trace-only span (a part of a phase): its occurrences go to the
+        span log and nowhere else, so the feed stays JAX's."""
+        sp = self._trace_spans.get(name)
+        if sp is None:
+            sp = self._trace_spans[name] = Span(name, None, self.span_log)
+        return sp
+
+    def tick_start(self, engine: str, tick: int) -> float:
+        """Tick ``tick`` of ``engine`` starts: the span log stamps both on
+        the occurrences that follow."""
+        self.span_log.tick = (engine, tick)
         dev = getattr(self._engines.get(engine), "device", None)
         kind = self._capture.on_tick_start(
             cuda=getattr(dev, "type", None) == "cuda")
@@ -134,7 +173,7 @@ class Obs:
         function grew its cache). The first sighting of (owner, epoch,
         family, key) is a ``compile`` event, a repeat a ``recompile``; each
         bumps ``jit_compiles_total`` / ``jit_recompiles_total``. Its
-        caller in JAX is ``analysis.tracecount.dispatch``, not ported yet."""
+        caller is ``analysis.tracecount.dispatch``, as in JAX."""
         sig = (id(owner), epoch, family, repr(key))
         kind = "compile" if sig not in self._compiled else "recompile"
         self._compiled.add(sig)

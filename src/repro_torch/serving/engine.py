@@ -160,7 +160,6 @@ whose bank count differs, as in JAX.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -171,6 +170,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.analysis import tracecount
+# telemetry off: the shared null span (``common.nullspan``)
+from repro_torch.common.nullspan import NULL_CTX as _NULL_CTX  # noqa: F401
+from repro_torch.common.nullspan import null_span as _null_span
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.config import DENSE, MOE, VLM, check_family
 from repro_torch.core import adapters as adapters_lib
@@ -184,15 +186,6 @@ from repro_torch.serving.prefix_cache import PrefixIndex
 from repro_torch.serving.router import AdmissionStall, NoCapacity
 
 KV_FAMILIES = (DENSE, MOE, VLM)        # pure-KV: right-padding is exact
-
-# telemetry off: one shared, reusable null context, so the tick loop's
-# ``with self._span(name)`` costs a call and nothing else, and nothing of
-# repro_torch.obs (or the profiler) is imported
-_NULL_CTX = contextlib.nullcontext()
-
-
-def _null_span(name: str):
-    return _NULL_CTX
 
 
 @dataclasses.dataclass
@@ -614,7 +607,8 @@ class ServingEngine:
         prefill), the policy-chosen decode tick, retirement. Returns True
         while requests remain."""
         obs = self._obs
-        t0 = obs.tick_start("serving") if obs is not None else 0.0
+        t0 = obs.tick_start("serving", self._tick) if obs is not None \
+            else 0.0
         if self._queue:
             self._waiting = deque(sorted(list(self._waiting) + self._queue,
                                          key=lambda r: r.arrive_tick))

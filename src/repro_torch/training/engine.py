@@ -79,7 +79,6 @@ buckets only, as JAX's does.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -89,6 +88,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.analysis import tracecount
 from repro_torch.checkpoint import save_job_state
+# telemetry off: the shared null span (``common.nullspan``)
+from repro_torch.common.nullspan import NULL_CTX as _NULL_CTX  # noqa: F401
+from repro_torch.common.nullspan import null_span as _null_span
 from repro_torch.common.tree import tree_map
 from repro_torch.config import (ENCDEC, HYBRID, RWKV, VLM, AdapterConfig,
                                 FinetuneConfig, ModelConfig, TRAIN_FAMILIES,
@@ -104,13 +106,6 @@ from repro_torch.models.blocks import _pick_chunk
 from repro_torch.optim import adamw_init
 from repro_torch.serving.router import AdmissionStall, NoCapacity
 from repro_torch.training.job import FinetuneJob, JobResult
-
-# telemetry off: one shared null context, no allocation per phase
-_NULL_CTX = contextlib.nullcontext()
-
-
-def _null_span(name):
-    return _NULL_CTX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -894,12 +889,16 @@ class FinetuneEngine:
         return min(b, cap) if cap else b
 
     def _step_fn(self, key: BankKey):
-        """One step program per bank key (the JAX engine's compile cache)."""
+        """One step program per bank key (the JAX engine's compile cache);
+        with telemetry, its forward, backward, optimizer and MoE parts are
+        trace-only spans."""
         if key not in self._steps:
             self._steps[key] = symbiosis.make_compact_train_step(
                 self.cfg, key.acfg, microbatch=key.microbatch,
                 memory_optimized=self.fcfg.memory_optimized,
-                remat=self.fcfg.remat)
+                remat=self.fcfg.remat,
+                span=_null_span if self._obs is None
+                else self._obs.trace_span)
         return self._steps[key]
 
     def trace_domain(self) -> tracecount.TraceDomain:
@@ -1062,7 +1061,7 @@ class FinetuneEngine:
         True while jobs remain active or queued."""
         tick = self.stats["train_ticks"]
         obs = self._obs
-        t0 = obs.tick_start("finetune") if obs is not None else 0.0
+        t0 = obs.tick_start("finetune", tick) if obs is not None else 0.0
         self._admission_faulted = False
         admitted_any = False
         backing_off = 0

@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.config import AdapterConfig, DENSE, ServeConfig
+from repro.config import AdapterConfig, DENSE, MOE, ServeConfig
 from repro.config import FinetuneConfig as JaxFinetuneConfig
 from repro.core.engine_spec import BankSpec as JaxBankSpec
 from repro.core.engine_spec import EngineSpec as JaxEngineSpec
@@ -407,16 +407,38 @@ def test_engines_do_not_import_obs_when_disabled():
     assert "clean" in out.stdout
 
 
-def test_disabled_span_is_shared_and_cheap():
+def test_disabled_span_is_shared_and_cheap(monkeypatch):
+    from repro_torch.common import nullspan
+    from repro_torch.models import moe
     from repro_torch.serving import engine as serving_mod
     from repro_torch.training import engine as training_mod
     for mod in (serving_mod, training_mod):
-        assert mod._null_span("admit") is mod._NULL_CTX
+        assert mod._null_span("admit") is mod._NULL_CTX is nullspan.NULL_CTX
         assert mod._null_span("jit_dispatch") is mod._NULL_CTX
     _, eng = _port_serving()
     assert eng._span is serving_mod._null_span and eng._obs is None
     _, ft = _finetune()
     assert ft._span is training_mod._null_span and ft._obs is None
+    # the train step and the MoE body (forward and recompute) get it too
+    seen = []
+    make, body = symbiosis.make_compact_train_step, moe._body
+    monkeypatch.setattr(symbiosis, "make_compact_train_step", lambda *a, **k:
+                        seen.append(("step", k["span"])) or make(*a, **k))
+    monkeypatch.setattr(moe, "_body", lambda p, c, x, lin, *a:
+                        seen.append(("moe", lin.span)) or body(p, c, x, lin,
+                                                               *a))
+    pc = pcfg.ModelConfig(**{f: getattr(tiny(MOE), f) for f in
+                             pcfg.ModelConfig.__dataclass_fields__})
+    base, _ = symbiosis.init_system(pc, PLORA, 1,
+                                    torch.Generator().manual_seed(4),
+                                    device="cpu")
+    mft = FinetuneEngine(EngineSpec(cfg=pc, finetune=pcfg.FinetuneConfig(
+        max_jobs=2)), base, device="cpu")
+    for i in range(2):
+        mft.submit(_job(pc, i, steps=1))
+    mft.run()
+    assert {k for k, _ in seen} == {"step", "moe"} and len(seen) > 2
+    assert all(sp is nullspan.null_span for _, sp in seen)
     N = 100_000
     t0 = time.perf_counter()
     for _ in range(N):
